@@ -5,7 +5,9 @@
 
 Phases, each fatal on failure (no result line, non-zero exit):
 
-1. build  -- compile the Z-order matmul kernel (K1) from ``csrc/`` with nvcc.
+1. build  -- compile the Z-order matmul kernel (K1) and the flash-attention
+   kernel (K2) from their ``csrc/`` with nvcc, both at once, and print
+   ptxas's registers and spills.
 2. kernel -- K1 against its plain version on the card at every (M, K, N)
    Llama-3.2-1B's serving path gives it (M in 4, 8, 64, 256) plus two ragged
    shapes, fp32 (1e-4 relative) and bf16 (2e-2 relative), both tile orders,
@@ -25,6 +27,23 @@ Phases, each fatal on failure (no result line, non-zero exit):
    steps).  Prints TTFT, p50/p99 per-token latency and tokens/s, and the
    device time of one prefill and one decode step (each captured in a CUDA
    graph and replayed), which the eager host-clock times contain.
+5. flash-kernel -- K2 against its plain version on the card, fp32 (1e-4
+   relative) and bf16 (2e-2 relative), at Llama's and danube's head shapes,
+   the reference's unaligned case, a short windowed case and a 200-key
+   window; then K2's time at the long-prefill shapes (S = 32768, danube's
+   D = 120 with a 4096 window and Llama's D = 64 causal) beside its bound,
+   the plain version's time (head by head: all heads' scores at once would
+   take 137 GB) and ``F.scaled_dot_product_attention``'s (the yardstick,
+   with its backend named; the port never calls it).  Also K1's,
+   ``torch.matmul``'s and K1's plain version's time at the 7 projections
+   of a danube layer at M = 32768.
+6. long-prefill -- full-width h2o-danube-3-4b (24 layers, bf16, random
+   weights from a seeded generator) with ``attn_impl="flash"``: ``forward``
+   and ``loss`` on 32768 tokens, 24 K2 and 168 K1 launches per forward;
+   logits of shape (1, 32768, 32000), finite, and within tolerance of the
+   same forward through the plain attention (``attn_impl="xla"``); a
+   2-layer full-width fp32 danube at S = 8192 within 1e-4 of the xla route;
+   the forward's device time, K1's and K2's share and prefill tokens/s.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.  The
@@ -32,6 +51,7 @@ full measurements go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -47,8 +67,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
+from repro_torch.models.lm import cross_entropy  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.runtime.serve import ServeConfig  # noqa: E402
 from repro_torch.serve import Server  # noqa: E402
@@ -68,6 +91,27 @@ RAGGED = [(200, 300, 260), (8, 16, 8)]
 L2_BYTES = 50 * 2 ** 20
 SERVE_NEW = 16
 SERVE_BUCKETS = [(4, 16), (8, 32)]
+# K2 checks, (B, S_q, S_kv, H_q, H_kv, D, window), all causal: Llama; danube
+# with the window active; the reference's unaligned case; below the
+# reference's _MIN_SEQ; a 200-key window
+FLASH_CHECKS = [(1, 4096, 4096, 32, 8, 64, 0), (1, 8192, 8192, 32, 8, 120, 4096),
+                (2, 300, 512, 4, 2, 120, 0), (2, 200, 200, 4, 1, 16, 64),
+                (1, 384, 384, 2, 2, 32, 200)]
+# K2 at the long-prefill path's shapes: danube (the path) and Llama
+FLASH_TIMED = {"danube": (1, 32768, 32768, 32, 8, 120, 4096),
+               "llama": (1, 32768, 32768, 32, 8, 64, 0)}
+PREFILL_ARCH = "h2o-danube-3-4b"
+PREFILL_S = 32768
+FP32_CHECK_S = 8192
+FP32_CHECK_LAYERS = 2
+FP32_CHECK_TOL = 1e-4
+# Full-width bf16 flash vs xla forward: the routes differ only in the
+# attention core (K2 rounds P to bf16 for its PV product, the xla route
+# keeps P in fp32), and each layer re-rounds the bf16 residual stream, so
+# 24 layers carry a few bf16 ulps (2^-8 relative each) into the logits; the
+# mean cross-entropy over 32768 tokens averages them out.
+PREFILL_LOGITS_TOL = 5e-2
+PREFILL_LOSS_TOL = 1e-2
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -107,16 +151,25 @@ def graph_ms(fn, calls) -> float:
 
 
 def phase_build() -> dict:
+    """Build K1 and K2 at once (one nvcc each), load both, print ptxas's
+    registers and spills per kernel instance."""
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.load()
+    mods = {"zorder_matmul": _build, "flash_attention": k2}
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        futs = {name: pool.submit(m.build) for name, m in mods.items()}
+        paths = {name: f.result() for name, f in futs.items()}
+    for m in mods.values():
+        m.load()
     secs = time.perf_counter() - t0
-    ptxas = path.with_suffix(".log").read_text()
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-    log(f"[build] {path.name} ready in {secs:.1f}s")
-    return {"library": path.name, "seconds": secs, "ptxas": ptxas}
+    out = {"seconds": secs}
+    for name, path in paths.items():
+        ptxas = path.with_suffix(".log").read_text()
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] {name}: {line.strip()}")
+        out[name] = {"library": path.name, "ptxas": ptxas}
+    log(f"[build] {', '.join(p.name for p in paths.values())} ready in {secs:.1f}s")
+    return out
 
 
 def phase_kernel(dev: torch.device, gen: torch.Generator) -> dict:
@@ -301,6 +354,249 @@ def _leaves(tree):
     else:
         yield tree
 
+def event_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn()``: one warm call, then ``reps``
+    calls between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: query i and key j both
+    counted from 0, j <= i when causal, j > i - window when window > 0."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv, i + 1) if causal else np.full(sq, skv, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(b, sq, skv, hq, hkv, d, window, dtype=torch.bfloat16):
+    """(ms, "bytes" | "operations"): Q, K, V and O moved once at the memory
+    rate, or 4 D flops per unmasked pair and query head at the type's peak."""
+    esize = torch.finfo(dtype).bits // 8
+    t_bytes = 2 * b * d * (sq * hq + skv * hkv) * esize / PEAK_BYTES_S
+    t_ops = 4.0 * d * b * hq * attention_pairs(sq, skv, True, window) / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _qkv(gen, dev, dtype, b, sq, skv, hq, hkv, d):
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+
+
+def _heads(x):  # (B, S, H, D) -> (B*H, S, D)
+    return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+
+
+def sdpa_yardstick(q, k, v, window: int):
+    """``F.scaled_dot_product_attention`` on the same inputs, KV heads
+    expanded for it beforehand: (callable, backend name).  Causal without
+    a window takes the flash backend; a window needs a mask, which only the
+    memory-efficient backend takes."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    if window == 0:
+        backend, kw = SDPBackend.FLASH_ATTENTION, {"is_causal": True}
+    else:
+        i = torch.arange(q.shape[1], device=q.device)[:, None]
+        j = torch.arange(k.shape[1], device=q.device)[None, :]
+        backend, kw = SDPBackend.EFFICIENT_ATTENTION, {
+            "attn_mask": (j <= i) & (j > i - window)}
+
+    def run():
+        with sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    return run, backend.name
+
+
+def phase_flash_kernel(dev: torch.device, gen: torch.Generator) -> dict:
+    checks, timings = [], {}
+    worst_bf16_abs = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, sq, skv, hq, hkv, d, window) in FLASH_CHECKS:
+            q, k, v = _qkv(gen, dev, dtype, b, sq, skv, hq, hkv, d)
+            out = mha(q, k, v, causal=True, window=window)
+            ref = attention_ref(_heads(q), _heads(k), _heads(v), causal=True, window=window)
+            torch.cuda.synchronize()
+            out = _heads(out)
+            diff = (out.float() - ref.float()).abs().max().item()
+            rel = diff / max(ref.float().abs().max().item(), 1e-30)
+            ok = rel < TOL[dtype] and bool(torch.isfinite(out).all())
+            shape = [b, sq, skv, hq, hkv, d, window]
+            checks.append({"shape": shape, "dtype": str(dtype), "max_abs_err": diff,
+                           "rel_err": rel, "ok": ok})
+            log(f"[flash-kernel] {str(dtype)[6:]:8s} {shape} max_abs_err={diff:.3e} "
+                f"rel={rel:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K2 disagrees with its plain version at {shape} "
+                                     f"{dtype}: rel {rel} >= {TOL[dtype]}")
+            if dtype == torch.bfloat16:
+                worst_bf16_abs = max(worst_bf16_abs, diff)
+            del q, k, v, out, ref
+            torch.cuda.empty_cache()
+    for name, (b, sq, skv, hq, hkv, d, window) in FLASH_TIMED.items():
+        q, k, v = _qkv(gen, dev, torch.bfloat16, b, sq, skv, hq, hkv, d)
+        sdpa, backend = sdpa_yardstick(q, k, v, window)
+        qh, kh, vh = _heads(q), _heads(k), _heads(v)
+        g = hq // hkv
+
+        def plain():  # head by head: one head's (S, S) scores at a time
+            for h in range(qh.shape[0]):
+                attention_ref(qh[h:h + 1], kh[h // g:h // g + 1], vh[h // g:h // g + 1],
+                              causal=True, window=window)
+
+        t = {}
+        # in turns: kernel, library, plain, kernel, library
+        for key in ("ms", "library_ms", "plain_ms", "ms", "library_ms"):
+            fn = {"ms": lambda: mha(q, k, v, causal=True, window=window),
+                  "library_ms": sdpa, "plain_ms": plain}[key]
+            t.setdefault(key, []).append(event_ms(fn, 1 if key == "plain_ms" else 5))
+        bms, by = flash_bound(b, sq, skv, hq, hkv, d, window)
+        row = {"shape": [b, sq, skv, hq, hkv, d, window], "dtype": "bfloat16",
+               **{key: min(v) for key, v in t.items()}, "runs": t,
+               "bound_ms": bms, "bound_by": by, "sdpa_backend": backend,
+               "pairs_per_head": attention_pairs(sq, skv, True, window)}
+        row["bound_share"] = bms / row["ms"]
+        timings[name] = row
+        log(f"[flash-time] {name} {row['shape']} K2 {row['ms']:.3f}ms bound {bms:.3f}ms "
+            f"({by}, {row['bound_share']:.1%}) sdpa[{backend}] {row['library_ms']:.3f}ms "
+            f"plain (head by head, full S) {row['plain_ms']:.3f}ms")
+        del q, k, v, qh, kh, vh, sdpa
+        torch.cuda.empty_cache()
+    return {"checks": checks, "timings": timings, "worst_bf16_abs_err": worst_bf16_abs,
+            "projections": projection_times(dev, gen)}
+
+
+def projection_times(dev: torch.device, gen: torch.Generator) -> list:
+    """K1, ``torch.matmul`` and K1's plain version at the 7 projections of
+    one danube layer at M = 32768 (bf16), each beside its bound."""
+    cfg = get_config(PREFILL_ARCH)
+    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    kn = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd), (d, cfg.num_kv_heads * hd),
+          (cfg.num_heads * hd, d), (d, ff), (d, ff), (ff, d)]
+    rows = []
+    for (k, n) in kn:
+        a = torch.randn(PREFILL_S, k, generator=gen, device=dev).to(torch.bfloat16)
+        b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        t = {}
+        for key in ("ms", "library_ms", "plain_ms", "library_ms", "ms"):
+            fn = {"ms": lambda: matmul(a, b), "library_ms": lambda: torch.matmul(a, b),
+                  "plain_ms": lambda: matmul_ref(a, b)}[key]
+            t.setdefault(key, []).append(event_ms(fn, 3))
+        bms, by = bound(PREFILL_S, k, n, torch.bfloat16)
+        row = {"shape": [PREFILL_S, k, n], **{key: min(v) for key, v in t.items()},
+               "bound_ms": bms, "bound_by": by}
+        rows.append(row)
+        log(f"[k1-prefill] {PREFILL_S}x{k}x{n} K1 {row['ms']:.3f}ms torch.matmul "
+            f"{row['library_ms']:.3f}ms plain {row['plain_ms']:.3f}ms bound {bms:.3f}ms ({by})")
+        del a, b
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
+    cfg = dataclasses.replace(get_config(PREFILL_ARCH), attn_impl="flash")
+    model = build_model(cfg)
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, PREFILL_S))).to(dev)
+    labels = torch.cat([tokens[:, 1:], torch.full((1, 1), -100, device=dev)], dim=1)
+    want = {"K2": cfg.num_layers, "K1": 7 * cfg.num_layers}
+    with torch.no_grad():
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got = {"K2": k2.launches, "K1": k1.launches}
+        log(f"[long-prefill] {cfg.name} bf16 S={PREFILL_S}: forward launched K2 "
+            f"{got['K2']}x, K1 {got['K1']}x (want {want}); first call {first_s:.2f}s "
+            f"with set-up")
+        if got != want:
+            raise AssertionError(f"launches {got}, want {want}")
+        if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"logits malformed: {tuple(logits.shape)}")
+        k1.launches = k2.launches = 0
+        loss, parts = model.loss(params, {"tokens": tokens, "labels": labels})
+        loss = loss.item()
+        if (k2.launches, k1.launches) != (want["K2"], want["K1"]) or not math.isfinite(loss):
+            raise AssertionError(f"loss: launches K2 {k2.launches} K1 {k1.launches}, "
+                                 f"loss {loss}")
+        fwd_ms = event_ms(lambda: model.forward(params, tokens), 2)
+        xlogits, _ = xla.forward(params, tokens)
+        xloss = cross_entropy(xlogits, labels).item()
+        rel = _rel(logits, xlogits)
+        del xlogits, logits
+    torch.cuda.empty_cache()
+    dloss = abs(loss - xloss)
+    log(f"[long-prefill] loss flash {loss:.6f} xla {xloss:.6f} |diff| {dloss:.3e}; "
+        f"logits rel_err {rel:.3e} (tolerances {PREFILL_LOSS_TOL:g} relative, "
+        f"{PREFILL_LOGITS_TOL:g})")
+    if rel >= PREFILL_LOGITS_TOL or dloss >= PREFILL_LOSS_TOL * abs(xloss):
+        raise AssertionError(f"flash and xla routes disagree: logits {rel}, loss {dloss}")
+    k2_ms = cfg.num_layers * flash["timings"]["danube"]["ms"]
+    k1_fwd = {key: cfg.num_layers * sum(r[key] for r in flash["projections"])
+              for key in ("ms", "library_ms", "plain_ms", "bound_ms")}
+    k1_ms = k1_fwd["ms"]
+    tok_s = PREFILL_S / (fwd_ms / 1e3)
+    log(f"[long-prefill] forward device time {fwd_ms:.1f}ms ({tok_s:.0f} prefill tokens/s); "
+        f"K1 {k1_ms:.1f}ms ({k1_ms / fwd_ms:.1%}), K2 {k2_ms:.1f}ms ({k2_ms / fwd_ms:.1%}), "
+        f"rest {fwd_ms - k1_ms - k2_ms:.1f}ms; K1's {want['K1']} products: torch.matmul "
+        f"{k1_fwd['library_ms']:.1f}ms, plain {k1_fwd['plain_ms']:.1f}ms, "
+        f"bound {k1_fwd['bound_ms']:.1f}ms")
+    del params
+    torch.cuda.empty_cache()
+    fp32 = fp32_check(dev)
+    return {"launches": want, "first_forward_s": first_s, "loss": loss, "xla_loss": xloss,
+            "ce": parts["ce"].item(), "logits_rel_err": rel, "forward_ms": fwd_ms,
+            "tokens_per_s": tok_s, "k1_ms": k1_ms, "k1_per_forward": k1_fwd, "k2_ms": k2_ms,
+            "fp32": fp32,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def fp32_check(dev: torch.device) -> dict:
+    """2-layer full-width fp32 danube at S = 8192 (past the 4096 window):
+    the flash route against the xla route on the card, within 1e-4."""
+    cfg = dataclasses.replace(get_config(PREFILL_ARCH), num_layers=FP32_CHECK_LAYERS,
+                              dtype="float32", attn_impl="flash")
+    model = build_model(cfg)
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = model.init(torch.Generator(device=dev).manual_seed(1), dev)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, FP32_CHECK_S)))
+    tokens = tokens.to(dev)
+    with torch.no_grad():
+        k2.launches = 0
+        flash_logits, _ = model.forward(params, tokens)
+        launches = k2.launches
+        xla_logits, _ = xla.forward(params, tokens)
+        rel = _rel(flash_logits, xla_logits)
+    log(f"[long-prefill] {FP32_CHECK_LAYERS}-layer fp32 S={FP32_CHECK_S}: flash vs xla "
+        f"logits rel_err {rel:.3e} (tolerance {FP32_CHECK_TOL:g}); K2 launches {launches}")
+    if launches != FP32_CHECK_LAYERS or rel >= FP32_CHECK_TOL:
+        raise AssertionError(f"fp32 flash route: launches {launches}, rel_err {rel}")
+    del params, flash_logits, xla_logits
+    torch.cuda.empty_cache()
+    return {"rel_err": rel, "launches": launches}
+
 
 def decode_step_row(timings: list) -> dict:
     """K1's numbers for one decode step at batch 4: the 7 projections of
@@ -314,6 +610,26 @@ def decode_step_row(timings: list) -> dict:
     t_ops = layers * sum(2.0 * 4 * k * n for (k, n) in LAYER_KN) / PEAK_FLOPS[torch.bfloat16]
     tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return tot
+
+
+def flash_row(report: dict) -> dict:
+    """K2's entry: one long-prefill forward's 24 launches at danube's shape."""
+    layers = get_config(PREFILL_ARCH).num_layers
+    t = report["flash_kernel"]["timings"]["danube"]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+        "launches": report["long_prefill"]["launches"]["K2"],
+        "launches_by_path": {"long_prefill": report["long_prefill"]["launches"]["K2"]},
+        "max_abs_err": report["flash_kernel"]["worst_bf16_abs_err"],
+        **{key: layers * t[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": t["bound_by"],
+        "work": f"one bf16 long-prefill forward of {PREFILL_ARCH}: {layers} launches at "
+                f"(B, S_q, S_kv, H_q, H_kv, D, window) = {tuple(t['shape'])}; library: "
+                f"scaled_dot_product_attention[{t['sdpa_backend']}]",
+    }
 
 
 def main() -> int:
@@ -332,6 +648,8 @@ def main() -> int:
     report["kernel"] = phase_kernel(dev, gen)
     report["model"] = phase_model(dev)
     report["serve"] = phase_serve(dev)
+    report["flash_kernel"] = phase_flash_kernel(dev, gen)
+    report["long_prefill"] = phase_long_prefill(dev, report["flash_kernel"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -342,11 +660,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/matmul/csrc/zorder_matmul.cu",
         "replaces": "src/repro/kernels/matmul/kernel.py:46",
         "launches": report["serve"]["runs"][0]["launches"],
+        "launches_by_path": {"serve": report["serve"]["runs"][0]["launches"],
+                             "long_prefill": report["long_prefill"]["launches"]["K1"]},
         "max_abs_err": report["kernel"]["worst_main_abs_err"],
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "work": "one bf16 decode step at batch 4: 16 layers x 7 projections",
-    }]
+    }, flash_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   device=torch.cuda.get_device_name(0))
     os.makedirs(OUT_DIR, exist_ok=True)

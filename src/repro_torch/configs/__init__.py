@@ -2,7 +2,8 @@
 
 ``get_config(name)`` returns the published configuration and
 ``get_smoke_config(name)`` a reduced same-family one for CPU tests, as in
-``repro.configs``.  Only the dense Llama-3.2-1B is ported; the other
+``repro.configs``.  Ported so far: Llama-3.2-1B and h2o-danube-3-4b (dense
+GQA; danube adds a 4096-token sliding window and head dim 120).  The other
 reference architectures wait for their layer families.
 """
 from __future__ import annotations
@@ -11,9 +12,9 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("llama3_2_1b",)
+ARCHS = ("llama3_2_1b", "h2o_danube3_4b")
 
-ALIASES = {"llama3.2-1b": "llama3_2_1b"}
+ALIASES = {"llama3.2-1b": "llama3_2_1b", "h2o-danube-3-4b": "h2o_danube3_4b"}
 
 
 def canonical(name: str) -> str:

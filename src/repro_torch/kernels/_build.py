@@ -1,0 +1,107 @@
+"""Build a kernel's CUDA sources into a shared library and load it.
+
+Each kernel package keeps its sources under its own ``csrc/`` and describes
+itself with a ``Kernel``: that directory, a library name and the C
+signatures of its entry points.  ``nvcc`` compiles the package's
+``csrc/*.cu`` for ``sm_90a`` into one shared library per kernel with a plain
+C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds), so an edit to one kernel never rebuilds another.  Libraries land
+in ``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``), named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused.  Nothing is built at
+import: the first launch builds.  A failed build raises with the
+compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+P, I, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One kernel's library: ``csrc`` holds its sources, ``name`` names the
+    library file, ``signatures`` maps each C entry point to its
+    (argtypes, restype)."""
+    csrc: Path
+    name: str
+    signatures: Dict[str, Tuple[Sequence, object]]
+
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def sources(kern: Kernel) -> list:
+    return sorted(kern.csrc.glob("*.cu")) + sorted(kern.csrc.glob("*.cuh"))
+
+
+def library_path(kern: Kernel) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources(kern):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{kern.name}-{h.hexdigest()[:16]}.so"
+
+
+def build(kern: Kernel) -> Path:
+    """Compile the sources unless this exact build exists; return the
+    library path.  The compiler's output (``-Xptxas -v``: registers, shared
+    memory and spills per kernel) is kept beside it as ``.log``."""
+    out = library_path(kern)
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sources(kern) if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {kern.name} ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        out.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(kern: Kernel) -> ctypes.CDLL:
+    """Build if needed, load once, and declare the C signatures (without
+    ``argtypes`` ctypes would pass each pointer as a 32-bit int)."""
+    lib = _libs.get(kern.name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(kern)))
+        for fn, (argtypes, restype) in kern.signatures.items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = restype
+        _libs[kern.name] = lib
+    return lib

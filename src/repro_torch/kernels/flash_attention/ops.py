@@ -1,0 +1,58 @@
+"""Public flash attention on the model layout (B, S, H, D): the CUDA kernel
+on a CUDA tensor, the plain version on a CPU tensor.
+
+Counterpart of ``repro/kernels/flash_attention/ops.py::mha``.  There is no
+fallback between the two routes: a CUDA tensor launches the kernel or
+raises.  Unlike the reference, no sequence is too short for the kernel (no
+``_MIN_SEQ`` route) and nothing is padded: the kernel masks ragged lengths
+itself and reads (B, S, H, D) through strides, so the reference's four
+transposing copies are gone on the card.  The reference's refusal of
+non-causal attention over padded keys is kept under the reference's own
+condition, so both packages accept the same calls.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import kernel
+from .ref import attention_ref
+
+# The reference's default block_kv and the length below which it sends
+# every call to its oracle; they decide when it pads the keys.
+REF_BLOCK_KV = 512
+REF_MIN_SEQ = 256
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: int = 0,
+        scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S_q, H_q, D); k, v: (B, S_kv, H_kv, D) -> (B, S_q, H_q, D).
+
+    Query i and key j sit at positions i and j, both counted from 0; a key
+    is valid when j <= i (``causal``) and j > i - ``window`` (``window`` >
+    0).  fp32 softmax statistics; a row with no valid key outputs 0."""
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"want q (B, S_q, H_q, D), k and v (B, S_kv, H_kv, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    if (sq >= REF_MIN_SEQ and skv >= REF_MIN_SEQ and not causal
+            and skv % min(REF_BLOCK_KV, skv)):
+        raise NotImplementedError("non-causal padding not needed by the models")
+    if q.device.type == "cpu":
+        def to_heads(x):  # (B, S, H, D) -> (B*H, S, D)
+            return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+
+        o = attention_ref(to_heads(q), to_heads(k), to_heads(v), causal=causal,
+                          window=window, scale=scale)
+        return o.reshape(b, hq, sq, d).transpose(1, 2)
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError("flash attention has no backward kernel yet: "
+                                  "call it under torch.no_grad()")
+    return kernel.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)

@@ -1,92 +1,26 @@
-"""Build the CUDA sources under ``csrc/`` into a shared library and load it.
-
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  The library lands in ``build/repro_torch/`` at the
-root of the checkout (listed in ``.gitignore``), named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing is built at import: the first launch builds.  A failed
-build raises with the compiler's output.
-"""
+"""K1's library: ``csrc/zorder_matmul.cu`` built by the shared builder
+(``repro_torch.kernels._build``) into ``build/repro_torch/`` at first use."""
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import I, P
+
+KERNEL = _build.Kernel(
+    csrc=Path(__file__).resolve().parent / "csrc",
+    name="zorder_matmul",
+    signatures={
+        "zorder_matmul_launch": ([P, P, P, P, I, I, I, I, I, I, I, I, I, P], I),
+        "zorder_matmul_error_string": ([I], ctypes.c_char_p),
+    },
 )
-
-_lib = None
-
-
-def nvcc() -> str:
-    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME``."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
-
-
-def sources() -> list:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libzorder_matmul-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the sources unless this exact build exists; return the
-    library path.  The compiler's output (``-Xptxas -v``: registers, shared
-    memory and spills per kernel) is kept beside it as ``.log``."""
-    out = library_path()
-    if out.is_file():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                             capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return _build.build(KERNEL)
 
 
 def load() -> ctypes.CDLL:
-    """Build if needed, load once, and declare the C signatures (without
-    ``argtypes`` ctypes would pass each pointer as a 32-bit int)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.zorder_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                             i, i, i, p]
-        lib.zorder_matmul_launch.restype = i
-        lib.zorder_matmul_error_string.argtypes = [i]
-        lib.zorder_matmul_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return _build.load(KERNEL)

@@ -1,13 +1,24 @@
 """GQA attention (covers MHA, MQA and sliding windows) with a KV cache.
 
-Counterpart of the GQA half of ``repro.layers.attention``.  The attention
-core is the reference's masked einsum and softmax in plain PyTorch, with
-fp32 statistics; the q/k/v/o projections go through ``linear`` and so
-through the Z-order matmul kernel.  MLA waits for its slice.
+Counterpart of the GQA half of ``repro.layers.attention``.  Two attention
+cores, chosen by ``cfg.attn_impl`` as in the reference:
+
+* ``xla`` -- the reference's chunked masked einsum and softmax in plain
+  PyTorch, with fp32 statistics;
+* ``flash`` -- the flash-attention kernel (K2, ``kernels.flash_attention``),
+  on the uncached path only: it puts query i and key j at positions i and
+  j, and has no mask for the per-row offsets of a cached serving batch.
+
+The q/k/v/o projections go through ``linear`` and so through the Z-order
+matmul kernel.  MLA waits for its slice.
 
 The KV cache is preallocated and written in place (the reference returns
 a new cache from ``dynamic_update_slice``); a write past the cache end
-raises, where the reference clamps silently.
+raises, where the reference clamps silently.  So does a write of more
+than one token into a rolling (sliding-window) cache: the reference's
+slot positions are right only for one token at a time (a multi-token
+prefill masks every key but slot 0), and the port refuses rather than
+give that answer.
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attention import mha
 from repro_torch.models.config import ModelConfig
 from .linear import linear, linear_params
 from .rope import apply_rope
@@ -123,12 +135,24 @@ def gqa_attention(
     k = apply_rope(k, positions, cfg.rope_theta)
 
     pdt = torch.bfloat16 if cfg.attn_probs_dtype == "bf16" else torch.float32
-    if cache is None:
+    if cache is None and cfg.attn_impl == "flash":
+        if positions.shape != (s,):
+            raise ValueError("the flash route takes 1-D positions 0..S-1: the kernel "
+                             "puts query i and key j at positions i and j")
+        if pdt != torch.float32:
+            raise ValueError("the flash route keeps the probabilities in fp32; "
+                             "attn_probs_dtype='bf16' needs attn_impl='xla'")
+        o = mha(q, k, v, causal=causal, window=cfg.window)
+    elif cache is None:
         o = chunked_attention(q, k, v, positions, positions, window=cfg.window,
                               chunk=cfg.attn_chunk, causal=causal, probs_dtype=pdt)
     else:
         s_cache = cache["k"].shape[1]
         rolling = cfg.window > 0 and s_cache == cfg.window
+        if rolling and s > 1:
+            raise ValueError(f"a write of {s} tokens into a rolling {s_cache}-slot "
+                             f"window cache: only one token at a time is positioned "
+                             f"right; prefill one token, then decode")
         slot = pos % s_cache if rolling else pos
         if slot < 0 or slot + s > s_cache:
             raise ValueError(f"cache write of {s} slots at {slot} overruns the "

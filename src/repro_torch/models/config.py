@@ -21,7 +21,7 @@ class ModelConfig:
     attn_type: str = "gqa"       # gqa | mla | none
     window: int = 0              # sliding-window size (0 = full)
     rope_theta: float = 10000.0
-    attn_impl: str = "xla"       # xla (chunked masked einsum) | flash (pallas)
+    attn_impl: str = "xla"       # xla (chunked masked einsum) | flash (K2, CUDA, uncached)
     attn_chunk: int = 1024       # q-chunk for the xla impl
 
     # MLA (minicpm3)

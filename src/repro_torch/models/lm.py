@@ -60,6 +60,14 @@ class DecoderLM:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(params["embed"], x, cfg.vocab_size), aux
 
+    def loss(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """Forward only (no backward kernels yet): mean token cross-entropy
+        over ``batch["labels"]`` (-100 = ignore) plus 0.01 x the aux loss,
+        and the parts as {"ce", "aux"}."""
+        logits, aux = self.forward(params, batch["tokens"])
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device) -> Cache:
         return {"layers": [gqa_cache(self.cfg, batch, max_seq, self.dtype, device)
@@ -100,3 +108,11 @@ class DecoderLM:
         # only the last position's logits are returned: unembed just that row
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         return unembed(params["embed"], x, cfg.vocab_size)[:, -1], cache
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits fp32 (B, S, V); labels (B, S) with -100 = ignore."""
+    valid = labels >= 0
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (torch.logsumexp(logits, dim=-1) - gold) * valid
+    return nll.sum() / valid.sum().clamp(min=1)

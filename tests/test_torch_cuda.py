@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-smoke model through the kernel against the same model on the CPU.
+"""The port on the card: the CUDA kernels (K1, the Z-order matmul; K2, flash
+attention) against their plain versions, and the smoke models through the
+kernels against the same models on the CPU.
 
 Every test here needs an NVIDIA card (``cuda`` marker) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports no JAX, so it runs
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import flash_attention as k2
 from repro_torch.kernels.matmul import kernel, matmul, matmul_ref
 from repro_torch.models.registry import build_model
 
@@ -76,3 +78,70 @@ def test_smoke_model_on_card_matches_cpu(cuda_device):
         out[dev.type] = (logits.cpu(), kernel.launches - before)
     assert out["cuda"][1] == 7 * cfg.num_layers and out["cpu"][1] == 0
     assert _rel_err(out["cuda"][0][:, :256], out["cpu"][0][:, :256]) < 1e-4
+
+
+# (B, S_q, S_kv, H_q, H_kv, D, causal, window): GQA, windows, ragged lengths,
+# head dims padded to 32, 64 and 128 inside the kernel, rows with no key, and
+# D = 20, whose rows are not 16-byte chunks (bf16 takes element loads)
+FLASH_SHAPES = [(2, 256, 256, 4, 2, 32, True, 0), (1, 384, 384, 2, 2, 32, True, 200),
+                (2, 300, 512, 4, 2, 120, True, 0), (2, 200, 200, 4, 1, 16, True, 64),
+                (1, 130, 70, 8, 8, 64, False, 0), (1, 100, 40, 2, 1, 80, True, 8),
+                (3, 65, 65, 2, 2, 128, False, 30), (1, 70, 90, 2, 1, 20, True, 0)]
+
+
+def _qkv(device, dtype, b, sq, skv, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device, dtype)
+            for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+
+
+def _heads(x):  # (B, S, H, D) -> (B*H, S, D)
+    return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_version(cuda_device, shape, dtype):
+    b, sq, skv, hq, hkv, d, causal, window = shape
+    q, k, v = _qkv(cuda_device, dtype, b, sq, skv, hq, hkv, d)
+    before = k2.kernel.launches
+    out = k2.mha(q, k, v, causal=causal, window=window)
+    heads = k2.flash_attention(_heads(q), _heads(k), _heads(v), causal=causal,
+                               window=window)
+    torch.cuda.synchronize()
+    assert k2.kernel.launches == before + 2
+    ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), causal=causal, window=window)
+    assert torch.equal(_heads(out), heads)     # the two layouts run the same tiles
+    assert _rel_err(heads, ref) < TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_do(cuda_device):
+    q, k, v = _qkv(cuda_device, torch.float32, 1, 8, 8, 2, 1, 16)
+    with pytest.raises(NotImplementedError, match="backward"):
+        k2.mha(q.requires_grad_(), k, v)
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 8, 8, 2, 1, 256)
+    with pytest.raises(ValueError, match="head dim 256"):
+        k2.mha(q, k, v)
+
+
+@pytest.mark.cuda
+def test_danube_smoke_flash_forward_on_card_matches_cpu(cuda_device):
+    """The long-prefill slice at smoke size: S = 64 is four windows; the
+    card runs K2 once per layer and K1 seven times, the CPU neither."""
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"), dtype="float32",
+                              attn_impl="flash")
+    model = build_model(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 256, size=(2, 64)))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = model.init(torch.Generator().manual_seed(0), dev)
+        before = (k2.kernel.launches, kernel.launches)
+        with torch.no_grad():
+            logits, _ = model.forward(params, tokens.to(dev))
+        out[dev.type] = (logits.cpu(), k2.kernel.launches - before[0],
+                         kernel.launches - before[1])
+    assert out["cuda"][1:] == (cfg.num_layers, 7 * cfg.num_layers)
+    assert out["cpu"][1:] == (0, 0)
+    assert _rel_err(out["cuda"][0], out["cpu"][0]) < 1e-4

@@ -23,6 +23,7 @@ from repro.models.registry import build_model as jax_build_model
 from repro_torch.checkpoint import params_from_jax, tensor_from_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.layers import attention, embed
+from repro_torch.models.registry import build_model
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rope import apply_rope
@@ -169,3 +170,49 @@ def test_cache_write_past_end_raises(model_pair):
     x = torch.from_numpy(_np(9, 1, 4, 64))
     with pytest.raises(ValueError, match="overruns"):
         attention.gqa_attention(tl0["attn"], x, tcfg, torch.arange(6, 10), cache, 6)
+
+
+@pytest.fixture(scope="module")
+def danube_models():
+    """(jax model, jax params, port model, port params): the fp32 danube
+    smoke model, window 16, so a cache of max_seq >= 16 rolls."""
+    jcfg = dataclasses.replace(jax_smoke_config("h2o-danube-3-4b"), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"), dtype="float32")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    return jmodel, jparams, build_model(tcfg), tparams
+
+
+def test_multi_token_write_into_rolling_cache_raises(danube_models):
+    """The reference's slot positions, pos - mod(pos - idx, W), are right
+    for one token at a time: an 8-token prefill at pos 0 puts every slot
+    after the first at a negative position and masks it.  The port refuses."""
+    _, _, tmodel, tparams = danube_models
+    cache = tmodel.init_cache(1, 32, CPU)
+    assert cache["layers"][0]["k"].shape[1] == 16          # rolling: window slots
+    tokens = torch.from_numpy(np.random.default_rng(10).integers(0, 256, size=(1, 8)))
+    with pytest.raises(ValueError, match="rolling"):
+        tmodel.prefill(tparams, cache, tokens)
+
+
+def test_rolling_decode_matches_reference_and_uncached_forward(danube_models):
+    """Prefill 1 token into the 16-slot rolling cache, then decode 23 steps,
+    7 past the wrap: every step's logits agree with the reference's cached
+    decode and with the uncached forward over the same 24 tokens."""
+    jmodel, jparams, tmodel, tparams = danube_models
+    tokens = np.random.default_rng(11).integers(0, 256, size=(2, 24))
+    full, _ = tmodel.forward(tparams, torch.from_numpy(tokens))
+    jcache = jmodel.init_cache(2, 32)
+    tcache = tmodel.init_cache(2, 32, CPU)
+    ref, jcache = jmodel.prefill(jparams, jcache, jnp.asarray(tokens[:, :1]))
+    out, tcache = tmodel.prefill(tparams, tcache, torch.from_numpy(tokens[:, :1]))
+    _close(out, ref)
+    _close(out, full[:, 0])
+    decode = jax.jit(jmodel.decode_step)      # one trace for all 23 positions
+    for t in range(1, 24):
+        step = tokens[:, t:t + 1]
+        ref, jcache = decode(jparams, jcache, jnp.asarray(step), jnp.int32(t))
+        out, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(step), t)
+        _close(out, ref)
+        _close(out, full[:, t])

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models.registry import build_model as jax_build_model
 from repro.serve import Server as JaxServer
@@ -211,3 +212,16 @@ def test_configs_hold_the_published_llama():
     assert per_layer == 60_817_408
     with pytest.raises(ValueError, match="not ported"):
         get_config("granite-20b")
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
+def test_configs_hold_the_reference_danube(which):
+    """The port's h2o-danube-3-4b is the reference's, field by field."""
+    get = {"CONFIG": (get_config, jax_get_config),
+           "SMOKE": (get_smoke_config, jax_smoke_config)}[which]
+    port, ref = (g("h2o-danube-3-4b") for g in get)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    if which == "CONFIG":
+        assert (port.num_layers, port.d_model, port.num_heads, port.num_kv_heads,
+                port.d_ff, port.vocab_size, port.head_dim, port.window) == (
+                    24, 3840, 32, 8, 10240, 32000, 120, 4096)
