@@ -27,21 +27,25 @@ Phases, each fatal on failure (no result line, non-zero exit):
    steps).  Prints TTFT, p50/p99 per-token latency and tokens/s, and the
    device time of one prefill and one decode step (each captured in a CUDA
    graph and replayed), which the eager host-clock times contain.
-5. flash-kernel -- K2 against its plain version on the card, fp32 (1e-4
-   relative) and bf16 (2e-2 relative), at Llama's and danube's head shapes,
-   the reference's unaligned case, a short windowed case and a 200-key
-   window; then K2's time at the long-prefill shapes (S = 32768, danube's
-   D = 120 with a 4096 window and Llama's D = 64 causal) beside its bound,
-   the plain version's time (head by head: all heads' scores at once would
-   take 137 GB) and ``F.scaled_dot_product_attention``'s (the yardstick,
-   with its backend named; the port never calls it).  Also K1's,
-   ``torch.matmul``'s and K1's plain version's time at the 7 projections
-   of a danube layer at M = 32768.
+5. flash-kernel -- K2 against its plain version on the card at Llama's
+   and danube's head shapes, the reference's unaligned case, a short
+   windowed case and a 200-key window, fp32 and bf16; then K2 at the
+   long-prefill shapes (S = 32768, danube's D = 120 with a 4096 window and
+   Llama's D = 64 causal), bf16: held against the plain version (run head
+   by head: all heads' scores at once would take 137 GB) and timed beside
+   its bound, the plain version's time and
+   ``F.scaled_dot_product_attention``'s (the yardstick, with its backend
+   named; the port never calls it).  Also K1 at the 7 projections of a
+   danube layer at M = 32768: held against its plain version and timed
+   beside ``torch.matmul`` and its bound.  Every kernel check holds each
+   output row (the last dim) to a relative L2 error: ``ROW_TOL``.
 6. long-prefill -- full-width h2o-danube-3-4b (24 layers, bf16, random
    weights from a seeded generator) with ``attn_impl="flash"``: ``forward``
    and ``loss`` on 32768 tokens, 24 K2 and 168 K1 launches per forward;
-   logits of shape (1, 32768, 32000), finite, and within tolerance of the
-   same forward through the plain attention (``attn_impl="xla"``); a
+   logits of shape (1, 32768, 32000), finite, and within
+   ``PREFILL_LOGITS_TOL`` of the same forward through the plain attention
+   (``attn_impl="xla"``), while two wrong attention cores (the window
+   ignored; the window one 64-key tile short) must land outside it; a
    2-layer full-width fp32 danube at S = 8192 within 1e-4 of the xla route;
    the forward's device time, K1's and K2's share and prefill tokens/s.
 
@@ -81,6 +85,12 @@ from repro_torch.serve import Server  # noqa: E402
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Per-row checks (``row_err``): the worst output row's relative L2 error.
+# bf16: each side rounds its output to bf16 (2^-9 relative at most), and K2
+# also rounds P to bf16 for its PV product (2^-9 of each probability), so a
+# sound kernel reads a few 1e-3; a row that loses one 64-key tile of 4096
+# moves by about sqrt(64 / 4096) ~ 0.1, ten times the limit.
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 MODEL_TOL = 1e-3
 MS = (4, 8, 64, 256)
 # (K, N) of the 7 projections of a Llama-3.2-1B layer: q, k, v, o, gate, up, down
@@ -105,13 +115,18 @@ PREFILL_S = 32768
 FP32_CHECK_S = 8192
 FP32_CHECK_LAYERS = 2
 FP32_CHECK_TOL = 1e-4
-# Full-width bf16 flash vs xla forward: the routes differ only in the
-# attention core (K2 rounds P to bf16 for its PV product, the xla route
-# keeps P in fp32), and each layer re-rounds the bf16 residual stream, so
-# 24 layers carry a few bf16 ulps (2^-8 relative each) into the logits; the
-# mean cross-entropy over 32768 tokens averages them out.
-PREFILL_LOGITS_TOL = 5e-2
-PREFILL_LOSS_TOL = 1e-2
+# Full-width bf16 flash vs xla forward, worst logits row (``row_err``):
+# the routes differ only in the attention core (K2 rounds P to bf16 for its
+# PV product, the xla route keeps P in fp32), and each of 24 layers
+# re-rounds the bf16 residual stream.  The limit sits between the sound
+# route's reading (a few 1e-2 on an H100) and those of two wrong attention
+# cores run beside it (``PREFILL_CONTROLS``, several 1e-1), which must land
+# outside it.  The loss is printed, not held: with random weights it stays
+# near ln(vocab) whatever attention does.
+PREFILL_LOGITS_TOL = 1e-1
+# window of each wrong core: 0 ignores the window, 4096 - 64 drops the
+# oldest 64-key tile of every full window
+PREFILL_CONTROLS = {"window ignored": 0, "window one tile short": 4096 - 64}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -126,6 +141,25 @@ def bound(m: int, k: int, n: int, dtype: torch.dtype):
     t_bytes = (m * k + k * n + m * n) * esize / PEAK_BYTES_S
     t_ops = 2.0 * m * n * k / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def row_err(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Each row's (last dim's) relative L2 error ||out - ref|| / ||ref||:
+    the worst (``row_rel``) and mean over rows, and the largest absolute
+    error.  A row that is 0 in both reads 0.  Chunked, so a (32768, 32000)
+    pair needs no fp32 copy of its own size."""
+    o, r = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    step = max(1, 2 ** 26 // o.shape[1])
+    rels, absmax = [], []
+    for i in range(0, o.shape[0], step):
+        rf = r[i:i + step].float()
+        d = o[i:i + step].float() - rf
+        rels.append(d.norm(dim=1) / rf.norm(dim=1).clamp_min(1e-30))
+        absmax.append(d.abs().max())
+    rel = torch.cat(rels)
+    return {"row_rel": rel.max().item(), "row_rel_mean": rel.mean().item(),
+            "max_abs_err": torch.stack(absmax).max().item(),
+            "finite": bool(torch.isfinite(out).all())}
 
 
 def graph_ms(fn, calls) -> float:
@@ -430,20 +464,12 @@ def phase_flash_kernel(dev: torch.device, gen: torch.Generator) -> dict:
             out = mha(q, k, v, causal=True, window=window)
             ref = attention_ref(_heads(q), _heads(k), _heads(v), causal=True, window=window)
             torch.cuda.synchronize()
-            out = _heads(out)
-            diff = (out.float() - ref.float()).abs().max().item()
-            rel = diff / max(ref.float().abs().max().item(), 1e-30)
-            ok = rel < TOL[dtype] and bool(torch.isfinite(out).all())
             shape = [b, sq, skv, hq, hkv, d, window]
-            checks.append({"shape": shape, "dtype": str(dtype), "max_abs_err": diff,
-                           "rel_err": rel, "ok": ok})
-            log(f"[flash-kernel] {str(dtype)[6:]:8s} {shape} max_abs_err={diff:.3e} "
-                f"rel={rel:.3e} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"K2 disagrees with its plain version at {shape} "
-                                     f"{dtype}: rel {rel} >= {TOL[dtype]}")
+            e = _check_rows("flash-kernel", f"K2 {str(dtype)[6:]} {shape}", _heads(out),
+                            ref, ROW_TOL[dtype])
+            checks.append({"shape": shape, "dtype": str(dtype), **e})
             if dtype == torch.bfloat16:
-                worst_bf16_abs = max(worst_bf16_abs, diff)
+                worst_bf16_abs = max(worst_bf16_abs, e["max_abs_err"])
             del q, k, v, out, ref
             torch.cuda.empty_cache()
     for name, (b, sq, skv, hq, hkv, d, window) in FLASH_TIMED.items():
@@ -451,21 +477,28 @@ def phase_flash_kernel(dev: torch.device, gen: torch.Generator) -> dict:
         sdpa, backend = sdpa_yardstick(q, k, v, window)
         qh, kh, vh = _heads(q), _heads(k), _heads(v)
         g = hq // hkv
+        kept = {}
 
-        def plain():  # head by head: one head's (S, S) scores at a time
-            for h in range(qh.shape[0]):
-                attention_ref(qh[h:h + 1], kh[h // g:h // g + 1], vh[h // g:h // g + 1],
-                              causal=True, window=window)
+        def kern():
+            kept["out"] = mha(q, k, v, causal=True, window=window)
+
+        def plain():  # head by head (B = 1): one head's (S, S) scores at a time
+            kept["ref"] = [attention_ref(qh[h:h + 1], kh[h // g:h // g + 1],
+                                         vh[h // g:h // g + 1], causal=True, window=window)
+                           for h in range(qh.shape[0])]
 
         t = {}
         # in turns: kernel, library, plain, kernel, library
         for key in ("ms", "library_ms", "plain_ms", "ms", "library_ms"):
-            fn = {"ms": lambda: mha(q, k, v, causal=True, window=window),
-                  "library_ms": sdpa, "plain_ms": plain}[key]
+            fn = {"ms": kern, "library_ms": sdpa, "plain_ms": plain}[key]
             t.setdefault(key, []).append(event_ms(fn, 1 if key == "plain_ms" else 5))
+        e = _check_rows("flash-kernel", f"K2 bfloat16 {name} {[b, sq, skv, hq, hkv, d, window]}",
+                        _heads(kept["out"]), torch.cat(kept["ref"]), ROW_TOL[torch.bfloat16])
+        worst_bf16_abs = max(worst_bf16_abs, e["max_abs_err"])
+        del kept
         bms, by = flash_bound(b, sq, skv, hq, hkv, d, window)
         row = {"shape": [b, sq, skv, hq, hkv, d, window], "dtype": "bfloat16",
-               **{key: min(v) for key, v in t.items()}, "runs": t,
+               **{key: min(v) for key, v in t.items()}, "runs": t, "check": e,
                "bound_ms": bms, "bound_by": by, "sdpa_backend": backend,
                "pairs_per_head": attention_pairs(sq, skv, True, window)}
         row["bound_share"] = bms / row["ms"]
@@ -479,9 +512,23 @@ def phase_flash_kernel(dev: torch.device, gen: torch.Generator) -> dict:
             "projections": projection_times(dev, gen)}
 
 
+def _check_rows(phase: str, what: str, out: torch.Tensor, ref: torch.Tensor,
+                tol: float) -> dict:
+    """``row_err`` of a kernel's output against its plain version's, logged;
+    raises unless finite and every row within ``tol``."""
+    e = row_err(out, ref)
+    ok = e["finite"] and e["row_rel"] < tol
+    log(f"[{phase}] {what} worst row rel={e['row_rel']:.3e} (mean {e['row_rel_mean']:.3e}, "
+        f"limit {tol:g}) max_abs_err={e['max_abs_err']:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} disagrees with its plain version: {e}")
+    return e
+
+
 def projection_times(dev: torch.device, gen: torch.Generator) -> list:
     """K1, ``torch.matmul`` and K1's plain version at the 7 projections of
-    one danube layer at M = 32768 (bf16), each beside its bound."""
+    one danube layer at M = 32768 (bf16), each beside its bound; K1's
+    output held against its plain version's per row."""
     cfg = get_config(PREFILL_ARCH)
     d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
     kn = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd), (d, cfg.num_kv_heads * hd),
@@ -490,24 +537,30 @@ def projection_times(dev: torch.device, gen: torch.Generator) -> list:
     for (k, n) in kn:
         a = torch.randn(PREFILL_S, k, generator=gen, device=dev).to(torch.bfloat16)
         b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        kept = {}
+
+        def kern():
+            kept["out"] = matmul(a, b)
+
+        def plain():
+            kept["ref"] = matmul_ref(a, b)
+
         t = {}
         for key in ("ms", "library_ms", "plain_ms", "library_ms", "ms"):
-            fn = {"ms": lambda: matmul(a, b), "library_ms": lambda: torch.matmul(a, b),
-                  "plain_ms": lambda: matmul_ref(a, b)}[key]
+            fn = {"ms": kern, "library_ms": lambda: torch.matmul(a, b), "plain_ms": plain}[key]
             t.setdefault(key, []).append(event_ms(fn, 3))
+        e = _check_rows("k1-prefill", f"K1 bfloat16 {PREFILL_S}x{k}x{n}", kept["out"],
+                        kept["ref"], ROW_TOL[torch.bfloat16])
+        del kept
         bms, by = bound(PREFILL_S, k, n, torch.bfloat16)
         row = {"shape": [PREFILL_S, k, n], **{key: min(v) for key, v in t.items()},
-               "bound_ms": bms, "bound_by": by}
+               "bound_ms": bms, "bound_by": by, "check": e}
         rows.append(row)
         log(f"[k1-prefill] {PREFILL_S}x{k}x{n} K1 {row['ms']:.3f}ms torch.matmul "
             f"{row['library_ms']:.3f}ms plain {row['plain_ms']:.3f}ms bound {bms:.3f}ms ({by})")
         del a, b
     torch.cuda.empty_cache()
     return rows
-
-
-def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
-    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
 def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
@@ -543,15 +596,27 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
         fwd_ms = event_ms(lambda: model.forward(params, tokens), 2)
         xlogits, _ = xla.forward(params, tokens)
         xloss = cross_entropy(xlogits, labels).item()
-        rel = _rel(logits, xlogits)
-        del xlogits, logits
+        routes = {"flash": {**row_err(logits, xlogits), "loss": loss}}
+        del logits
+        for what, window in PREFILL_CONTROLS.items():
+            wrong = build_model(dataclasses.replace(cfg, window=window))
+            clogits, _ = wrong.forward(params, tokens)
+            routes[what] = {**row_err(clogits, xlogits),
+                            "loss": cross_entropy(clogits, labels).item()}
+            del clogits
+        del xlogits
     torch.cuda.empty_cache()
-    dloss = abs(loss - xloss)
-    log(f"[long-prefill] loss flash {loss:.6f} xla {xloss:.6f} |diff| {dloss:.3e}; "
-        f"logits rel_err {rel:.3e} (tolerances {PREFILL_LOSS_TOL:g} relative, "
-        f"{PREFILL_LOGITS_TOL:g})")
-    if rel >= PREFILL_LOGITS_TOL or dloss >= PREFILL_LOSS_TOL * abs(xloss):
-        raise AssertionError(f"flash and xla routes disagree: logits {rel}, loss {dloss}")
+    for what, e in routes.items():
+        log(f"[long-prefill] {what} vs xla: logits worst row rel {e['row_rel']:.3e} "
+            f"(mean {e['row_rel_mean']:.3e}), loss {e['loss']:.6f} against {xloss:.6f} "
+            f"(|diff| {abs(e['loss'] - xloss):.3e}); limit {PREFILL_LOGITS_TOL:g}")
+    rel = routes["flash"]["row_rel"]
+    if not routes["flash"]["finite"] or rel >= PREFILL_LOGITS_TOL:
+        raise AssertionError(f"flash and xla routes disagree: {routes['flash']}")
+    for what in PREFILL_CONTROLS:
+        if routes[what]["row_rel"] < PREFILL_LOGITS_TOL:
+            raise AssertionError(f"the limit {PREFILL_LOGITS_TOL} cannot tell the xla route "
+                                 f"from a wrong attention core ({what}): {routes[what]}")
     k2_ms = cfg.num_layers * flash["timings"]["danube"]["ms"]
     k1_fwd = {key: cfg.num_layers * sum(r[key] for r in flash["projections"])
               for key in ("ms", "library_ms", "plain_ms", "bound_ms")}
@@ -566,7 +631,8 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
     torch.cuda.empty_cache()
     fp32 = fp32_check(dev)
     return {"launches": want, "first_forward_s": first_s, "loss": loss, "xla_loss": xloss,
-            "ce": parts["ce"].item(), "logits_rel_err": rel, "forward_ms": fwd_ms,
+            "ce": parts["ce"].item(), "logits_rel_err": rel, "routes": routes,
+            "forward_ms": fwd_ms,
             "tokens_per_s": tok_s, "k1_ms": k1_ms, "k1_per_forward": k1_fwd, "k2_ms": k2_ms,
             "fp32": fp32,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -588,11 +654,13 @@ def fp32_check(dev: torch.device) -> dict:
         flash_logits, _ = model.forward(params, tokens)
         launches = k2.launches
         xla_logits, _ = xla.forward(params, tokens)
-        rel = _rel(flash_logits, xla_logits)
+        e = row_err(flash_logits, xla_logits)
+    rel = e["row_rel"]
     log(f"[long-prefill] {FP32_CHECK_LAYERS}-layer fp32 S={FP32_CHECK_S}: flash vs xla "
-        f"logits rel_err {rel:.3e} (tolerance {FP32_CHECK_TOL:g}); K2 launches {launches}")
-    if launches != FP32_CHECK_LAYERS or rel >= FP32_CHECK_TOL:
-        raise AssertionError(f"fp32 flash route: launches {launches}, rel_err {rel}")
+        f"logits worst row rel {rel:.3e} (mean {e['row_rel_mean']:.3e}, limit "
+        f"{FP32_CHECK_TOL:g}); K2 launches {launches}")
+    if launches != FP32_CHECK_LAYERS or not e["finite"] or rel >= FP32_CHECK_TOL:
+        raise AssertionError(f"fp32 flash route: launches {launches}, {e}")
     del params, flash_logits, xla_logits
     torch.cuda.empty_cache()
     return {"rel_err": rel, "launches": launches}
@@ -662,7 +730,9 @@ def main() -> int:
         "launches": report["serve"]["runs"][0]["launches"],
         "launches_by_path": {"serve": report["serve"]["runs"][0]["launches"],
                              "long_prefill": report["long_prefill"]["launches"]["K1"]},
-        "max_abs_err": report["kernel"]["worst_main_abs_err"],
+        "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
+                           *(r["check"]["max_abs_err"]
+                             for r in report["flash_kernel"]["projections"])),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "work": "one bf16 decode step at batch 4: 16 layers x 7 projections",

@@ -75,6 +75,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
         raise ValueError(f"head dim {d} > {MAX_HEAD_DIM} is not compiled")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the last (head) dim must be contiguous")
+    if q.dtype == torch.bfloat16 and (
+            d % 8 or any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+                         for t in (q, k, v))):
+        raise ValueError(f"bf16 flash_attention copies 16-byte chunks: head dim {d}, the "
+                         f"strides and the bases of q, k, v must be multiples of 8 "
+                         f"elements (16 bytes)")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if out.numel() == 0:

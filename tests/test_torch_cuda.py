@@ -81,12 +81,11 @@ def test_smoke_model_on_card_matches_cpu(cuda_device):
 
 
 # (B, S_q, S_kv, H_q, H_kv, D, causal, window): GQA, windows, ragged lengths,
-# head dims padded to 32, 64 and 128 inside the kernel, rows with no key, and
-# D = 20, whose rows are not 16-byte chunks (bf16 takes element loads)
+# head dims padded to 32, 64 and 128 inside the kernel, rows with no key
 FLASH_SHAPES = [(2, 256, 256, 4, 2, 32, True, 0), (1, 384, 384, 2, 2, 32, True, 200),
                 (2, 300, 512, 4, 2, 120, True, 0), (2, 200, 200, 4, 1, 16, True, 64),
                 (1, 130, 70, 8, 8, 64, False, 0), (1, 100, 40, 2, 1, 80, True, 8),
-                (3, 65, 65, 2, 2, 128, False, 30), (1, 70, 90, 2, 1, 20, True, 0)]
+                (3, 65, 65, 2, 2, 128, False, 30), (1, 70, 90, 2, 1, 24, True, 0)]
 
 
 def _qkv(device, dtype, b, sq, skv, hq, hkv, d, seed=0):
@@ -123,6 +122,9 @@ def test_flash_kernel_refuses_what_it_cannot_do(cuda_device):
         k2.mha(q.requires_grad_(), k, v)
     q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 8, 8, 2, 1, 256)
     with pytest.raises(ValueError, match="head dim 256"):
+        k2.mha(q, k, v)
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 8, 8, 2, 1, 20)
+    with pytest.raises(ValueError, match="16-byte chunks"):
         k2.mha(q, k, v)
 
 
