@@ -5,17 +5,22 @@
 
 Phases, each fatal on failure (no result line, non-zero exit):
 
-1. build  -- compile the Z-order matmul kernel (K1) and the flash-attention
-   kernel (K2) from their ``csrc/`` with nvcc, both at once, and print
-   ptxas's registers and spills.
+1. build  -- compile the Z-order matmul kernel (K1: its wide, thin and
+   wmma/fma sources, one nvcc each) and the flash-attention kernel (K2) from
+   their ``csrc/``, all at once, and print ptxas's registers and spills.
 2. kernel -- K1 against its plain version on the card at every (M, K, N)
-   Llama-3.2-1B's serving path gives it (M in 4, 8, 64, 256) plus two ragged
-   shapes, fp32 (1e-4 relative) and bf16 (2e-2 relative), both tile orders,
-   which must agree bitwise; then K1's time per bf16 shape beside its bound,
-   the plain version's time and ``torch.matmul``'s (the yardstick, which the
-   port never calls).  Times are CUDA-event times of CUDA-graph replays,
-   cycling through enough copies of the weight matrix that it comes from
-   device memory, not L2, as in decoding.
+   Llama-3.2-1B's serving path gives it (M in 4, 8, 64, 256), ragged shapes
+   and shapes on both sides of each route threshold (m = 16 | 17,
+   ``THIN_MAX_M`` | + 1), fp32 (1e-4 relative) and bf16 (2e-2 relative):
+   each shape's route is logged and must be the one meant for it (wide,
+   thin, wmma or fma), both tile orders and a second launch must agree
+   bitwise.  Then K1's time per bf16 shape beside its bound, the plain
+   version's time and ``torch.matmul``'s (the yardstick, which the port
+   never calls), and the thin and wide routes (both wide tiles) side by
+   side at M = 64-256, the measurement that sets ``THIN_MAX_M``.  Times
+   are CUDA-event times of CUDA-graph replays, cycling through enough
+   copies of the weight matrix that it comes from device memory, not L2,
+   as in decoding.
 3. model  -- a full-width, 2-layer Llama-3.2-1B in fp32: prefill + one
    decode step on the card through K1 and on the CPU through the plain
    version with the same weights; logits agree to 1e-3 relative.
@@ -24,9 +29,10 @@ Phases, each fatal on failure (no result line, non-zero exit):
    (8,32), then ``generate`` on 4 variable-length prompts with 16 new tokens,
    twice, with identical tokens, each run launching K1 exactly 112 x 16
    times (7 projections x 16 layers per forward, 1 prefill + 15 decode
-   steps).  Prints TTFT, p50/p99 per-token latency and tokens/s, and the
-   device time of one prefill and one decode step (each captured in a CUDA
-   graph and replayed), which the eager host-clock times contain.
+   steps), all on the thin route, 112 per decode step.  Prints TTFT,
+   p50/p99 per-token latency and tokens/s, and the device time of one
+   prefill and one decode step (each captured in a CUDA graph and
+   replayed), which the eager host-clock times contain.
 5. flash-kernel -- K2 against its plain version on the card at Llama's
    and danube's head shapes, the reference's unaligned case, a short
    windowed case and a 200-key window, fp32 and bf16; then K2 at the
@@ -36,12 +42,14 @@ Phases, each fatal on failure (no result line, non-zero exit):
    its bound, the plain version's time and
    ``F.scaled_dot_product_attention``'s (the yardstick, with its backend
    named; the port never calls it).  Also K1 at the 7 projections of a
-   danube layer at M = 32768: held against its plain version and timed
-   beside ``torch.matmul`` and its bound.  Every kernel check holds each
+   danube layer at M = 32768 (the wide route): held against its plain
+   version and timed beside ``torch.matmul``, its bound and the wide
+   route's other tile (128 x 128).  Every kernel check holds each
    output row (the last dim) to a relative L2 error: ``ROW_TOL``.
 6. long-prefill -- full-width h2o-danube-3-4b (24 layers, bf16, random
    weights from a seeded generator) with ``attn_impl="flash"``: ``forward``
-   and ``loss`` on 32768 tokens, 24 K2 and 168 K1 launches per forward;
+   and ``loss`` on 32768 tokens, 24 K2 and 168 K1 launches per forward,
+   every K1 launch on the wide route;
    logits of shape (1, 32768, 32000), finite, and within
    ``PREFILL_LOGITS_TOL`` of the same forward through the plain attention
    (``attn_impl="xla"``), while two wrong attention cores (the window
@@ -49,7 +57,8 @@ Phases, each fatal on failure (no result line, non-zero exit):
    2-layer full-width fp32 danube at S = 8192 within 1e-4 of the xla route;
    the forward's device time, K1's and K2's share and prefill tokens/s.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+Then a ``{"kernels": [...]}`` line (K1's entry with its launches per route
+on each path), the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.  The
 full measurements go to ``chiprun_out/chip_smoke.json``.
 """
@@ -97,7 +106,13 @@ MS = (4, 8, 64, 256)
 LAYER_KN = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
             (2048, 8192), (2048, 8192), (8192, 2048)]
 MAIN_SHAPES = [(m, k, n) for m in MS for (k, n) in sorted(set(LAYER_KN))]
-RAGGED = [(200, 300, 260), (8, 16, 8)]
+RAGGED = [(200, 300, 260), (8, 16, 8), (17, 300, 70), (1, 7, 3)]
+# Both sides of each bf16 route threshold, and danube's n = 960 and K = 10240
+THRESHOLD_SHAPES = [(16, 2048, 512), (17, 2048, 512), (k1.THIN_MAX_M, 2048, 512),
+                    (k1.THIN_MAX_M + 1, 2048, 512), (64, 10240, 960), (300, 3840, 960)]
+# The thin and wide routes side by side at these M (Llama's layer shapes)
+CROSSOVER_MS = (64, 128, 192, 256)
+CROSSOVER_BLOCKS = {"thin": (64, 64, 64), "wide": (128, 256, 64), "wide128": (128, 128, 64)}
 L2_BYTES = 50 * 2 ** 20
 SERVE_NEW = 16
 SERVE_BUCKETS = [(4, 16), (8, 32)]
@@ -185,8 +200,8 @@ def graph_ms(fn, calls) -> float:
 
 
 def phase_build() -> dict:
-    """Build K1 and K2 at once (one nvcc each), load both, print ptxas's
-    registers and spills per kernel instance."""
+    """Build K1 and K2 at once (one nvcc per source file, all in parallel),
+    load both, print ptxas's registers and spills per kernel instance."""
     t0 = time.perf_counter()
     mods = {"zorder_matmul": _build, "flash_attention": k2}
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
@@ -206,55 +221,115 @@ def phase_build() -> dict:
     return out
 
 
+def meant_route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
+    """The route a product of fresh (16-byte aligned) tensors is meant to
+    take: fp32 the fma kernel; bf16 with k and n multiples of 8 the thin
+    route up to ``THIN_MAX_M`` rows and the wide route above; other bf16
+    the wmma kernel."""
+    if dtype == torch.float32:
+        return "fma"
+    if k == 0 or k % 8 or n % 8:
+        return "wmma"
+    return "thin" if m <= k1.THIN_MAX_M else "wide"
+
+
+def routes_moved(before: dict) -> dict:
+    return {r: v - before[r] for r, v in k1.launches_by_route.items() if v != before[r]}
+
+
 def phase_kernel(dev: torch.device, gen: torch.Generator) -> dict:
     checks, timings = [], []
     worst_main_abs = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for (m, k, n) in MAIN_SHAPES + RAGGED:
+        for (m, k, n) in MAIN_SHAPES + RAGGED + THRESHOLD_SHAPES:
             a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
             b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(dtype)
+            before = dict(k1.launches_by_route)
             z = matmul(a, b, order="zorder")
+            moved = routes_moved(before)
             r = matmul(a, b, order="rowmajor")
+            again = matmul(a, b, order="zorder")
             ref = matmul_ref(a, b)
             torch.cuda.synchronize()
+            want = meant_route(m, k, n, dtype)
+            if moved != {want: 1}:
+                raise AssertionError(f"{(m, k, n)} {dtype} launched {moved}, meant for {want}")
             if not torch.equal(z, r):
                 raise AssertionError(f"orders disagree at {(m, k, n)} {dtype}")
+            if not torch.equal(z, again):
+                raise AssertionError(f"two launches disagree at {(m, k, n)} {dtype}")
             diff = (z.float() - ref.float()).abs().max().item()
             rel = diff / max(ref.float().abs().max().item(), 1e-30)
             ok = rel < TOL[dtype] and bool(torch.isfinite(z).all())
-            checks.append({"shape": [m, k, n], "dtype": str(dtype), "max_abs_err": diff,
-                           "rel_err": rel, "ok": ok})
-            log(f"[kernel] {str(dtype)[6:]:8s} {m:4d}x{k:5d}x{n:5d} "
-                f"max_abs_err={diff:.3e} rel={rel:.3e} {'ok' if ok else 'FAIL'}")
+            checks.append({"shape": [m, k, n], "dtype": str(dtype), "route": want,
+                           "max_abs_err": diff, "rel_err": rel, "ok": ok})
+            log(f"[kernel] {str(dtype)[6:]:8s} {m:4d}x{k:5d}x{n:5d} {want:4s} "
+                f"max_abs_err={diff:.3e} rel={rel:.3e} orders and reruns bitwise equal "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1 disagrees with its plain version at "
                                      f"{(m, k, n)} {dtype}: rel {rel} >= {TOL[dtype]}")
             if dtype == torch.bfloat16 and (m, k, n) in MAIN_SHAPES:
                 worst_main_abs = max(worst_main_abs, diff)
     for (m, k, n) in MAIN_SHAPES:
-        a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-        copies = max(3, math.ceil(3 * L2_BYTES / (k * n * 2)))
-        bs = [(torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k))
-              .to(torch.bfloat16) for _ in range(copies)]
-        calls = [(a, b) for b in bs]
+        a, calls = _decode_operands(dev, gen, m, k, n)
         t = {}
         # in turns: kernel, library, plain, plain, library, kernel
         for name in ("ms", "library_ms", "plain_ms", "plain_ms", "library_ms", "ms"):
             fn = {"ms": matmul, "library_ms": torch.matmul, "plain_ms": matmul_ref}[name]
             t.setdefault(name, []).append(graph_ms(fn, calls))
         bms, by = bound(m, k, n, torch.bfloat16)
-        row = {"shape": [m, k, n], "dtype": "bfloat16", "weight_copies": copies,
-               **{key: min(v) for key, v in t.items()}, "runs": t,
+        row = {"shape": [m, k, n], "dtype": "bfloat16", "route": meant_route(m, k, n, a.dtype),
+               "weight_copies": len(calls), **{key: min(v) for key, v in t.items()}, "runs": t,
                "bound_ms": bms, "bound_by": by}
         row["bound_share"] = bms / row["ms"]
         timings.append(row)
-        log(f"[kernel-time] bf16 {m:4d}x{k:5d}x{n:5d} K1 {row['ms'] * 1e3:8.2f}us "
-            f"bound {bms * 1e3:7.2f}us ({by}, {row['bound_share']:.1%}) "
-            f"torch.matmul {row['library_ms'] * 1e3:8.2f}us "
-            f"plain {row['plain_ms'] * 1e3:8.2f}us")
-        del a, bs, calls
+        log(f"[kernel-time] bf16 {m:4d}x{k:5d}x{n:5d} K1 ({row['route']}) "
+            f"{row['ms'] * 1e3:8.2f}us bound {bms * 1e3:7.2f}us ({by}, {row['bound_share']:.1%}) "
+            f"torch.matmul {row['library_ms'] * 1e3:8.2f}us plain {row['plain_ms'] * 1e3:8.2f}us")
+        del a, calls
+    crossover = crossover_times(dev, gen)
     torch.cuda.empty_cache()
-    return {"checks": checks, "timings": timings, "worst_main_abs_err": worst_main_abs}
+    return {"checks": checks, "timings": timings, "crossover": crossover,
+            "worst_main_abs_err": worst_main_abs}
+
+
+def _decode_operands(dev, gen, m, k, n):
+    """A (m, k) activation and enough (k, n) weight copies that cycling
+    through them reads the weights from device memory, not L2."""
+    a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    copies = max(3, math.ceil(3 * L2_BYTES / (k * n * 2)))
+    bs = [(torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+          for _ in range(copies)]
+    return a, [(a, b) for b in bs]
+
+
+def crossover_times(dev: torch.device, gen: torch.Generator) -> dict:
+    """The thin route and both wide tiles on the same products, in turns, at
+    Llama's layer shapes for each M in ``CROSSOVER_MS``: where the wide
+    route overtakes the thin one sets ``THIN_MAX_M``."""
+    rows, per_layer = [], {}
+    for m in CROSSOVER_MS:
+        by_kn = {}
+        for (k, n) in sorted(set(LAYER_KN)):
+            _, calls = _decode_operands(dev, gen, m, k, n)
+            t = {}
+            for name in ("thin", "wide", "wide128", "wide128", "wide", "thin"):
+                bm, bn, bk = CROSSOVER_BLOCKS[name]
+
+                def fn(a, b, bm=bm, bn=bn, bk=bk):
+                    return matmul(a, b, block_m=bm, block_n=bn, block_k=bk)
+                t.setdefault(name, []).append(graph_ms(fn, calls))
+            row = {"shape": [m, k, n], **{name: min(v) for name, v in t.items()},
+                   "bound_ms": bound(m, k, n, torch.bfloat16)[0]}
+            rows.append(row)
+            by_kn[(k, n)] = row
+            del calls
+        per_layer[m] = {name: sum(by_kn[kn][name] for kn in LAYER_KN)
+                        for name in (*CROSSOVER_BLOCKS, "bound_ms")}
+        log(f"[kernel-crossover] M={m:3d}, one Llama layer (7 products): " + ", ".join(
+            f"{name} {v * 1e3:.2f}us" for name, v in per_layer[m].items()))
+    return {"rows": rows, "per_layer": per_layer, "thin_max_m": k1.THIN_MAX_M}
 
 
 def _to(tree, device):
@@ -277,7 +352,7 @@ def phase_model(dev: torch.device) -> dict:
     out = {}
     for name, p, d in (("card", params, dev), ("cpu", cpu_params, cpu)):
         cache = model.init_cache(2, 32, d)
-        k1.launches = 0
+        k1.reset_launches()
         with torch.no_grad():
             pre, cache = model.prefill(p, cache, tokens.to(d), offsets.to(d))
             nxt = pre.argmax(-1) if name == "card" else out["card"][2]
@@ -324,20 +399,23 @@ def phase_serve(dev: torch.device) -> dict:
     want = per_forward * SERVE_NEW
     runs = []
     for rep in range(2):
-        k1.launches = 0
+        k1.reset_launches()
         res = server.generate(prompts)
         launches = k1.launches
+        by_route = {r: v for r, v in k1.launches_by_route.items() if v}
         q = res.latency_quantiles_ms()
         runs.append({"bucket": res.bucket, "launches": launches, "ttft_ms": res.ttft_s * 1e3,
                      "p50_ms": q["p50_ms"], "p99_ms": q["p99_ms"],
                      "tokens_per_s": res.tokens_per_s, "wall_s": res.wall_s,
-                     "tokens": res.new_tokens})
+                     "routes": by_route, "tokens": res.new_tokens})
         log(f"[serve] run {rep}: bucket {res.bucket} ttft {res.ttft_s * 1e3:.2f}ms "
             f"p50 {q['p50_ms']:.3f}ms p99 {q['p99_ms']:.3f}ms "
-            f"{res.tokens_per_s:.1f} tok/s; K1 launches {launches} (want {want})")
-        if launches != want:
-            raise AssertionError(f"K1 launched {launches} times, want {want} "
-                                 f"({per_forward} per forward x {SERVE_NEW} forwards)")
+            f"{res.tokens_per_s:.1f} tok/s; K1 launches {launches} (want {want}), "
+            f"by route {by_route}")
+        if launches != want or by_route != {"thin": want}:
+            raise AssertionError(f"K1 launched {launches} times ({by_route}), want {want} "
+                                 f"on the thin route ({per_forward} per forward x "
+                                 f"{SERVE_NEW} forwards)")
         for toks in res.new_tokens:
             if len(toks) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
                 raise AssertionError(f"malformed tokens {toks}")
@@ -353,7 +431,11 @@ def phase_serve(dev: torch.device) -> dict:
     host_p50 = float(np.median([r["p50_ms"] for r in runs]))
     log(f"[serve] device time per step (CUDA-graph replay, bucket 4x16): prefill "
         f"{device_ms['prefill']:.3f}ms, decode {device_ms['decode']:.3f}ms; eager "
-        f"decode p50 {host_p50:.3f}ms on the host clock")
+        f"decode p50 {host_p50:.3f}ms on the host clock; K1 per step by route: "
+        f"{device_ms['routes']}")
+    for step, r in device_ms["routes"].items():
+        if r != {"thin": per_forward}:
+            raise AssertionError(f"one {step} step launched K1 {r}, want {per_forward} thin")
     del server, params
     torch.cuda.empty_cache()
     return {"params": n_params, "init_s": init_s, "warmup": warm, "runs": runs,
@@ -370,12 +452,16 @@ def step_device_ms(model, params, dev: torch.device, bucket) -> dict:
     tokens = torch.from_numpy(rng.integers(1, model.cfg.vocab_size, size=(batch, seq)))
     tokens = tokens.to(dev)
     offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
+    steps = {"prefill": lambda: model.prefill(params, cache, tokens, offsets),
+             "decode": lambda: model.decode_step(params, cache, tokens[:, -1:], seq, offsets)}
+    out = {"routes": {}}
     with torch.no_grad():
-        return {
-            "prefill": graph_ms(lambda: model.prefill(params, cache, tokens, offsets), [()]),
-            "decode": graph_ms(lambda: model.decode_step(params, cache, tokens[:, -1:],
-                                                         seq, offsets), [()]),
-        }
+        for name, step in steps.items():
+            k1.reset_launches()
+            step()
+            out["routes"][name] = {r: v for r, v in k1.launches_by_route.items() if v}
+            out[name] = graph_ms(step, [()])
+    return out
 
 
 def _leaves(tree):
@@ -545,19 +631,32 @@ def projection_times(dev: torch.device, gen: torch.Generator) -> list:
         def plain():
             kept["ref"] = matmul_ref(a, b)
 
+        def wide128():
+            kept["w128"] = matmul(a, b, block_m=128, block_n=128, block_k=64)
+
         t = {}
-        for key in ("ms", "library_ms", "plain_ms", "library_ms", "ms"):
-            fn = {"ms": kern, "library_ms": lambda: torch.matmul(a, b), "plain_ms": plain}[key]
+        before = dict(k1.launches_by_route)
+        kern()
+        if routes_moved(before) != {"wide": 1}:
+            raise AssertionError(f"{PREFILL_S}x{k}x{n} took {routes_moved(before)}, not wide")
+        for key in ("ms", "wide128_ms", "library_ms", "plain_ms", "library_ms", "wide128_ms",
+                    "ms"):
+            fn = {"ms": kern, "wide128_ms": wide128, "library_ms": lambda: torch.matmul(a, b),
+                  "plain_ms": plain}[key]
             t.setdefault(key, []).append(event_ms(fn, 3))
         e = _check_rows("k1-prefill", f"K1 bfloat16 {PREFILL_S}x{k}x{n}", kept["out"],
                         kept["ref"], ROW_TOL[torch.bfloat16])
+        e["tiles_bitwise_equal"] = bool(torch.equal(kept["out"], kept["w128"]))
         del kept
         bms, by = bound(PREFILL_S, k, n, torch.bfloat16)
         row = {"shape": [PREFILL_S, k, n], **{key: min(v) for key, v in t.items()},
                "bound_ms": bms, "bound_by": by, "check": e}
         rows.append(row)
-        log(f"[k1-prefill] {PREFILL_S}x{k}x{n} K1 {row['ms']:.3f}ms torch.matmul "
-            f"{row['library_ms']:.3f}ms plain {row['plain_ms']:.3f}ms bound {bms:.3f}ms ({by})")
+        log(f"[k1-prefill] {PREFILL_S}x{k}x{n} K1 wide {row['ms']:.3f}ms "
+            f"({2.0 * PREFILL_S * k * n / row['ms'] / 1e9:.0f} TFLOP/s; 128x128 tile "
+            f"{row['wide128_ms']:.3f}ms, bitwise equal {e['tiles_bitwise_equal']}) "
+            f"torch.matmul {row['library_ms']:.3f}ms "
+            f"plain {row['plain_ms']:.3f}ms bound {bms:.3f}ms ({by})")
         del a, b
     torch.cuda.empty_cache()
     return rows
@@ -573,21 +672,24 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
     labels = torch.cat([tokens[:, 1:], torch.full((1, 1), -100, device=dev)], dim=1)
     want = {"K2": cfg.num_layers, "K1": 7 * cfg.num_layers}
     with torch.no_grad():
-        k1.launches = k2.launches = 0
+        k1.reset_launches()
+        k2.launches = 0
         t0 = time.perf_counter()
         logits, _ = model.forward(params, tokens)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         got = {"K2": k2.launches, "K1": k1.launches}
+        by_route = {r: v for r, v in k1.launches_by_route.items() if v}
         log(f"[long-prefill] {cfg.name} bf16 S={PREFILL_S}: forward launched K2 "
             f"{got['K2']}x, K1 {got['K1']}x (want {want}); first call {first_s:.2f}s "
-            f"with set-up")
-        if got != want:
-            raise AssertionError(f"launches {got}, want {want}")
+            f"with set-up; K1 by route {by_route}")
+        if got != want or by_route != {"wide": want["K1"]}:
+            raise AssertionError(f"launches {got} (K1 {by_route}), want {want}, K1 all wide")
         if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"logits malformed: {tuple(logits.shape)}")
-        k1.launches = k2.launches = 0
+        k1.reset_launches()
+        k2.launches = 0
         loss, parts = model.loss(params, {"tokens": tokens, "labels": labels})
         loss = loss.item()
         if (k2.launches, k1.launches) != (want["K2"], want["K1"]) or not math.isfinite(loss):
@@ -619,18 +721,19 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
                                  f"from a wrong attention core ({what}): {routes[what]}")
     k2_ms = cfg.num_layers * flash["timings"]["danube"]["ms"]
     k1_fwd = {key: cfg.num_layers * sum(r[key] for r in flash["projections"])
-              for key in ("ms", "library_ms", "plain_ms", "bound_ms")}
+              for key in ("ms", "wide128_ms", "library_ms", "plain_ms", "bound_ms")}
     k1_ms = k1_fwd["ms"]
     tok_s = PREFILL_S / (fwd_ms / 1e3)
     log(f"[long-prefill] forward device time {fwd_ms:.1f}ms ({tok_s:.0f} prefill tokens/s); "
         f"K1 {k1_ms:.1f}ms ({k1_ms / fwd_ms:.1%}), K2 {k2_ms:.1f}ms ({k2_ms / fwd_ms:.1%}), "
-        f"rest {fwd_ms - k1_ms - k2_ms:.1f}ms; K1's {want['K1']} products: torch.matmul "
+        f"rest {fwd_ms - k1_ms - k2_ms:.1f}ms; K1's {want['K1']} products: 128x128 tile "
+        f"{k1_fwd['wide128_ms']:.1f}ms, torch.matmul "
         f"{k1_fwd['library_ms']:.1f}ms, plain {k1_fwd['plain_ms']:.1f}ms, "
         f"bound {k1_fwd['bound_ms']:.1f}ms")
     del params
     torch.cuda.empty_cache()
     fp32 = fp32_check(dev)
-    return {"launches": want, "first_forward_s": first_s, "loss": loss, "xla_loss": xloss,
+    return {"launches": want, "k1_routes": by_route, "first_forward_s": first_s, "loss": loss, "xla_loss": xloss,
             "ce": parts["ce"].item(), "logits_rel_err": rel, "routes": routes,
             "forward_ms": fwd_ms,
             "tokens_per_s": tok_s, "k1_ms": k1_ms, "k1_per_forward": k1_fwd, "k2_ms": k2_ms,
@@ -666,16 +769,17 @@ def fp32_check(dev: torch.device) -> dict:
     return {"rel_err": rel, "launches": launches}
 
 
-def decode_step_row(timings: list) -> dict:
-    """K1's numbers for one decode step at batch 4: the 7 projections of
+def decode_step_row(timings: list, m: int = 4) -> dict:
+    """K1's numbers for one serving forward at M rows (4: a decode step at
+    batch 4; 64: the prefill of the 4x16 bucket): the 7 projections of
     each of the 16 layers."""
     by_shape = {tuple(r["shape"]): r for r in timings}
-    rows = [by_shape[(4, k, n)] for (k, n) in LAYER_KN]
+    rows = [by_shape[(m, k, n)] for (k, n) in LAYER_KN]
     layers = get_config("llama3.2-1b").num_layers
     tot = {key: layers * sum(r[key] for r in rows)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    t_bytes = layers * sum((4 * k + k * n + 4 * n) * 2 for (k, n) in LAYER_KN) / PEAK_BYTES_S
-    t_ops = layers * sum(2.0 * 4 * k * n for (k, n) in LAYER_KN) / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = layers * sum((m * k + k * n + m * n) * 2 for (k, n) in LAYER_KN) / PEAK_BYTES_S
+    t_ops = layers * sum(2.0 * m * k * n for (k, n) in LAYER_KN) / PEAK_FLOPS[torch.bfloat16]
     tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return tot
 
@@ -730,12 +834,22 @@ def main() -> int:
         "launches": report["serve"]["runs"][0]["launches"],
         "launches_by_path": {"serve": report["serve"]["runs"][0]["launches"],
                              "long_prefill": report["long_prefill"]["launches"]["K1"]},
+        "routes": {"serve": report["serve"]["runs"][0]["routes"],
+                   **{f"serve_{step}_step": r
+                      for step, r in report["serve"]["step_device_ms"]["routes"].items()},
+                   "long_prefill": report["long_prefill"]["k1_routes"]},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"])),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "work": "one bf16 decode step at batch 4: 16 layers x 7 projections",
+        "per_route": {
+            "thin: decode step, M = 4 (112 products)": step,
+            "thin: serving prefill, M = 64 (112 products)":
+                decode_step_row(report["kernel"]["timings"], 64),
+            "wide: danube forward, M = 32768 (168 products)":
+                report["long_prefill"]["k1_per_forward"]},
     }, flash_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   device=torch.cuda.get_device_name(0))

@@ -5,7 +5,9 @@ itself with a ``Kernel``: that directory, a library name and the C
 signatures of its entry points.  ``nvcc`` compiles the package's
 ``csrc/*.cu`` for ``sm_90a`` into one shared library per kernel with a plain
 C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds), so an edit to one kernel never rebuilds another.  Libraries land
+seconds), so an edit to one kernel never rebuilds another.  A package with
+several sources compiles them in parallel, one ``nvcc`` each, then links
+them.  Libraries land
 in ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused.  Nothing is built at
@@ -14,6 +16,7 @@ compiler's output.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -27,7 +30,7 @@ from typing import Dict, Sequence, Tuple
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 P, I, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -77,21 +80,27 @@ def build(kern: Kernel) -> Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources(kern) if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                             capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {kern.name} ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    cu = [s for s in sources(kern) if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [os.path.join(tmpdir, f"{s.stem}.o") for s in cu]
+        with concurrent.futures.ThreadPoolExecutor(len(cu)) as pool:
+            logs = list(pool.map(lambda so: _nvcc(kern, ["-c", "-o", so[1], str(so[0])]),
+                                 zip(cu, objs)))
+        tmp = os.path.join(tmpdir, out.name)
+        logs.append(_nvcc(kern, ["-shared", "-o", tmp, *objs]))
+        out.with_suffix(".log").write_text("".join(logs))
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
+
+
+def _nvcc(kern: Kernel, args: list) -> str:
+    """Run nvcc with the shared flags; raise with its output on failure."""
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, *args], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {kern.name} ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    return res.stdout + res.stderr
 
 
 def load(kern: Kernel) -> ctypes.CDLL:

@@ -1,9 +1,14 @@
-// Z-order block matmul for Hopper (sm_90a): C = A @ B, fp32 accumulation.
+// K1's wmma route and fp32 route: Z-order block matmul for Hopper (sm_90a),
+// C = A @ B with fp32 accumulation.
 //
-// Replaces src/repro/kernels/matmul/kernel.py::zorder_matmul (the Pallas TPU
-// kernel, body _matmul_kernel).  Same function: A (m, k) @ B (k, n), both
+// Replaces src/repro/kernels/matmul/kernel.py:46 (zorder_matmul, the Pallas
+// TPU kernel, body _matmul_kernel).  Same function: A (m, k) @ B (k, n), both
 // fp32 or both bf16, fp32 accumulator, one rounding to the output type at
-// the end.  What changes with the machine:
+// the end.  bf16 products whose operands TMA and 16-byte copies can take run
+// the thin route (zorder_matmul_thin.cu, few rows) or the wide route
+// (zorder_matmul_wide.cu, many rows); this file keeps the kernels for the
+// rest: bf16 with k or n not a multiple of 8 or a base not 16-byte aligned,
+// and fp32.  What changes with the machine:
 //
 // * Tile order.  On the TPU the grid runs in order on one core, so the
 //   Morton (Z-order) table was the sequential HBM->VMEM block schedule.  On
@@ -19,50 +24,24 @@
 // * Ragged edges.  The kernel masks them itself (zero-filled loads, masked
 //   stores) instead of padding, which would copy the weights every call.
 //
-// Bound.  On the serving path the product is a thin activation (m = batch
-// rows in decode, batch*seq in prefill) against a weight matrix, so the
-// least time is the weight bytes at the card's memory rate, not the
-// tensor-core rate.  What the design does about it: bf16 tiles stream
-// through shared memory with 16-byte cp.async copies kept STAGES deep, so
-// several tiles of B are in flight per CTA; decode (m <= 16) uses a
-// 16-row tile with a deep k step so each CTA moves more bytes per round
-// trip.  What it does not do yet: with n / 64 CTAs, decode at n = 512-2048
-// fills fewer than the 132 SMs, so it sits well below the bound (no
-// split-K, TMA or wgmma yet).
+// Bound.  Both are bound as the routes above are (weight bytes with few
+// rows, the tensor cores' or FMA rate with many).  This route serves
+// shapes no model on the port's paths has, so its design stays simple:
+// bf16 tiles stream through shared memory with 16-byte cp.async copies
+// where the operands allow it (element copies otherwise), STAGES deep,
+// into wmma 16x16x16; a 16-row tile with a deep k step for m <= 16.
 //
 // fp32 runs on plain FMA, never TF32 (TF32 keeps ~3 decimal digits, which
 // cannot meet a 1e-4 relative tolerance).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 #include <stddef.h>
-#include <stdint.h>
+
+#include "zorder_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace zorder;
 using namespace nvcuda;
-
-enum DType { kF32 = 0, kBF16 = 1 };
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wmma 16x16x16 with fp32 accumulators, STAGES-deep cp.async pipeline.
@@ -285,17 +264,9 @@ cudaError_t launch_bf16_vec(const void* a, const void* b, void* c, const int* ti
                             int m, int n, int k, cudaStream_t stream) {
   auto kern = zorder_matmul_bf16_kernel<Tile, TOut, VEC>;
   const size_t smem = Tile::kSmemBytes;
-  // Above 48 KB a block must opt in to dynamic shared memory, once per
-  // kernel and device (a race between threads only repeats the same call).
   static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = opt_in_smem(kern, smem, opted_in);
   if (e != cudaSuccess) return e;
-  if (smem > 48 * 1024 && (dev >= 64 || !opted_in[dev])) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    if (dev < 64) opted_in[dev] = true;
-  }
   kern<<<ntiles, Tile::kThreads, smem, stream>>>(static_cast<const bf16*>(a),
                                                   static_cast<const bf16*>(b),
                                                   static_cast<TOut*>(c), tiles, ntiles, m, n, k);

@@ -55,11 +55,16 @@ def matmul(
         raise ValueError(f"unknown order {order!r}")
     m, k = a.shape
     n = b.shape[1]
-    bm, bn, bk = kernel.default_blocks(m, n, k, a.dtype)
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    bm, bn, bk = kernel.default_blocks(m, n, k, a.dtype, aligned)
     blocks = (block_m or bm, block_n or bn, block_k or bk)
     if blocks not in kernel.BLOCKS[a.dtype]:
         raise ValueError(f"blocks {blocks} are not compiled for {a.dtype}; "
                          f"choose from {kernel.BLOCKS[a.dtype]}")
+    route = kernel.ROUTE_OF[a.dtype, blocks]
+    if route in ("wide", "thin") and not (aligned and kernel.vectorizable(k, n)):
+        raise ValueError(f"the {route} route's blocks {blocks} take k and n multiples of 8 "
+                         f"(k > 0) and 16-byte aligned bases; got k={k}, n={n}")
     if a.device.type == "cpu":
         return matmul_ref(a, b, out_dtype)
     return kernel.zorder_matmul(a, b, block_m=blocks[0], block_n=blocks[1],

@@ -20,8 +20,13 @@ from repro_torch.kernels.matmul import kernel, matmul, matmul_ref
 from repro_torch.models.registry import build_model
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+T = kernel.THIN_MAX_M
+# Both sides of each route threshold (m = 16 | 17 and THIN_MAX_M | + 1),
+# danube's n = 960 and K = 10240, ragged m, n and k for the wmma route
 SHAPES = [(128, 128, 128), (256, 384, 512), (200, 300, 260), (512, 128, 384),
-          (4, 256, 128), (8, 16, 8), (16, 2048, 512), (17, 300, 70), (1, 7, 3)]
+          (4, 256, 128), (8, 16, 8), (16, 2048, 512), (17, 300, 70), (1, 7, 3),
+          (17, 2048, 512), (T, 512, 264), (T + 1, 512, 264), (64, 10240, 960),
+          (300, 10240, 960), (129, 3840, 960), (1000, 72, 136)]
 
 
 @pytest.fixture
@@ -52,6 +57,73 @@ def test_kernel_matches_plain_version(cuda_device, shape, dtype):
     assert kernel.launches == before + 2
     assert torch.equal(z, r)        # same per-tile k order: bitwise equal
     assert _rel_err(z, matmul_ref(a, b)) < TOL[dtype]
+
+
+def _bf16_operands(device, m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(device, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32) / np.sqrt(k))
+    return a, b.to(device, torch.bfloat16)
+
+
+def _route_launches(fn):
+    before = dict(kernel.launches_by_route)
+    out = fn()
+    return out, {r: v - before[r] for r, v in kernel.launches_by_route.items() if v != before[r]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [s for s in SHAPES])
+def test_each_route_runs_its_shapes_bitwise_repeatably(cuda_device, shape, out_dtype):
+    """Each bf16 shape launches the route ``kernel.route`` names for it, is
+    held to the plain version, and gives the same bits in both tile orders
+    and in a second launch (the thin route's split-K sums in a fixed order)."""
+    m, k, n = shape
+    a, b = _bf16_operands(cuda_device, m, k, n)
+    z, got = _route_launches(lambda: matmul(a, b, out_dtype=out_dtype))
+    r = matmul(a, b, out_dtype=out_dtype, order="rowmajor")
+    again = matmul(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got == {kernel.route(m, n, k, torch.bfloat16): 1}
+    assert torch.equal(z, r) and torch.equal(z, again)
+    assert _rel_err(z, matmul_ref(a, b, out_dtype)) < TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_unaligned_base_takes_the_wmma_route(cuda_device):
+    m, k, n = 64, 2048, 512
+    a, b = _bf16_operands(cuda_device, m, k, n)
+    flat = torch.empty(m * k + 1, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:].view(m, k)                # contiguous, base 2 bytes off
+    shifted.copy_(a)
+    assert shifted.data_ptr() % 16 != 0
+    out, got = _route_launches(lambda: matmul(shifted, b))
+    torch.cuda.synchronize()
+    assert got == {"wmma": 1}
+    assert _rel_err(out, matmul_ref(a, b)) < TOL[torch.bfloat16]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        matmul(shifted, b, block_m=64, block_n=64, block_k=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8192, 2048), (64, 2048, 512), (300, 3840, 960)],
+                         ids=["thin16", "thin64", "wide"])
+def test_route_in_a_cuda_graph_matches_eager(cuda_device, shape):
+    """One product of each new route captured in a CUDA graph and replayed
+    twice gives the eager bits: no host sync or allocation in the launch."""
+    m, k, n = shape
+    a, b = _bf16_operands(cuda_device, m, k, n)
+    eager = matmul(a, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = matmul(a, b)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 @pytest.mark.cuda

@@ -97,13 +97,107 @@ def test_default_blocks_fit_shared_memory():
     for dtype, blocks in kernel.BLOCKS.items():
         for bm, bn, bk in blocks:
             assert kernel.smem_bytes(bm, bn, bk, dtype) <= kernel.SMEM_LIMIT
-        assert kernel.default_blocks(4, 2048, 2048, dtype) == blocks[1]
-        assert kernel.default_blocks(256, 2048, 2048, dtype) == blocks[0]
+    # bf16: the thin route's 16-row tile at decode, the wide route above
+    # THIN_MAX_M rows; fp32: the fma route's 16-row and 64-row tiles
+    assert kernel.default_blocks(4, 2048, 2048, torch.bfloat16) == (16, 64, 64)
+    assert kernel.default_blocks(32768, 2048, 2048, torch.bfloat16) == (128, 256, 64)
+    assert kernel.default_blocks(4, 2048, 2048, torch.float32) == (16, 64, 32)
+    assert kernel.default_blocks(256, 2048, 2048, torch.float32) == (64, 64, 16)
+
+
+@pytest.mark.parametrize("blocks", [(dt, b) for dt, bs in kernel.BLOCKS.items() for b in bs],
+                         ids=lambda db: f"{str(db[0])[6:]}-{'x'.join(map(str, db[1]))}")
+def test_every_compiled_tile_fits_shared_memory(blocks):
+    dtype, (bm, bn, bk) = blocks
+    assert kernel.smem_bytes(bm, bn, bk, dtype) <= kernel.SMEM_LIMIT
+    assert kernel.ROUTE_OF[dtype, (bm, bn, bk)] in kernel.ROUTES
+
+
+T = kernel.THIN_MAX_M
+
+
+@pytest.mark.parametrize("m,k,n,dtype,aligned,want", [
+    (1, 2048, 512, torch.bfloat16, True, ("thin", (16, 64, 64))),
+    (16, 2048, 512, torch.bfloat16, True, ("thin", (16, 64, 64))),
+    (17, 2048, 512, torch.bfloat16, True, ("thin", (64, 64, 64))),
+    (64, 2048, 8192, torch.bfloat16, True, ("thin", (64, 64, 64))),
+    (T, 2048, 512, torch.bfloat16, True, ("thin", (64, 64, 64))),
+    (T + 1, 2048, 512, torch.bfloat16, True, ("wide", (128, 128, 64))),
+    (256, 2048, 8192, torch.bfloat16, True, ("wide", (128, 128, 64))),
+    # the wide tile: 128 x 256 from WIDE_256_MIN_TILES (264) tiles up
+    (128 * 33, 2048, 2048, torch.bfloat16, True, ("wide", (128, 256, 64))),
+    (128 * 33 - 128, 2048, 2048, torch.bfloat16, True, ("wide", (128, 128, 64))),
+    (32768, 3840, 960, torch.bfloat16, True, ("wide", (128, 256, 64))),
+    (32768, 10240, 3840, torch.bfloat16, True, ("wide", (128, 256, 64))),
+    # operands 16-byte copies and TMA cannot take: the wmma route, by rows
+    (16, 300, 264, torch.bfloat16, True, ("wmma", (16, 64, 128))),
+    (17, 300, 70, torch.bfloat16, True, ("wmma", (64, 64, 32))),
+    (T + 1, 2048, 516, torch.bfloat16, True, ("wmma", (64, 64, 32))),
+    (4, 2048, 512, torch.bfloat16, False, ("wmma", (16, 64, 128))),
+    (T + 1, 2048, 512, torch.bfloat16, False, ("wmma", (64, 64, 32))),
+    (1, 7, 3, torch.bfloat16, True, ("wmma", (16, 64, 128))),
+    (4, 0, 8, torch.bfloat16, True, ("wmma", (16, 64, 128))),
+    (4, 2048, 512, torch.float32, True, ("fma", (16, 64, 32))),
+    (T + 1, 2048, 512, torch.float32, True, ("fma", (64, 64, 16))),
+])
+def test_route_selection_at_each_threshold(m, k, n, dtype, aligned, want):
+    route, blocks = want
+    assert kernel.route(m, n, k, dtype, aligned) == route
+    assert kernel.default_blocks(m, n, k, dtype, aligned) == blocks
+    assert kernel.ROUTE_OF[dtype, blocks] == route
+
+
+# (k, n) of every product on the two paths, ragged and one-block k, and
+# SM counts of an H100 SXM, an H100 PCIe and a single SM
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("k,n", [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048),
+                                 (3840, 960), (10240, 3840), (72, 40), (64, 8), (8, 8),
+                                 (65, 64), (1000, 1024)])
+def test_split_plan_covers_k_once_in_order(k, n, sms):
+    splits, per = kernel.split_plan(k, n, sms)
+    slices = [(s * per * 64, min(k, (s + 1) * per * 64)) for s in range(splits)]
+    assert len(slices) == splits and 1 <= splits <= kernel.MAX_SPLITS
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    for (lo, hi), (lo2, _) in zip(slices, slices[1:]):
+        assert hi == lo2                         # consecutive, no gap, no overlap
+    assert all(hi > lo for lo, hi in slices)     # none empty
+    assert all(lo % 64 == 0 and hi - lo <= per * 64 for lo, hi in slices)
+    # the kernel's own slicing: split s takes k blocks [s per, min((s+1) per, nkb))
+    nkb = -(-k // 64)
+    assert [(min(s * per, nkb), min(s * per + per, nkb)) for s in range(splits)] == \
+        [(lo // 64, -(-hi // 64)) for lo, hi in slices]
+
+
+def test_split_plan_does_not_depend_on_m():
+    import inspect
+    assert "m" not in inspect.signature(kernel.split_plan).parameters
+    # decode's products fill the card: at least about one CTA per SM
+    for k, n in [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048)]:
+        splits, _ = kernel.split_plan(k, n, 132)
+        assert splits * -(-n // 64) >= 128
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132, 200])
+@pytest.mark.parametrize("gm,gn", [(1, 1), (3, 5), (256, 15), (256, 40)])
+def test_persistent_walk_visits_every_tile_once(gm, gn, grid):
+    """The wide kernel's loop: ``grid`` persistent CTAs (the wrapper's
+    min(SMs, tiles)), CTA c taking table entries c, c + grid, ..."""
+    ntiles = gm * gn
+    grid = min(grid, ntiles)
+    walks = [list(range(c, ntiles, grid)) for c in range(grid)]
+    visited = [t for w in walks for t in w]
+    assert sorted(visited) == list(range(ntiles))
+    table = kernel.tile_table(gm, gn, "zorder", torch.device("cpu")).tolist()
+    tiles = {(table[t], table[ntiles + t]) for t in visited}
+    assert tiles == {(i, j) for i in range(gm) for j in range(gn)}
+    # each CTA takes table entries in Morton order: c, c + grid, ...
+    assert all(w == sorted(w) and (not w or w[0] == c) for c, w in enumerate(walks))
 
 
 @pytest.mark.parametrize("case", [
     "dtype_mismatch", "float16", "three_d", "k_mismatch", "non_contiguous",
-    "bad_order", "uncompiled_blocks", "other_device"])
+    "bad_order", "uncompiled_blocks", "other_device", "thin_blocks_ragged_n",
+    "wide_blocks_ragged_k"])
 def test_matmul_rejects_what_the_kernel_does_not_take(case):
     a, b = torch.ones(8, 16), torch.ones(16, 8)
     kw = {}
@@ -123,6 +217,12 @@ def test_matmul_rejects_what_the_kernel_does_not_take(case):
         kw["block_m"] = 128
     elif case == "other_device":   # never quietly computed elsewhere
         a, b = a.to("meta"), b.to("meta")
+    elif case == "thin_blocks_ragged_n":   # the route refuses, never moves on
+        a, b = a.bfloat16(), torch.ones(16, 12, dtype=torch.bfloat16)
+        kw.update(block_m=16, block_n=64, block_k=64)
+    elif case == "wide_blocks_ragged_k":
+        a, b = torch.ones(8, 12, dtype=torch.bfloat16), torch.ones(12, 8, dtype=torch.bfloat16)
+        kw.update(block_m=128, block_n=256, block_k=64)
     with pytest.raises(ValueError):
         matmul(a, b, **kw)
 
