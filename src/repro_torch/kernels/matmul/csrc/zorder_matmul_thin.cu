@@ -14,9 +14,9 @@
 // * Split-K.  A tile of n columns alone gives n/64 CTAs (8 at n = 512),
 //   each walking all of k.  Here each output tile's k range is cut into
 //   `splits` slices of `kb_per` 64-deep blocks (kernel.py's split_plan, a
-//   pure function of k, n and the SM count), so every product launches
-//   about two CTAs per SM, in one wave, and all 132 SMs stream weights at
-//   once.
+//   pure function of k, n and the SM count), so each of decode's products
+//   launches one or two CTAs per SM, in one wave, and all 132 SMs stream
+//   weights at once.
 // * Streaming.  Each CTA streams its (k slice x 64 columns) of B with
 //   16-byte cp.async copies, up to STAGES - 1 blocks of 8 KB (56 KB at
 //   decode) kept in flight, and multiplies with mma.sync m16n8k16 (bf16
@@ -236,7 +236,7 @@ __global__ void __launch_bounds__(Tile::kThreads)
       store_pair(out + 2, sum.z, sum.w);
     }
   }
-  if (threadIdx.x == 0) counters[s] = 0;  // ready for the next launch on the stream
+  if (threadIdx.x == 0) counters[s] = 0;  // zero again for the next launch
 }
 
 // ---------------------------------------------------------------------------
