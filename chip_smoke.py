@@ -33,13 +33,19 @@ Phases, each fatal on failure (no result line, non-zero exit):
    p50/p99 per-token latency and tokens/s, and the device time of one
    prefill and one decode step (each captured in a CUDA graph and
    replayed), which the eager host-clock times contain.
-5. flash-kernel -- K2 against its plain version on the card at Llama's
-   and danube's head shapes, the reference's unaligned case, a short
-   windowed case and a 200-key window, fp32 and bf16; then K2 at the
-   long-prefill shapes (S = 32768, danube's D = 120 with a 4096 window and
-   Llama's D = 64 causal), bf16: held against the plain version (run head
-   by head: all heads' scores at once would take 137 GB) and timed beside
-   its bound, the plain version's time and
+5. flash-kernel -- K2 against its plain version on the card on each of
+   its three routes (``FLASH_CHECKS``): head dims 16-128 (Llama's 64,
+   zamba2's 80, danube's 120, 128), GQA groups 1, 2 and 4, ragged S_q and
+   S_kv, S_q > S_kv with a window (rows that see no key output 0), windows
+   64, 200, 4032 and 4096, head slices of a fused tensor and the (BH, S, D)
+   entry; fp32 on the fma route, bf16 on the route ``kernel.route`` picks
+   (wgmma for D >= 64, mma below) and, where that is wgmma, on the mma
+   route too; each case's route is asserted and the wgmma route rerun
+   bitwise.  Then K2 at the long-prefill shapes (S = 32768, danube's
+   D = 120 with a 4096 window and Llama's D = 64 causal), bf16: both bf16
+   routes held against the plain version (run head by head: all heads'
+   scores at once would take 137 GB) and timed in turns beside the bound,
+   the exp floor, the plain version's time and
    ``F.scaled_dot_product_attention``'s (the yardstick, with its backend
    named; the port never calls it).  Also K1 at the 7 projections of a
    danube layer at M = 32768 (the wide route): held against its plain
@@ -49,7 +55,7 @@ Phases, each fatal on failure (no result line, non-zero exit):
 6. long-prefill -- full-width h2o-danube-3-4b (24 layers, bf16, random
    weights from a seeded generator) with ``attn_impl="flash"``: ``forward``
    and ``loss`` on 32768 tokens, 24 K2 and 168 K1 launches per forward,
-   every K1 launch on the wide route;
+   every K2 launch on the wgmma route and every K1 launch on the wide route;
    logits of shape (1, 32768, 32000), finite, and within
    ``PREFILL_LOGITS_TOL`` of the same forward through the plain attention
    (``attn_impl="xla"``), while two wrong attention cores (the window
@@ -57,8 +63,8 @@ Phases, each fatal on failure (no result line, non-zero exit):
    2-layer full-width fp32 danube at S = 8192 within 1e-4 of the xla route;
    the forward's device time, K1's and K2's share and prefill tokens/s.
 
-Then a ``{"kernels": [...]}`` line (K1's entry with its launches per route
-on each path), the card's name and power limit as
+Then a ``{"kernels": [...]}`` line (each kernel's entry with its launches
+per route on each path), the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.  The
 full measurements go to ``chiprun_out/chip_smoke.json``.
 """
@@ -116,15 +122,23 @@ CROSSOVER_BLOCKS = {"thin": (64, 64, 64), "wide": (128, 256, 64), "wide128": (12
 L2_BYTES = 50 * 2 ** 20
 SERVE_NEW = 16
 SERVE_BUCKETS = [(4, 16), (8, 32)]
-# K2 checks, (B, S_q, S_kv, H_q, H_kv, D, window), all causal: Llama; danube
-# with the window active; the reference's unaligned case; below the
-# reference's _MIN_SEQ; a 200-key window
-FLASH_CHECKS = [(1, 4096, 4096, 32, 8, 64, 0), (1, 8192, 8192, 32, 8, 120, 4096),
-                (2, 300, 512, 4, 2, 120, 0), (2, 200, 200, 4, 1, 16, 64),
-                (1, 384, 384, 2, 2, 32, 200)]
+# K2 checks, (B, S_q, S_kv, H_q, H_kv, D, window, layout), all causal:
+# Llama; danube with the window active; the reference's unaligned case;
+# below the reference's _MIN_SEQ (D 16, mma); a 200-key window (D 32, mma);
+# zamba2's D = 80 with GQA group 1; D = 128 with a 4032 window; S_q > S_kv
+# with a window (the last rows see no key); head slices of one fused
+# (B, S, H_q + 2 H_kv, D) tensor; the (BH, S, D) entry ``flash_attention``
+FLASH_CHECKS = [(1, 4096, 4096, 32, 8, 64, 0, "bshd"), (1, 8192, 8192, 32, 8, 120, 4096, "bshd"),
+                (2, 300, 512, 4, 2, 120, 0, "bshd"), (2, 200, 200, 4, 1, 16, 64, "bshd"),
+                (1, 384, 384, 2, 2, 32, 200, "bshd"), (2, 1000, 1000, 8, 8, 80, 200, "bshd"),
+                (1, 4500, 4500, 8, 2, 128, 4032, "bshd"), (1, 700, 300, 4, 1, 120, 64, "bshd"),
+                (2, 384, 384, 8, 2, 120, 200, "slice"), (1, 520, 700, 8, 2, 64, 200, "heads")]
 # K2 at the long-prefill path's shapes: danube (the path) and Llama
 FLASH_TIMED = {"danube": (1, 32768, 32768, 32, 8, 120, 4096),
                "llama": (1, 32768, 32768, 32, 8, 64, 0)}
+# The special-function units' exp2 rate: 16 a clock per SM (Hopper), at the
+# card's maximum SM clock as nvidia-smi reports it.
+EXP2_PER_CLOCK_PER_SM = 16
 PREFILL_ARCH = "h2o-danube-3-4b"
 PREFILL_S = 32768
 FP32_CHECK_S = 8192
@@ -507,6 +521,31 @@ def flash_bound(b, sq, skv, hq, hkv, d, window, dtype=torch.bfloat16):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
+def exp_floor_ms(b, sq, skv, hq, window, dev: torch.device) -> float:
+    """One exp2 per unmasked (query, key) pair and query head on the
+    special-function units, at ``EXP2_PER_CLOCK_PER_SM`` a clock on every SM
+    at the maximum SM clock.  Printed beside the bound, which it does not
+    change."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rate = EXP2_PER_CLOCK_PER_SM * sms * max_sm_clock_hz()
+    return b * hq * attention_pairs(sq, skv, True, window) / rate * 1e3
+
+
+def key_tiles(sq, skv, window) -> dict:
+    """The 128 x 128 tiles the wgmma route visits per (batch, head), and
+    how many of them compare positions (``kernel.kv_tiles``)."""
+    tiles = [t for q0 in range(0, sq, k2.BLOCK_M)
+             for t in k2.kv_tiles(q0, sq, skv, True, window)]
+    return {"tiles": len(tiles), "masked": sum(m for _, m in tiles)}
+
+
 def _qkv(gen, dev, dtype, b, sq, skv, hq, hkv, d):
     return [torch.randn(shape, generator=gen, device=dev).to(dtype)
             for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
@@ -514,6 +553,10 @@ def _qkv(gen, dev, dtype, b, sq, skv, hq, hkv, d):
 
 def _heads(x):  # (B, S, H, D) -> (B*H, S, D)
     return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+
+
+def _bshd(x):  # (BH, S, D) -> a (1, S, BH, D) view
+    return x.unsqueeze(0).transpose(1, 2)
 
 
 def sdpa_yardstick(q, k, v, window: int):
@@ -541,22 +584,61 @@ def sdpa_yardstick(q, k, v, window: int):
     return run, backend.name
 
 
+def _flash_case(gen, dev, dtype, case):
+    """q, k, v of one ``FLASH_CHECKS`` case and ``run(route)``: the case's
+    entry point with the route ``kernel.route`` picks (None) or a forced
+    one, returning (B*H_q, S_q, D)."""
+    b, sq, skv, hq, hkv, d, window, layout = case
+    if layout == "slice":   # head slices of one fused tensor (S_q = S_kv)
+        fused = torch.randn((b, sq, hq + 2 * hkv, d), generator=gen, device=dev).to(dtype)
+        q, k, v = fused[:, :, :hq], fused[:, :, hq:hq + hkv], fused[:, :, hq + hkv:]
+    else:
+        q, k, v = _qkv(gen, dev, dtype, b, sq, skv, hq, hkv, d)
+    if layout == "heads":   # the reference's (BH, S, D) layout, viewed in place
+        qh, kh, vh = _heads(q), _heads(k), _heads(v)
+
+        def run(route=None):
+            if route is None:
+                return k2.flash_attention(qh, kh, vh, causal=True, window=window)
+            return _heads(k2.flash_attention_bshd(_bshd(qh), _bshd(kh), _bshd(vh),
+                                                  window=window, route=route))
+    else:
+        def run(route=None):
+            if route is None:
+                return _heads(mha(q, k, v, causal=True, window=window))
+            return _heads(k2.flash_attention_bshd(q, k, v, window=window, route=route))
+    return q, k, v, run
+
+
 def phase_flash_kernel(dev: torch.device, gen: torch.Generator) -> dict:
     checks, timings = [], {}
     worst_bf16_abs = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for (b, sq, skv, hq, hkv, d, window) in FLASH_CHECKS:
-            q, k, v = _qkv(gen, dev, dtype, b, sq, skv, hq, hkv, d)
-            out = mha(q, k, v, causal=True, window=window)
+        for case in FLASH_CHECKS:
+            b, sq, skv, hq, hkv, d, window, layout = case
+            q, k, v, run = _flash_case(gen, dev, dtype, case)
             ref = attention_ref(_heads(q), _heads(k), _heads(v), causal=True, window=window)
-            torch.cuda.synchronize()
-            shape = [b, sq, skv, hq, hkv, d, window]
-            e = _check_rows("flash-kernel", f"K2 {str(dtype)[6:]} {shape}", _heads(out),
-                            ref, ROW_TOL[dtype])
-            checks.append({"shape": shape, "dtype": str(dtype), **e})
-            if dtype == torch.bfloat16:
-                worst_bf16_abs = max(worst_bf16_abs, e["max_abs_err"])
-            del q, k, v, out, ref
+            auto = k2.route(d, dtype, k2.aligned(q, k, v))
+            for forced in (None, "mma") if auto == "wgmma" else (None,):
+                want = forced or auto
+                k2.reset_launches()
+                out = run(forced)
+                again = run(forced) if want == "wgmma" else out
+                torch.cuda.synchronize()
+                moved = {r: n for r, n in k2.launches_by_route.items() if n}
+                if moved != {want: 2 if want == "wgmma" else 1}:
+                    raise AssertionError(f"K2 {list(case)} {dtype} launched {moved}, "
+                                         f"meant for {want}")
+                if not torch.equal(out, again):
+                    raise AssertionError(f"two wgmma launches disagree at {list(case)}")
+                e = _check_rows("flash-kernel", f"K2 {str(dtype)[6:]} {want:5s} {list(case)}",
+                                out, ref, ROW_TOL[dtype])
+                checks.append({"shape": list(case), "dtype": str(dtype), "route": want,
+                               "rerun_bitwise_equal": want == "wgmma", **e})
+                if dtype == torch.bfloat16:
+                    worst_bf16_abs = max(worst_bf16_abs, e["max_abs_err"])
+                del out, again
+            del q, k, v, run, ref
             torch.cuda.empty_cache()
     for name, (b, sq, skv, hq, hkv, d, window) in FLASH_TIMED.items():
         q, k, v = _qkv(gen, dev, torch.bfloat16, b, sq, skv, hq, hkv, d)
@@ -565,33 +647,50 @@ def phase_flash_kernel(dev: torch.device, gen: torch.Generator) -> dict:
         g = hq // hkv
         kept = {}
 
-        def kern():
+        def kern():   # the path's call: mha, which takes the wgmma route
             kept["out"] = mha(q, k, v, causal=True, window=window)
+
+        def mma():
+            kept["mma"] = k2.flash_attention_bshd(q, k, v, window=window, route="mma")
 
         def plain():  # head by head (B = 1): one head's (S, S) scores at a time
             kept["ref"] = [attention_ref(qh[h:h + 1], kh[h // g:h // g + 1],
                                          vh[h // g:h // g + 1], causal=True, window=window)
                            for h in range(qh.shape[0])]
 
+        k2.reset_launches()
+        kern()
+        if {r: n for r, n in k2.launches_by_route.items() if n} != {"wgmma": 1}:
+            raise AssertionError(f"{name}: mha took {k2.launches_by_route}, not wgmma")
         t = {}
-        # in turns: kernel, library, plain, kernel, library
-        for key in ("ms", "library_ms", "plain_ms", "ms", "library_ms"):
-            fn = {"ms": kern, "library_ms": sdpa, "plain_ms": plain}[key]
+        # in turns: wgmma, mma, library, plain, library, mma, wgmma
+        for key in ("ms", "mma_ms", "library_ms", "plain_ms", "library_ms", "mma_ms", "ms"):
+            fn = {"ms": kern, "mma_ms": mma, "library_ms": sdpa, "plain_ms": plain}[key]
             t.setdefault(key, []).append(event_ms(fn, 1 if key == "plain_ms" else 5))
-        e = _check_rows("flash-kernel", f"K2 bfloat16 {name} {[b, sq, skv, hq, hkv, d, window]}",
-                        _heads(kept["out"]), torch.cat(kept["ref"]), ROW_TOL[torch.bfloat16])
-        worst_bf16_abs = max(worst_bf16_abs, e["max_abs_err"])
-        del kept
+        ref = torch.cat(kept["ref"])
+        shape = [b, sq, skv, hq, hkv, d, window]
+        e = _check_rows("flash-kernel", f"K2 bfloat16 wgmma {name} {shape}",
+                        _heads(kept["out"]), ref, ROW_TOL[torch.bfloat16])
+        e_mma = _check_rows("flash-kernel", f"K2 bfloat16 mma   {name} {shape}",
+                            _heads(kept["mma"]), ref, ROW_TOL[torch.bfloat16])
+        worst_bf16_abs = max(worst_bf16_abs, e["max_abs_err"], e_mma["max_abs_err"])
+        del kept, ref
         bms, by = flash_bound(b, sq, skv, hq, hkv, d, window)
-        row = {"shape": [b, sq, skv, hq, hkv, d, window], "dtype": "bfloat16",
+        row = {"shape": shape, "dtype": "bfloat16", "route": "wgmma",
                **{key: min(v) for key, v in t.items()}, "runs": t, "check": e,
-               "bound_ms": bms, "bound_by": by, "sdpa_backend": backend,
-               "pairs_per_head": attention_pairs(sq, skv, True, window)}
+               "check_mma": e_mma, "bound_ms": bms, "bound_by": by,
+               "exp_floor_ms": exp_floor_ms(b, sq, skv, hq, window, dev),
+               "sdpa_backend": backend, "pairs_per_head": attention_pairs(sq, skv, True, window),
+               **key_tiles(sq, skv, window)}
         row["bound_share"] = bms / row["ms"]
+        row["tflops"] = 4.0 * d * b * hq * row["pairs_per_head"] / row["ms"] / 1e9
         timings[name] = row
-        log(f"[flash-time] {name} {row['shape']} K2 {row['ms']:.3f}ms bound {bms:.3f}ms "
-            f"({by}, {row['bound_share']:.1%}) sdpa[{backend}] {row['library_ms']:.3f}ms "
-            f"plain (head by head, full S) {row['plain_ms']:.3f}ms")
+        log(f"[flash-time] {name} {shape} K2 wgmma {row['ms']:.3f}ms ({row['tflops']:.0f} "
+            f"TFLOP/s on unmasked pairs) mma {row['mma_ms']:.3f}ms bound {bms:.3f}ms ({by}, "
+            f"{row['bound_share']:.1%}) exp floor {row['exp_floor_ms']:.3f}ms "
+            f"sdpa[{backend}] {row['library_ms']:.3f}ms plain (head by head, full S) "
+            f"{row['plain_ms']:.3f}ms; {row['tiles']} tiles of 128x128 per head, "
+            f"{row['masked']} masked")
         del q, k, v, qh, kh, vh, sdpa
         torch.cuda.empty_cache()
     return {"checks": checks, "timings": timings, "worst_bf16_abs_err": worst_bf16_abs,
@@ -673,23 +772,26 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
     want = {"K2": cfg.num_layers, "K1": 7 * cfg.num_layers}
     with torch.no_grad():
         k1.reset_launches()
-        k2.launches = 0
+        k2.reset_launches()
         t0 = time.perf_counter()
         logits, _ = model.forward(params, tokens)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         got = {"K2": k2.launches, "K1": k1.launches}
         by_route = {r: v for r, v in k1.launches_by_route.items() if v}
+        k2_routes = {r: v for r, v in k2.launches_by_route.items() if v}
         log(f"[long-prefill] {cfg.name} bf16 S={PREFILL_S}: forward launched K2 "
             f"{got['K2']}x, K1 {got['K1']}x (want {want}); first call {first_s:.2f}s "
-            f"with set-up; K1 by route {by_route}")
-        if got != want or by_route != {"wide": want["K1"]}:
-            raise AssertionError(f"launches {got} (K1 {by_route}), want {want}, K1 all wide")
+            f"with set-up; K2 by route {k2_routes}, K1 by route {by_route}")
+        if (got != want or by_route != {"wide": want["K1"]}
+                or k2_routes != {"wgmma": want["K2"]}):
+            raise AssertionError(f"launches {got} (K2 {k2_routes}, K1 {by_route}), want "
+                                 f"{want}, K2 all wgmma, K1 all wide")
         if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"logits malformed: {tuple(logits.shape)}")
         k1.reset_launches()
-        k2.launches = 0
+        k2.reset_launches()
         loss, parts = model.loss(params, {"tokens": tokens, "labels": labels})
         loss = loss.item()
         if (k2.launches, k1.launches) != (want["K2"], want["K1"]) or not math.isfinite(loss):
@@ -720,23 +822,27 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
             raise AssertionError(f"the limit {PREFILL_LOGITS_TOL} cannot tell the xla route "
                                  f"from a wrong attention core ({what}): {routes[what]}")
     k2_ms = cfg.num_layers * flash["timings"]["danube"]["ms"]
+    k2_mma_ms = cfg.num_layers * flash["timings"]["danube"]["mma_ms"]
     k1_fwd = {key: cfg.num_layers * sum(r[key] for r in flash["projections"])
               for key in ("ms", "wide128_ms", "library_ms", "plain_ms", "bound_ms")}
     k1_ms = k1_fwd["ms"]
     tok_s = PREFILL_S / (fwd_ms / 1e3)
     log(f"[long-prefill] forward device time {fwd_ms:.1f}ms ({tok_s:.0f} prefill tokens/s); "
         f"K1 {k1_ms:.1f}ms ({k1_ms / fwd_ms:.1%}), K2 {k2_ms:.1f}ms ({k2_ms / fwd_ms:.1%}), "
-        f"rest {fwd_ms - k1_ms - k2_ms:.1f}ms; K1's {want['K1']} products: 128x128 tile "
+        f"rest {fwd_ms - k1_ms - k2_ms:.1f}ms; K2's {want['K2']} launches on the mma route "
+        f"{k2_mma_ms:.1f}ms; K1's {want['K1']} products: 128x128 tile "
         f"{k1_fwd['wide128_ms']:.1f}ms, torch.matmul "
         f"{k1_fwd['library_ms']:.1f}ms, plain {k1_fwd['plain_ms']:.1f}ms, "
         f"bound {k1_fwd['bound_ms']:.1f}ms")
     del params
     torch.cuda.empty_cache()
     fp32 = fp32_check(dev)
-    return {"launches": want, "k1_routes": by_route, "first_forward_s": first_s, "loss": loss, "xla_loss": xloss,
+    return {"launches": want, "k1_routes": by_route, "k2_routes": k2_routes,
+            "first_forward_s": first_s, "loss": loss, "xla_loss": xloss,
             "ce": parts["ce"].item(), "logits_rel_err": rel, "routes": routes,
             "forward_ms": fwd_ms,
             "tokens_per_s": tok_s, "k1_ms": k1_ms, "k1_per_forward": k1_fwd, "k2_ms": k2_ms,
+            "k2_mma_ms": k2_mma_ms,
             "fp32": fp32,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -753,9 +859,9 @@ def fp32_check(dev: torch.device) -> dict:
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, FP32_CHECK_S)))
     tokens = tokens.to(dev)
     with torch.no_grad():
-        k2.launches = 0
+        k2.reset_launches()
         flash_logits, _ = model.forward(params, tokens)
-        launches = k2.launches
+        launches = k2.launches_by_route["fma"]
         xla_logits, _ = xla.forward(params, tokens)
         e = row_err(flash_logits, xla_logits)
     rel = e["row_rel"]
@@ -785,22 +891,32 @@ def decode_step_row(timings: list, m: int = 4) -> dict:
 
 
 def flash_row(report: dict) -> dict:
-    """K2's entry: one long-prefill forward's 24 launches at danube's shape."""
+    """K2's entry: one long-prefill forward's 24 launches at danube's shape,
+    all on the wgmma route; each route's time per launch at both timed
+    shapes beside it."""
     layers = get_config(PREFILL_ARCH).num_layers
-    t = report["flash_kernel"]["timings"]["danube"]
+    timings = report["flash_kernel"]["timings"]
+    t = timings["danube"]
     return {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
         "launches": report["long_prefill"]["launches"]["K2"],
         "launches_by_path": {"long_prefill": report["long_prefill"]["launches"]["K2"]},
+        "routes": {"long_prefill": report["long_prefill"]["k2_routes"],
+                   "long_prefill_fp32_check": {"fma": report["long_prefill"]["fp32"]["launches"]}},
         "max_abs_err": report["flash_kernel"]["worst_bf16_abs_err"],
         **{key: layers * t[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": t["bound_by"],
         "work": f"one bf16 long-prefill forward of {PREFILL_ARCH}: {layers} launches at "
                 f"(B, S_q, S_kv, H_q, H_kv, D, window) = {tuple(t['shape'])}; library: "
                 f"scaled_dot_product_attention[{t['sdpa_backend']}]",
+        "per_launch": {name: {key: r[key] for key in (
+            "shape", "ms", "mma_ms", "bound_ms", "exp_floor_ms", "library_ms", "plain_ms",
+            "sdpa_backend", "tflops")} for name, r in timings.items()},
+        "sources": {"wgmma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
+                    "mma, fma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"},
     }
 
 

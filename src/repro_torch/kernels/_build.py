@@ -10,9 +10,12 @@ several sources compiles them in parallel, one ``nvcc`` each, then links
 them.  Libraries land
 in ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing is built at
-import: the first launch builds.  A failed build raises with the
-compiler's output.
+source rebuilds and an unchanged one is reused.  Headers shared by
+several kernels (``kernels/common/*.cuh``: the Hopper primitives) are on
+every build's include path and in every library's hash, so an edit to
+one rebuilds each kernel that includes it.  Nothing is built at import:
+the first launch builds.  A failed build raises with the compiler's
+output.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+COMMON = Path(__file__).resolve().parent / "common"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -61,7 +65,9 @@ def nvcc() -> str:
 
 
 def sources(kern: Kernel) -> list:
-    return sorted(kern.csrc.glob("*.cu")) + sorted(kern.csrc.glob("*.cuh"))
+    """The kernel's own sources and headers, then the shared headers."""
+    return (sorted(kern.csrc.glob("*.cu")) + sorted(kern.csrc.glob("*.cuh"))
+            + sorted(COMMON.glob("*.cuh")))
 
 
 def library_path(kern: Kernel) -> Path:
@@ -95,8 +101,8 @@ def build(kern: Kernel) -> Path:
 
 def _nvcc(kern: Kernel, args: list) -> str:
     """Run nvcc with the shared flags; raise with its output on failure."""
-    res = subprocess.run([nvcc(), *NVCC_FLAGS, *args], capture_output=True, text=True,
-                         timeout=600)
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, f"-I{COMMON}", *args], capture_output=True,
+                         text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {kern.name} ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")

@@ -5,7 +5,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace zorder {
+
+using hopper::smem_addr;
 
 using bf16 = __nv_bfloat16;
 
@@ -25,10 +29,6 @@ __device__ __forceinline__ void store_pair(float* p, float x, float y) {
 }
 __device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16-byte cp.async; src_bytes = 0 fills the destination with zeros.

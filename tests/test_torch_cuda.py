@@ -219,3 +219,99 @@ def test_danube_smoke_flash_forward_on_card_matches_cpu(cuda_device):
     assert out["cuda"][1:] == (cfg.num_layers, 7 * cfg.num_layers)
     assert out["cpu"][1:] == (0, 0)
     assert _rel_err(out["cuda"][0], out["cpu"][0]) < 1e-4
+
+
+# K2's wgmma route, (B, S_q, S_kv, H_q, H_kv, D, causal, window): head dims
+# 64, 80, 120 and 128; GQA groups 1 and 4; ragged S_q and S_kv; windows 200
+# and 4032; S_q > S_kv with a window, so that the last rows see no key and
+# output 0; non-causal with and without a window; a 255-key window, which
+# puts tiles' first keys exactly one window before their last rows.
+WGMMA_SHAPES = [(1, 256, 256, 4, 1, 64, True, 0), (2, 300, 300, 4, 4, 80, True, 0),
+                (1, 520, 700, 8, 2, 120, True, 200), (1, 4500, 4500, 4, 1, 128, True, 4032),
+                (1, 700, 300, 4, 1, 120, True, 64), (2, 200, 333, 2, 2, 64, False, 0),
+                (1, 1000, 1024, 4, 4, 120, False, 100), (1, 4200, 4200, 4, 1, 120, True, 4032),
+                (1, 1000, 1000, 4, 1, 120, True, 255)]
+ROW_TOL_BF16 = 1e-2   # worst output row's relative L2 error (chip_smoke.py's ROW_TOL)
+
+
+def _row_rel(out, ref):
+    """The worst row's ||out - ref|| / ||ref||; a row that is 0 in ref must
+    be 0 in out (anything else reads about 1e30)."""
+    o = out.float().reshape(-1, out.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    return ((o - r).norm(dim=1) / r.norm(dim=1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_wgmma_route_matches_plain_version_row_by_row(cuda_device, shape):
+    b, sq, skv, hq, hkv, d, causal, window = shape
+    q, k, v = _qkv(cuda_device, torch.bfloat16, b, sq, skv, hq, hkv, d, seed=sq + d)
+    k2.kernel.reset_launches()
+    out = k2.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k2.kernel.launches_by_route == {"wgmma": 1, "mma": 0, "fma": 0}
+    ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), causal=causal, window=window)
+    assert _row_rel(_heads(out), ref) < ROW_TOL_BF16
+    if sq > skv + window > window > 0:
+        assert not _heads(out)[:, skv + window:].any()   # rows past every key's window
+
+
+@pytest.mark.cuda
+def test_wgmma_route_reads_strided_views(cuda_device):
+    """Head slices of one fused (B, S, H_q + 2 H_kv, D) tensor, and the
+    reference's (BH, S, D) entry, read in place: the same bits as on
+    contiguous copies, within the limit of the plain version."""
+    b, s, hq, hkv, d = 2, 384, 8, 2, 120
+    rng = np.random.default_rng(7)
+    fused = torch.from_numpy(rng.standard_normal((b, s, hq + 2 * hkv, d), dtype=np.float32))
+    fused = fused.to(cuda_device, torch.bfloat16)
+    q, k, v = fused[:, :, :hq], fused[:, :, hq:hq + hkv], fused[:, :, hq + hkv:]
+    k2.kernel.reset_launches()
+    sliced = k2.mha(q, k, v, causal=True, window=200)
+    dense = k2.mha(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=200)
+    heads = k2.flash_attention(_heads(q), _heads(k), _heads(v), causal=True, window=200)
+    torch.cuda.synchronize()
+    assert k2.kernel.launches_by_route["wgmma"] == 3
+    assert torch.equal(sliced, dense) and torch.equal(_heads(sliced), heads)
+    ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), causal=True, window=200)
+    assert _row_rel(heads, ref) < ROW_TOL_BF16
+
+
+@pytest.mark.cuda
+def test_wgmma_route_reruns_bitwise_and_runs_in_a_cuda_graph(cuda_device):
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 1000, 1000, 8, 2, 120, seed=3)
+    first = k2.mha(q, k, v, causal=True, window=256)
+    again = k2.mha(q, k, v, causal=True, window=256)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    k2.kernel.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k2.mha(q, k, v, causal=True, window=256)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert k2.kernel.launches_by_route["wgmma"] == 1
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+def test_forced_routes(cuda_device):
+    """A forced route runs its own kernel or raises; never another one."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 300, 300, 4, 2, 120, seed=5)
+    k2.kernel.reset_launches()
+    wg = k2.kernel.flash_attention_bshd(q, k, v, window=100, route="wgmma")
+    mma = k2.kernel.flash_attention_bshd(q, k, v, window=100, route="mma")
+    torch.cuda.synchronize()
+    assert k2.kernel.launches_by_route == {"wgmma": 1, "mma": 1, "fma": 0}
+    assert k2.kernel.launches == 2
+    ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), window=100)
+    assert _row_rel(_heads(wg), ref) < ROW_TOL_BF16 and _row_rel(_heads(mma), ref) < ROW_TOL_BF16
+    k2.kernel.reset_launches()
+    assert k2.kernel.launches == 0 and not any(k2.kernel.launches_by_route.values())
+    q32, k32, v32 = _qkv(cuda_device, torch.bfloat16, 1, 64, 64, 2, 1, 32)
+    with pytest.raises(ValueError, match="wgmma route takes"):
+        k2.kernel.flash_attention_bshd(q32, k32, v32, route="wgmma")
+    with pytest.raises(ValueError, match="fma route takes"):
+        k2.kernel.flash_attention_bshd(q, k, v, route="fma")
+    assert k2.kernel.launches == 0

@@ -49,7 +49,8 @@ def _max_abs(port, ref):
 
 
 # (B, S_q, S_kv, H_q, H_kv, D, causal, window, dtype): the reference's cases
-# in tests/test_kernels.py, then head dim 120 (danube) at S = 256 and 384.
+# in tests/test_kernels.py, then head dims 120 (danube), 80 (zamba2) and 128
+# at S = 256 and 384.
 MHA_CASES = [
     *[(2, 256, 256, hq, hkv, 32, True, 0, dt)
       for (hq, hkv) in ((4, 4), (4, 2), (8, 1)) for dt in ("float32", "bfloat16")],
@@ -59,6 +60,10 @@ MHA_CASES = [
     (1, 256, 256, 4, 2, 120, True, 0, "float32"),
     (1, 384, 384, 4, 2, 120, True, 200, "float32"),
     (1, 384, 384, 4, 1, 120, True, 0, "bfloat16"),
+    (1, 256, 256, 4, 2, 80, True, 0, "float32"),
+    (1, 384, 384, 4, 1, 80, True, 200, "bfloat16"),
+    (1, 256, 256, 2, 2, 128, True, 0, "float32"),
+    (1, 384, 384, 4, 1, 128, True, 200, "bfloat16"),
 ]
 
 
