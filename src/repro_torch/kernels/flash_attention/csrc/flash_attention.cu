@@ -1,5 +1,8 @@
 // Flash attention for Hopper (sm_90a): online-softmax attention with causal
-// and sliding-window masks and grouped-query heads.
+// and sliding-window masks and grouped-query heads.  K2's mma route (bf16
+// head dims below 64, or any bf16 call forced onto it) and fma route (fp32);
+// bf16 head dims 64-128 take the wgmma route in flash_attention_wgmma.cu.
+// The CTA tile, key range and masks are shared with it (flash_common.cuh).
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention (the
 // Pallas TPU kernel, body _flash_kernel).  Same function: for each query
@@ -54,9 +57,9 @@
 // the D = 64 shape needs about 4 ms of exps alone.  What the design does:
 // tensor-core products for both GEMMs, tiles outside the masks skipped,
 // tiles wholly inside them unmasked, P kept in registers between the two
-// products.  What it does not do yet: wgmma (mma.sync reaches well under
-// the wgmma peak), TMA, and warp specialisation to overlap the exps of one
-// tile with the products of the next.
+// products.  What it does not do: wgmma (mma.sync reaches well under the
+// wgmma peak), TMA, and warp specialisation to overlap the exps of one
+// tile with the products of the next; the wgmma route does all three.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

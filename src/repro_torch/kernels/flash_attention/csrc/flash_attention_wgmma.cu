@@ -15,9 +15,10 @@
 // 4.40 TFLOP at Llama's D = 64 causal, S = 32768, 32 query heads): 2.0 and
 // 4.4 ms at the 989 TFLOP/s bf16 tensor-core peak, against 0.2 ms to move
 // Q, K, V and O once.  Beside it stands an exp floor: one exp2 per unmasked
-// pair on the special-function units (16 a clock per SM), about 1.1 ms at
-// danube's shape and 4.6 ms at Llama's, as long as the tensor bound itself
-// at D = 64.  What the design does about each:
+// pair on the special-function units (16 a clock per SM), about 1.0 ms at
+// danube's shape and 4.1 ms at Llama's at a 1980 MHz SM clock, nearly as
+// long as the tensor bound itself at D = 64.  What the design does about
+// each:
 //
 // * wgmma.  S = Q K^T is m64n128k16 with both operands in shared memory
 //   (Q and K K-major, D contiguous); O += P V is m64nDk16 with P in
@@ -50,7 +51,8 @@
 //   first tile the window admits to the last one the causal mask admits);
 //   only the tiles tile_needs_mask marks (the first and last of the range)
 //   compare positions, every other tile runs unmasked.  The softmax runs in
-//   base 2 with scale * log2(e) applied to the fp32 scores after the product.
+//   base 2 with scale * log2(e) applied to the fp32 scores after the product,
+//   folded into one FFMA per probability: exp2(s * scale * log2(e) - max).
 // * Epilogue.  Each consumer warpgroup divides by l, rounds to bf16, stages
 //   its 64 rows in its half of the Q buffer (free once its last QK^T is
 //   done) and writes rows < S_q, columns < D with 16-byte stores.
@@ -97,8 +99,6 @@ struct WgTile {
 // Named barriers: the consumers' turns to issue products (1, 2) and each
 // consumer warpgroup's epilogue (3, 4).  0 is __syncthreads.
 constexpr int kBarTurn = 1, kBarEpilogue = 3;
-// Whether the consumer warpgroups take turns at the tensor cores.
-constexpr bool kPingPong = true;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -213,6 +213,10 @@ __global__ void __launch_bounds__(T::kThreads, 1)
     const int rq = (tid / 32) * 16 + lane / 4;  // this thread's rows rq and rq + 8 of the 64
     const int r0 = t.q0 + g * 64 + rq;
     const float sl2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
+    // A positive scale multiplies inside the exponent's FFMA (c = sl2);
+    // any other is applied to the scores first (c = 1, exactly s - max).
+    const bool positive = sl2 > 0.f;
+    const float c = positive ? sl2 : 1.f;
     const uint32_t q_addr = smem_addr(Qs) + g * 64 * 128;
 
     float o[T::kO];
@@ -224,7 +228,7 @@ __global__ void __launch_bounds__(T::kThreads, 1)
 
     if (ntiles > 0) {
       mbar_wait(bar_q, 0);
-      if (kPingPong && g == 1) bar_arrive(kBarTurn, 256);  // warpgroup 0 issues first
+      if (g == 1) bar_arrive(kBarTurn, 256);  // warpgroup 0 issues first
       int ks = 0, kph = 0, vs = 0, vph = 0;
       for (int it = 0; it < ntiles; ++it) {
         const int j0 = jb + it * BN;
@@ -236,7 +240,7 @@ __global__ void __launch_bounds__(T::kThreads, 1)
         // while this one runs its softmax.  PV is done before QK^T starts,
         // so P and S are never live together (ptxas holds every thread to
         // the launch's 168 registers).
-        if (kPingPong) bar_sync(kBarTurn + g, 256);
+        bar_sync(kBarTurn + g, 256);
         wgmma_fence();
         if (it > 0) {
           issue_pv<T>(o, pf, smem_addr(Vs + vs * T::kKVBytes));
@@ -248,28 +252,33 @@ __global__ void __launch_bounds__(T::kThreads, 1)
         }
         issue_qk<T>(s, q_addr, smem_addr(Ks + ks * T::kKVBytes));
         wgmma_commit();
-        if (kPingPong && (g == 0 || it + 1 < ntiles)) bar_arrive(kBarTurn + 1 - g, 256);
+        if (g == 0 || it + 1 < ntiles) bar_arrive(kBarTurn + 1 - g, 256);
         wgmma_wait<0>();
         fence_accum(s);
         if (lane == 0) mbar_arrive(&empty_k[ks]);
         if (++ks == STAGES) ks = 0, kph ^= 1;
 
         // Online softmax in base 2.  s[i]: row rq + 8 ((i >> 1) & 1), key
-        // j0 + 8 (i >> 2) + 2 (lane % 4) + (i & 1).
+        // j0 + 8 (i >> 2) + 2 (lane % 4) + (i & 1).  With a positive scale
+        // the max is taken over the raw scores and scaled once, so that each
+        // probability is one FFMA and one exp2: exp2(s * sl2 - max).
+        if (!positive) {
 #pragma unroll
-        for (int i = 0; i < T::kS; ++i) s[i] *= sl2;
+          for (int i = 0; i < T::kS; ++i) s[i] *= sl2;
+        }
         if (tile_needs_mask(p, t.q0, q_last, j0, BN)) {
 #pragma unroll
           for (int i = 0; i < T::kS; ++i)
             if (!key_valid(p, r0 + 8 * ((i >> 1) & 1), j0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)))
               s[i] = -INFINITY;
         }
-        float mx[2] = {m[0], m[1]};
+        float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
         for (int i = 0; i < T::kS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
         float alpha[2], mu[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(m[r], mx[r] * c);
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
           // a row with no valid key so far keeps max -inf: subtract 0 so that
@@ -281,7 +290,7 @@ __global__ void __launch_bounds__(T::kThreads, 1)
         }
 #pragma unroll
         for (int i = 0; i < T::kS; ++i) {
-          s[i] = ex2(s[i] - mu[(i >> 1) & 1]);
+          s[i] = ex2(fmaf(s[i], c, -mu[(i >> 1) & 1]));
           l[(i >> 1) & 1] += s[i];
         }
 #pragma unroll

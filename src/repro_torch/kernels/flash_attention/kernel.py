@@ -10,10 +10,10 @@ route refuses raises, it never moves to another route:
 
 * ``wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16, 64 <= D <= 128, D a
   multiple of 8, 16-byte aligned bases and (batch, seq, head) strides that
-  are multiples of 8 elements (what TMA takes).  A producer warpgroup
-  streams Q, K and V by TMA through 4-D tensor maps (``tma_geometry``),
-  two consumer warpgroups run ``wgmma`` on 128 x 128 tiles and take turns
-  at the tensor cores so that one's softmax overlaps the other's products.
+  are multiples of 8 elements (what TMA takes).  A producer warp streams
+  Q, K and V by TMA through 4-D tensor maps (``tma_geometry``), two
+  consumer warpgroups run ``wgmma`` on 128 x 128 tiles and take turns at
+  the tensor cores so that one's softmax overlaps the other's products.
 * ``mma`` (``csrc/flash_attention.cu``): every other bf16 call; takes
   D <= 128 with the same alignment (``cp.async`` double buffering,
   ``mma.sync`` on 64 x 64 tiles) and raises on the rest.

@@ -315,3 +315,17 @@ def test_forced_routes(cuda_device):
     with pytest.raises(ValueError, match="fma route takes"):
         k2.kernel.flash_attention_bshd(q, k, v, route="fma")
     assert k2.kernel.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.3, -0.2, 0.0])
+def test_wgmma_route_takes_any_scale(cuda_device, scale):
+    """A positive scale is folded into the exponent's FFMA; a negative or
+    zero one is applied to the scores first.  Both match the plain version."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 300, 300, 4, 2, 64, seed=11)
+    k2.kernel.reset_launches()
+    out = k2.mha(q, k, v, causal=True, window=100, scale=scale)
+    torch.cuda.synchronize()
+    assert k2.kernel.launches_by_route["wgmma"] == 1
+    ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), window=100, scale=scale)
+    assert _row_rel(_heads(out), ref) < ROW_TOL_BF16

@@ -192,3 +192,18 @@ def test_flash_attention_bshd_refuses_cpu_tensors_and_counts_nothing():
         k2.flash_attention_bshd(q, q, q, route="wgmma")
     assert k2.launches == 0 and set(k2.launches_by_route) == set(k2.ROUTES)
     assert not any(k2.launches_by_route.values())
+
+
+def test_every_variant_edits_the_committed_source(tmp_path, monkeypatch):
+    """variants.py times edited copies of the wgmma route; each edit must
+    still find the lines it replaces in the committed source."""
+    from repro_torch.kernels.flash_attention import variants
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    kerns = variants.variant_kernels()
+    assert set(kerns) == {"kept", *variants.VARIANTS}
+    committed = (k2.KERNEL.csrc / variants.SOURCE).read_text()
+    for name, kern in kerns.items():
+        text = (kern.csrc / variants.SOURCE).read_text()
+        assert (text == committed) == (name == "kept"), name
+        assert _build.library_path(kern) != _build.library_path(k2.KERNEL) or name == "kept"
