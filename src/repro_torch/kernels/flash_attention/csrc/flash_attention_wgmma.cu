@@ -43,14 +43,15 @@
 //   of the last tile, waits for it, then issues S = Q K^T of this tile:
 //   P and S are never live together.  ptxas (CUDA 12.9) holds every thread
 //   of a 288- or 384-thread CTA to 168 registers whatever setmaxnreg asks
-//   for, and keeping PV in flight across the softmax (P, S and O live at
-//   once) spilled to local memory and ran slower at both long-prefill
-//   shapes (PERF.md, PR 14); so there is no setmaxnreg and the producer is
-//   one warp.
+//   for, so there is no setmaxnreg and the producer is one warp.  Keeping
+//   PV in flight across the softmax instead (P, S and O live at once)
+//   spills at D = 128 and, even at D = 64 where it does not, runs slower
+//   at both long-prefill shapes (variants.py; PERF.md, PR 14).
 // * Masks.  The producer walks only the key tiles in kv_range (from the
 //   first tile the window admits to the last one the causal mask admits);
 //   only the tiles tile_needs_mask marks (the first and last of the range)
-//   compare positions, every other tile runs unmasked.  The softmax runs in
+//   compare positions, one unsigned compare per score against the row's
+//   key interval; every other tile runs unmasked.  The softmax runs in
 //   base 2 with scale * log2(e) applied to the fp32 scores after the product,
 //   folded into one FFMA per probability: exp2(s * scale * log2(e) - max).
 // * Epilogue.  Each consumer warpgroup divides by l, rounds to bf16, stages
@@ -267,10 +268,21 @@ __global__ void __launch_bounds__(T::kThreads, 1)
           for (int i = 0; i < T::kS; ++i) s[i] *= sl2;
         }
         if (tile_needs_mask(p, t.q0, q_last, j0, BN)) {
+          // Row r admits the keys [lo, hi) (key_valid's rule): one unsigned
+          // compare per score, modulo 2^32, so lo may be negative.
 #pragma unroll
-          for (int i = 0; i < T::kS; ++i)
-            if (!key_valid(p, r0 + 8 * ((i >> 1) & 1), j0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)))
-              s[i] = -INFINITY;
+          for (int h = 0; h < 2; ++h) {
+            const int row = r0 + 8 * h;
+            const int hi = p.causal ? min(p.Skv, row + 1) : p.Skv;
+            const int lo = p.window > 0 ? row - p.window + 1 : 0;
+            const unsigned span = hi > lo ? (unsigned)hi - (unsigned)lo : 0u;
+            const unsigned key = (unsigned)(j0 + 2 * (lane & 3)) - (unsigned)lo;
+#pragma unroll
+            for (int i = 2 * h; i < T::kS; i += 4) {
+              if (key + 8 * (i >> 2) >= span) s[i] = -INFINITY;
+              if (key + 8 * (i >> 2) + 1 >= span) s[i + 1] = -INFINITY;
+            }
+          }
         }
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
