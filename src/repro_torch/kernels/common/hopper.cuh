@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives shared by the hand-written kernels: mbarriers
 // with a bounded wait, TMA tile loads, wgmma descriptors, fences and
 // products, register rebalancing between warpgroups, named barriers, and
-// the driver's tensor-map encoder reached through the runtime.
+// cuTensorMapEncodeTiled reached through the runtime.
 //
 // Included by K1's wide route (kernels/matmul/csrc/zorder_matmul_wide.cu)
 // and K2's wgmma route (kernels/flash_attention/csrc/flash_attention_wgmma.cu);
@@ -231,7 +231,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
 }
 
-// --- host: the driver's tensor-map encoder ---------------------------------
+// --- host: the tensor-map encoder ------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -239,7 +239,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled, looked up once through the runtime so that a
-// library links nothing beyond it; nullptr if the driver lacks it.
+// library links nothing beyond it; nullptr where it is missing.
 inline EncodeTiledFn encode_fn() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {

@@ -46,7 +46,7 @@
 //   for, so there is no setmaxnreg and the producer is one warp.  Keeping
 //   PV in flight across the softmax instead (P, S and O live at once)
 //   spills at D = 128 and, even at D = 64 where it does not, runs slower
-//   at both long-prefill shapes (variants.py; PERF.md, PR 14).
+//   at both long-prefill shapes (variants.py; PERF.md).
 // * Masks.  The producer walks only the key tiles in kv_range (from the
 //   first tile the window admits to the last one the causal mask admits);
 //   only the tiles tile_needs_mask marks (the first and last of the range)

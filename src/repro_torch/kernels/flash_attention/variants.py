@@ -1,14 +1,15 @@
 """Time edited copies of K2's wgmma route against it, in turns, on the card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.variants
+    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.variants [OUT_DIR]
 
 Each variant is the committed ``csrc/flash_attention_wgmma.cu`` with a few
 lines replaced (``VARIANTS``), built by the shared builder under its own
 library name.  At danube's and Llama's long-prefill shapes every variant is
 held against the committed route row by row and timed with CUDA events,
 the committed route first and last; the minimum over rounds is printed
-and written to ``chiprun_out/k2_variants.json``, with each variant's
-registers and spills as ptxas reports them.  This is the measurement
+and written to ``OUT_DIR/k2_variants.json`` (by default the build
+directory), with each variant's registers and spills as ptxas reports
+them.  This is the measurement
 behind the route's design choices (see the source note): what the
 alternatives cost is printed next to what was kept.
 """
@@ -143,7 +144,7 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
+def main(out_dir: Path = _build.BUILD_DIR) -> int:
     if not torch.cuda.is_available():
         print("variants: needs an NVIDIA card", file=sys.stderr)
         return 2
@@ -187,12 +188,11 @@ def main() -> int:
             torch.cuda.empty_cache()
     finally:
         kernel.KERNEL = committed
-    out = Path(_build.BUILD_DIR).parents[1] / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "k2_variants.json").write_text(json.dumps(report, indent=1))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "k2_variants.json").write_text(json.dumps(report, indent=1))
     print(smi)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(*map(Path, sys.argv[1:2])))
