@@ -38,8 +38,10 @@ Phases, each fatal on failure (no result line, non-zero exit):
    zamba2's 80, danube's 120, 128), GQA groups 1, 2 and 4, ragged S_q and
    S_kv, S_q > S_kv with a window (rows that see no key output 0), windows
    64, 200, 4032 and 4096, head slices of a fused tensor and the (BH, S, D)
-   entry; fp32 on the fma route, bf16 on the route ``kernel.route`` picks
-   (wgmma for D >= 64, mma below) and, where that is wgmma, on the mma
+   entry, and one K/V head broadcast to two (a head stride of 0, which TMA
+   cannot read, so the mma route takes it); fp32 on the fma route, bf16 on
+   the route ``kernel.route`` picks (wgmma for D >= 64 where TMA reads the
+   tensors, mma otherwise) and, where that is wgmma, on the mma
    route too; each case's route is asserted and the wgmma route rerun
    bitwise.  Then K2 at the long-prefill shapes (S = 32768, danube's
    D = 120 with a 4096 window and Llama's D = 64 causal), bf16: both bf16
@@ -132,7 +134,8 @@ FLASH_CHECKS = [(1, 4096, 4096, 32, 8, 64, 0, "bshd"), (1, 8192, 8192, 32, 8, 12
                 (2, 300, 512, 4, 2, 120, 0, "bshd"), (2, 200, 200, 4, 1, 16, 64, "bshd"),
                 (1, 384, 384, 2, 2, 32, 200, "bshd"), (2, 1000, 1000, 8, 8, 80, 200, "bshd"),
                 (1, 4500, 4500, 8, 2, 128, 4032, "bshd"), (1, 700, 300, 4, 1, 120, 64, "bshd"),
-                (2, 384, 384, 8, 2, 120, 200, "slice"), (1, 520, 700, 8, 2, 64, 200, "heads")]
+                (2, 384, 384, 8, 2, 120, 200, "slice"), (1, 520, 700, 8, 2, 64, 200, "heads"),
+                (1, 600, 600, 8, 2, 120, 200, "expand")]
 # K2 at the long-prefill path's shapes: danube (the path) and Llama
 FLASH_TIMED = {"danube": (1, 32768, 32768, 32, 8, 120, 4096),
                "llama": (1, 32768, 32768, 32, 8, 64, 0)}
@@ -592,6 +595,9 @@ def _flash_case(gen, dev, dtype, case):
     if layout == "slice":   # head slices of one fused tensor (S_q = S_kv)
         fused = torch.randn((b, sq, hq + 2 * hkv, d), generator=gen, device=dev).to(dtype)
         q, k, v = fused[:, :, :hq], fused[:, :, hq:hq + hkv], fused[:, :, hq + hkv:]
+    elif layout == "expand":  # one K/V head broadcast (head stride 0) to H_kv heads
+        q, k, v = _qkv(gen, dev, dtype, b, sq, skv, hq, 1, d)
+        k, v = k.expand(b, skv, hkv, d), v.expand(b, skv, hkv, d)
     else:
         q, k, v = _qkv(gen, dev, dtype, b, sq, skv, hq, hkv, d)
     if layout == "heads":   # the reference's (BH, S, D) layout, viewed in place
@@ -619,6 +625,8 @@ def phase_flash_kernel(dev: torch.device, gen: torch.Generator) -> dict:
             q, k, v, run = _flash_case(gen, dev, dtype, case)
             ref = attention_ref(_heads(q), _heads(k), _heads(v), causal=True, window=window)
             auto = k2.route(d, dtype, k2.aligned(q, k, v))
+            if layout == "expand" and auto == "wgmma":   # TMA takes no stride of 0
+                raise AssertionError(f"K2 {list(case)}: a broadcast head routed to wgmma")
             for forced in (None, "mma") if auto == "wgmma" else (None,):
                 want = forced or auto
                 k2.reset_launches()
@@ -687,7 +695,8 @@ def phase_flash_kernel(dev: torch.device, gen: torch.Generator) -> dict:
         timings[name] = row
         log(f"[flash-time] {name} {shape} K2 wgmma {row['ms']:.3f}ms ({row['tflops']:.0f} "
             f"TFLOP/s on unmasked pairs) mma {row['mma_ms']:.3f}ms bound {bms:.3f}ms ({by}, "
-            f"{row['bound_share']:.1%}) exp floor {row['exp_floor_ms']:.3f}ms "
+            f"{row['bound_share']:.1%}) exp floor (at {EXP2_PER_CLOCK_PER_SM} exp2/clock/SM) "
+            f"{row['exp_floor_ms']:.3f}ms "
             f"sdpa[{backend}] {row['library_ms']:.3f}ms plain (head by head, full S) "
             f"{row['plain_ms']:.3f}ms; {row['tiles']} tiles of 128x128 per head, "
             f"{row['masked']} masked")
@@ -913,8 +922,8 @@ def flash_row(report: dict) -> dict:
                 f"(B, S_q, S_kv, H_q, H_kv, D, window) = {tuple(t['shape'])}; library: "
                 f"scaled_dot_product_attention[{t['sdpa_backend']}]",
         "per_launch": {name: {key: r[key] for key in (
-            "shape", "ms", "mma_ms", "bound_ms", "exp_floor_ms", "library_ms", "plain_ms",
-            "sdpa_backend", "tflops")} for name, r in timings.items()},
+            "shape", "ms", "mma_ms", "bound_ms", "library_ms", "plain_ms", "sdpa_backend",
+            "tflops")} for name, r in timings.items()},
         "sources": {"wgmma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
                     "mma, fma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"},
     }

@@ -497,12 +497,15 @@ cudaError_t dispatch_bf16(Params p, cudaStream_t stream) {
   p.nq = (p.Sq + kBf16BM - 1) / kBf16BM;
   const long long grid = (long long)p.nq * p.Hq * p.B;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const long long strides[] = {p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh,
-                               p.v_sb, p.v_ss, p.v_sh};
+  // The stride of a dim of extent 1 is never stepped; any other must be a
+  // multiple of 8 elements (0, a broadcast batch or head, is one).
+  const long long strides[][2] = {{p.q_sb, p.B}, {p.q_ss, p.Sq}, {p.q_sh, p.Hq},
+                                  {p.k_sb, p.B}, {p.k_ss, p.Skv}, {p.k_sh, p.Hkv},
+                                  {p.v_sb, p.B}, {p.v_ss, p.Skv}, {p.v_sh, p.Hkv}};
   bool aligned = p.D % 8 == 0 && reinterpret_cast<uintptr_t>(p.q) % 16 == 0 &&
                  reinterpret_cast<uintptr_t>(p.k) % 16 == 0 &&
                  reinterpret_cast<uintptr_t>(p.v) % 16 == 0;
-  for (long long s : strides) aligned = aligned && s % 8 == 0;
+  for (const auto& s : strides) aligned = aligned && (s[1] <= 1 || s[0] % 8 == 0);
   if (!aligned) return cudaErrorMisalignedAddress;
   return launch_bf16<DPAD>(p, (int)grid, stream);
 }

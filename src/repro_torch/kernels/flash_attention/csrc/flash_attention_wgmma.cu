@@ -46,7 +46,7 @@
 //   for, so there is no setmaxnreg and the producer is one warp.  Keeping
 //   PV in flight across the softmax instead (P, S and O live at once)
 //   spills at D = 128 and, even at D = 64 where it does not, runs slower
-//   at both long-prefill shapes (variants.py; PERF.md).
+//   at both long-prefill shapes (PERF.md).
 // * Masks.  The producer walks only the key tiles in kv_range (from the
 //   first tile the window admits to the last one the causal mask admits);
 //   only the tiles tile_needs_mask marks (the first and last of the range)
@@ -418,15 +418,17 @@ extern "C" {
 // written through its (batch, seq, head) strides in elements, the last dim
 // contiguous.  Refuses (cudaErrorInvalidValue) what this route does not
 // take: D outside 64-128 or not a multiple of 8, S_kv = 0, H_q % H_kv != 0,
-// a base not 16-byte aligned, an o stride not a multiple of 8, a geometry
-// that does not match the shapes and the compiled tiles.  Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError().
+// a base not 16-byte aligned, an o stride not a multiple of 8 on a dim
+// longer than 1, a geometry that does not match the shapes and the
+// compiled tiles.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError().
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                                  const long long* geometry, int B, int Hq, int Hkv, int Sq,
                                  int Skv, int D, long long o_sb, long long o_ss, long long o_sh,
                                  int causal, int window, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || D < 64 ||
-      D > 128 || D % 8 || o_sb % 8 || o_ss % 8 || o_sh % 8)
+      D > 128 || D % 8 || (B > 1 && o_sb % 8) || (Sq > 1 && o_ss % 8) ||
+      (Hq > 1 && o_sh % 8))
     return (int)cudaErrorInvalidValue;
   const void* bases[] = {q, k, v, o};
   for (const void* b : bases)

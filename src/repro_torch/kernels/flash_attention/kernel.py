@@ -82,12 +82,15 @@ def load() -> ctypes.CDLL:
     return _build.load(KERNEL)
 
 
-def aligned(*tensors: torch.Tensor) -> bool:
-    """Whether TMA and 16-byte copies take these (B, S, H, D) views: bases
-    16-byte aligned, and the stride of every (batch, seq, head) dim longer
-    than 1 a multiple of 8 elements (16 bf16 bytes)."""
+def aligned(*tensors: torch.Tensor, tma: bool = True) -> bool:
+    """Whether 16-byte copies take these (B, S, H, D) views: bases 16-byte
+    aligned, and the stride of every (batch, seq, head) dim longer than 1
+    a multiple of 8 elements (16 bf16 bytes).  TMA (``tma``) also needs
+    those strides positive; the mma route's copies (``tma=False``) take a
+    stride of 0, a broadcast (expanded) batch or head."""
     return all(t.data_ptr() % 16 == 0 and
-               all(st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+               all(st % 8 == 0 and (st > 0 or not tma)
+                   for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
                for t in tensors)
 
 
@@ -202,9 +205,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
     if r != "wgmma":
         if d > MAX_HEAD_DIM:
             raise ValueError(f"head dim {d} > {MAX_HEAD_DIM} is not compiled")
-        if q.dtype == torch.bfloat16 and (
-                d % 8 or any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
-                             for t in (q, k, v))):
+        if q.dtype == torch.bfloat16 and (d % 8 or not aligned(q, k, v, tma=False)):
             raise ValueError(f"bf16 flash_attention copies 16-byte chunks: head dim {d}, "
                              f"the strides and the bases of q, k, v must be multiples of 8 "
                              f"elements (16 bytes)")

@@ -279,6 +279,25 @@ def test_wgmma_route_reads_strided_views(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim", [0, 2], ids=["batch", "head"])
+def test_broadcast_kv_runs_on_the_mma_route(cuda_device, dim):
+    """K and V expanded over the batch or the KV heads (stride 0), bf16 at
+    danube's D = 120: TMA takes no stride of 0, so the call runs on the mma
+    route, reading the broadcast in place, within the limit of the plain
+    version."""
+    b, s, hq, hkv, d = 2, 384, 8, 2, 120
+    q, k, v = _qkv(cuda_device, torch.bfloat16, b, s, s, hq, hkv, d, seed=13)
+    k, v = (x.narrow(dim, 0, 1).expand(x.shape) for x in (k, v))
+    assert k.stride(dim) == 0
+    k2.kernel.reset_launches()
+    out = k2.mha(q, k, v, causal=True, window=200)
+    torch.cuda.synchronize()
+    assert k2.kernel.launches_by_route == {"wgmma": 0, "mma": 1, "fma": 0}
+    ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), causal=True, window=200)
+    assert _row_rel(_heads(out), ref) < ROW_TOL_BF16
+
+
+@pytest.mark.cuda
 def test_wgmma_route_reruns_bitwise_and_runs_in_a_cuda_graph(cuda_device):
     q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 1000, 1000, 8, 2, 120, seed=3)
     first = k2.mha(q, k, v, causal=True, window=256)

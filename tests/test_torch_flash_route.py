@@ -65,6 +65,25 @@ def test_aligned_reads_bases_and_strides():
     assert k2.aligned(one_row.as_strided(one_row.shape, (3, 1, 64, 1)))
 
 
+@pytest.mark.parametrize("dim", [0, 2])
+def test_a_broadcast_dim_goes_to_the_mma_route(dim):
+    """An expanded (stride 0) batch or head: TMA takes no stride of 0, the
+    mma route's copies do, so the call routes to mma and the mma check
+    passes it."""
+    shape = [2, 40, 4, 120]
+    one = torch.zeros(*[1 if i == dim else n for i, n in enumerate(shape)], dtype=BF16)
+    wide = one.expand(*shape)
+    assert wide.stride(dim) == 0
+    q = torch.zeros(*shape, dtype=BF16)
+    assert not k2.aligned(q, wide, wide)
+    assert k2.aligned(q, wide, wide, tma=False)
+    assert k2.route(120, BF16, k2.aligned(q, wide, wide)) == "mma"
+    with pytest.raises(ValueError, match="wgmma route takes"):
+        k2.select_route(120, BF16, k2.aligned(q, wide, wide), "wgmma")
+    odd = torch.zeros(2, 40, 4, 68, dtype=BF16)[..., :64]
+    assert not k2.aligned(odd, tma=False)               # a stride of 68 fails either way
+
+
 def _bshd(x):  # (BH, S, D) -> the (1, S, BH, D) view flash_attention launches on
     return x.unsqueeze(0).transpose(1, 2)
 
@@ -192,18 +211,3 @@ def test_flash_attention_bshd_refuses_cpu_tensors_and_counts_nothing():
         k2.flash_attention_bshd(q, q, q, route="wgmma")
     assert k2.launches == 0 and set(k2.launches_by_route) == set(k2.ROUTES)
     assert not any(k2.launches_by_route.values())
-
-
-def test_every_variant_edits_the_committed_source(tmp_path, monkeypatch):
-    """variants.py times edited copies of the wgmma route; each edit must
-    still find the lines it replaces in the committed source."""
-    from repro_torch.kernels.flash_attention import variants
-
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    kerns = variants.variant_kernels()
-    assert set(kerns) == {"kept", *variants.VARIANTS}
-    committed = (k2.KERNEL.csrc / variants.SOURCE).read_text()
-    for name, kern in kerns.items():
-        text = (kern.csrc / variants.SOURCE).read_text()
-        assert (text == committed) == (name == "kept"), name
-        assert _build.library_path(kern) != _build.library_path(k2.KERNEL) or name == "kept"
