@@ -64,6 +64,37 @@ Phases, each fatal on failure (no result line, non-zero exit):
    ignored; the window one 64-key tile short) must land outside it; a
    2-layer full-width fp32 danube at S = 8192 within 1e-4 of the xla route;
    the forward's device time, K1's and K2's share and prefill tokens/s.
+7. plan-sweep -- the plan engine (``repro_torch.plan``): every strategy
+   pinned through ``symmetric_matmul``, staged and overlapped where the
+   lowering has both, on single-controller meshes whose ranks are threads
+   of this process on the one card (``PLAN_SWEEP_CELLS``: cannon, summa,
+   ring_ag, ring_rs on 2x2; the rings on 4; cannon25d, pod25d and fattree
+   on 2x2x2; the pod25d slab on 2), at danube's gate/up product
+   (``PLAN_SWEEP_SHAPE``, bf16).  Each output row within ``PLAN_ROW_TOL`` of
+   K1 alone on the same operands, every rank's product on the K1 route
+   ``kernel.route`` names for its shape; two wrong programs (Cannon without
+   its B skew, ring_ag writing each chunk to the wrong row slot) must land
+   outside the limit.  Device ms by CUDA events against K1 alone, the
+   operands' scatter alone, and the plan's cost words beside the bytes the
+   collectives copied.
+8. planned-serve -- phase 4's workload through ``Server(mesh=2x2)``: the
+   planned prefill's last-token logits within ``PLANNED_LOGITS_TOL`` per
+   row of ``mesh=None`` (a ring_rs reducing the wrong way round must land
+   outside), identical tokens across two planned runs, token agreement
+   with ``mesh=None`` printed, the strategies taken, K1 launches by route,
+   TTFT, p50/p99, tokens/s, and one decode step's device time by CUDA
+   events, planned and not; then one attempt to capture a planned decode
+   step in a CUDA graph, its outcome reported.
+9. planned-prefill -- phase 6's danube forward at S = 32768 on the 2x2
+   mesh: all 168 products planned, the strategy counts, K1 launches all
+   wide and K2's 24 all wgmma; logits within ``PREFILL_LOGITS_TOL`` per row
+   of the unplanned forward, with Cannon without its B skew and the
+   wrong-way ring_rs (each in every product of its strategy) outside;
+   device ms against the unplanned forward, in turns.
+
+On one card the collectives are device copies and "overlap" is only the
+order in which the rank threads issue work: no number of phases 7-9 is a
+link's.
 
 Then a ``{"kernels": [...]}`` line (each kernel's entry with its launches
 per route on each path), the card's name and power limit as
@@ -73,13 +104,16 @@ full measurements go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -88,14 +122,20 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.dist import Mesh, _collectives, symmetric_matmul  # noqa: E402
+from repro_torch.dist.local import local_matmul  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
 from repro_torch.models.lm import cross_entropy  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.runtime.serve import ServeConfig  # noqa: E402
+from repro_torch.plan import build_plan, planned_matmuls  # noqa: E402
+from repro_torch.runtime.serve import ServeConfig, batch_requests  # noqa: E402
 from repro_torch.serve import Server  # noqa: E402
+
+# the module, not the function ``repro_torch.plan.lower_dist`` of its name
+lower_dist_mod = importlib.import_module("repro_torch.plan.lower_dist")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): memory 3.35 TB/s,
 # bf16 tensor cores 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s.
@@ -159,6 +199,40 @@ PREFILL_LOGITS_TOL = 1e-1
 # window of each wrong core: 0 ignores the window, 4096 - 64 drops the
 # oldest 64-key tile of every full window
 PREFILL_CONTROLS = {"window ignored": 0, "window one tile short": 4096 - 64}
+# Plan engine (phases 7-9).  The sweep's product: danube's gate/up
+# projection at M = 8192 (a quarter of the long prefill's rows), bf16.
+PLAN_SWEEP_SHAPE = (8192, 3840, 10240)
+# (mesh sizes, axis names, strategy, overlap): every strategy, staged and
+# overlapped where ``overlap_capability`` allows
+PLAN_SWEEP_CELLS = [
+    ((2, 2), ("x", "y"), "cannon", False), ((2, 2), ("x", "y"), "cannon", True),
+    ((2, 2), ("x", "y"), "summa", False), ((2, 2), ("x", "y"), "summa", True),
+    ((2, 2), ("x", "y"), "ring_ag", None), ((2, 2), ("x", "y"), "ring_rs", None),
+    ((4,), ("t",), "ring_ag", None), ((4,), ("t",), "ring_rs", None),
+    ((2, 2, 2), ("pod", "x", "y"), "cannon25d", False),
+    ((2, 2, 2), ("pod", "x", "y"), "cannon25d", True),
+    ((2, 2, 2), ("pod", "x", "y"), "pod25d", False),
+    ((2, 2, 2), ("pod", "x", "y"), "pod25d", True),
+    ((2, 2, 2), ("tree", "x", "y"), "fattree", None),
+    ((2,), ("pod",), "pod25d", None),
+]
+# A planned product against K1 alone: the same bf16 operands, fp32
+# accumulation either way, but the contraction summed in other pieces (a
+# rank's block, the ring's partials) before one bf16 rounding, so rows read
+# a few 1e-3 at most; a wrong program moves a whole block of every row
+# (about 0.5 or more), far outside.
+PLAN_ROW_TOL = 1e-2
+# Planned serving (16 bf16 layers) against mesh=None, worst last-token
+# logits row: each projection's output may differ from the unplanned one
+# by a bf16 rounding (other summation pieces), and 16 layers carry that
+# through the residual stream; the limit is the long prefill's, and a
+# ring_rs reducing the wrong way round must land outside it.
+PLANNED_LOGITS_TOL = 1e-1
+PLANNED_MESH = ((2, 2), ("x", "y"))
+# K1 launches per planned product on the 2x2 mesh, by strategy (ranks x
+# block products per rank)
+LAUNCHES_PER_PRODUCT_2X2 = {"cannon": 4 * 2, "summa": 4, "summa+ov": 4 * 2,
+                            "ring_ag": 4 * 4, "ring_rs": 4}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -884,6 +958,359 @@ def fp32_check(dev: torch.device) -> dict:
     return {"rel_err": rel, "launches": launches}
 
 
+# -- the plan engine (phases 7-9) ------------------------------------------------
+
+
+def _wrong_ring_ag(x, w, axis, *, out_dtype=None, local_fn=None):
+    """``ring_ag_matmul`` writing each resident chunk to the wrong row slot
+    (``idx + s`` where the origin is ``idx - s``): a control."""
+    local_fn = local_fn or local_matmul
+    n, idx = _collectives.axis_size(axis), _collectives.axis_index(axis)
+    chunk = x.shape[-2]
+    out = torch.zeros(n * chunk, w.shape[-1], dtype=out_dtype, device=x.device)
+    perm = [(d, (d + 1) % n) for d in range(n)]
+    cur = x
+    for step in range(n):
+        nxt = _collectives.ppermute(cur, axis, perm) if step < n - 1 else None
+        src = (idx + step) % n
+        out[src * chunk:(src + 1) * chunk] = local_fn(cur, w, out_dtype=out_dtype)
+        cur = nxt
+    return out
+
+
+def _wrong_ring_rs(y, w, axis, *, out_dtype=None, local_fn=None):
+    """``ring_rs_matmul`` passing its partial sums the wrong way round the
+    ring (-1 hops under the +1 chain's chunk order): a control."""
+    local_fn = local_fn or local_matmul
+    n, idx = _collectives.axis_size(axis), _collectives.axis_index(axis)
+    partial = local_fn(y, w, out_dtype=torch.float32)
+    chunk = partial.shape[-2] // n
+    perm = [(d, (d - 1) % n) for d in range(n)]
+    acc = None
+    for step in range(n):
+        c = (idx + n - 1 - step) % n
+        mine = partial[c * chunk:(c + 1) * chunk]
+        acc = mine if acc is None else acc + mine
+        if step < n - 1:
+            acc = _collectives.ppermute(acc, axis, perm)
+    return acc.to(out_dtype)
+
+
+def _drop_b_skew(body_fn):
+    return lambda prog, *a, **kw: body_fn(dataclasses.replace(prog, skew_b=()), *a, **kw)
+
+
+PLAN_CONTROLS = {
+    "cannon without B skew": lambda: [
+        mock.patch.object(lower_dist_mod, "torus_program_body",
+                          _drop_b_skew(lower_dist_mod.torus_program_body)),
+        mock.patch.object(lower_dist_mod, "torus_program_body_overlapped",
+                          _drop_b_skew(lower_dist_mod.torus_program_body_overlapped))],
+    "ring_ag wrong slot": lambda: [
+        mock.patch.object(lower_dist_mod, "ring_ag_matmul", _wrong_ring_ag)],
+    "ring_rs wrong way": lambda: [
+        mock.patch.object(lower_dist_mod, "ring_rs_matmul", _wrong_ring_rs)],
+}
+
+
+CONTROL_OF = {"cannon": "cannon without B skew", "ring_ag": "ring_ag wrong slot",
+              "ring_rs": "ring_rs wrong way"}
+
+
+@contextlib.contextmanager
+def wrong_program(what: str):
+    """Within the scope every product of one strategy runs a wrong program
+    (``PLAN_CONTROLS``); compiled lowerings are dropped on entry and exit."""
+    lower_dist_mod._lower_dist_cached.cache_clear()
+    try:
+        with contextlib.ExitStack() as stack:
+            for patch in PLAN_CONTROLS[what]():
+                stack.enter_context(patch)
+            yield
+    finally:
+        lower_dist_mod._lower_dist_cached.cache_clear()
+
+
+def _nonzero(counts: dict) -> dict:
+    return {r: v for r, v in counts.items() if v}
+
+
+def _check_control(phase: str, what: str, e: dict, tol: float) -> None:
+    log(f"[{phase}] control {what}: worst row rel={e['row_rel']:.3e} (must be >= {tol:g})")
+    if e["row_rel"] < tol:
+        raise AssertionError(f"the limit {tol} cannot tell a wrong program ({what}): {e}")
+
+
+def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
+    m, k, n = PLAN_SWEEP_SHAPE
+    bf16 = torch.bfloat16
+    a = torch.randn(m, k, generator=gen, device=dev).to(bf16)
+    b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(bf16)
+    ref = matmul(a, b)
+    k1_ms = event_ms(lambda: matmul(a, b), 5)
+    log(f"[plan-sweep] {m}x{k}x{n} bf16: K1 alone {k1_ms:.3f}ms "
+        f"(route {k1.route(m, n, k, bf16)})")
+    meshes, rows = {}, []
+    for sizes, names, strategy, overlap in PLAN_SWEEP_CELLS:
+        if (sizes, names) not in meshes:
+            meshes[sizes, names] = Mesh(sizes, names, device=dev)
+        mesh = meshes[sizes, names]
+        plan = build_plan(m, n, k, mesh=mesh, strategy=strategy, overlap=overlap,
+                          a_dtype=bf16, b_dtype=bf16)
+        label = f"{strategy}{'+ov' if plan.overlap else ''} on {'x'.join(map(str, sizes))}"
+
+        def planned(mesh=mesh, strategy=strategy, overlap=overlap):
+            return symmetric_matmul(a, b, mesh=mesh, strategy=strategy, overlap=overlap)
+
+        _collectives.reset_stats()
+        with k1.trace_launches() as trace:
+            out = planned()
+            torch.cuda.synchronize()
+        copied = {kind: dict(v) for kind, v in _collectives.stats.items()}
+        routes = {}
+        for (pm, pn, pk, r) in trace:
+            if r != k1.route(pm, pn, pk, bf16):
+                raise AssertionError(f"{label}: a {pm}x{pk}x{pn} block product took {r}, "
+                                     f"not {k1.route(pm, pn, pk, bf16)}")
+            routes[r] = routes.get(r, 0) + 1
+        e = _check_rows("plan-sweep", f"{label} vs K1 alone", out, ref, PLAN_ROW_TOL)
+        del out
+        _, in_specs, _ = lower_dist_mod.rule(plan)
+
+        def scatter(mesh=mesh, in_specs=in_specs):
+            return [lower_dist_mod.scatter(x, spec, mesh) for x, spec in zip((a, b), in_specs)]
+
+        t = {}
+        for key in ("ms", "scatter_ms", "scatter_ms", "ms"):
+            t.setdefault(key, []).append(event_ms({"ms": planned, "scatter_ms": scatter}[key], 3))
+        t0 = time.perf_counter()
+        planned()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        moved = sum(v["bytes"] for v in copied.values()) / mesh.size
+        row = {"mesh": list(sizes), "axes": list(names), "strategy": strategy,
+               "overlap": plan.overlap, "grid": list(plan.grid), "pad_a": list(plan.pad_a),
+               "pad_b": list(plan.pad_b), "k1_launches": len(trace), "k1_routes": routes,
+               "block_shapes": sorted({tuple(x[:3]) for x in trace}), "check": e,
+               "ms": min(t["ms"]), "scatter_ms": min(t["scatter_ms"]), "runs": t,
+               "host_ms": host_ms, "k1_alone_ms": k1_ms,
+               "cost": {"comm_bytes_per_rank": plan.cost.comm_bytes, "msgs": plan.cost.msgs,
+                        "compute_s": plan.cost.compute_s, "comm_s": plan.cost.comm_s},
+               "copied_bytes_per_rank": moved, "collectives": copied}
+        rows.append(row)
+        log(f"[plan-sweep] {label:22s} {row['ms']:8.3f}ms (K1 alone {k1_ms:.3f}, scatter of "
+            f"both operands {row['scatter_ms']:.3f}, host {host_ms:.1f}ms); K1 {len(trace)} "
+            f"launches {routes}; cost words {plan.cost.comm_bytes / 1e6:.2f} MB/rank in "
+            f"{plan.cost.msgs} msgs, copied {moved / 1e6:.2f} MB/rank "
+            + ", ".join(f"{kd} {v['calls']}x" for kd, v in copied.items() if v["calls"]))
+    controls = {}
+    for what, (sizes, names), strategy in (
+            ("cannon without B skew", ((2, 2), ("x", "y")), "cannon"),
+            ("ring_ag wrong slot", ((4,), ("t",)), "ring_ag")):
+        with wrong_program(what):
+            out = symmetric_matmul(a, b, mesh=meshes[sizes, names], strategy=strategy)
+        controls[what] = row_err(out, ref)
+        _check_control("plan-sweep", what, controls[what], PLAN_ROW_TOL)
+        del out
+    for mesh in meshes.values():
+        mesh.close()
+    del a, b, ref
+    torch.cuda.empty_cache()
+    return {"shape": [m, k, n], "k1_alone_ms": k1_ms, "cells": rows, "controls": controls,
+            "k1_launches": sum(r["k1_launches"] for r in rows)}
+
+
+def phase_planned_serve(dev: torch.device) -> dict:
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    mesh = Mesh(*PLANNED_MESH, device=dev)
+    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
+    local = Server(model, params, sc, buckets=SERVE_BUCKETS)
+    local.warmup()
+    server = Server(model, params, sc, mesh=mesh, buckets=SERVE_BUCKETS)
+    warm = server.warmup()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in (5, 9, 12, 16)]
+    local_tokens = local.generate(prompts).new_tokens
+    runs = []
+    for rep in range(2):
+        k1.reset_launches()
+        before = dict(server.plan_report()["strategies"])
+        res = server.generate(prompts)
+        launches, by_route = k1.launches, _nonzero(k1.launches_by_route)
+        after = server.plan_report()["strategies"]
+        taken = {s: v - before.get(s, 0) for s, v in after.items() if v != before.get(s, 0)}
+        q = res.latency_quantiles_ms()
+        runs.append({"bucket": res.bucket, "launches": launches, "routes": by_route,
+                     "strategies": taken, "ttft_ms": res.ttft_s * 1e3, "p50_ms": q["p50_ms"],
+                     "p99_ms": q["p99_ms"], "tokens_per_s": res.tokens_per_s,
+                     "wall_s": res.wall_s, "tokens": res.new_tokens})
+        log(f"[planned-serve] run {rep} on mesh {dict(mesh.shape)}: bucket {res.bucket} ttft "
+            f"{res.ttft_s * 1e3:.2f}ms p50 {q['p50_ms']:.3f}ms p99 {q['p99_ms']:.3f}ms "
+            f"{res.tokens_per_s:.1f} tok/s; products {taken}; K1 launches {launches} {by_route}")
+        if sum(taken.values()) != 7 * cfg.num_layers * SERVE_NEW or set(by_route) != {"thin"}:
+            raise AssertionError(f"planned serving ran {taken} products ({by_route}), want "
+                                 f"{7 * cfg.num_layers * SERVE_NEW}, all K1 launches thin")
+        for toks in res.new_tokens:
+            if len(toks) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
+                raise AssertionError(f"malformed tokens {toks}")
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError("two planned generate runs disagree")
+    agree = sum(x == y for p, r in zip(runs[0]["tokens"], local_tokens) for x, y in zip(p, r))
+    log(f"[planned-serve] tokens identical across the two planned runs; {agree} of "
+        f"{len(prompts) * SERVE_NEW} agree with mesh=None (printed, not held)")
+    # the planned prefill's last-token logits against mesh=None's
+    batch, lens = batch_requests(prompts, pad_to=SERVE_BUCKETS[0][1])
+    tokens = torch.as_tensor(batch, dtype=torch.int64, device=dev)
+    offsets = torch.as_tensor(batch.shape[1] - lens, dtype=torch.int64, device=dev)
+
+    def prefill():
+        return model.prefill(params, model.init_cache(len(prompts), 64, dev), tokens, offsets)[0]
+
+    with torch.no_grad():
+        ref = prefill()
+        lower_dist_mod.reset_executions()
+        with planned_matmuls(mesh):
+            got = prefill()
+        prefill_plans = lower_dist_mod.executions_snapshot()
+        e = _check_rows("planned-serve", f"planned prefill logits ({prefill_plans}) vs "
+                        f"mesh=None", got, ref, PLANNED_LOGITS_TOL)
+        # the wrong program replaces the strategy the prefill ran most
+        wrong = "ring_rs wrong way" if prefill_plans.get("ring_rs+ov", 0) >= \
+            prefill_plans.get("ring_ag+ov", 0) else "ring_ag wrong slot"
+        with wrong_program(wrong), planned_matmuls(mesh):
+            control = row_err(prefill(), ref)
+        _check_control("planned-serve", wrong, control, PLANNED_LOGITS_TOL)
+        step_ms = planned_step_ms(model, params, mesh, dev)
+    log(f"[planned-serve] decode step device time (CUDA events, eager, bucket 4x16): planned "
+        f"{step_ms['planned_ms']:.3f}ms, mesh=None {step_ms['local_ms']:.3f}ms; CUDA graph of "
+        f"a planned decode step: {step_ms['graph']}")
+    mesh.close()
+    del server, local, params
+    torch.cuda.empty_cache()
+    return {"mesh": dict(mesh.shape), "warmup": warm, "runs": runs, "agree_with_local": agree,
+            "local_tokens": local_tokens, "prefill_logits": e, "prefill_plans": prefill_plans,
+            "control": {wrong: control},
+            "step": step_ms}
+
+
+def planned_step_ms(model, params, mesh, dev: torch.device) -> dict:
+    """One decode step at the (4, 16) bucket, eager, by CUDA events:
+    mesh=None and planned in turns; then one try at capturing the planned
+    step in a CUDA graph (its rank threads launch on the capturing stream)."""
+    batch, seq = SERVE_BUCKETS[0]
+    cache = model.init_cache(batch, 64, dev)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(1, model.cfg.vocab_size, size=(batch, 1))).to(dev)
+    offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
+
+    def local():
+        return model.decode_step(params, cache, tokens, seq, offsets)
+
+    def planned():
+        with planned_matmuls(mesh):
+            return model.decode_step(params, cache, tokens, seq, offsets)
+
+    t = {}
+    for key in ("local_ms", "planned_ms", "planned_ms", "local_ms"):
+        t.setdefault(key, []).append(event_ms({"local_ms": local, "planned_ms": planned}[key], 3))
+    out = {key: min(v) for key, v in t.items()}
+    out["runs"] = t
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            planned()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out["graph"] = {"captured": True, "replay_ms": start.elapsed_time(end)}
+        del graph
+    except RuntimeError as e:   # reported: capture across rank threads is not expected to work
+        out["graph"] = {"captured": False, "error": f"{type(e).__name__}: {e}"[:400]}
+    # the card is still sound after the attempt
+    x = torch.randn(64, 256, device=dev).to(torch.bfloat16)
+    w = torch.randn(256, 128, device=dev).to(torch.bfloat16)
+    if row_err(matmul(x, w), matmul_ref(x, w))["row_rel"] >= ROW_TOL[torch.bfloat16]:
+        raise AssertionError("K1 disagrees with its plain version after the graph attempt")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_planned_prefill(dev: torch.device) -> dict:
+    cfg = dataclasses.replace(get_config(PREFILL_ARCH), attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, PREFILL_S))).to(dev)
+    mesh = Mesh(*PLANNED_MESH, device=dev)
+    products = 7 * cfg.num_layers
+
+    def planned():
+        with planned_matmuls(mesh):
+            return model.forward(params, tokens)[0]
+
+    with torch.no_grad():
+        ref, _ = model.forward(params, tokens)
+        lower_dist_mod.reset_executions()
+        k1.reset_launches()
+        k2.reset_launches()
+        t0 = time.perf_counter()
+        logits = planned()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        plans = lower_dist_mod.executions_snapshot()
+        k1_routes, k2_routes = _nonzero(k1.launches_by_route), _nonzero(k2.launches_by_route)
+        want_k1 = sum(v * LAUNCHES_PER_PRODUCT_2X2.get(s, LAUNCHES_PER_PRODUCT_2X2.get(
+            s.split("+")[0], 0)) for s, v in plans.items())
+        log(f"[planned-prefill] {cfg.name} bf16 S={PREFILL_S} on mesh {dict(mesh.shape)}: "
+            f"products {plans}; K1 {k1.launches}x {k1_routes} (want {want_k1}), K2 "
+            f"{k2.launches}x {k2_routes}; first call {first_s:.2f}s")
+        if (sum(plans.values()) != products or k1.launches != want_k1
+                or set(k1_routes) != {"wide"} or k2_routes != {"wgmma": cfg.num_layers}):
+            raise AssertionError(f"planned forward: products {plans} (want {products}), K1 "
+                                 f"{k1_routes} (want {want_k1} wide), K2 {k2_routes}")
+        if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab_size):
+            raise AssertionError(f"logits malformed: {tuple(logits.shape)}")
+        e = _check_rows("planned-prefill", "planned logits vs the unplanned forward", logits,
+                        ref, PREFILL_LOGITS_TOL)
+        del logits
+        controls = {}
+        # a wrong program for each strategy the forward ran (at S = 32768 on
+        # 2x2: Cannon and ring_rs)
+        for what in [CONTROL_OF[s.split("+")[0]] for s in plans if s.split("+")[0] in CONTROL_OF]:
+            with wrong_program(what):
+                controls[what] = row_err(planned(), ref)
+            _check_control("planned-prefill", what, controls[what], PREFILL_LOGITS_TOL)
+        if not controls:
+            raise AssertionError(f"no wrong program covers the strategies taken: {plans}")
+        del ref
+        torch.cuda.empty_cache()
+
+        def local():
+            return model.forward(params, tokens)[0]
+
+        t = {}
+        for key in ("local_ms", "planned_ms", "planned_ms", "local_ms"):
+            t.setdefault(key, []).append(event_ms({"local_ms": local, "planned_ms": planned}[key],
+                                                  1))
+    out = {key: min(v) for key, v in t.items()}
+    log(f"[planned-prefill] forward device time (CUDA events): planned {out['planned_ms']:.1f}ms "
+        f"({PREFILL_S / out['planned_ms'] * 1e3:.0f} prefill tokens/s), unplanned "
+        f"{out['local_ms']:.1f}ms ({PREFILL_S / out['local_ms'] * 1e3:.0f}); runs {t}")
+    mesh.close()
+    del params
+    torch.cuda.empty_cache()
+    return {"mesh": dict(mesh.shape), "plans": plans, "k1_launches": want_k1,
+            "k1_routes": k1_routes, "k2_routes": k2_routes, "first_forward_s": first_s,
+            "logits": e, "controls": controls, **out, "runs": t,
+            "tokens_per_s": PREFILL_S / out["planned_ms"] * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def decode_step_row(timings: list, m: int = 4) -> dict:
     """K1's numbers for one serving forward at M rows (4: a decode step at
     batch 4; 64: the prefill of the 4x16 bucket): the 7 projections of
@@ -912,8 +1339,10 @@ def flash_row(report: dict) -> dict:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
         "launches": report["long_prefill"]["launches"]["K2"],
-        "launches_by_path": {"long_prefill": report["long_prefill"]["launches"]["K2"]},
+        "launches_by_path": {"long_prefill": report["long_prefill"]["launches"]["K2"],
+                             "planned_prefill": sum(report["planned_prefill"]["k2_routes"].values())},
         "routes": {"long_prefill": report["long_prefill"]["k2_routes"],
+                   "planned_prefill": report["planned_prefill"]["k2_routes"],
                    "long_prefill_fp32_check": {"fma": report["long_prefill"]["fp32"]["launches"]}},
         "max_abs_err": report["flash_kernel"]["worst_bf16_abs_err"],
         **{key: layers * t[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -947,6 +1376,9 @@ def main() -> int:
     report["serve"] = phase_serve(dev)
     report["flash_kernel"] = phase_flash_kernel(dev, gen)
     report["long_prefill"] = phase_long_prefill(dev, report["flash_kernel"])
+    report["plan_sweep"] = phase_plan_sweep(dev, gen)
+    report["planned_serve"] = phase_planned_serve(dev)
+    report["planned_prefill"] = phase_planned_prefill(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -958,11 +1390,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/matmul/kernel.py:46",
         "launches": report["serve"]["runs"][0]["launches"],
         "launches_by_path": {"serve": report["serve"]["runs"][0]["launches"],
-                             "long_prefill": report["long_prefill"]["launches"]["K1"]},
+                             "long_prefill": report["long_prefill"]["launches"]["K1"],
+                             "planned_serve": report["planned_serve"]["runs"][0]["launches"],
+                             "planned_prefill": report["planned_prefill"]["k1_launches"],
+                             "plan_sweep": report["plan_sweep"]["k1_launches"]},
         "routes": {"serve": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
                       for step, r in report["serve"]["step_device_ms"]["routes"].items()},
-                   "long_prefill": report["long_prefill"]["k1_routes"]},
+                   "long_prefill": report["long_prefill"]["k1_routes"],
+                   "planned_serve": report["planned_serve"]["runs"][0]["routes"],
+                   "planned_prefill": report["planned_prefill"]["k1_routes"]},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"])),

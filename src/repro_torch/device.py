@@ -6,6 +6,7 @@ raises instead of carrying on quietly on the CPU.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
@@ -33,3 +34,19 @@ def maybe_sync(device: Optional[torch.device]) -> None:
     """Wait for queued work on a CUDA device (no-op on the CPU)."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+_bound = threading.local()
+
+
+def bind_thread(device: torch.device) -> None:
+    """Make ``device`` current, with its CUDA context, in the calling
+    thread (once per thread and device).  A thread that has made no CUDA
+    runtime call yet has no context current, and the driver calls the
+    kernels' TMA routes make (``cuTensorMapEncodeTiled``) fail there: a
+    fresh rank thread of the plan engine is such a thread.
+    ``torch.cuda.set_device`` binds the context."""
+    if getattr(_bound, "device", None) != device:
+        torch.cuda.set_device(device)
+        _bound.device = device
+

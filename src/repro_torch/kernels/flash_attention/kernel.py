@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import bind_thread
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import F32, I, I64, P
 
@@ -186,6 +187,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
         raise ValueError(f"flash_attention runs on CUDA tensors, got {q.device}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    bind_thread(q.device)
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -27,15 +27,21 @@ chosen route refuses raises, it never moves to another route:
 
 ``launches`` counts accepted launches, one per product, and
 ``launches_by_route`` the same per route; ``reset_launches`` zeroes both,
-so a run can show which kernels its products went through.
+so a run can show which kernels its products went through;
+``trace_launches`` also lists each launch's (m, n, k, route).  The plan
+engine's rank threads launch concurrently, so the counters, the tile
+tables and the split-K counter arrays are kept under one lock.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.zorder import rowmajor_schedule, zorder_schedule
+from repro_torch.device import bind_thread
 
 Blocks = Tuple[int, int, int]
 
@@ -81,13 +87,41 @@ launches_by_route: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 _tile_tables: Dict[Tuple[int, int, str, torch.device], torch.Tensor] = {}
 _counters: Dict[torch.device, torch.Tensor] = {}
 _sm_counts: Dict[torch.device, int] = {}
+_trace: Optional[List[Tuple[int, int, int, str]]] = None
+_lock = threading.RLock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
-    for r in ROUTES:
-        launches_by_route[r] = 0
+    with _lock:
+        launches = 0
+        for r in ROUTES:
+            launches_by_route[r] = 0
+
+
+def count_launch(route: str, m: int, n: int, k: int) -> None:
+    """Count one accepted launch of ``route`` (the only place the counters
+    move)."""
+    global launches
+    with _lock:
+        launches += 1
+        launches_by_route[route] += 1
+        if _trace is not None:
+            _trace.append((m, n, k, route))
+
+
+@contextlib.contextmanager
+def trace_launches():
+    """Within the scope, list every launch as (m, n, k, route)."""
+    global _trace
+    with _lock:
+        prev, _trace = _trace, []
+        out = _trace
+    try:
+        yield out
+    finally:
+        with _lock:
+            _trace = prev
 
 
 def smem_bytes(block_m: int, block_n: int, block_k: int, dtype: torch.dtype) -> int:
@@ -158,26 +192,28 @@ def tile_table(gm: int, gn: int, order: str, device: torch.device) -> torch.Tens
     """Device int32 table ``[oi..., oj...]`` of the output-tile visit
     order, uploaded once per (gm, gn, order, device)."""
     key = (gm, gn, order, device)
-    table = _tile_tables.get(key)
-    if table is None:
-        if order == "zorder":
-            ij = [(i, j) for (i, j, _k) in zorder_schedule(gm, gn, 1)]
-        elif order == "rowmajor":
-            ij = [(i, j) for (i, j, _k) in rowmajor_schedule(gm, gn, 1)]
-        else:
-            raise ValueError(f"unknown order {order!r}")
-        flat = [i for i, _ in ij] + [j for _, j in ij]
-        table = torch.tensor(flat, dtype=torch.int32, device=device)
-        _tile_tables[key] = table
-    return table
+    with _lock:
+        table = _tile_tables.get(key)
+        if table is None:
+            if order == "zorder":
+                ij = [(i, j) for (i, j, _k) in zorder_schedule(gm, gn, 1)]
+            elif order == "rowmajor":
+                ij = [(i, j) for (i, j, _k) in rowmajor_schedule(gm, gn, 1)]
+            else:
+                raise ValueError(f"unknown order {order!r}")
+            flat = [i for i, _ in ij] + [j for _, j in ij]
+            table = torch.tensor(flat, dtype=torch.int32, device=device)
+            _tile_tables[key] = table
+        return table
 
 
 def sm_count(device: torch.device) -> int:
-    count = _sm_counts.get(device)
-    if count is None:
-        count = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_counts[device] = count
-    return count
+    with _lock:
+        count = _sm_counts.get(device)
+        if count is None:
+            count = torch.cuda.get_device_properties(device).multi_processor_count
+            _sm_counts[device] = count
+        return count
 
 
 def split_counters(device: torch.device, ntiles: int) -> torch.Tensor:
@@ -188,13 +224,14 @@ def split_counters(device: torch.device, ntiles: int) -> torch.Tensor:
     thin route runs on one stream at a time.  The array is allocated and
     zeroed outside graph capture; a launch captured before any eager one
     takes its own array, zeroed inside the graph."""
-    cnt = _counters.get(device)
-    if cnt is None or cnt.numel() < ntiles:
-        fresh = torch.zeros(max(ntiles, 4096), dtype=torch.int32, device=device)
-        if torch.cuda.is_current_stream_capturing():
-            return fresh
-        cnt = _counters[device] = fresh
-    return cnt
+    with _lock:
+        cnt = _counters.get(device)
+        if cnt is None or cnt.numel() < ntiles:
+            fresh = torch.zeros(max(ntiles, 4096), dtype=torch.int32, device=device)
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                return fresh
+            cnt = _counters[device] = fresh
+        return cnt
 
 
 def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: int,
@@ -206,11 +243,11 @@ def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: in
     and blocks.  Launches on the current stream without synchronising;
     raises if the launch is refused (each C entry point also refuses block
     shapes and operands it was not compiled for)."""
-    global launches
     from ._build import load
 
     if a.device.type != "cuda":
         raise ValueError(f"zorder_matmul runs on CUDA tensors, got {a.device}")
+    bind_thread(a.device)
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -246,7 +283,6 @@ def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: in
     if rc != 0:
         raise RuntimeError(f"zorder_matmul ({r} route) launch failed: "
                            f"{lib.zorder_matmul_error_string(rc).decode()} ({rc})")
-    launches += 1
-    launches_by_route[r] += 1
+    count_launch(r, m, n, k)
     return out
 

@@ -1,14 +1,17 @@
 """Serving launcher for the port: bucketed batched decode on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
-        --buckets 4x16 8x32 --max-new 16
+        --buckets 4x16 8x32 --max-new 16 [--mesh 2x2 [--strategy cannon]]
 
 Builds random weights from ``--seed`` (no checkpoint download), warms the
 (batch, seq) buckets, serves a synthetic request batch through the bucket
 router and prints throughput, TTFT, per-token latency quantiles and the
-Z-order kernel's launch count.  Runs on ``cuda`` unless ``--device cpu``
-is given (then every product takes the kernel's plain version); ``--smoke``
-selects the reduced config.
+Z-order kernel's launch count.  ``--mesh RxC`` routes every projection
+through the plan engine on an R x C mesh whose ranks all run on the one
+device (threads of this process), and prints the strategies it took;
+``--strategy`` pins one.  Runs on ``cuda`` unless ``--device cpu`` is given
+(then every product takes the kernel's plain version); ``--smoke`` selects
+the reduced config.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.dist.mesh import parse_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.serve import ServeConfig
 from repro_torch.serve import Server
@@ -43,6 +47,10 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="RxC",
+                    help="route matmuls through the plan engine on this mesh")
+    ap.add_argument("--strategy", default=None,
+                    help="pin the schedule strategy inside the plan scope")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -52,7 +60,8 @@ def main(argv=None) -> int:
     params = model.init(gen, device)
     sc = ServeConfig(max_new_tokens=args.max_new, max_seq=args.max_seq,
                      temperature=args.temperature)
-    server = Server(model, params, sc,
+    mesh = parse_mesh(args.mesh, device=device) if args.mesh else None
+    server = Server(model, params, sc, mesh=mesh, strategy=args.strategy,
                     buckets=[_parse_bucket(b) for b in args.buckets])
     for label, w in server.warmup().items():
         print(f"[warmup] bucket {label}: {w['warm_s']:.2f}s")
@@ -71,6 +80,10 @@ def main(argv=None) -> int:
     k1 = server.cache_report()["kernels"]["zorder_matmul"]
     print(f"[serve] zorder_matmul launches: {k1['launches']} "
           f"({k1['since_warmup']} since warmup)")
+    if mesh is not None:
+        rep = server.plan_report()
+        print(f"[serve] plan-routed on mesh {rep['mesh']}: strategies {rep['strategies']}, "
+              f"plan cache {rep['cache']}")
     return 0
 
 

@@ -1,14 +1,20 @@
-"""Linear layers over the local Z-order matmul.
+"""Linear layers routed through the symmetry-scheduled matmul engine.
 
-On one device the reference's ``linear`` runs ``local_matmul`` (its plan
-engine is entered only on a multi-device mesh); so does this one, and with
-the leading dims folded into rows every projection reaches the kernel.
+Counterpart of ``repro.layers.linear``.  Two paths, as in the reference:
+outside a plan scope (and on a one-rank mesh) ``linear`` runs
+``local_matmul``, with the leading dims folded into rows so every
+projection reaches the kernel; inside ``repro_torch.plan.planned_matmuls``
+on a mesh of more than one rank, the product dispatches through the plan
+engine (cost-model-ranked strategy, cached ``SchedulePlan``, leading dims
+folded before planning) and runs as per-rank programs whose block products
+are ``local_matmul`` again.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.dist.local import local_matmul
+from repro_torch.plan.context import planned_mesh, planned_strategy
 
 
 def linear_params(generator: torch.Generator, d_in: int, d_out: int,
@@ -20,4 +26,10 @@ def linear_params(generator: torch.Generator, d_in: int, d_out: int,
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with fp32 accumulation, in x's dtype."""
+    mesh = planned_mesh()
+    if mesh is not None and getattr(mesh, "size", 1) > 1:
+        from repro_torch.dist.api import symmetric_matmul
+
+        return symmetric_matmul(x, w, mesh=mesh, out_dtype=x.dtype,
+                                strategy=planned_strategy())
     return local_matmul(x, w, out_dtype=x.dtype)

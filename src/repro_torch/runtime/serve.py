@@ -1,12 +1,14 @@
 """Serving runtime: batched greedy / temperature decoding over the KV cache.
 
-Counterpart of ``repro.runtime.serve`` on one device.  ``generate`` runs one
-prefill over the (left-padded) prompt batch, then one decode step per new
-token.  PyTorch runs eagerly, so there is nothing to compile or memoize;
-the plan-engine scope (``mesh=``) waits for the plan slice.
+Counterpart of ``repro.runtime.serve``.  ``generate`` runs one prefill
+over the (left-padded) prompt batch, then one decode step per new token.
+PyTorch runs eagerly, so there is nothing to compile or memoize.  With a
+``mesh`` of more than one rank, the whole decode runs inside
+``planned_scope``: every projection goes through the plan engine.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
@@ -47,12 +49,15 @@ def generate(
     generator: Optional[torch.Generator] = None,
     *,
     lens: Optional[np.ndarray] = None,
+    mesh=None,
+    strategy: Optional[str] = None,
 ) -> np.ndarray:
     """prompts: (B, S_prompt) int -> (B, S_prompt + max_new_tokens) numpy.
 
     ``lens`` gives the true lengths of a left-padded batch: each row then
     decodes at its own logical positions.  ``generator`` drives temperature
-    sampling (on the model's device)."""
+    sampling (on the model's device).  ``mesh`` / ``strategy`` route every
+    projection through the plan engine (``planned_scope``)."""
     b, sp = prompts.shape
     if b == 0:
         return np.asarray(prompts)
@@ -63,8 +68,19 @@ def generate(
     if lens is not None:
         offsets = torch.as_tensor(sp - np.asarray(lens), dtype=torch.int64, device=device)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=device)
-    with torch.no_grad():
+    with torch.no_grad(), planned_scope(mesh, strategy):
         return decode_loop(model, params, cache, tokens, offsets, cfg, generator)[0]
+
+
+def planned_scope(mesh, strategy: Optional[str] = None):
+    """The plan-routing scope ``generate`` decodes under: route through
+    ``planned_matmuls(mesh, strategy)`` when a multi-rank mesh is given,
+    otherwise a null context (the local path)."""
+    if mesh is not None and getattr(mesh, "size", 1) > 1:
+        from repro_torch.plan import planned_matmuls
+
+        return planned_matmuls(mesh, strategy)
+    return contextlib.nullcontext()
 
 
 def decode_loop(model, params, cache, tokens: torch.Tensor,

@@ -1,10 +1,14 @@
 """Serving server: bucket routing, warmup, latency accounting.
 
-Counterpart of ``repro.serve.server`` on one device (``mesh=None``; the
-plan-routed path waits for the plan slice).  ``warmup()`` runs each
-declared (batch, seq) bucket once -- a prefill and two decode steps -- so
-the kernel library is built, the kernels' tile tables are on the device and
-each bucket's KV cache is allocated before the first request.
+Counterpart of ``repro.serve.server``.  ``warmup()`` runs each declared
+(batch, seq) bucket once -- a prefill and two decode steps -- so the kernel
+library is built, the kernels' tile tables are on the device, each
+bucket's KV cache is allocated and, with a ``mesh``, each bucket's plans
+are in the plan cache before the first request.  With ``mesh=`` (a
+``repro_torch.dist.Mesh``, or its sizes such as ``(2, 2)``, built on the
+parameters' device) every projection of warmup and serving runs through
+the plan engine (``planned_scope``): planned, and executed as per-rank
+programs whose block products are K1; ``strategy=`` pins one schedule.
 ``generate()`` routes a request batch to the smallest bucket that fits
 (left-padding prompts with per-row position offsets, padding the batch
 with dummy rows) and measures TTFT and per-token latency around
@@ -12,6 +16,7 @@ synchronised device work.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -20,8 +25,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import maybe_sync, param_device
+from repro_torch.dist.mesh import Mesh, parse_mesh
 from repro_torch.kernels.matmul import kernel as zorder_kernel
-from repro_torch.runtime.serve import ServeConfig, batch_requests, decode_loop
+from repro_torch.plan import cache_info
+from repro_torch.plan.lower_dist import executions_snapshot
+from repro_torch.runtime.serve import ServeConfig, batch_requests, decode_loop, planned_scope
 
 from .buckets import Bucket, as_bucket, route
 
@@ -60,20 +68,42 @@ class ServeResult:
         }
 
 
+def _as_mesh(mesh, device) -> Optional[Mesh]:
+    """``mesh`` as a ``Mesh``: None, a ``Mesh``, or its sizes (a tuple of
+    ints or an ``"RxC"`` string) for a mesh on ``device``."""
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
+    if isinstance(mesh, str):
+        return parse_mesh(mesh, device=device)
+    try:
+        sizes = tuple(int(s) for s in mesh)
+    except (TypeError, ValueError):
+        raise ValueError(f"mesh must be a repro_torch Mesh or its sizes, got {mesh!r}") from None
+    return Mesh(sizes, device=device)
+
+
+def _moved(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
 class Server:
-    """Serving harness over one model on one device (see module doc).
-    The model must take per-row position offsets (``DecoderLM`` does), so
-    prompts can be left-padded into a bucket."""
+    """Serving harness over one model (see module doc).  The model must
+    take per-row position offsets (``DecoderLM`` does), so prompts can be
+    left-padded into a bucket."""
 
     def __init__(self, model, params, cfg: ServeConfig, *, mesh=None,
+                 strategy: Optional[str] = None,
                  buckets: Sequence = DEFAULT_BUCKETS):
-        if mesh is not None:
-            raise NotImplementedError(
-                "plan-routed serving (mesh=...) is not ported yet; use mesh=None")
         self.model = model
         self.params = params
         self.cfg = cfg
         self.device = param_device(params)
+        self.mesh = _as_mesh(mesh, self.device)
+        if strategy is not None and self.mesh is None:
+            raise ValueError(f"strategy={strategy!r} needs a mesh")
+        self.strategy = strategy
+        self._plans: Dict[str, int] = collections.Counter()
+        self._warm_plans: Dict[str, int] = {}
         self.buckets: Tuple[Bucket, ...] = tuple(
             sorted(as_bucket(b) for b in buckets))
         for b in self.buckets:
@@ -87,7 +117,8 @@ class Server:
         """Run a dummy prefill + two decode steps per bucket.  Returns
         ``{label: {"warm_s": seconds}}``."""
         report: Dict[str, Dict] = {}
-        with torch.no_grad():
+        before = executions_snapshot()
+        with torch.no_grad(), planned_scope(self.mesh, self.strategy):
             for bucket in self.buckets:
                 t0 = time.perf_counter()
                 cache = self._cache(bucket)
@@ -100,6 +131,7 @@ class Server:
                 maybe_sync(self.device)
                 report[bucket.label] = {"warm_s": time.perf_counter() - t0}
         self._warm_launches = zorder_kernel.launches
+        self._warm_plans = _moved(before, executions_snapshot())
         return report
 
     def _cache(self, bucket: Bucket) -> Dict:
@@ -143,9 +175,11 @@ class Server:
             maybe_sync(self.device)
             return time.perf_counter()
 
-        with torch.no_grad():
+        before = executions_snapshot()
+        with torch.no_grad(), planned_scope(self.mesh, self.strategy):
             full, marks = decode_loop(self.model, self.params, cache, tokens,
                                       offsets, self.cfg, generator, on_token=mark)
+        self._plans.update(_moved(before, executions_snapshot()))
         wall = time.perf_counter() - t_start
         ttft = (marks[0] if marks else time.perf_counter()) - t_start
 
@@ -158,19 +192,30 @@ class Server:
                            bucket.label if bucket else None,
                            ttft, np.diff(np.asarray(marks)), wall)
 
+    def plan_report(self) -> Dict:
+        """Plan-engine accounting: the mesh, the products served per
+        strategy (``"strategy"`` or ``"strategy+ov"`` for the overlapped
+        lowering) by ``generate`` and by ``warmup``, and the plan cache's
+        hits and misses.  Empty strategy counts without a mesh."""
+        return {"mesh": None if self.mesh is None else dict(self.mesh.shape),
+                "strategy": self.strategy,
+                "strategies": dict(sorted(self._plans.items())),
+                "warmup_strategies": dict(self._warm_plans),
+                "cache": cache_info()}
+
     def cache_report(self) -> Dict:
         """Kernel accounting: the Z-order matmul's launches in total and
-        since warmup.  (The plan-cache section waits for ``plan/``.)"""
+        since warmup."""
         total = zorder_kernel.launches
         since = None if self._warm_launches is None else total - self._warm_launches
         return {"kernels": {"zorder_matmul": {"launches": total,
                                               "since_warmup": since}}}
 
 
-def warmup(model, params, cfg: ServeConfig, *,
+def warmup(model, params, cfg: ServeConfig, *, mesh=None, strategy: Optional[str] = None,
            buckets: Sequence = DEFAULT_BUCKETS) -> Server:
     """Build a ``Server`` and warm its buckets in one call; the per-bucket
     report is kept as ``server.warmup_report``."""
-    server = Server(model, params, cfg, buckets=buckets)
+    server = Server(model, params, cfg, mesh=mesh, strategy=strategy, buckets=buckets)
     server.warmup_report = server.warmup()
     return server

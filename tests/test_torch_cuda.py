@@ -348,3 +348,112 @@ def test_wgmma_route_takes_any_scale(cuda_device, scale):
     assert k2.kernel.launches_by_route["wgmma"] == 1
     ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), window=100, scale=scale)
     assert _row_rel(_heads(out), ref) < ROW_TOL_BF16
+
+
+# -- the plan engine on the card: R ranks as threads of this process ------------------
+
+# (mesh sizes, axis names, strategy, overlap, K1 launches per product:
+# ranks x block products per rank)
+PLAN_CELLS = [((2, 2), ("x", "y"), "cannon", False, 8), ((2, 2), ("x", "y"), "cannon", True, 8),
+              ((2, 2), ("x", "y"), "summa", False, 4), ((2, 2), ("x", "y"), "summa", True, 8),
+              ((2, 2), ("x", "y"), "ring_ag", None, 16), ((2, 2), ("x", "y"), "ring_rs", None, 4),
+              ((2, 2, 2), ("pod", "x", "y"), "cannon25d", True, 16),
+              ((2, 2, 2), ("pod", "x", "y"), "pod25d", False, 8),
+              ((2, 2, 2), ("tree", "x", "y"), "fattree", None, 16),
+              ((2,), ("pod",), "pod25d", None, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("cell", PLAN_CELLS,
+                         ids=[f"{c[2]}{'+ov' if c[3] else ''}-{'x'.join(map(str, c[0]))}"
+                              for c in PLAN_CELLS])
+def test_planned_product_on_the_card_matches_k1(cuda_device, cell, m):
+    """Each strategy as per-rank programs on one card: every output row of
+    a bf16 product within 1e-2 of K1 alone, every rank's block product on
+    the route ``kernel.route`` names for its shape (thin at decode rows,
+    wide above), and the launch count of ranks x block products."""
+    from repro_torch.dist import Mesh, symmetric_matmul
+
+    sizes, names, strategy, overlap, launches = cell
+    k, n = 1024, 768
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(cuda_device,
+                                                                             torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32) / 32).to(
+        cuda_device, torch.bfloat16)
+    mesh = Mesh(sizes, names, device=cuda_device)
+    kernel.reset_launches()
+    with kernel.trace_launches() as trace:
+        out = symmetric_matmul(a, b, mesh=mesh, strategy=strategy, overlap=overlap)
+        torch.cuda.synchronize()
+    assert kernel.launches == len(trace) == launches
+    for (pm, pn, pk, r) in trace:
+        assert r == kernel.route(pm, pn, pk, torch.bfloat16)
+        assert r == ("thin" if pm <= kernel.THIN_MAX_M else "wide")
+    assert _row_rel(out, matmul(a, b)) < ROW_TOL_BF16
+    mesh.close()
+
+
+@pytest.mark.cuda
+def test_planned_linear_on_the_card_and_a_failing_rank(cuda_device):
+    """``linear`` inside ``planned_matmuls`` runs the plan engine on the
+    card by default (a ``Mesh`` built without a device is on CUDA); a rank
+    that raises reaches the caller and the mesh runs again afterwards."""
+    from repro_torch.dist import Mesh, _collectives
+    from repro_torch.layers.linear import linear
+    from repro_torch.plan import planned_matmuls
+
+    mesh = Mesh((2, 2))
+    assert mesh.device.type == "cuda"
+    x = torch.randn(2, 16, 256, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(256, 512, device=cuda_device) / 16).to(torch.bfloat16)
+    kernel.reset_launches()
+    with planned_matmuls(mesh):
+        y = linear(x, w)
+    torch.cuda.synchronize()
+    assert kernel.launches > 1 and _row_rel(y, linear(x, w)) < ROW_TOL_BF16
+
+    def body(t):
+        if _collectives.axis_index(("x", "y")) == 3:
+            raise ArithmeticError("rank 3")
+        return _collectives.psum(t, "x")
+
+    with pytest.raises(ArithmeticError, match="rank 3"):
+        mesh.run(body, {r: (torch.ones(4, device=cuda_device),) for r in range(4)})
+    outs = mesh.run(lambda t: _collectives.psum(t, ("x", "y")),
+                    {r: (torch.ones(4, device=cuda_device),) for r in range(4)})
+    assert all(o.device.type == "cuda" and o.sum().item() == 16 for o in outs.values())
+    mesh.close()
+
+
+@pytest.mark.cuda
+def test_kernels_launch_from_a_fresh_thread(cuda_device):
+    """A thread that has made no CUDA call yet (a fresh rank thread of the
+    plan engine) launches K1's wide route and K2's wgmma route: both encode
+    TMA maps through the driver, which needs the context current there."""
+    import threading
+
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((512, 256), dtype=np.float32)).to(
+        cuda_device, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((256, 384), dtype=np.float32)).to(
+        cuda_device, torch.bfloat16)
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 256, 256, 4, 2, 64, seed=3)
+    got = {}
+
+    def fresh():
+        try:
+            got["k1"] = matmul(a, b, out_dtype=torch.float32)
+            got["k2"] = k2.mha(q, k, v, causal=True)
+            torch.cuda.synchronize()
+        except Exception as e:   # reported in the main thread
+            got["error"] = e
+
+    t = threading.Thread(target=fresh)
+    t.start()
+    t.join(120)
+    assert not t.is_alive() and "error" not in got, got.get("error")
+    assert kernel.route(512, 384, 256, torch.bfloat16) == "wide"
+    assert _row_rel(got["k1"], matmul(a, b, out_dtype=torch.float32)) < 1e-6
+    assert _row_rel(_heads(got["k2"]), _heads(k2.mha(q, k, v, causal=True))) < 1e-6

@@ -66,6 +66,13 @@ def test_launcher_serves_on_cpu_when_asked(capsys):
     assert "bucket=4x16" in out and "zorder_matmul launches: 0" in out
 
 
+def test_launcher_serves_plan_routed_on_cpu(capsys):
+    assert launch_serve.main(["--smoke", "--device", "cpu", "--max-new", "3",
+                              "--buckets", "4x16", "--mesh", "2x2", "--strategy", "summa"]) == 0
+    out = capsys.readouterr().out
+    assert "plan-routed on mesh {'x': 2, 'y': 2}: strategies {'summa+ov':" in out
+
+
 def test_chip_smoke_refuses_to_run_without_cuda():
     """No card: a non-zero exit and no result line."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")

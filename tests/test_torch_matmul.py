@@ -234,3 +234,44 @@ def test_local_matmul_folds_leading_dims():
     out = local_matmul(torch.from_numpy(x), torch.from_numpy(w))
     assert out.shape == (2, 3, 5, 7)
     np.testing.assert_allclose(out.numpy(), x @ w, rtol=1e-5, atol=1e-5)
+
+
+def test_launch_bookkeeping_is_exact_across_threads():
+    """The plan engine's rank threads launch K1 concurrently: two threads
+    driving the launch counters (the one place launches are counted), the
+    tile tables and the split-K counter arrays leave exact counts and one
+    shared table and counter array."""
+    import sys
+    import threading
+
+    kernel.reset_launches()
+    per_thread = 20000
+    tables, counters = [], []
+    cpu = torch.device("cpu")
+
+    def drive(route):
+        for i in range(per_thread):
+            kernel.count_launch(route, 4, 8, 16)
+            if i % 1000 == 0:
+                tables.append(kernel.tile_table(7, 5, "zorder", cpu))
+                counters.append(kernel.split_counters(cpu, 64))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)      # switch threads as often as possible
+    try:
+        with kernel.trace_launches() as trace:
+            threads = [threading.Thread(target=drive, args=(r,)) for r in ("thin", "wide")]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert kernel.launches == 2 * per_thread
+    assert kernel.launches_by_route == {"wide": per_thread, "thin": per_thread,
+                                        "wmma": 0, "fma": 0}
+    assert len(trace) == 2 * per_thread and trace[0] == (4, 8, 16, trace[0][3])
+    assert all(t is tables[0] for t in tables) and all(c is counters[0] for c in counters)
+    kernel.reset_launches()
+    assert kernel.launches == 0 and sum(kernel.launches_by_route.values()) == 0

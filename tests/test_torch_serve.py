@@ -23,6 +23,8 @@ from repro.runtime.serve import generate as jax_generate
 from repro_torch.checkpoint import params_from_jax
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.registry import build_model
+from repro_torch.dist import Mesh
+from repro_torch.plan import planned_matmuls
 from repro_torch.runtime.serve import ServeConfig, batch_requests, generate
 from repro_torch.serve import Bucket, Server, bucket_grid, route, warmup
 
@@ -134,8 +136,11 @@ def test_warmup_helper_returns_warm_server(pair):
 def test_server_rejects(pair, case):
     _, _, tmodel, tparams = pair
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # a mesh is a repro_torch Mesh or its sizes; a strategy needs a mesh
+        with pytest.raises(ValueError, match="mesh"):
             Server(tmodel, tparams, ServeConfig(), mesh=object())
+        with pytest.raises(ValueError, match="needs a mesh"):
+            Server(tmodel, tparams, ServeConfig(), strategy="cannon")
     else:
         with pytest.raises(ValueError, match="max_seq"):
             Server(tmodel, tparams, ServeConfig(max_new_tokens=8, max_seq=16),
@@ -225,3 +230,44 @@ def test_configs_hold_the_reference_danube(which):
         assert (port.num_layers, port.d_model, port.num_heads, port.num_kv_heads,
                 port.d_ff, port.vocab_size, port.head_dim, port.window) == (
                     24, 3840, 32, 8, 10240, 32000, 120, 4096)
+
+
+@pytest.mark.parametrize("strategy", [None, "cannon", "summa"])
+def test_plan_routed_server_matches_local(pair, strategy):
+    """``Server(mesh=(2, 2))`` on the CPU, the cost model ranking (None) or
+    one strategy pinned: every projection runs as per-rank programs on a
+    2x2 single-controller mesh, and the served tokens equal ``mesh=None``'s
+    with the prefill logits within 1e-5.  ``mesh=None`` is the oracle: the
+    reference's plan-routed serving does not run on this JAX."""
+    _, _, tmodel, tparams = pair
+    scfg = ServeConfig(max_new_tokens=6, max_seq=32)
+    local = Server(tmodel, tparams, scfg, buckets=[(4, 8)])
+    planned = Server(tmodel, tparams, scfg, mesh=(2, 2), strategy=strategy, buckets=[(4, 8)])
+    assert isinstance(planned.mesh, Mesh) and planned.mesh.device == torch.device("cpu")
+    local.warmup()
+    planned.warmup()
+    for prompts in (PROMPTS, [[3] * 12, [4, 5]]):         # bucketed, then cold
+        lr, pr = local.generate(prompts), planned.generate(prompts)
+        assert pr.bucket == lr.bucket and pr.new_tokens == lr.new_tokens
+    report = planned.plan_report()
+    assert report["mesh"] == {"x": 2, "y": 2} and report["strategy"] == strategy
+    taken = {k.split("+")[0] for k in report["strategies"]}
+    per_forward = 7 * tmodel.cfg.num_layers
+    assert sum(report["strategies"].values()) == 2 * 6 * per_forward
+    assert taken == ({strategy} if strategy else taken) and taken
+    assert sum(report["warmup_strategies"].values()) == 3 * per_forward
+    assert local.plan_report()["strategies"] == {}
+    batch, lens = batch_requests(PROMPTS)
+    offsets = torch.from_numpy((batch.shape[1] - lens).astype(np.int64))
+    tokens = torch.from_numpy(batch).long()
+    with torch.no_grad():
+        ref, _ = tmodel.prefill(tparams, tmodel.init_cache(4, 16, torch.device("cpu")),
+                                tokens, offsets)
+        with planned_matmuls(planned.mesh, strategy):
+            out, _ = tmodel.prefill(tparams, tmodel.init_cache(4, 16, torch.device("cpu")),
+                                    tokens, offsets)
+    assert _rel_err(out, ref.numpy()) < 1e-5
+    # the runtime's generate takes the same mesh
+    np.testing.assert_array_equal(
+        generate(tmodel, tparams, batch, scfg, lens=lens, mesh=planned.mesh, strategy=strategy),
+        generate(tmodel, tparams, batch, scfg, lens=lens))
