@@ -76,7 +76,12 @@ Phases, each fatal on failure (no result line, non-zero exit):
    its B skew, ring_ag writing each chunk to the wrong row slot) must land
    outside the limit.  Device ms by CUDA events against K1 alone, the
    operands' scatter alone, and the plan's cost words beside the bytes the
-   collectives copied.
+   collectives copied, which the untimed check run accounts for through
+   the plan's trace (``repro_torch.verify``): for ppermute and all_gather
+   the copied bytes must equal the trace's words times the element size
+   each call carried, phase by phase (placement skew, movement, gather);
+   psum is printed in both conventions (the copies into each rank, the
+   trace's ring all-reduce), with no limit.
 8. planned-serve -- phase 4's workload through ``Server(mesh=2x2)``: the
    planned prefill's last-token logits within ``PLANNED_LOGITS_TOL`` per
    row of ``mesh=None`` (a ring_rs reducing the wrong way round must land
@@ -91,6 +96,18 @@ Phases, each fatal on failure (no result line, non-zero exit):
    of the unplanned forward, with Cannon without its B skew and the
    wrong-way ring_rs (each in every product of its strategy) outside;
    device ms against the unplanned forward, in turns.
+10. conformance -- the conformance checker (``repro_torch.verify``) over
+   the executed schedules, every leg fatal: ``run_matrix`` on the card
+   (every catalog cell up to 16 ranks, square, ragged and batched, fp32
+   and bf16, staged and overlapped), every row ok; every plan phases 7-9
+   left in the plan cache (the sweep's, Llama's on 2x2, danube's on 2x2)
+   passes ``check(plan, measure=True)``; one planned Llama decode step and
+   one planned danube forward at S = 32768 under ``intercept()`` execute
+   exactly the summed traces of the plans they ran; a swapped movement
+   permutation is caught statically and, executed on the card, at the
+   interceptor, and so is Cannon without its B skew.  Seconds per leg
+   and K1's launches by route.  Only this phase and phase 7's untimed
+   check run go through the interceptor; no timed run does.
 
 On one card the collectives are device copies and "overlap" is only the
 order in which the rank threads issue work: no number of phases 7-9 is a
@@ -130,9 +147,14 @@ from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
 from repro_torch.models.lm import cross_entropy  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.plan import build_plan, planned_matmuls  # noqa: E402
+from repro_torch.plan import build_plan, planned_matmuls, plan_cache  # noqa: E402
 from repro_torch.runtime.serve import ServeConfig, batch_requests  # noqa: E402
 from repro_torch.serve import Server  # noqa: E402
+from repro_torch.verify import (ConformanceError, check, check_capture,  # noqa: E402
+                                compare_records, intercept, measure_plan, run_matrix,
+                                trace_plan)
+from repro_torch.verify.conformance import CASES, _overlap_modes, matrix_cells  # noqa: E402
+from repro_torch.verify.interceptor import phase_bytes  # noqa: E402
 
 # the module, not the function ``repro_torch.plan.lower_dist`` of its name
 lower_dist_mod = importlib.import_module("repro_torch.plan.lower_dist")
@@ -1041,6 +1063,38 @@ def _check_control(phase: str, what: str, e: dict, tol: float) -> None:
         raise AssertionError(f"the limit {tol} cannot tell a wrong program ({what}): {e}")
 
 
+def account_bytes(label: str, cap, copied: dict, ranks: int) -> dict:
+    """Phase 7's copied bytes through the trace of the one plan executed:
+    the executed collectives must be the trace's multiset, and for ppermute
+    and all_gather the bytes ``_collectives.stats`` counted must equal the
+    trace's words times the element size each call carried, phase by phase
+    (placement skew, movement, collection restore, gather).  psum is given
+    in both conventions with no limit: the thread communicator copies
+    g - 1 shards into each rank, the trace prices a ring all-reduce."""
+    if len(cap.lowered_plans) != 1:
+        raise AssertionError(f"{label}: {len(cap.lowered_plans)} plans lowered, want 1")
+    tr = trace_plan(cap.lowered_plans[0])
+    compare_records(tr.records, cap.records)
+    by_phase = phase_bytes(tr, cap)
+    words: dict = {}
+    for r in tr.records:
+        words[r.kind, r.phase] = words.get((r.kind, r.phase), 0.0) + r.words_total(tr.mesh_size)
+    for kind in ("ppermute", "all_gather"):
+        want = sum(v for (kd, _), v in by_phase.items() if kd == kind)
+        if copied[kind]["bytes"] != want:
+            raise AssertionError(f"{label}: {kind} copied {copied[kind]['bytes']} bytes, the "
+                                 f"trace's words x element sizes give {want}: {by_phase}")
+    psum_ring = sum(v for (kd, _), v in by_phase.items() if kd == "psum")
+    return {
+        "by_phase": {f"{kd} {ph}": {"mb_per_rank": v / ranks / 1e6,
+                                    "words_per_rank": words[kd, ph] / ranks,
+                                    "itemsize": v / words[kd, ph]}
+                     for (kd, ph), v in by_phase.items() if kd != "psum"},
+        "psum": {"copied_mb_per_rank": copied["psum"]["bytes"] / ranks / 1e6,
+                 "ring_mb_per_rank": psum_ring / ranks / 1e6} if psum_ring else None,
+    }
+
+
 def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
     m, k, n = PLAN_SWEEP_SHAPE
     bf16 = torch.bfloat16
@@ -1062,11 +1116,14 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
         def planned(mesh=mesh, strategy=strategy, overlap=overlap):
             return symmetric_matmul(a, b, mesh=mesh, strategy=strategy, overlap=overlap)
 
+        # the check run (untimed) reads each collective call's element size
+        # at the seam, to account for the copied bytes through the trace
         _collectives.reset_stats()
-        with k1.trace_launches() as trace:
+        with k1.trace_launches() as trace, intercept() as cap:
             out = planned()
             torch.cuda.synchronize()
         copied = {kind: dict(v) for kind, v in _collectives.stats.items()}
+        accounted = account_bytes(label, cap, copied, mesh.size)
         routes = {}
         for (pm, pn, pk, r) in trace:
             if r != k1.route(pm, pn, pk, bf16):
@@ -1096,13 +1153,21 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
                "host_ms": host_ms, "k1_alone_ms": k1_ms,
                "cost": {"comm_bytes_per_rank": plan.cost.comm_bytes, "msgs": plan.cost.msgs,
                         "compute_s": plan.cost.compute_s, "comm_s": plan.cost.comm_s},
-               "copied_bytes_per_rank": moved, "collectives": copied}
+               "copied_bytes_per_rank": moved, "collectives": copied, "accounted": accounted}
         rows.append(row)
         log(f"[plan-sweep] {label:22s} {row['ms']:8.3f}ms (K1 alone {k1_ms:.3f}, scatter of "
             f"both operands {row['scatter_ms']:.3f}, host {host_ms:.1f}ms); K1 {len(trace)} "
             f"launches {routes}; cost words {plan.cost.comm_bytes / 1e6:.2f} MB/rank in "
             f"{plan.cost.msgs} msgs, copied {moved / 1e6:.2f} MB/rank "
             + ", ".join(f"{kd} {v['calls']}x" for kd, v in copied.items() if v["calls"]))
+        parts = [f"{key} {v['mb_per_rank']:.2f} ({v['words_per_rank'] / 1e6:.2f}M words x "
+                 f"{v['itemsize']:g} B)" for key, v in accounted["by_phase"].items()]
+        if accounted["psum"]:
+            parts.append(f"psum copied {accounted['psum']['copied_mb_per_rank']:.2f} (g - 1 "
+                         f"shards into each rank) vs {accounted['psum']['ring_mb_per_rank']:.2f} "
+                         f"(the trace's ring all-reduce, 2 (g - 1) shards per group), no limit")
+        log(f"[plan-sweep] {'':22s} copied bytes by phase, trace words x the element size "
+            f"each call carried (MB/rank): " + "; ".join(parts))
     controls = {}
     for what, (sizes, names), strategy in (
             ("cannon without B skew", ((2, 2), ("x", "y")), "cannon"),
@@ -1311,6 +1376,159 @@ def phase_planned_prefill(dev: torch.device) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+# -- conformance (phase 10) ---------------------------------------------------------
+
+
+def _plan_label(plan) -> str:
+    return (f"{plan.strategy}{'+ov' if plan.overlap else ''} on "
+            f"{'x'.join(str(plan.mesh.shape[a]) for a in plan.mesh.axis_names)} "
+            f"({plan.m}x{plan.k}x{plan.n} {str(plan.out_dtype).replace('torch.', '')})")
+
+
+def _expect_caught(what: str, leg: str, fn) -> str:
+    """Run a control that must fail conformance at ``leg``."""
+    try:
+        fn()
+    except ConformanceError as e:
+        if not str(e).startswith(f"[{leg}]"):
+            raise AssertionError(f"{what} was caught by another leg than {leg}: {e}") from e
+        log(f"[conformance] control {what}: caught, {str(e)[:160]}")
+        return str(e)
+    raise AssertionError(f"{what} was not caught at the {leg} leg")
+
+
+def live_decode_step(dev: torch.device, mesh) -> dict:
+    """One planned decode step of phase 8's workload (full Llama-3.2-1B,
+    bucket 4x16) under ``intercept()``."""
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch, seq = SERVE_BUCKETS[0]
+    cache = model.init_cache(batch, 64, dev)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab_size, size=(batch, 1))).to(dev)
+    offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
+    with torch.no_grad(), intercept() as cap, planned_matmuls(mesh):
+        logits = model.decode_step(params, cache, tokens, seq, offsets)[0]
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the planned decode step's logits are not finite")
+    del params, cache, logits
+    return {"plans": len(cap.lowered_plans), "records_by_kind": check_capture(cap),
+            "products": 7 * cfg.num_layers}
+
+
+def live_prefill(dev: torch.device, mesh) -> dict:
+    """One planned danube forward of phase 9's workload (S = 32768, 2x2)
+    under ``intercept()``."""
+    cfg = dataclasses.replace(get_config(PREFILL_ARCH), attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, PREFILL_S))).to(dev)
+    with torch.no_grad(), intercept() as cap, planned_matmuls(mesh):
+        logits = model.forward(params, tokens)[0]
+        torch.cuda.synchronize()
+    if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"the planned forward's logits are malformed: {tuple(logits.shape)}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return {"plans": len(cap.lowered_plans), "records_by_kind": check_capture(cap),
+            "products": 7 * cfg.num_layers}
+
+
+def phase_conformance(dev: torch.device) -> dict:
+    """Phase 10: the port's conformance checker over the executed schedules
+    (``repro_torch.verify``); every leg fatal."""
+    # the plans phases 7-9 built, before the matrix adds its own
+    built = [p for p in plan_cache.plans() if isinstance(p.mesh, Mesh) and p.mesh.size > 1]
+    k1.reset_launches()
+    seconds, out = {}, {}
+
+    t0 = time.perf_counter()
+    rows = run_matrix(measure=True, device=dev)
+    seconds["matrix"] = time.perf_counter() - t0
+    bad = [r for r in rows if not r["ok"]]
+    per_strategy: dict = {}
+    for r in rows:
+        per_strategy[r["strategy"]] = per_strategy.get(r["strategy"], 0) + 1
+    log(f"[conformance] run_matrix on {torch.cuda.get_device_name(0)}: {len(rows)} rows "
+        f"(every catalog cell up to 16 ranks x {len(CASES)} cases x fp32, bf16 x staged, "
+        f"overlapped) by strategy {per_strategy}, {len(rows) - len(bad)} ok, "
+        f"{seconds['matrix']:.1f}s")
+    want = sum(len(CASES) * 2 * len(_overlap_modes(st, shape))
+               for st, shape, _ in matrix_cells(16))
+    if bad or len(rows) != want:
+        raise AssertionError(f"{len(bad)} of {len(rows)} matrix rows fail (want {want} "
+                             f"rows): {bad[:5]}")
+    out["matrix"] = {"rows": len(rows), "by_strategy": per_strategy}
+
+    t0 = time.perf_counter()
+    origins = {"sweep": 0, "llama": 0, "danube": 0}
+    checked = []
+    for plan in built:
+        origin = ("sweep" if (plan.m, plan.k, plan.n) == PLAN_SWEEP_SHAPE
+                  else "danube" if plan.m == PREFILL_S else "llama")
+        origins[origin] += 1
+        rep = check(plan, measure=True)
+        checked.append({"plan": _plan_label(plan), "origin": origin,
+                        "words_per_node": rep.words_per_node,
+                        "peak_node_words": rep.peak_node_words, "itt_bound": rep.itt_bound})
+    seconds["full_width"] = time.perf_counter() - t0
+    log(f"[conformance] full width: {len(checked)} plans of phases 7-9 pass "
+        f"check(measure=True) ({origins}), {seconds['full_width']:.1f}s")
+    swept = {(tuple(p.mesh.shape.items()), p.strategy) for p in built
+             if (p.m, p.k, p.n) == PLAN_SWEEP_SHAPE}
+    missing = [c for c in PLAN_SWEEP_CELLS if (tuple(zip(c[1], c[0])), c[2]) not in swept]
+    if missing or not origins["llama"] or origins["danube"] != 4:
+        raise AssertionError(f"phases 7-9 should have left every sweep cell's plan (missing "
+                             f"{missing}), Llama's and danube's 4 in the plan cache: {origins}")
+    out["full_width"] = {"plans": checked, "by_origin": origins}
+
+    t0 = time.perf_counter()
+    mesh = Mesh(*PLANNED_MESH, device=dev)
+    live = {"decode_step": live_decode_step(dev, mesh), "prefill": live_prefill(dev, mesh)}
+    mesh.close()
+    seconds["live"] = time.perf_counter() - t0
+    for what, r in live.items():
+        log(f"[conformance] live {what}: {r['plans']} planned products, executed records per "
+            f"kind {r['records_by_kind']} = the summed traces")
+        if r["plans"] != r["products"]:
+            raise AssertionError(f"live {what}: {r['plans']} products, want {r['products']}")
+    out["live"] = live
+
+    t0 = time.perf_counter()
+    cannon = next(p for p in built if p.strategy == "cannon" and not p.overlap
+                  and (p.m, p.k, p.n) == PLAN_SWEEP_SHAPE)
+    pairs = list(cannon.torus.step_a)
+    pairs[0], pairs[1] = (pairs[0][0], pairs[1][1]), (pairs[1][0], pairs[0][1])
+    mutated = dataclasses.replace(cannon, torus=dataclasses.replace(cannon.torus,
+                                                                    step_a=tuple(pairs)))
+    controls = {"wrong permutation, static": _expect_caught(
+        "wrong permutation (static)", "structure", lambda: check(mutated))}
+    executed = measure_plan(mutated)
+    controls["wrong permutation, executed"] = _expect_caught(
+        "wrong permutation (executed on the card)", "interceptor",
+        lambda: compare_records(trace_plan(cannon).records, executed.records))
+
+    def no_b_skew():
+        with wrong_program("cannon without B skew"):
+            check(cannon, measure=True)
+
+    controls["cannon without B skew"] = _expect_caught("cannon without B skew", "interceptor",
+                                                       no_b_skew)
+    seconds["controls"] = time.perf_counter() - t0
+    for m in {id(p.mesh): p.mesh for p in built}.values():   # measuring restarted them
+        m.close()
+    routes = _nonzero(k1.launches_by_route)
+    log(f"[conformance] K1 launches in this phase: {k1.launches} {routes}; seconds per leg "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    torch.cuda.empty_cache()
+    return {**out, "controls": controls, "seconds": seconds, "k1_launches": k1.launches,
+            "k1_routes": routes}
+
+
 def decode_step_row(timings: list, m: int = 4) -> dict:
     """K1's numbers for one serving forward at M rows (4: a decode step at
     batch 4; 64: the prefill of the 4x16 bucket): the 7 projections of
@@ -1379,6 +1597,7 @@ def main() -> int:
     report["plan_sweep"] = phase_plan_sweep(dev, gen)
     report["planned_serve"] = phase_planned_serve(dev)
     report["planned_prefill"] = phase_planned_prefill(dev)
+    report["conformance"] = phase_conformance(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -1393,13 +1612,15 @@ def main() -> int:
                              "long_prefill": report["long_prefill"]["launches"]["K1"],
                              "planned_serve": report["planned_serve"]["runs"][0]["launches"],
                              "planned_prefill": report["planned_prefill"]["k1_launches"],
-                             "plan_sweep": report["plan_sweep"]["k1_launches"]},
+                             "plan_sweep": report["plan_sweep"]["k1_launches"],
+                             "conformance": report["conformance"]["k1_launches"]},
         "routes": {"serve": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
                       for step, r in report["serve"]["step_device_ms"]["routes"].items()},
                    "long_prefill": report["long_prefill"]["k1_routes"],
                    "planned_serve": report["planned_serve"]["runs"][0]["routes"],
-                   "planned_prefill": report["planned_prefill"]["k1_routes"]},
+                   "planned_prefill": report["planned_prefill"]["k1_routes"],
+                   "conformance": report["conformance"]["k1_routes"]},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"])),

@@ -2,11 +2,12 @@
 
 Counterpart of ``repro.dist._collectives``.  Every word a lowered schedule
 moves goes through ``ppermute``, ``all_gather`` or ``psum`` here (the
-reference's three names, so the conformance layer can hook them later);
+reference's three names, which ``repro_torch.verify.interceptor`` patches);
 ``axis_index`` and ``axis_size`` answer a rank's place on the mesh, as
 ``lax.axis_index`` and ``lax.psum(1, axis)`` do inside the reference's
-shard_map bodies.  Each call goes to the communicator of the rank the
-calling thread runs (``current``), one of two:
+shard_map bodies, and ``rank`` the calling rank's number.  Each call goes
+to the communicator of the rank the calling thread runs (``current``), one
+of two:
 
 * ``ThreadCommunicator`` -- the single controller: the mesh's ranks are
   threads of one process, and a collective is a barrier exchange over a
@@ -105,6 +106,11 @@ def axis_index(axis_name) -> int:
 
 def axis_size(axis_name) -> int:
     return _comm().mesh.axis_size(axis_name)
+
+
+def rank() -> int:
+    """The calling rank's number on its mesh."""
+    return _comm().rank
 
 
 def _source(perm, me: int) -> Optional[int]:

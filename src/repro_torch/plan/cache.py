@@ -59,6 +59,11 @@ class PlanCache:
         with self._lock:
             return tuple(self._store)
 
+    def plans(self) -> tuple:
+        """Snapshot of the resident plans (insertion order)."""
+        with self._lock:
+            return tuple(self._store.values())
+
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,

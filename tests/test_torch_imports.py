@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of ``repro``,
 and its entry points refuse to fall back to the CPU unasked."""
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -38,6 +40,36 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     n, bad = line.split(" BAD ")
     assert int(n.split()[1]) >= 20, line
     assert bad == "[]", line
+
+
+def _port_sources():
+    src = os.path.join(ROOT, "src")
+    files = sorted(glob.glob(os.path.join(src, "repro_torch", "**", "*.py"), recursive=True))
+    return [os.path.relpath(f, ROOT) for f in files] + ["chip_smoke.py"]
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_no_import_of_jax_or_repro_anywhere_in_the_source(path):
+    """Every import statement of the port and of ``chip_smoke.py``, those
+    inside functions too (which importing the module does not run), names
+    neither ``jax`` nor ``repro``."""
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = sorted(m for m in _imported_modules(tree)
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert bad == [], f"{path} imports {bad}"
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "model_init",
