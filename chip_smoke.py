@@ -26,13 +26,16 @@ Phases, each fatal on failure (no result line, non-zero exit):
    version with the same weights; logits agree to 1e-3 relative.
 4. serve  -- the full Llama-3.2-1B (16 layers, bf16, random weights from a
    seeded generator) behind ``Server``: warmup over buckets (4,16) and
-   (8,32), then ``generate`` on 4 variable-length prompts with 16 new tokens,
-   twice, with identical tokens, each run launching K1 exactly 112 x 16
-   times (7 projections x 16 layers per forward, 1 prefill + 15 decode
-   steps), all on the thin route, 112 per decode step.  Prints TTFT,
-   p50/p99 per-token latency and tokens/s, and the device time of one
-   prefill and one decode step (each captured in a CUDA graph and
-   replayed), which the eager host-clock times contain.
+   (8,32), each bucket run eagerly once and its prefill and decode step
+   captured as CUDA graphs; then ``generate`` on 4 variable-length prompts
+   with 16 new tokens, twice, by graph replays, with identical tokens,
+   each run replaying K1 exactly 112 x 16 times (7 projections x 16
+   layers per forward, 1 prefill + 15 decode steps; counted as replays x
+   each graph's launches at capture), all on the thin route; the same
+   server built eager (``graphs=False``) gives the same tokens bitwise.
+   Prints TTFT, p50/p99 per-token latency and tokens/s for both, and the
+   device time of one prefill and one decode step (CUDA-graph replays).
+   K1's count on this main path runs from 0 before the server is built.
 5. flash-kernel -- K2 against its plain version on the card on each of
    its three routes (``FLASH_CHECKS``): head dims 16-128 (Llama's 64,
    zamba2's 80, danube's 120, 128), GQA groups 1, 2 and 4, ragged S_q and
@@ -82,14 +85,16 @@ Phases, each fatal on failure (no result line, non-zero exit):
    each call carried, phase by phase (placement skew, movement, gather);
    psum is printed in both conventions (the copies into each rank, the
    trace's ring all-reduce), with no limit.
-8. planned-serve -- phase 4's workload through ``Server(mesh=2x2)``: the
-   planned prefill's last-token logits within ``PLANNED_LOGITS_TOL`` per
-   row of ``mesh=None`` (a ring_rs reducing the wrong way round must land
-   outside), identical tokens across two planned runs, token agreement
-   with ``mesh=None`` printed, the strategies taken, K1 launches by route,
-   TTFT, p50/p99, tokens/s, and one decode step's device time by CUDA
-   events, planned and not; then one attempt to capture a planned decode
-   step in a CUDA graph, its outcome reported.
+8. planned-serve -- phase 4's workload through ``Server(mesh=2x2)``, each
+   bucket's steps captured with the rank threads launching on the
+   capturing stream and replayed: identical tokens across two runs and
+   to the same planned server built eager (bitwise), the planned
+   prefill's last-token logits within ``PLANNED_LOGITS_TOL`` per row of
+   ``mesh=None`` (a ring_rs reducing the wrong way round must land
+   outside), token agreement with ``mesh=None`` printed, the strategies
+   taken, K1 launches by route, TTFT, p50/p99, tokens/s for both, and one
+   decode step's device time by CUDA events, planned and not, and as a
+   captured planned step.  A failed capture fails the run.
 9. planned-prefill -- phase 6's danube forward at S = 32768 on the 2x2
    mesh: all 168 products planned, the strategy counts, K1 launches all
    wide and K2's 24 all wgmma; logits within ``PREFILL_LOGITS_TOL`` per row
@@ -109,12 +114,41 @@ Phases, each fatal on failure (no result line, non-zero exit):
    and K1's launches by route.  Only this phase and phase 7's untimed
    check run go through the interceptor; no timed run does.
 
+11. calibrate + tune -- ``python -m repro_torch.launch.perf_probe`` (its
+   ``main``) on a 2x2 rank-thread mesh: ring ppermutes per axis and a
+   local copy fitted to α–β, K1's peak at 8192^3 bf16, and the K1
+   autotune over Llama's serving shapes (unplanned decode and prefill, and
+   each planned product's per-rank block product on 2x2), every compiled
+   block shape x both orders; the profile (platform and device kind the
+   card's, links labelled as device copies between rank threads) and the
+   table (keyed by the card's name) saved to ``chiprun_out/``; each
+   winner's blocks, order, route and time beside ``default_blocks``' at
+   the same shape; ``Server(mesh=2x2, tuning=tuner)`` captured, its tokens
+   identical across two runs, its prefill logits within
+   ``PLANNED_LOGITS_TOL`` per row of the untuned planned ones; and
+   ``build_plan(profile=)``'s strategy at Llama's and danube's shapes
+   beside the TPU constants' picks.
+12. obs + drift -- ``check_drift(device=cuda)`` with phase 11's profile as
+   the stored one: on each of the 7 drift cells the obs, interceptor and
+   trace multisets are equal, and no ranking or tuning flip; then, under
+   ``obs.observe()``, one ``generate`` of phase 4's workload (its warmup
+   included) and one planned bf16 product per drift cell, each cell's obs
+   multiset equal to its trace; the Perfetto trace and the metrics
+   snapshot written to ``chiprun_out/``.
+13. profiler -- one unplanned and one planned (2x2) danube forward at
+   S = 32768 under ``torch.profiler`` (no timed window is profiled):
+   device time by kernel name into K1, K2 and the rest, the rest named by
+   its top kernels and operators, and the planned forward's accumulate
+   chain (fp32 zero, fp32 add, cast) and device copies beside the
+   unplanned forward's; both traces saved gzipped to ``chiprun_out/``.
+
 On one card the collectives are device copies and "overlap" is only the
-order in which the rank threads issue work: no number of phases 7-9 is a
-link's.
+order in which the rank threads issue work: no number of phases 7-9 or 11
+is a link's.
 
 Then a ``{"kernels": [...]}`` line (each kernel's entry with its launches
-per route on each path), the card's name and power limit as
+per route on each path, graph replays counted apart), the card's name and
+power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.  The
 full measurements go to ``chiprun_out/chip_smoke.json``.
 """
@@ -123,13 +157,17 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gzip
 import importlib
+import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -138,6 +176,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.dist import Mesh, _collectives, symmetric_matmul  # noqa: E402
 from repro_torch.dist.local import local_matmul  # noqa: E402
@@ -147,17 +186,22 @@ from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
 from repro_torch.models.lm import cross_entropy  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.plan import build_plan, planned_matmuls, plan_cache  # noqa: E402
+from repro_torch.launch import perf_probe  # noqa: E402
+from repro_torch.obs import calibrate  # noqa: E402
+from repro_torch.plan import build_plan, execute_plan, planned_matmuls, plan_cache  # noqa: E402
 from repro_torch.runtime.serve import ServeConfig, batch_requests  # noqa: E402
 from repro_torch.serve import Server  # noqa: E402
 from repro_torch.verify import (ConformanceError, check, check_capture,  # noqa: E402
                                 compare_records, intercept, measure_plan, run_matrix,
                                 trace_plan)
 from repro_torch.verify.conformance import CASES, _overlap_modes, matrix_cells  # noqa: E402
+from repro_torch.tune import Tuner, candidate_route, load_table, time_candidate  # noqa: E402
+from repro_torch.verify.drift import DRIFT_CELLS, check_drift  # noqa: E402
 from repro_torch.verify.interceptor import phase_bytes  # noqa: E402
 
 # the module, not the function ``repro_torch.plan.lower_dist`` of its name
 lower_dist_mod = importlib.import_module("repro_torch.plan.lower_dist")
+plan_ir = importlib.import_module("repro_torch.plan.ir")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): memory 3.35 TB/s,
 # bf16 tensor cores 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s.
@@ -256,6 +300,14 @@ PLANNED_MESH = ((2, 2), ("x", "y"))
 LAUNCHES_PER_PRODUCT_2X2 = {"cannon": 4 * 2, "summa": 4, "summa+ov": 4 * 2,
                             "ring_ag": 4 * 4, "ring_rs": 4}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+# Calibration and tuning (phase 11): timed reps per probe and per candidate
+CALIBRATE_REPS = 5
+TUNE_REPS = 5
+# (K, N) of the 4 distinct projections of a danube layer: q/o, k/v, gate/up, down
+DANUBE_KN = [(3840, 3840), (3840, 960), (3840, 10240), (10240, 3840)]
+# obs + drift (phase 12): one planned bf16 product per drift cell at this
+# (M, K, N), under tracing
+OBS_PRODUCT = (1024, 1024, 1024)
 
 
 def log(msg: str) -> None:
@@ -492,7 +544,56 @@ def phase_model(dev: torch.device) -> dict:
     return {"rel_err": errs, "launches": launches}
 
 
+def served_runs(server, prompts, reps: int, tag: str, vocab: int) -> list:
+    """``reps`` runs of ``server.generate(prompts)``: per run the K1 launches
+    by route (counted for an eager run, replays x each graph's capture for
+    a captured one), the planned products by strategy, TTFT, p50 / p99 and
+    tokens/s; every token in the vocabulary."""
+    runs = []
+    for rep in range(reps):
+        k1.reset_launches()
+        replayed = dict(server.cache_report()["kernels"]["zorder_matmul"]["replayed_by_route"])
+        before = dict(server.plan_report()["strategies"])
+        res = server.generate(prompts)
+        counted = _nonzero(k1.launches_by_route)
+        now = server.cache_report()["kernels"]["zorder_matmul"]["replayed_by_route"]
+        routes = {r: counted.get(r, 0) + now.get(r, 0) - replayed.get(r, 0)
+                  for r in sorted(set(counted) | set(now))}
+        routes = _nonzero(routes)
+        after = server.plan_report()["strategies"]
+        taken = {st: v - before.get(st, 0) for st, v in after.items() if v != before.get(st, 0)}
+        q = res.latency_quantiles_ms()
+        runs.append({"bucket": res.bucket, "graphs": res.graphs, "launches": sum(routes.values()),
+                     "routes": routes, "counted": counted, "strategies": taken,
+                     "ttft_ms": res.ttft_s * 1e3, "p50_ms": q["p50_ms"], "p99_ms": q["p99_ms"],
+                     "tokens_per_s": res.tokens_per_s, "wall_s": res.wall_s,
+                     "tokens": res.new_tokens})
+        log(f"[{tag}] run {rep} ({'graph replays' if res.graphs else 'eager'}): bucket "
+            f"{res.bucket} ttft {res.ttft_s * 1e3:.2f}ms p50 {q['p50_ms']:.3f}ms p99 "
+            f"{q['p99_ms']:.3f}ms {res.tokens_per_s:.1f} tok/s; K1 {routes}"
+            + (f"; products {taken}" if taken else ""))
+        for toks in res.new_tokens:
+            if len(toks) != SERVE_NEW or not all(0 <= t < vocab for t in toks):
+                raise AssertionError(f"malformed tokens {toks}")
+    return runs
+
+
+def path_counts(path: dict, runs: list) -> None:
+    """Add the runs' counted K1 launches (none for graph replays) to the
+    count the main path's warmup and captures left, and fail if the path
+    launched K1 no time."""
+    for r in runs:
+        path["launches"] += sum(r["counted"].values())
+        for route, v in r["counted"].items():
+            path["routes"][route] = path["routes"].get(route, 0) + v
+    if not path["launches"]:
+        raise AssertionError("the main path launched K1 no time")
+
+
 def phase_serve(dev: torch.device) -> dict:
+    """Phase 4: Llama-3.2-1B behind ``Server``, each bucket's steps captured
+    as CUDA graphs at warmup and replayed, against the same server built
+    eager (``graphs=False``): identical tokens."""
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -500,58 +601,63 @@ def phase_serve(dev: torch.device) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    server = Server(model, params, ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64),
-                    buckets=SERVE_BUCKETS)
-    warm = server.warmup()
-    log(f"[serve] {cfg.name}: {n_params / 1e9:.3f}B params bf16 in {init_s:.1f}s; "
-        f"warmup " + ", ".join(f"{k} {v['warm_s']:.2f}s" for k, v in warm.items()))
+    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in (5, 9, 12, 16)]
     per_forward = 7 * cfg.num_layers
     want = per_forward * SERVE_NEW
-    runs = []
-    for rep in range(2):
-        k1.reset_launches()
-        res = server.generate(prompts)
-        launches = k1.launches
-        by_route = {r: v for r, v in k1.launches_by_route.items() if v}
-        q = res.latency_quantiles_ms()
-        runs.append({"bucket": res.bucket, "launches": launches, "ttft_ms": res.ttft_s * 1e3,
-                     "p50_ms": q["p50_ms"], "p99_ms": q["p99_ms"],
-                     "tokens_per_s": res.tokens_per_s, "wall_s": res.wall_s,
-                     "routes": by_route, "tokens": res.new_tokens})
-        log(f"[serve] run {rep}: bucket {res.bucket} ttft {res.ttft_s * 1e3:.2f}ms "
-            f"p50 {q['p50_ms']:.3f}ms p99 {q['p99_ms']:.3f}ms "
-            f"{res.tokens_per_s:.1f} tok/s; K1 launches {launches} (want {want}), "
-            f"by route {by_route}")
-        if launches != want or by_route != {"thin": want}:
-            raise AssertionError(f"K1 launched {launches} times ({by_route}), want {want} "
-                                 f"on the thin route ({per_forward} per forward x "
-                                 f"{SERVE_NEW} forwards)")
-        for toks in res.new_tokens:
-            if len(toks) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
-                raise AssertionError(f"malformed tokens {toks}")
+    # the main path: counts from 0 before the server is built, read after its runs
+    k1.reset_launches()
+    server = Server(model, params, sc, buckets=SERVE_BUCKETS)
+    warm = server.warmup()
+    path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route)}
+    log(f"[serve] {cfg.name}: {n_params / 1e9:.3f}B params bf16 in {init_s:.1f}s; warmup "
+        + ", ".join(f"{k} {v['warm_s']:.2f}s + {v['graphs']} graphs captured in "
+                    f"{v['capture_s']:.2f}s" for k, v in warm.items())
+        + f"; K1 counted in warmup and captures {path['routes']}")
+    runs = served_runs(server, prompts, 2, "serve", cfg.vocab_size)
+    path_counts(path, runs)
+    for r in runs:
+        if not r["graphs"] or r["counted"] or r["routes"] != {"thin": want}:
+            raise AssertionError(f"a captured run launched {r['routes']} (counted from Python "
+                                 f"{r['counted']}), want {want} on the thin route by graph "
+                                 f"replays ({per_forward} per forward x {SERVE_NEW} forwards)")
     if runs[0]["tokens"] != runs[1]["tokens"]:
         raise AssertionError("two generate runs with the same seed disagree")
     alone = server.generate([prompts[2]])
     if alone.new_tokens[0] != runs[0]["tokens"][2]:
         raise AssertionError("a request served alone decodes differently from "
                              "the same request in a batch")
-    log(f"[serve] deterministic across runs and batch composition; "
-        f"req0 tokens {runs[0]['tokens'][0][:8]}...")
+    eager_server = Server(model, params, sc, buckets=SERVE_BUCKETS, graphs=False)
+    eager_server.warmup()
+    eager = served_runs(eager_server, prompts, 2, "serve", cfg.vocab_size)
+    for r in eager:
+        if r["graphs"] or r["routes"] != {"thin": want} or r["counted"] != r["routes"]:
+            raise AssertionError(f"an eager run launched {r['routes']}, want {want} thin")
+        if r["tokens"] != runs[0]["tokens"]:
+            raise AssertionError("the captured steps' tokens differ from the eager path's")
+    path["report"] = server.cache_report()
+    log(f"[serve] tokens bitwise equal: graph replays, eager, a request served alone; "
+        f"req0 tokens {runs[0]['tokens'][0][:8]}...; K1 on the main path: counted "
+        f"{path['launches']} (warmup and captures), replayed "
+        f"{path['report']['kernels']['zorder_matmul']['replayed']} "
+        f"{path['report']['kernels']['zorder_matmul']['replayed_by_route']}")
     device_ms = step_device_ms(model, params, dev, SERVE_BUCKETS[0])
-    host_p50 = float(np.median([r["p50_ms"] for r in runs]))
+    summary = {name: {key: float(np.median([r[key] for r in rs]))
+                      for key in ("ttft_ms", "p50_ms", "p99_ms", "tokens_per_s")}
+               for name, rs in (("graphs", runs), ("eager", eager))}
     log(f"[serve] device time per step (CUDA-graph replay, bucket 4x16): prefill "
-        f"{device_ms['prefill']:.3f}ms, decode {device_ms['decode']:.3f}ms; eager "
-        f"decode p50 {host_p50:.3f}ms on the host clock; K1 per step by route: "
-        f"{device_ms['routes']}")
+        f"{device_ms['prefill']:.3f}ms, decode {device_ms['decode']:.3f}ms; decode p50 on the "
+        f"host clock: graph replays {summary['graphs']['p50_ms']:.3f}ms, eager "
+        f"{summary['eager']['p50_ms']:.3f}ms; K1 per step by route: {device_ms['routes']}")
     for step, r in device_ms["routes"].items():
         if r != {"thin": per_forward}:
             raise AssertionError(f"one {step} step launched K1 {r}, want {per_forward} thin")
-    del server, params
+    del server, eager_server, params
     torch.cuda.empty_cache()
     return {"params": n_params, "init_s": init_s, "warmup": warm, "runs": runs,
+            "eager_runs": eager, "summary": summary, "path": path,
             "launches_per_generate": want, "step_device_ms": device_ms}
 
 
@@ -1186,45 +1292,56 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
 
 
 def phase_planned_serve(dev: torch.device) -> dict:
+    """Phase 8: phase 4's workload through ``Server(mesh=2x2)``, captured
+    per bucket (the rank threads launch on the capturing stream) and
+    replayed, against the same planned server built eager: identical
+    tokens; a failed capture fails the run."""
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     mesh = Mesh(*PLANNED_MESH, device=dev)
     sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
-    local = Server(model, params, sc, buckets=SERVE_BUCKETS)
-    local.warmup()
-    server = Server(model, params, sc, mesh=mesh, buckets=SERVE_BUCKETS)
-    warm = server.warmup()
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in (5, 9, 12, 16)]
+    local = Server(model, params, sc, buckets=SERVE_BUCKETS)
+    local.warmup()
     local_tokens = local.generate(prompts).new_tokens
-    runs = []
-    for rep in range(2):
-        k1.reset_launches()
-        before = dict(server.plan_report()["strategies"])
-        res = server.generate(prompts)
-        launches, by_route = k1.launches, _nonzero(k1.launches_by_route)
-        after = server.plan_report()["strategies"]
-        taken = {s: v - before.get(s, 0) for s, v in after.items() if v != before.get(s, 0)}
-        q = res.latency_quantiles_ms()
-        runs.append({"bucket": res.bucket, "launches": launches, "routes": by_route,
-                     "strategies": taken, "ttft_ms": res.ttft_s * 1e3, "p50_ms": q["p50_ms"],
-                     "p99_ms": q["p99_ms"], "tokens_per_s": res.tokens_per_s,
-                     "wall_s": res.wall_s, "tokens": res.new_tokens})
-        log(f"[planned-serve] run {rep} on mesh {dict(mesh.shape)}: bucket {res.bucket} ttft "
-            f"{res.ttft_s * 1e3:.2f}ms p50 {q['p50_ms']:.3f}ms p99 {q['p99_ms']:.3f}ms "
-            f"{res.tokens_per_s:.1f} tok/s; products {taken}; K1 launches {launches} {by_route}")
-        if sum(taken.values()) != 7 * cfg.num_layers * SERVE_NEW or set(by_route) != {"thin"}:
-            raise AssertionError(f"planned serving ran {taken} products ({by_route}), want "
-                                 f"{7 * cfg.num_layers * SERVE_NEW}, all K1 launches thin")
-        for toks in res.new_tokens:
-            if len(toks) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
-                raise AssertionError(f"malformed tokens {toks}")
+    products = 7 * cfg.num_layers * SERVE_NEW
+    k1.reset_launches()
+    server = Server(model, params, sc, mesh=mesh, buckets=SERVE_BUCKETS)
+    warm = server.warmup()
+    path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route)}
+    log(f"[planned-serve] mesh {dict(mesh.shape)} warmup " + ", ".join(
+        f"{k} {v['warm_s']:.2f}s + {v['graphs']} graphs captured in {v['capture_s']:.2f}s"
+        for k, v in warm.items()) + f"; K1 counted in warmup and captures {path['routes']}")
+    runs = served_runs(server, prompts, 2, "planned-serve", cfg.vocab_size)
+    path_counts(path, runs)
+    for r in runs:
+        if (not r["graphs"] or r["counted"] or sum(r["strategies"].values()) != products
+                or set(r["routes"]) != {"thin"}):
+            raise AssertionError(f"a captured planned run served {r['strategies']} products "
+                                 f"({r['routes']}, counted from Python {r['counted']}), want "
+                                 f"{products} by graph replays, all K1 launches thin")
     if runs[0]["tokens"] != runs[1]["tokens"]:
         raise AssertionError("two planned generate runs disagree")
+    eager_server = Server(model, params, sc, mesh=mesh, buckets=SERVE_BUCKETS, graphs=False)
+    eager_server.warmup()
+    eager = served_runs(eager_server, prompts, 1, "planned-serve", cfg.vocab_size)
+    for r in eager:
+        if (r["graphs"] or sum(r["strategies"].values()) != products
+                or set(r["routes"]) != {"thin"} or r["counted"] != r["routes"]):
+            raise AssertionError(f"an eager planned run served {r['strategies']} ({r['routes']})")
+        if r["tokens"] != runs[0]["tokens"]:
+            raise AssertionError("the captured planned steps' tokens differ from the eager "
+                                 "planned path's")
     agree = sum(x == y for p, r in zip(runs[0]["tokens"], local_tokens) for x, y in zip(p, r))
-    log(f"[planned-serve] tokens identical across the two planned runs; {agree} of "
-        f"{len(prompts) * SERVE_NEW} agree with mesh=None (printed, not held)")
+    path["report"] = server.cache_report()
+    log(f"[planned-serve] tokens bitwise equal across the two captured runs and the eager "
+        f"planned run; {agree} of {len(prompts) * SERVE_NEW} agree with mesh=None (printed, "
+        f"not held); graphs {path['report']['graphs']}")
+    summary = {name: {key: float(np.median([r[key] for r in rs]))
+                      for key in ("ttft_ms", "p50_ms", "p99_ms", "tokens_per_s")}
+               for name, rs in (("graphs", runs), ("eager", eager))}
     # the planned prefill's last-token logits against mesh=None's
     batch, lens = batch_requests(prompts, pad_to=SERVE_BUCKETS[0][1])
     tokens = torch.as_tensor(batch, dtype=torch.int64, device=dev)
@@ -1250,11 +1367,12 @@ def phase_planned_serve(dev: torch.device) -> dict:
         step_ms = planned_step_ms(model, params, mesh, dev)
     log(f"[planned-serve] decode step device time (CUDA events, eager, bucket 4x16): planned "
         f"{step_ms['planned_ms']:.3f}ms, mesh=None {step_ms['local_ms']:.3f}ms; CUDA graph of "
-        f"a planned decode step: {step_ms['graph']}")
+        f"a planned decode step replays in {step_ms['graph']['replay_ms']:.3f}ms")
     mesh.close()
-    del server, local, params
+    del server, eager_server, local, params
     torch.cuda.empty_cache()
-    return {"mesh": dict(mesh.shape), "warmup": warm, "runs": runs, "agree_with_local": agree,
+    return {"mesh": dict(mesh.shape), "warmup": warm, "runs": runs, "eager_runs": eager,
+            "summary": summary, "path": path, "agree_with_local": agree,
             "local_tokens": local_tokens, "prefill_logits": e, "prefill_plans": prefill_plans,
             "control": {wrong: control},
             "step": step_ms}
@@ -1262,8 +1380,9 @@ def phase_planned_serve(dev: torch.device) -> dict:
 
 def planned_step_ms(model, params, mesh, dev: torch.device) -> dict:
     """One decode step at the (4, 16) bucket, eager, by CUDA events:
-    mesh=None and planned in turns; then one try at capturing the planned
-    step in a CUDA graph (its rank threads launch on the capturing stream)."""
+    mesh=None and planned in turns; then the planned step captured in a
+    CUDA graph (its rank threads launch on the capturing stream) and one
+    replay timed."""
     batch, seq = SERVE_BUCKETS[0]
     cache = model.init_cache(batch, 64, dev)
     rng = np.random.default_rng(2)
@@ -1282,25 +1401,23 @@ def planned_step_ms(model, params, mesh, dev: torch.device) -> dict:
         t.setdefault(key, []).append(event_ms({"local_ms": local, "planned_ms": planned}[key], 3))
     out = {key: min(v) for key, v in t.items()}
     out["runs"] = t
-    try:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            planned()
-        graph.replay()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        out["graph"] = {"captured": True, "replay_ms": start.elapsed_time(end)}
-        del graph
-    except RuntimeError as e:   # reported: capture across rank threads is not expected to work
-        out["graph"] = {"captured": False, "error": f"{type(e).__name__}: {e}"[:400]}
-    # the card is still sound after the attempt
+    # a failed capture raises here and fails the run
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        planned()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    out["graph"] = {"captured": True, "replay_ms": start.elapsed_time(end)}
+    del graph
+    # the card is still sound after the capture
     x = torch.randn(64, 256, device=dev).to(torch.bfloat16)
     w = torch.randn(256, 128, device=dev).to(torch.bfloat16)
     if row_err(matmul(x, w), matmul_ref(x, w))["row_rel"] >= ROW_TOL[torch.bfloat16]:
-        raise AssertionError("K1 disagrees with its plain version after the graph attempt")
+        raise AssertionError("K1 disagrees with its plain version after the graph capture")
     torch.cuda.synchronize()
     return out
 
@@ -1529,6 +1646,342 @@ def phase_conformance(dev: torch.device) -> dict:
             "k1_routes": routes}
 
 
+# -- calibrate + tune (phase 11) ------------------------------------------------------
+
+
+def llama_tune_shapes(mesh) -> tuple:
+    """The (m, n, k) products K1 runs serving Llama-3.2-1B in the serving
+    buckets: unplanned (decode M = batch, prefill M = batch x seq, each of
+    the 4 distinct projections) and each planned product's per-rank block
+    product on ``mesh`` (``plan.ir._local_kernel_shape``)."""
+    unplanned, per_rank = [], {}
+    for b, seq in SERVE_BUCKETS:
+        for m in (b, b * seq):
+            for (k, n) in sorted(set(LAYER_KN)):
+                unplanned.append((m, n, k))
+                plan = build_plan(m, n, k, mesh=mesh, a_dtype=torch.bfloat16,
+                                  b_dtype=torch.bfloat16)
+                per_rank[(m, n, k)] = (plan.strategy + ("+ov" if plan.overlap else ""),
+                                       plan_ir._local_kernel_shape(plan.strategy, plan.grid,
+                                                                   m, n, k, mesh.size))
+    return unplanned, per_rank
+
+
+def phase_calibrate(dev: torch.device) -> dict:
+    """Phase 11: ``perf_probe`` on a 2x2 rank-thread mesh (links, K1's
+    peak) with the K1 autotune over Llama's serving shapes, the profile and
+    table saved; each winner beside K1's default blocks; planned serving
+    with the tuner; ``build_plan(profile=)`` against the TPU constants."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    name = torch.cuda.get_device_name(dev)
+    mesh = Mesh(*PLANNED_MESH, device=dev)
+    unplanned, per_rank = llama_tune_shapes(mesh)
+    shapes = sorted(set(unplanned) | {v[1] for v in per_rank.values()})
+    prof_path = os.path.join(OUT_DIR, "machine_profile.json")
+    table_path = os.path.join(OUT_DIR, "tuning_table.json")
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # it prints the whole profile
+        perf_probe.main(["--device", "cuda", "--mesh-shape", "2x2",
+                         "--reps", str(CALIBRATE_REPS), "--profile-out", prof_path,
+                         "--tune", "--tune-shapes", ",".join(f"{m}x{n}x{k}" for m, n, k in shapes),
+                         "--tune-reps", str(TUNE_REPS), "--tune-candidates", "0",
+                         "--tune-dtype", "bfloat16", "--tune-out", table_path])
+    probe_s = time.perf_counter() - t0
+    profile = obs.load_profile(prof_path)
+    table = load_table(table_path)
+    if (profile.platform != "cuda" or profile.device_kind != name
+            or "rank threads" not in profile.link_medium or table.device_kind != name
+            or profile.tuning is None or profile.tuning.entries != table.entries):
+        raise AssertionError(f"the profile or table is not the card's: {profile.to_json()}")
+    links = {n: {"alpha_us": p.alpha_s * 1e6, "bw_gb_s": p.bw_bytes_per_s / 1e9}
+             for n, p in profile.links}
+    peak_n = calibrate.PEAK_N["cuda"]
+    log(f"[calibrate] perf_probe on {name}, mesh 2x2 ({profile.link_medium}), "
+        f"{probe_s:.1f}s: peak {profile.peak_flops / 1e12:.1f} TFLOP/s (K1 at {peak_n}^3 bf16, "
+        f"{k1.route(peak_n, peak_n, peak_n, torch.bfloat16)} route); "
+        f"links " + ", ".join(f"{n} alpha {v['alpha_us']:.1f}us bw {v['bw_gb_s']:.1f}GB/s"
+                               for n, v in links.items()))
+    winners = []
+    for key, e in table.entries:
+        dtype, bm, bn, bk = key
+        cand = (e.block_m, e.block_n, e.block_k, e.order)
+        default = tuple(k1.default_blocks(bm, bn, bk, torch.bfloat16)) + ("zorder",)
+        default_s = time_candidate(bm, bn, bk, dtype, default, reps=TUNE_REPS, device=dev)
+        row = {"bucket": [bm, bn, bk], "dtype": dtype, "blocks": list(cand[:3]),
+               "order": e.order, "route": candidate_route(cand, dtype), "us": e.seconds * 1e6,
+               "default_blocks": list(default[:3]),
+               "default_route": candidate_route(default, dtype), "default_us": default_s * 1e6}
+        winners.append(row)
+        log(f"[tune] bucket {bm}x{bn}x{bk} {dtype}: {e.label} ({row['route']}) "
+            f"{row['us']:.2f}us; default {'x'.join(map(str, default[:3]))}/zorder "
+            f"({row['default_route']}) {row['default_us']:.2f}us")
+    # K1 launched by the probe's peak, the search and the default timings
+    tune_launches = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route)}
+    tuned_serve = tuned_planned_serve(dev, mesh, table)
+    picks = strategy_picks(mesh, profile)
+    mesh.close()
+    torch.cuda.empty_cache()
+    return {"profile": profile.to_json(), "links": links, "probe_s": probe_s,
+            "shapes": {"unplanned": unplanned,
+                       "per_rank": {"x".join(map(str, k)): v for k, v in per_rank.items()}},
+            "winners": winners, "tuned_serve": tuned_serve, "strategy_picks": picks,
+            "k1_launches": tune_launches["launches"], "k1_routes": tune_launches["routes"],
+            "profile_path": prof_path, "table_path": table_path}
+
+
+def tuned_planned_serve(dev: torch.device, mesh, table) -> dict:
+    """Phase 4's workload through ``Server(mesh=2x2, tuning=tuner)``:
+    captured, identical tokens across two runs, the tuner's serve window,
+    and the tuned planned prefill's logits against the untuned ones."""
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in (5, 9, 12, 16)]
+    tuner = Tuner(table=table, reps=TUNE_REPS, device=dev)
+    server = Server(model, params, sc, mesh=mesh, tuning=tuner, buckets=SERVE_BUCKETS)
+    warm = server.warmup()
+    runs = served_runs(server, prompts, 2, "tuned-serve", cfg.vocab_size)
+    if runs[0]["tokens"] != runs[1]["tokens"] or not all(r["graphs"] for r in runs):
+        raise AssertionError("two tuned planned runs disagree (or were not replayed)")
+    tuned_plans = [p for p in plan_cache.plans() if p.mesh is mesh and p.tiling.tuned]
+    batch, lens = batch_requests(prompts, pad_to=SERVE_BUCKETS[0][1])
+    tokens = torch.as_tensor(batch, dtype=torch.int64, device=dev)
+    offsets = torch.as_tensor(batch.shape[1] - lens, dtype=torch.int64, device=dev)
+
+    def prefill():
+        return model.prefill(params, model.init_cache(len(prompts), 64, dev), tokens, offsets)[0]
+
+    with torch.no_grad():
+        with planned_matmuls(mesh):
+            ref = prefill()
+        with planned_matmuls(mesh, tuning=tuner):
+            got = prefill()
+    e = _check_rows("tuned-serve", "tuned planned prefill logits vs untuned planned", got, ref,
+                    PLANNED_LOGITS_TOL)
+    rep = server.cache_report()["tuning"]
+    log(f"[tuned-serve] {len(tuned_plans)} tuned plans on the mesh "
+        f"({sorted({p.tiling.block_m for p in tuned_plans})} block_m, orders "
+        f"{sorted({p.tiling.order for p in tuned_plans})}); tuner {rep}")
+    if not tuned_plans:
+        raise AssertionError("no plan on the mesh took tuned blocks")
+    del server, params
+    torch.cuda.empty_cache()
+    return {"warmup": warm, "runs": runs, "prefill_logits": e, "tuning": rep,
+            "tuned_plans": len(tuned_plans),
+            "summary": {key: float(np.median([r[key] for r in runs]))
+                        for key in ("ttft_ms", "p50_ms", "p99_ms", "tokens_per_s")}}
+
+
+def strategy_picks(mesh, profile) -> list:
+    """``build_plan``'s strategy at Llama's serving shapes and danube's long
+    prefill on 2x2: the reference's TPU constants beside the card's
+    profile (links and K1's peak measured here, its tuning table)."""
+    rows = []
+    for arch, kns, ms in (("llama3.2-1b", sorted(set(LAYER_KN)), (4, 64)),
+                          (PREFILL_ARCH, DANUBE_KN, (PREFILL_S,))):
+        for m in ms:
+            for (k, n) in kns:
+                kw = dict(mesh=mesh, a_dtype=torch.bfloat16, b_dtype=torch.bfloat16,
+                          use_cache=False)
+                picks = {}
+                for label, prof in (("tpu_constants", None), ("h100_profile", profile)):
+                    p = build_plan(m, n, k, profile=prof, **kw)
+                    picks[label] = p.strategy + ("+ov" if p.overlap else "")
+                rows.append({"arch": arch, "shape": [m, k, n], **picks})
+    for r in rows:
+        log(f"[calibrate] {r['arch']} {r['shape'][0]}x{r['shape'][1]}x{r['shape'][2]} on 2x2: "
+            f"TPU constants {r['tpu_constants']}, H100 profile {r['h100_profile']}")
+    return rows
+
+
+# -- obs + drift (phase 12) -----------------------------------------------------------
+
+
+def phase_obs_drift(dev: torch.device, profile_path: str) -> dict:
+    """Phase 12: ``check_drift`` on the card (every drift cell's obs,
+    interceptor and trace multisets equal; phase 11's profile as the
+    stored one), then one ``generate`` of phase 4's workload and one
+    planned product per drift cell under ``obs.observe()``, written out as
+    a Perfetto trace and a metrics snapshot."""
+    t0 = time.perf_counter()
+    drift = check_drift(profile_path=profile_path, device=dev)
+    drift_s = time.perf_counter() - t0
+    for c in drift["cells"]:
+        log(f"[drift] {c['strategy']} on {c['mesh']}: {c['collectives']} collectives, "
+            f"obs == interceptor == trace: {c['ok']} {c['error']}")
+    for r in drift["ranking"]:
+        log(f"[drift] ranking {r['shape']}: stored {r['stored_top']}, fresh {r['fresh_top']}, "
+            f"margin {r['margin']:.3f}, flipped {r['flipped']}")
+    for r in drift["tuning"]:
+        log(f"[drift] tuning {r['bucket']} {r['dtype']}: stored {r['stored']}, fresh "
+            f"{r['fresh']}, margin {r['margin']:.3f}, flipped {r['flipped']}")
+    if len(drift["cells"]) != len(DRIFT_CELLS) or not drift["ok"]:
+        raise AssertionError(f"check_drift on the card is not ok: {drift['cells']} "
+                             f"{drift['ranking']} {drift['tuning']}")
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in (5, 9, 12, 16)]
+    m, k, n = OBS_PRODUCT
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+    ref = matmul(a, b)
+    products = {}
+    obs.reset_metrics()
+    with torch.no_grad(), obs.observe() as rec:
+        server = Server(model, params, sc, buckets=SERVE_BUCKETS)
+        server.warmup()
+        res = server.generate(prompts)
+        for strategy, shape, names in DRIFT_CELLS:
+            mesh = Mesh(shape, names, device=dev)
+            plan = build_plan(m, n, k, mesh=mesh, strategy=strategy, a_dtype=torch.bfloat16,
+                              b_dtype=torch.bfloat16)
+            out = execute_plan(plan, a, b)
+            torch.cuda.synchronize()
+            mesh.close()
+            got = obs.collective_multiset(rec, strategy=strategy)
+            want = Counter(r.key for r in trace_plan(plan).records)
+            e = row_err(out, ref)
+            products[strategy] = {"mesh": list(shape), "collectives": sum(got.values()),
+                                  "row_rel": e["row_rel"], "obs_equals_trace": got == want}
+            if got != want or e["row_rel"] >= PLAN_ROW_TOL:
+                raise AssertionError(f"{strategy} under tracing: obs multiset {sorted(got)[:3]} "
+                                     f"vs trace {sorted(want)[:3]}, row rel {e['row_rel']}")
+    trace_path = obs.write_trace(os.path.join(OUT_DIR, "obs_trace.json"), rec)
+    metrics_path = obs.write_metrics(os.path.join(OUT_DIR, "obs_metrics.json"), rec)
+    snap = obs.metrics_snapshot(rec)
+    spans = snap["spans"]
+    met = snap["metrics"]
+    log(f"[obs] traced: generate bucket {res.bucket} ({'graph replays' if res.graphs else 'eager'}) "
+        f"and {len(products)} planned products {products}; spans {spans}; "
+        f"serve.ttft_us {met.get('serve.ttft_us')}; kernel.matmul.us "
+        f"{met.get('kernel.matmul.us')}; wrote {trace_path}, {metrics_path}")
+    want_spans = ("serve.warmup", "serve.prefill", "serve.decode_step", "kernel.matmul",
+                  "plan.build", "plan.execute", "dist.prefetch")
+    missing = [s for s in want_spans if not spans.get(s)]
+    if missing or not met.get("serve.requests{bucket=4x16}"):
+        raise AssertionError(f"the traced run lacks spans {missing} or serve counters: {met}")
+    del server, params
+    torch.cuda.empty_cache()
+    return {"drift": drift, "drift_s": drift_s, "products": products, "spans": spans,
+            "metrics": met, "trace": os.path.relpath(trace_path, ROOT),
+            "metrics_file": os.path.relpath(metrics_path, ROOT)}
+
+
+# -- torch.profiler (phase 13) -----------------------------------------------------------
+
+K1_KERNELS = ("zorder_matmul",)
+K2_KERNELS = ("flash_wgmma_kernel", "flash_bf16_kernel", "flash_f32_kernel")
+# the planned forward's accumulate chain, by kernel name: Cannon's fp32
+# accumulator zeroed, K1's fp32 outputs added (ring_rs's partial sums too),
+# the sum cast to bf16 (PyTorch's bf16 copy kernel, or a copy that loads or
+# stores with a cast); and the device-to-device copies (scatter, gather)
+CHAIN_KERNELS = {"zero fp32": ("FillFunctor<float>",), "add fp32": ("CUDAFunctor_add<float>",),
+                 "cast": ("bfloat16_copy_kernel", "WithCast"),
+                 "device copies": ("Memcpy DtoD",)}
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", None)
+                 or getattr(evt, "self_cuda_time_total", 0) or 0)
+
+
+def profile_split(prof) -> dict:
+    """Device time of one profiled forward by kernel name: K1, K2, the
+    rest named by its top kernels and top operators, and the accumulate
+    chain's kernels (``CHAIN_KERNELS``)."""
+    kernels, ops = Counter(), Counter()
+    counts = Counter()
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if not us:
+            continue
+        if str(getattr(e, "device_type", "")).endswith("CPU"):
+            if "::" in e.key:   # operators, not runtime events
+                ops[e.key] += us
+        else:
+            kernels[e.key] += us
+            counts[e.key] += e.count
+    total = sum(kernels.values())
+    k1_us = sum(v for key, v in kernels.items() if any(s in key for s in K1_KERNELS))
+    k2_us = sum(v for key, v in kernels.items() if any(s in key for s in K2_KERNELS))
+    rest = Counter({key: v for key, v in kernels.items()
+                    if not any(s in key for s in K1_KERNELS + K2_KERNELS)})
+    chain = {cat: {"ms": sum(v for key, v in kernels.items() if any(s in key for s in subs)) / 1e3,
+                   "launches": sum(c for key, c in counts.items() if any(s in key for s in subs))}
+             for cat, subs in CHAIN_KERNELS.items()}
+    return {"device_ms": total / 1e3, "k1_ms": k1_us / 1e3, "k2_ms": k2_us / 1e3,
+            "rest_ms": (total - k1_us - k2_us) / 1e3,
+            "k1_launches": sum(c for key, c in counts.items() if any(s in key for s in K1_KERNELS)),
+            "rest_top_kernels": [{"kernel": key[:160], "ms": v / 1e3, "launches": counts[key]}
+                                 for key, v in rest.most_common(8)],
+            "top_operators": [{"op": key, "ms": v / 1e3} for key, v in ops.most_common(8)],
+            "chain": chain}
+
+
+def phase_profiler(dev: torch.device) -> dict:
+    """Phase 13: one unplanned and one planned danube forward at S = 32768
+    under ``torch.profiler`` (no timed window is profiled): device time by
+    kernel name into K1, K2 and the rest, and the planned forward's
+    accumulate chain; both traces saved (gzip) to ``chiprun_out/``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(get_config(PREFILL_ARCH), attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, PREFILL_S))).to(dev)
+    mesh = Mesh(*PLANNED_MESH, device=dev)
+
+    def planned():
+        with planned_matmuls(mesh):
+            return model.forward(params, tokens)[0]
+
+    fns = {"unplanned": lambda: model.forward(params, tokens)[0], "planned": planned}
+    out = {}
+    with torch.no_grad():
+        for fn in fns.values():   # warm: plans cached, kernels loaded
+            fn()
+        torch.cuda.synchronize()
+        for name, fn in fns.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            split = profile_split(prof)
+            raw = os.path.join(OUT_DIR, f"profile_danube_{name}.json")
+            prof.export_chrome_trace(raw)
+            with open(raw, "rb") as f, gzip.open(raw + ".gz", "wb") as g:
+                shutil.copyfileobj(f, g)
+            os.remove(raw)
+            split["trace"] = os.path.relpath(raw + ".gz", ROOT)
+            out[name] = split
+            log(f"[profiler] danube forward S={PREFILL_S} {name}: device {split['device_ms']:.1f}ms"
+                f" = K1 {split['k1_ms']:.1f} ({split['k1_launches']} launches) + K2 "
+                f"{split['k2_ms']:.1f} + rest {split['rest_ms']:.1f}; chain {split['chain']}; "
+                f"top rest kernels " + "; ".join(f"{r['kernel'][:70]} {r['ms']:.1f}ms x"
+                                                  f"{r['launches']}"
+                                                  for r in split['rest_top_kernels'][:5])
+                + "; top operators " + ", ".join(f"{r['op']} {r['ms']:.1f}ms"
+                                                 for r in split["top_operators"][:5]))
+    mesh.close()
+    del params
+    torch.cuda.empty_cache()
+    if not all(v["device_ms"] > 0 and v["k1_ms"] > 0 and v["k2_ms"] > 0 for v in out.values()):
+        raise AssertionError(f"torch.profiler saw no device time for K1 or K2: {out}")
+    extra = {cat: out["planned"]["chain"][cat]["ms"] - out["unplanned"]["chain"][cat]["ms"]
+             for cat in CHAIN_KERNELS}
+    log(f"[profiler] planned minus unplanned: device {out['planned']['device_ms'] - out['unplanned']['device_ms']:.1f}ms"
+        f", K1 {out['planned']['k1_ms'] - out['unplanned']['k1_ms']:.1f}ms, accumulate chain "
+        + ", ".join(f"{cat} {v:.1f}ms" for cat, v in extra.items()))
+    return {**out, "chain_extra_ms": extra}
+
+
 def decode_step_row(timings: list, m: int = 4) -> dict:
     """K1's numbers for one serving forward at M rows (4: a decode step at
     batch 4; 64: the prefill of the 4x16 bucket): the 7 projections of
@@ -1598,6 +2051,9 @@ def main() -> int:
     report["planned_serve"] = phase_planned_serve(dev)
     report["planned_prefill"] = phase_planned_prefill(dev)
     report["conformance"] = phase_conformance(dev)
+    report["calibrate"] = phase_calibrate(dev)
+    report["obs_drift"] = phase_obs_drift(dev, report["calibrate"]["profile_path"])
+    report["profiler"] = phase_profiler(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -1607,20 +2063,37 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/matmul/csrc/zorder_matmul.cu",
         "replaces": "src/repro/kernels/matmul/kernel.py:46",
-        "launches": report["serve"]["runs"][0]["launches"],
-        "launches_by_path": {"serve": report["serve"]["runs"][0]["launches"],
+        # counted where the wrapper launches: the main path's warmup and
+        # captures (a graph replay launches nothing from Python)
+        "launches": report["serve"]["path"]["launches"],
+        "launches_by_path": {"serve": report["serve"]["path"]["launches"],
+                             "serve_graph_replays_per_generate":
+                                 report["serve"]["runs"][0]["launches"],
+                             "serve_eager_per_generate": report["serve"]["eager_runs"][0]["launches"],
                              "long_prefill": report["long_prefill"]["launches"]["K1"],
-                             "planned_serve": report["planned_serve"]["runs"][0]["launches"],
+                             "planned_serve": report["planned_serve"]["path"]["launches"],
+                             "planned_serve_graph_replays_per_generate":
+                                 report["planned_serve"]["runs"][0]["launches"],
                              "planned_prefill": report["planned_prefill"]["k1_launches"],
                              "plan_sweep": report["plan_sweep"]["k1_launches"],
-                             "conformance": report["conformance"]["k1_launches"]},
-        "routes": {"serve": report["serve"]["runs"][0]["routes"],
+                             "conformance": report["conformance"]["k1_launches"],
+                             "calibrate_and_tune": report["calibrate"]["k1_launches"],
+                             "tuned_planned_serve_graph_replays_per_generate":
+                                 report["calibrate"]["tuned_serve"]["runs"][0]["launches"],
+                             "profiled_planned_forward":
+                                 report["profiler"]["planned"]["k1_launches"]},
+        "routes": {"serve": report["serve"]["path"]["routes"],
+                   "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
                       for step, r in report["serve"]["step_device_ms"]["routes"].items()},
                    "long_prefill": report["long_prefill"]["k1_routes"],
-                   "planned_serve": report["planned_serve"]["runs"][0]["routes"],
+                   "planned_serve": report["planned_serve"]["path"]["routes"],
+                   "planned_serve_graph_replays": report["planned_serve"]["runs"][0]["routes"],
                    "planned_prefill": report["planned_prefill"]["k1_routes"],
-                   "conformance": report["conformance"]["k1_routes"]},
+                   "conformance": report["conformance"]["k1_routes"],
+                   "calibrate_and_tune": report["calibrate"]["k1_routes"],
+                   "tuned_planned_serve_graph_replays":
+                       report["calibrate"]["tuned_serve"]["runs"][0]["routes"]},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"])),

@@ -30,6 +30,16 @@ in group order, or concatenates them along ``axis`` when ``tiled``;
 ``stats`` counts, per kind, the calls and the bytes each rank received
 from another rank (a rank's own block moves nothing): the measured side of
 the plan's ``cost.comm_bytes``.
+
+When ``repro_torch.obs`` tracing is enabled, each call also records one
+``CollectiveEvent`` (kind, group size, shard words, canonical perm, the
+ambient strategy tag) and bumps the ``dist.collective.count`` /
+``dist.collective.words`` counters.  The reference records once per call
+while tracing the body; here every rank calls at run time, so only the
+lowest local rank records (a program's records, as the interceptor takes
+them), and ``obs.collective_multiset()`` equals the interceptor's
+multiset.  The interceptor patches the three names and calls these, so
+both see the same calls when active together.
 """
 from __future__ import annotations
 
@@ -38,6 +48,8 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from repro_torch import obs
 
 from .mesh import as_axes
 
@@ -87,16 +99,36 @@ def _comm():
 # -- the seam -----------------------------------------------------------------
 
 
+def _observe(comm, kind: str, x: torch.Tensor, axes, perm=None) -> None:
+    """Record one collective in the obs layer (enabled mode, lowest local
+    rank only)."""
+    if comm.rank != comm.mesh.local_ranks()[0]:
+        return
+    words = x.numel()
+    obs.record_collective(kind, comm.mesh.axis_size(axes), words, perm)
+    obs.counter("dist.collective.count").inc(kind=kind)
+    obs.counter("dist.collective.words").inc(words, kind=kind)
+
+
 def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
-    return _comm().ppermute(x, as_axes(axis_name), perm)
+    comm, axes = _comm(), as_axes(axis_name)
+    if obs.enabled():
+        _observe(comm, "ppermute", x, axes, perm)
+    return comm.ppermute(x, axes, perm)
 
 
 def all_gather(x: torch.Tensor, axis_name, *, axis: int, tiled: bool) -> torch.Tensor:
-    return _comm().all_gather(x, as_axes(axis_name), axis=axis, tiled=tiled)
+    comm, axes = _comm(), as_axes(axis_name)
+    if obs.enabled():
+        _observe(comm, "all_gather", x, axes)
+    return comm.all_gather(x, axes, axis=axis, tiled=tiled)
 
 
 def psum(x: torch.Tensor, axis_name) -> torch.Tensor:
-    return _comm().psum(x, as_axes(axis_name))
+    comm, axes = _comm(), as_axes(axis_name)
+    if obs.enabled():
+        _observe(comm, "psum", x, axes)
+    return comm.psum(x, axes)
 
 
 def axis_index(axis_name) -> int:
@@ -189,15 +221,18 @@ class Rendezvous:
             self.cond.notify_all()
 
 
-def run_rank(comm: "ThreadCommunicator", stream, fn, args):
+def run_rank(comm: "ThreadCommunicator", stream, fn, args, tags=None):
     """One rank's thread: its device and the caller's stream current, its
-    communicator current, ``fn(*args)``; a failure releases the others."""
+    communicator current, the caller's obs tags inherited (``tags``, when
+    tracing), ``fn(*args)``; a failure releases the others."""
     try:
         with contextlib.ExitStack() as stack:
             if stream is not None:
                 stack.enter_context(torch.cuda.device(comm.device))
                 stack.enter_context(torch.cuda.stream(stream))
             stack.enter_context(current(comm))
+            if tags is not None:
+                stack.enter_context(obs.inherited(tags))
             out = fn(*args)
     except BaseException as e:
         comm.rendezvous.abort(e)

@@ -322,8 +322,9 @@ def symmetric_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh=None,
     """Global (batch..., M, K) x (K, N) matmul dispatched through the plan
     engine: strategy picked by the cost model over the mesh-applicable
     candidates (or forced via ``strategy``), plan memoized in the plan
-    cache, leading batch dims folded before planning.  ``tuning`` must be
-    None until the port's tuning slice (``build_plan`` raises otherwise).
+    cache, leading batch dims folded before planning.  ``tuning`` (a
+    ``repro_torch.tune`` table or live ``Tuner``) prices the ranking with
+    measured kernel seconds and runs the winning blocks.
     ``overlap`` forces the double-buffered (``True``) or staged
     (``False``) lowering; the default lets the planner pick (see
     ``repro_torch.plan.build_plan``).  ``mesh`` is a

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.schedule import TorusSchedule, cannon_schedule
 
 from . import _collectives
@@ -112,8 +113,9 @@ def torus_program_body_overlapped(prog, axis_x: str, axis_y: str,
         for step in range(prog.steps):
             nxt_a = nxt_b = None
             if step < prog.steps - 1:
-                nxt_a = _permute(ab, axes, prog.step_a)
-                nxt_b = _permute(bb, axes, prog.step_b)
+                with obs.span("dist.prefetch", comm="hidden"):
+                    nxt_a = _permute(ab, axes, prog.step_a)
+                    nxt_b = _permute(bb, axes, prog.step_b)
             acc = acc + local_fn(ab, bb, out_dtype=torch.float32)
             if step < prog.steps - 1:
                 acc = _permute(acc, axes, prog.step_c)

@@ -161,10 +161,13 @@ class Mesh:
 
     def run(self, fn: Callable, args: Dict[int, tuple]) -> Dict[int, object]:
         """``fn(*args[r])`` on every local rank ``r``, each with its rank's
-        communicator current (``dist._collectives``); returns ``{r: out}``.
+        communicator current (``dist._collectives``) and, under obs
+        tracing, the caller's span tags; returns ``{r: out}``.
         On a single controller the ranks run at once, one thread each; if
         one raises, the others are released from their collectives and the
         first error is raised here."""
+        from repro_torch import obs
+
         from . import _collectives
 
         if self.rank is not None:
@@ -179,10 +182,11 @@ class Mesh:
             rendezvous = _collectives.Rendezvous(self.size, COLLECTIVE_TIMEOUT_S)
             stream = (torch.cuda.current_stream(self.device)
                       if self.device.type == "cuda" else None)
+            tags = obs.current_tags() if obs.enabled() else None
             futures = {
                 r: self._pool.submit(_collectives.run_rank,
                                      _collectives.ThreadCommunicator(self, r, rendezvous),
-                                     stream, fn, args[r])
+                                     stream, fn, args[r], tags)
                 for r in range(self.size)}
             outs, errors = {}, []
             for r, fut in futures.items():

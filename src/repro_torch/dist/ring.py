@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
+
 from . import _collectives
 from .local import local_matmul
 
@@ -52,7 +54,8 @@ def ring_ag_matmul(x: torch.Tensor, w: torch.Tensor, axis, *,
         # issue the permute first so it can overlap the matmul below
         nxt = None
         if s < n - 1:
-            nxt = _collectives.ppermute(cur, axis, perm)
+            with obs.span("dist.prefetch", comm="hidden"):
+                nxt = _collectives.ppermute(cur, axis, perm)
         prod = local_fn(cur, w, out_dtype=out_dtype)
         src = (idx - s) % n  # origin rank of the resident chunk
         out[..., src * chunk:(src + 1) * chunk, :] = prod

@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
+
 from . import _collectives
 from .local import local_matmul
 
@@ -77,7 +79,8 @@ def summa_overlapped_body(axis_x: str, axis_y: str, out_dtype,
         for s in range(qy):
             nxt = None
             if s < qy - 1:
-                nxt = _collectives.ppermute(cur, axis_y, perm)
+                with obs.span("dist.prefetch", comm="hidden"):
+                    nxt = _collectives.ppermute(cur, axis_y, perm)
             src = (iy - s) % qy  # k-slab index of the resident A chunk
             bslab = bcol[src * ky:(src + 1) * ky]
             acc = acc + local_fn(cur, bslab, out_dtype=torch.float32)

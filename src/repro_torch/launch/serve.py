@@ -6,7 +6,8 @@
 Builds random weights from ``--seed`` (no checkpoint download), warms the
 (batch, seq) buckets, serves a synthetic request batch through the bucket
 router and prints throughput, TTFT, per-token latency quantiles and the
-Z-order kernel's launch count.  ``--mesh RxC`` routes every projection
+Z-order kernel's launch count (on the card each bucket's steps are
+captured as CUDA graphs at warmup and replayed).  ``--mesh RxC`` routes every projection
 through the plan engine on an R x C mesh whose ranks all run on the one
 device (threads of this process), and prints the strategies it took;
 ``--strategy`` pins one.  Runs on ``cuda`` unless ``--device cpu`` is given
@@ -64,7 +65,9 @@ def main(argv=None) -> int:
     server = Server(model, params, sc, mesh=mesh, strategy=args.strategy,
                     buckets=[_parse_bucket(b) for b in args.buckets])
     for label, w in server.warmup().items():
-        print(f"[warmup] bucket {label}: {w['warm_s']:.2f}s")
+        captured = (f", {w['graphs']} steps captured in {w['capture_s']:.2f}s"
+                    if "graphs" in w else "")
+        print(f"[warmup] bucket {label}: {w['warm_s']:.2f}s{captured}")
 
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(1, cfg.vocab_size, size=rng.integers(4, 12)).tolist()
@@ -79,7 +82,7 @@ def main(argv=None) -> int:
         print(f"  req{i} (len {len(res.sequences[i]) - len(toks)}): {toks[:8]}...")
     k1 = server.cache_report()["kernels"]["zorder_matmul"]
     print(f"[serve] zorder_matmul launches: {k1['launches']} "
-          f"({k1['since_warmup']} since warmup)")
+          f"({k1['since_warmup']} since warmup; {k1['replayed']} in graph replays)")
     if mesh is not None:
         rep = server.plan_report()
         print(f"[serve] plan-routed on mesh {rep['mesh']}: strategies {rep['strategies']}, "

@@ -19,6 +19,14 @@ than one token into a rolling (sliding-window) cache: the reference's
 slot positions are right only for one token at a time (a multi-token
 prefill masks every key but slot 0), and the port refuses rather than
 give that answer.
+
+The cache slot ``pos`` is a Python int or, as the reference traces it, a
+0-d int64 tensor on the model's device: then the write is an
+``index_copy_`` at ``pos`` (``pos % W`` when rolling) and the rolling
+slots' key positions are computed on the device, so one CUDA graph serves
+every decode step.  A tensor ``pos`` is not checked (that would wait for
+the device): its callers check it on the host first
+(``check_cache_write``).
 """
 from __future__ import annotations
 
@@ -110,17 +118,34 @@ def gqa_params(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def check_cache_write(cfg: ModelConfig, cache: Cache, pos: int, s: int) -> None:
+    """Raise where writing ``s`` tokens at slot ``pos`` would go wrong: a
+    multi-token write into a rolling window cache, or a write past the
+    cache end."""
+    s_cache = cache["k"].shape[1]
+    rolling = cfg.window > 0 and s_cache == cfg.window
+    if rolling and s > 1:
+        raise ValueError(f"a write of {s} tokens into a rolling {s_cache}-slot "
+                         f"window cache: only one token at a time is positioned "
+                         f"right; prefill one token, then decode")
+    slot = pos % s_cache if rolling else pos
+    if slot < 0 or slot + s > s_cache:
+        raise ValueError(f"cache write of {s} slots at {slot} overruns the "
+                         f"{s_cache}-slot cache")
+
+
 def gqa_attention(
     p: Params, x: torch.Tensor, cfg: ModelConfig,
     positions: torch.Tensor,
     cache: Optional[Cache] = None,
-    pos: Optional[int] = None,
+    pos=None,
     causal: bool = True,
     offsets: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: (B, S, d).  Without a cache: training / uncached prefill.  With
-    one: write this step's K/V at slot ``pos`` in place, then attend over
-    the whole cache (prefill with ``pos`` 0, or decode with S == 1).
+    one: write this step's K/V at slot ``pos`` (an int, or a 0-d int64
+    tensor on x's device, unchecked) in place, then attend over the whole
+    cache (prefill with ``pos`` 0, or decode with S == 1).
 
     ``offsets`` (B,) shifts each row's logical positions for left-padded
     serving batches: cache slot j holds row i's position j - offsets[i], so
@@ -149,16 +174,18 @@ def gqa_attention(
     else:
         s_cache = cache["k"].shape[1]
         rolling = cfg.window > 0 and s_cache == cfg.window
-        if rolling and s > 1:
-            raise ValueError(f"a write of {s} tokens into a rolling {s_cache}-slot "
-                             f"window cache: only one token at a time is positioned "
-                             f"right; prefill one token, then decode")
-        slot = pos % s_cache if rolling else pos
-        if slot < 0 or slot + s > s_cache:
-            raise ValueError(f"cache write of {s} slots at {slot} overruns the "
-                             f"{s_cache}-slot cache")
-        cache["k"][:, slot:slot + s] = k
-        cache["v"][:, slot:slot + s] = v
+        if torch.is_tensor(pos):
+            if rolling and s > 1:
+                check_cache_write(cfg, cache, 0, s)
+            slot = torch.remainder(pos, s_cache) if rolling else pos
+            rows = slot + torch.arange(s, device=x.device)
+            cache["k"].index_copy_(1, rows, k)
+            cache["v"].index_copy_(1, rows, v)
+        else:
+            check_cache_write(cfg, cache, pos, s)
+            slot = pos % s_cache if rolling else pos
+            cache["k"][:, slot:slot + s] = k
+            cache["v"][:, slot:slot + s] = v
         idx = torch.arange(s_cache, device=x.device)
         if rolling:
             # slot i holds position pos - ((pos - i) mod W); invalid (< 0)

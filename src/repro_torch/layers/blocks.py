@@ -38,7 +38,7 @@ def block_apply(
     p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     positions: torch.Tensor,
     cache: Optional[Dict] = None,
-    pos: Optional[int] = None,
+    pos=None,
     offsets: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Returns (x, aux, cache) like the reference; ``aux`` (the MoE load

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.dist.local import local_matmul
-from repro_torch.plan.context import planned_mesh, planned_strategy
+from repro_torch.plan.context import planned_mesh, planned_strategy, planned_tuning
 
 
 def linear_params(generator: torch.Generator, d_in: int, d_out: int,
@@ -31,5 +31,5 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         from repro_torch.dist.api import symmetric_matmul
 
         return symmetric_matmul(x, w, mesh=mesh, out_dtype=x.dtype,
-                                strategy=planned_strategy())
+                                strategy=planned_strategy(), tuning=planned_tuning())
     return local_matmul(x, w, out_dtype=x.dtype)

@@ -3,7 +3,9 @@
 The reference stacks each parameter on a leading layer axis and runs the
 layers with ``lax.scan``; here the layers are a Python list of parameter
 dicts run in a Python loop, and the per-layer KV caches are preallocated
-tensors written in place.
+tensors written in place.  ``decode_step`` takes the cache slot as an int
+or as a 0-d int64 tensor on the model's device (the reference's traced
+``pos``), so one captured CUDA graph serves every step.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.layers.attention import gqa_cache
+from repro_torch.layers.attention import check_cache_write, gqa_cache
 from repro_torch.layers.blocks import block_apply, block_params
 from repro_torch.layers.embed import embed, embed_params, unembed
 from repro_torch.layers.norms import rms_norm, rms_norm_params
@@ -88,18 +90,28 @@ class DecoderLM:
         return self._cached_forward(params, cache, tokens, positions, 0, offsets)
 
     def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor,
-                    pos: int, offsets: Optional[torch.Tensor] = None
+                    pos, offsets: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Cache]:
-        """tokens: (B, 1); ``pos``: the absolute cache slot.  Row i's
-        logical query position is pos - offsets[i]."""
+        """tokens: (B, 1); ``pos``: the absolute cache slot, an int or a
+        0-d int64 tensor on the model's device.  Row i's logical query
+        position is pos - offsets[i].  An int slot past the cache end
+        raises; a tensor slot is not checked (that would wait for the
+        device): check it with ``check_decode_pos`` first."""
         if offsets is not None:
             positions = pos - offsets[:, None]
+        elif torch.is_tensor(pos):
+            positions = pos.reshape(1)
         else:
             positions = torch.full((1,), pos, dtype=torch.int64, device=tokens.device)
         return self._cached_forward(params, cache, tokens, positions, pos, offsets)
 
+    def check_decode_pos(self, cache: Cache, pos: int) -> None:
+        """Raise where a decode step at slot ``pos`` (an int on the host)
+        would write past the cache end."""
+        check_cache_write(self.cfg, cache["layers"][0], pos, 1)
+
     def _cached_forward(self, params: Params, cache: Cache, tokens: torch.Tensor,
-                        positions: torch.Tensor, pos: int,
+                        positions: torch.Tensor, pos,
                         offsets: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
         cfg = self.cfg
         x = embed(params["embed"], tokens)

@@ -1,12 +1,9 @@
 """Versioned machine profiles: measured α–β link parameters for the planner.
 
-Port of the part of ``repro.obs.profile`` that ``repro_torch.plan.ir``
-reads: ``LinkParams``, ``MachineProfile`` (with its JSON form) and
-``default_profile``.  The calibration run that fits a profile on a card
-(the reference's ``repro.obs.calibrate.probe_links`` and
-``repro.launch.perf_probe``) is a later slice of the port.
-
-A :class:`MachineProfile` is what a calibration run persists: per link class, the fitted per-message latency α (seconds) and
+Port of ``repro.obs.profile``.  A :class:`MachineProfile` is what a
+calibration run (``repro_torch.obs.calibrate.probe_links`` / ``python -m
+repro_torch.launch.perf_probe``) persists: per link class, the fitted
+per-message latency α (seconds) and
 bandwidth β⁻¹ (bytes/s), plus the measured peak matmul FLOPs.  The planner
 (``build_plan(profile=...)`` → ``rank_mesh_strategies``) then ranks
 strategies by **calibrated seconds** -- ``core.cost.calibrated_total_s``
@@ -15,7 +12,11 @@ while the word counts themselves stay analytic, so the conformance harness
 keeps checking exact words.
 
 Profiles are frozen/hashable (they participate in the plan-cache key) and
-serialize to schema-versioned JSON (``save``/``load``).
+serialize to the reference's schema-versioned JSON (``save``/``load``), so
+a profile written by one package loads in the other.  The port adds two
+optional keys the reference ignores: ``device_kind`` (the card's name) and
+``link_medium`` (what the links were: on one card the ranks are threads
+and every "link" is a device copy between them).
 """
 from __future__ import annotations
 
@@ -42,16 +43,19 @@ class LinkParams:
 class MachineProfile:
     """Calibrated machine parameters the planner ranks with.
 
-    ``tuning`` is the reference's embedded ``repro.tune.TuningTable``; the
-    port has no tuning slice yet, so it must stay ``None`` (``build_plan``
-    raises on a profile that carries one)."""
+    ``tuning`` optionally embeds a ``repro_torch.tune.TuningTable`` (the
+    ``perf_probe --tune`` artifact): ``build_plan(profile=...)`` then
+    prices the compute side with measured kernel seconds wherever the
+    table covers the local bucket, alongside the fitted α–β comm terms."""
 
     platform: str
     peak_flops: float
     links: Tuple[Tuple[str, LinkParams], ...]
     created: str = ""
     schema: int = PROFILE_SCHEMA
-    tuning: Optional[object] = None  # must be None until the tuning slice
+    tuning: Optional[object] = None  # repro_torch.tune.TuningTable (lazy import)
+    device_kind: str = ""
+    link_medium: str = ""
 
     def link(self, name: str = "ici") -> LinkParams:
         """Params for ``name``, falling back to the first link class (a
@@ -106,6 +110,10 @@ class MachineProfile:
                           "bw_bytes_per_s": p.bw_bytes_per_s}
                       for n, p in self.links},
         }
+        if self.device_kind:
+            obj["device_kind"] = self.device_kind
+        if self.link_medium:
+            obj["link_medium"] = self.link_medium
         if self.tuning is not None:
             obj["tuning"] = self.tuning.to_json()
         return obj
@@ -117,10 +125,11 @@ class MachineProfile:
             raise ValueError(
                 f"machine profile schema {schema} is newer than supported "
                 f"{PROFILE_SCHEMA}; re-run calibration")
+        tuning = None
         if obj.get("tuning"):
-            raise NotImplementedError(
-                "machine profile embeds a tuning table; the port's tuning "
-                "slice is not there yet")
+            from repro_torch.tune.table import TuningTable
+
+            tuning = TuningTable.from_json(obj["tuning"])
         return cls(
             platform=obj.get("platform", "unknown"),
             peak_flops=float(obj["peak_flops"]),
@@ -130,6 +139,9 @@ class MachineProfile:
                 for n, p in obj.get("links", {}).items())),
             created=obj.get("created", ""),
             schema=schema or PROFILE_SCHEMA,
+            tuning=tuning,
+            device_kind=obj.get("device_kind", ""),
+            link_medium=obj.get("link_medium", ""),
         )
 
 
@@ -155,3 +167,27 @@ def default_profile() -> MachineProfile:
         peak_flops=_cost.PEAK_FLOPS_BF16,
         links=(("ici", LinkParams(0.0, _cost.ICI_BW)),),
     )
+
+
+def fit_alpha_beta(sizes_bytes, times_s) -> LinkParams:
+    """Least-squares fit of ``t = α + bytes / bw`` over measured
+    (bytes, seconds) points.  α is clamped to ≥ 0 and bw to > 0 so noisy
+    microbenchmarks can never produce a nonsensical profile."""
+    xs = [float(x) for x in sizes_bytes]
+    ys = [float(y) for y in times_s]
+    if len(xs) != len(ys) or not xs:
+        raise ValueError("need equal, nonempty sizes/times")
+    n = len(xs)
+    if n == 1 or max(xs) == min(xs):
+        # one point: attribute everything to bandwidth
+        return LinkParams(0.0, max(xs[0] / max(ys[0], 1e-12), 1.0))
+    mx = sum(xs) / n
+    my = sum(ys) / n
+    sxx = sum((x - mx) ** 2 for x in xs)
+    sxy = sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+    slope = sxy / sxx if sxx else 0.0  # seconds per byte
+    alpha = my - slope * mx
+    if slope <= 0:
+        # latency-flat regime: charge the mean time as pure latency
+        return LinkParams(max(my, 0.0), 1e15)
+    return LinkParams(max(alpha, 0.0), 1.0 / slope)

@@ -19,7 +19,7 @@ library's x @ w products through it.
 from repro_torch.dist.api import Estimate, estimate  # noqa: F401
 
 from .cache import PlanCache, cache_clear, cache_info, cache_stats, plan_cache
-from .context import planned_matmuls, planned_mesh, planned_strategy
+from .context import planned_matmuls, planned_mesh, planned_strategy, planned_tuning
 from .ir import (SchedulePlan, TilingPlan, TorusProgram, build_plan, mesh_candidates,
                  mesh_fingerprint, rank_mesh_strategies, strategy_seconds)
 from .lower_dist import execute_plan, lower_dist, on_lower, spmd
@@ -31,6 +31,6 @@ __all__ = [
     "strategy_seconds", "execute_plan", "lower_dist", "on_lower", "spmd",
     "lower_local", "lower_tiling",
     "PlanCache", "plan_cache", "cache_stats", "cache_info", "cache_clear",
-    "planned_matmuls", "planned_mesh", "planned_strategy",
+    "planned_matmuls", "planned_mesh", "planned_strategy", "planned_tuning",
     "Estimate", "estimate",
 ]

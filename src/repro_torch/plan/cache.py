@@ -1,8 +1,9 @@
 """Plan cache: memoizes ``build_plan`` so repeated layer calls skip the
 cost-model ranking and schedule/permutation construction.
 
-Port of ``repro.plan.cache`` (its tracing counters wait for the port's
-observability slice).
+Port of ``repro.plan.cache``.  When ``repro_torch.obs`` tracing is on,
+every lookup also bumps ``plan.cache.hit`` / ``plan.cache.miss`` and every
+eviction ``plan.cache.evict``.
 
 Keys are ``(batch, shapes, dtypes, mesh fingerprint, strategy override,
 axes, schedule, tiling, profile)`` -- everything that changes the emitted
@@ -16,7 +17,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, Optional
 
-
+from repro_torch import obs
 
 class PlanCache:
     """A small thread-safe memo table with hit/miss/eviction counters."""
@@ -36,16 +37,23 @@ class PlanCache:
                 self.misses += 1
             else:
                 self.hits += 1
+        if obs.enabled():
+            obs.counter("plan.cache.hit" if plan is not None
+                        else "plan.cache.miss").inc()
         return plan
 
     def put(self, key, plan) -> None:
+        evicted = False
         with self._lock:
             if key not in self._store and \
                     len(self._store) >= self.max_entries:
                 # drop the oldest insertion (dict preserves order)
                 self._store.pop(next(iter(self._store)))
                 self.evictions += 1
+                evicted = True
             self._store[key] = plan
+        if evicted and obs.enabled():
+            obs.counter("plan.cache.evict").inc()
 
     def clear(self) -> None:
         with self._lock:

@@ -11,18 +11,24 @@ on ``(batch, shapes, dtypes, mesh fingerprint, strategy override)``.
 
 The planner ranks with the reference's analytic cost model and constants,
 so on the same mesh and problem it picks the reference's plan field for
-field.  The reference's ``tuning`` argument (measured kernel seconds from
-``repro.tune``) waits for the port's tuning slice: it must be ``None``.
+field.  A calibrated ``profile`` (``repro_torch.obs.MachineProfile``) and
+a ``tuning`` table or live tuner (``repro_torch.tune``) replace the
+constants with measured seconds, as in the reference: the same formulas,
+so the same table entries give the reference's ranking.  Under
+``repro_torch.obs`` tracing every call is a ``plan.build`` span, and cache
+misses record their build time in ``plan.build_us``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 import weakref
 from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.schedule import TorusSchedule, cannon_schedule
 from repro_torch.dist.api import Estimate, estimate, overlap_capability
 
@@ -81,8 +87,8 @@ class TilingPlan:
     bits of the output-block grid, the order K1's CTAs take output tiles);
     ``rowmajor`` the baseline.  ``block_*`` pick one of K1's compiled block
     shapes instead of its default for the shape.  ``tuned`` marks blocks a
-    tuning table substituted (the reference's ``repro.tune``; the port's
-    tuning slice is still to come).  The default plan lowers to
+    tuning table substituted (``repro_torch.tune``).  The default plan
+    lowers to
     ``repro_torch.dist.local.local_matmul`` verbatim.  The reference's
     ``interpret`` flag (Pallas interpret mode) has no counterpart: a CPU
     tensor runs K1's plain version.
@@ -250,17 +256,90 @@ def _grid_for(mesh, strategy: str,
     return None  # ring family / local: only mesh.size matters
 
 
-def strategy_seconds(est: Estimate, mesh, *, profile=None) -> float:
-    """The ranking key for one ``Estimate`` on ``mesh``: the calibrated
-    seconds of ``profile`` (a ``repro_torch.obs.MachineProfile``) when
-    given, else the analytic ``total_s``.  The sort key
-    ``rank_mesh_strategies`` uses, exported so reports can reproduce it."""
-    return est.total_s if profile is None else profile.seconds(est)
+def _local_kernel_shape(strategy: str, grid, m: int, n: int, k: int,
+                        tp: int) -> Tuple[int, int, int]:
+    """The (m, n, k) of ONE local block-multiply call under ``strategy`` on
+    ``grid`` -- the shape K1 sees per step, hence the shape the tuning
+    table is consulted at.  Ceil-division approximates the padded shard
+    dims; ring/pod strategies with no 2-D grid use ``tp``."""
+
+    def cdiv(x, d):
+        return max(-(-int(x) // max(int(d), 1)), 1)
+
+    if strategy in ("cannon", "torus"):
+        q = grid[0] if grid else max(int(round(math.sqrt(max(tp, 1)))), 1)
+        return cdiv(m, q), cdiv(n, q), cdiv(k, q)
+    if strategy == "summa":
+        qx, qy = grid[0], grid[1]
+        return cdiv(m, qx), cdiv(n, qy), cdiv(k, qx * qy)
+    if strategy == "cannon25d":
+        c, q = grid[0], grid[1]
+        return cdiv(m, q), cdiv(n, q), cdiv(k, c * q)
+    if strategy == "pod25d":
+        if grid and len(grid) >= 3:
+            c, qx, qy = grid[0], grid[1], grid[2]
+            return cdiv(m, qx), cdiv(n, qy), cdiv(k, c * qx * qy)
+        c = grid[0] if grid else max(tp, 1)
+        return m, n, cdiv(k, c)
+    if strategy == "fattree":
+        s, qx, qy = grid[0], grid[1], grid[2]
+        return cdiv(m, qx), cdiv(n, s * qy), cdiv(k, s * qx * qy)
+    if strategy == "ring_ag":
+        t = grid[0] if grid else max(tp, 1)
+        return cdiv(m, t), cdiv(n, t), k
+    if strategy == "ring_rs":
+        t = grid[0] if grid else max(tp, 1)
+        return m, n, cdiv(k, t)
+    return m, n, k  # local
+
+
+def _measured_compute_s(tuning, strategy: str, grid, m: int, n: int, k: int,
+                        tp: int, dtype) -> Optional[float]:
+    """Total measured local-compute seconds for one strategy cell: the
+    tuned per-call kernel seconds (bucket-scaled) times the number of
+    local block-multiply calls covering the 2mnk/tp local FLOPs.  None
+    when no tuning is given or its table misses the bucket (a live
+    ``repro_torch.tune.Tuner`` searches instead of missing)."""
+    if tuning is None:
+        return None
+    lm, ln, lk = _local_kernel_shape(strategy, grid, m, n, k, tp)
+    per_call = tuning.compute_seconds(lm, ln, lk, dtype=_dtype_name(
+        dtype if dtype is not None else torch.float32))
+    if per_call is None:
+        return None
+    calls = max((2.0 * m * n * k / max(tp, 1)) / (2.0 * lm * ln * lk), 1.0)
+    return per_call * calls
+
+
+def strategy_seconds(est: Estimate, mesh, *, profile=None, tuning=None,
+                     dtype=None) -> float:
+    """The calibrated ranking key for one ``Estimate`` on ``mesh``: fitted
+    α–β comm seconds with the compute term replaced by measured
+    tuned-kernel seconds wherever ``tuning`` covers the strategy's local
+    kernel bucket.  With tuning but no profile, comm is priced analytically
+    (``default_profile``); with neither, the analytic ``total_s``.  This IS
+    the sort key ``rank_mesh_strategies`` uses, exported so drift checks
+    and reports can reproduce it."""
+    eff = profile
+    if eff is None and tuning is not None:
+        from repro_torch.obs.profile import default_profile
+
+        eff = default_profile()
+    if eff is None:
+        return est.total_s
+    cs = None
+    if tuning is not None:
+        ax = _plan_axes(mesh, est.strategy, None)
+        cs = _measured_compute_s(tuning, est.strategy,
+                                 _grid_for(mesh, est.strategy, ax),
+                                 est.m, est.n, est.k, est.tp, dtype)
+    return eff.seconds(est, compute_s=cs)
 
 
 def rank_mesh_strategies(m: int, n: int, k: int, mesh,
                          dtype_bytes: int = 2, *,
-                         profile=None) -> Tuple[Estimate, ...]:
+                         profile=None, tuning=None,
+                         dtype=None) -> Tuple[Estimate, ...]:
     """Mesh-applicable strategies priced by ``estimate`` on the grids they
     would actually execute, cheapest first.
 
@@ -269,6 +348,12 @@ def rank_mesh_strategies(m: int, n: int, k: int, mesh,
     analytic bytes/message counts -- instead of the datasheet-constant
     ``total_s``; the estimates themselves are identical either way.  Each
     estimate carries the resolved mesh-axis roles (``comm_by_axis``).
+
+    ``tuning`` (a ``repro_torch.tune`` table/tuner, defaulting to the
+    profile's embedded table) additionally replaces each strategy's
+    peak-FLOPs compute term with measured kernel seconds at its local
+    bucket -- ``dtype`` names the operand dtype the table is keyed on (fp32
+    when omitted).  See ``strategy_seconds``.
     """
     cands = mesh_candidates(mesh)
     ests = []
@@ -276,7 +361,10 @@ def rank_mesh_strategies(m: int, n: int, k: int, mesh,
         ax = _plan_axes(mesh, s, None)
         ests.append(estimate(s, m, n, k, mesh.size, dtype_bytes,
                              grid=_grid_for(mesh, s, ax), axes=ax))
-    ests.sort(key=lambda e: (strategy_seconds(e, mesh, profile=profile),
+    if tuning is None:
+        tuning = getattr(profile, "tuning", None)
+    ests.sort(key=lambda e: (strategy_seconds(e, mesh, profile=profile, tuning=tuning,
+                                              dtype=dtype),
                              cands.index(e.strategy)))
     return tuple(ests)
 
@@ -344,44 +432,52 @@ def build_plan(
     (default) lets the planner pick -- overlapped exactly when the cost
     model predicts ``max(compute, comm) < compute + comm`` strictly --
     ``False`` forces the staged twin, ``True`` demands overlap and raises
-    for strategies with no overlapped body.  ``tuning`` must be None (the
-    port's tuning slice is still to come); so must a profile's embedded
-    table.  Results are memoized -- see ``repro_torch.plan.cache``.
+    for strategies with no overlapped body.  ``tuning`` (a
+    ``repro_torch.tune.TuningTable`` or live ``Tuner``; defaults to the
+    profile's embedded table) swaps the compute term of both decisions for
+    measured kernel seconds at each strategy's local bucket and folds the
+    winning blocks into the plan's ``TilingPlan`` (marked ``tuned``).
+    Results are memoized -- see ``repro_torch.plan.cache``.
     """
     from .cache import plan_cache
 
-    if tuning is not None or getattr(profile, "tuning", None) is not None:
-        raise NotImplementedError(
-            "tuned plans (tuning=...) wait for the port's tuning slice; pass tuning=None")
     if out_dtype is None:
         out_dtype = torch.promote_types(a_dtype, b_dtype)
     tiling = tiling if tiling is not None else TilingPlan()
     key = (
         "plan", tuple(batch), m, n, k, _dtype_name(a_dtype), _dtype_name(b_dtype),
         _dtype_name(out_dtype), mesh_fingerprint(mesh), strategy, axes, schedule, tiling,
-        profile, overlap,
+        profile, tuning, overlap,
     )
-    if use_cache:
-        cached = plan_cache.get(key)
-        if cached is not None:
-            return cached
-    plan = _build_plan_uncached(
-        m, n, k, mesh=mesh, strategy=strategy, batch=batch,
-        a_dtype=a_dtype, out_dtype=out_dtype, axes=axes,
-        schedule=schedule, tiling=tiling, profile=profile, overlap=overlap,
-    )
-    if use_cache:
-        plan_cache.put(key, plan)
+    with obs.span("plan.build", m=m, n=n, k=k, strategy=strategy or "auto"):
+        if use_cache:
+            cached = plan_cache.get(key)
+            if cached is not None:
+                return cached
+        t0 = time.perf_counter()
+        plan = _build_plan_uncached(
+            m, n, k, mesh=mesh, strategy=strategy, batch=batch,
+            a_dtype=a_dtype, out_dtype=out_dtype, axes=axes,
+            schedule=schedule, tiling=tiling, profile=profile,
+            tuning=tuning, overlap=overlap,
+        )
+        if obs.enabled():
+            obs.histogram("plan.build_us").observe((time.perf_counter() - t0) * 1e6)
+            obs.instant("plan.built", strategy=plan.strategy)
+        if use_cache:
+            plan_cache.put(key, plan)
     return plan
 
 
 def _resolve_overlap(strategy: str, grid, cost: Optional[Estimate],
-                     overlap: Optional[bool], profile) -> bool:
+                     overlap: Optional[bool], profile,
+                     tuning=None, dtype=None) -> bool:
     """Pick the executed variant: the caller's explicit choice (validated
     against the lowering's capability), or -- when ``overlap`` is None --
     the planner's: overlapped exactly when the cost model predicts a
     strict ``max(compute, comm) < compute + comm`` win (calibrated seconds
-    when a profile is given; ties go to the staged body).  The ring chains
+    when a profile is given, measured tuned-kernel compute when ``tuning``
+    covers the local bucket; ties go to the staged body).  The ring chains
     have no staged twin -- their fused one-hop programs are the overlap."""
     capability = overlap_capability(strategy, grid)
     if overlap is not None:
@@ -404,17 +500,44 @@ def _resolve_overlap(strategy: str, grid, cost: Optional[Estimate],
         return True
     staged = dataclasses.replace(cost, overlapped=False)
     over = dataclasses.replace(cost, overlapped=True)
-    if profile is not None:
-        return profile.seconds(over) < profile.seconds(staged)
+    eff = profile
+    if eff is None and tuning is not None:
+        from repro_torch.obs.profile import default_profile
+
+        eff = default_profile()
+    if eff is not None:
+        cs = _measured_compute_s(tuning, strategy, grid, cost.m, cost.n,
+                                 cost.k, cost.tp, dtype)
+        return eff.seconds(over, compute_s=cs) < eff.seconds(staged, compute_s=cs)
     return over.total_s < staged.total_s
+
+
+def _tuned_tiling(tiling: TilingPlan, tuning, strategy: str, grid,
+                  m: int, n: int, k: int, tp: int, dtype) -> TilingPlan:
+    """Swap a default ``TilingPlan`` for the measured winner's blocks/order
+    when the tuning table covers the plan's local kernel bucket (a live
+    ``Tuner`` searches the bucket on demand -- this is where serve-warmup
+    tuning happens).  Explicit tilings always win over the table."""
+    if tuning is None or not tiling.is_default:
+        return tiling
+    lm, ln, lk = _local_kernel_shape(strategy, grid, m, n, k, tp)
+    entry = tuning.entry_for(lm, ln, lk, dtype=_dtype_name(dtype))
+    if entry is None:
+        return tiling
+    return TilingPlan(order=entry.order, block_m=entry.block_m,
+                      block_n=entry.block_n, block_k=entry.block_k,
+                      tuned=True)
 
 
 def _build_plan_uncached(m, n, k, *, mesh, strategy, batch, a_dtype,
                          out_dtype, axes, schedule, tiling,
-                         profile=None, overlap=None) -> SchedulePlan:
+                         profile=None, tuning=None,
+                         overlap=None) -> SchedulePlan:
     flat_m = m * math.prod(batch) if batch else m
     dtype_bytes = torch.empty((), dtype=a_dtype).element_size()
     cost = None
+    if tuning is None:
+        tuning = getattr(profile, "tuning", None)
     if schedule is not None and mesh is None:
         raise ValueError("executing a TorusSchedule requires a mesh")
     if (mesh is None or mesh.size == 1) and schedule is None:
@@ -424,20 +547,25 @@ def _build_plan_uncached(m, n, k, *, mesh, strategy, batch, a_dtype,
         return SchedulePlan(
             strategy="local", m=m, n=n, k=k, batch=tuple(batch),
             out_dtype=out_dtype, mesh=mesh, mesh_fp=mesh_fingerprint(mesh),
-            tiling=tiling,
+            tiling=_tuned_tiling(tiling, tuning, "local", None,
+                                 flat_m, n, k, 1, a_dtype),
             cost=estimate("local", flat_m, n, k, 1, dtype_bytes),
         )
     if schedule is not None:
         strategy = strategy or "torus"
         ax = _plan_axes(mesh, "cannon", axes)
         resolved = _resolve_overlap("cannon", (schedule.q, schedule.q),
-                                    None, overlap, profile)
+                                    None, overlap, profile, tuning, a_dtype)
+        tiling = _tuned_tiling(tiling, tuning, "cannon",
+                               (schedule.q, schedule.q), flat_m, n, k,
+                               schedule.q * schedule.q, a_dtype)
         return _torus_plan(m, n, k, batch, out_dtype, mesh, ax, schedule,
                            tiling, cost=None, strategy=strategy,
                            overlap=resolved)
     if strategy is None:
         ranked = rank_mesh_strategies(flat_m, n, k, mesh, dtype_bytes,
-                                      profile=profile)
+                                      profile=profile, tuning=tuning,
+                                      dtype=a_dtype)
         cost = ranked[0]
         strategy = cost.strategy
     elif strategy in _EXECUTABLE:
@@ -452,7 +580,10 @@ def _build_plan_uncached(m, n, k, *, mesh, strategy, batch, a_dtype,
 
     ax = _plan_axes(mesh, strategy, axes)
     resolved = _resolve_overlap(strategy, _grid_for(mesh, strategy, ax),
-                                cost, overlap, profile)
+                                cost, overlap, profile, tuning, a_dtype)
+    tiling = _tuned_tiling(tiling, tuning, strategy,
+                           _grid_for(mesh, strategy, ax), flat_m, n, k,
+                           mesh.size, a_dtype)
     if cost is not None:
         # the plan's cost prices the variant it will execute, so
         # ``plan.cost.overlapped == plan.overlap`` always holds

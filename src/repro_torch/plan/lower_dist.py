@@ -35,6 +35,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dist._util import pad_to
 from repro_torch.dist.cannon import torus_program_body, torus_program_body_overlapped
 from repro_torch.dist.fattree import fattree_body
@@ -170,12 +171,14 @@ def lower_dist(plan: SchedulePlan):
 
     Memoized per plan (``SchedulePlan`` is frozen, and hashable whenever
     its mesh is -- always true for ``Mesh``); plans built on unhashable
-    mesh stand-ins lower uncached."""
+    mesh stand-ins lower uncached.  A ``plan.lower`` span under obs
+    tracing."""
     _notify_lower(plan)
-    try:
-        return _lower_dist_cached(plan)
-    except TypeError:
-        return _lower_dist(plan)
+    with obs.span("plan.lower", strategy=plan.strategy, overlap=plan.overlap):
+        try:
+            return _lower_dist_cached(plan)
+        except TypeError:
+            return _lower_dist(plan)
 
 
 @functools.lru_cache(maxsize=256)
@@ -266,13 +269,21 @@ def execute_plan(plan: SchedulePlan, a: torch.Tensor, b: torch.Tensor) -> torch.
 
     a: (batch..., m, k); b: (k, n) or (batch..., k, n).  A batched left
     operand against a 2-D right operand is folded into the rows; batched
-    pairs run the 2-D program per flattened batch element.
+    pairs run the 2-D program per flattened batch element.  Under obs
+    tracing the run is a ``plan.execute`` span, whose strategy tag every
+    collective of the rank threads inherits.
     """
     if a.shape[-1] != b.shape[-2 if b.ndim > 1 else 0]:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} x {tuple(b.shape)}")
     run = lower_dist(plan)
     with _executions_lock:
         executions[(plan.strategy, plan.overlap)] += 1
+    with obs.span("plan.execute", strategy=plan.strategy, overlap=plan.overlap,
+                  m=plan.m, n=plan.n, k=plan.k):
+        return _execute(run, a, b)
+
+
+def _execute(run, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.ndim == 2 and b.ndim == 2:
         return run(a, b)
     if a.ndim > 2 and b.ndim == 2:

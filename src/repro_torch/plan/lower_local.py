@@ -12,6 +12,11 @@ per-rank bodies run:
     ``repro_torch.kernels.matmul.ops.matmul`` with those arguments.  A block
     shape K1 was not compiled for raises there; nothing falls back to the
     plain version on the card.
+  * tuned blocks (``tiling.tuned``, from a tuning table's bucket) -> the
+    same closure, except that a call whose operands the tuned route
+    cannot read (the wide and thin routes need 16-byte aligned bases, and
+    a bucket says nothing of a view's base) takes K1's default blocks,
+    counted in ``tune.blocks_refused`` under obs tracing.
 """
 from __future__ import annotations
 
@@ -19,8 +24,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dist.local import local_matmul
-from repro_torch.kernels.matmul.ops import matmul
+from repro_torch.kernels.matmul.ops import accepts, matmul
 
 from .ir import SchedulePlan, TilingPlan
 
@@ -35,8 +41,14 @@ def lower_tiling(tiling: TilingPlan):
         if out_dtype is None:
             out_dtype = torch.promote_types(a.dtype, b.dtype)
         rows = a.reshape(-1, a.shape[-1]).contiguous()
-        out = matmul(rows, b, order=tiling.order, block_m=tiling.block_m,
-                     block_n=tiling.block_n, block_k=tiling.block_k, out_dtype=out_dtype)
+        blocks = dict(block_m=tiling.block_m, block_n=tiling.block_n, block_k=tiling.block_k)
+        if tiling.tuned and not accepts(
+                rows.shape[1], b.shape[1], rows.dtype, tuple(blocks.values()),
+                rows.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+            blocks = {}
+            if obs.enabled():
+                obs.counter("tune.blocks_refused").inc()
+        out = matmul(rows, b, order=tiling.order, out_dtype=out_dtype, **blocks)
         return out.reshape(*a.shape[:-1], b.shape[1])
 
     return tiled_local_matmul

@@ -2,9 +2,15 @@
 
 Counterpart of ``repro.runtime.serve``.  ``generate`` runs one prefill
 over the (left-padded) prompt batch, then one decode step per new token.
-PyTorch runs eagerly, so there is nothing to compile or memoize.  With a
+PyTorch runs eagerly, so there is nothing to compile or memoize
+(``repro_torch.serve.Server`` captures each bucket's steps as CUDA graphs
+instead).  Each decode step takes its cache slot as a 0-d tensor on the
+device, checked on the host first, as the captured steps do.  With a
 ``mesh`` of more than one rank, the whole decode runs inside
-``planned_scope``: every projection goes through the plan engine.
+``planned_scope``: every projection goes through the plan engine
+(``tuning=`` prices and tiles its plans with measured kernel seconds).
+Under ``repro_torch.obs`` tracing the prefill and each decode step are
+``serve.prefill`` / ``serve.decode_step`` spans.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import param_device
 
 
@@ -51,13 +58,14 @@ def generate(
     lens: Optional[np.ndarray] = None,
     mesh=None,
     strategy: Optional[str] = None,
+    tuning=None,
 ) -> np.ndarray:
     """prompts: (B, S_prompt) int -> (B, S_prompt + max_new_tokens) numpy.
 
     ``lens`` gives the true lengths of a left-padded batch: each row then
     decodes at its own logical positions.  ``generator`` drives temperature
-    sampling (on the model's device).  ``mesh`` / ``strategy`` route every
-    projection through the plan engine (``planned_scope``)."""
+    sampling (on the model's device).  ``mesh`` / ``strategy`` / ``tuning``
+    route every projection through the plan engine (``planned_scope``)."""
     b, sp = prompts.shape
     if b == 0:
         return np.asarray(prompts)
@@ -68,18 +76,18 @@ def generate(
     if lens is not None:
         offsets = torch.as_tensor(sp - np.asarray(lens), dtype=torch.int64, device=device)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=device)
-    with torch.no_grad(), planned_scope(mesh, strategy):
+    with torch.no_grad(), planned_scope(mesh, strategy, tuning):
         return decode_loop(model, params, cache, tokens, offsets, cfg, generator)[0]
 
 
-def planned_scope(mesh, strategy: Optional[str] = None):
+def planned_scope(mesh, strategy: Optional[str] = None, tuning=None):
     """The plan-routing scope ``generate`` decodes under: route through
-    ``planned_matmuls(mesh, strategy)`` when a multi-rank mesh is given,
-    otherwise a null context (the local path)."""
+    ``planned_matmuls(mesh, strategy, tuning)`` when a multi-rank mesh is
+    given, otherwise a null context (the local path)."""
     if mesh is not None and getattr(mesh, "size", 1) > 1:
         from repro_torch.plan import planned_matmuls
 
-        return planned_matmuls(mesh, strategy)
+        return planned_matmuls(mesh, strategy, tuning)
     return contextlib.nullcontext()
 
 
@@ -87,22 +95,39 @@ def decode_loop(model, params, cache, tokens: torch.Tensor,
                 offsets: Optional[torch.Tensor], cfg: ServeConfig,
                 generator: Optional[torch.Generator], on_token=None
                 ) -> Tuple[np.ndarray, list]:
-    """Prefill + ``max_new_tokens - 1`` decode steps on a prepared cache.
-    Returns the full (B, S + new) token array and the results of
-    ``on_token()``, called after each token is sampled (the server's
-    latency clock)."""
-    sp = tokens.shape[1]
+    """Prefill + ``max_new_tokens - 1`` decode steps on a prepared cache,
+    eagerly (``token_loop`` with the model's own steps)."""
+    return token_loop(
+        model, cache, tokens, cfg, generator,
+        prefill=lambda: model.prefill(params, cache, tokens, offsets)[0],
+        step=lambda cur, pos: model.decode_step(params, cache, cur, pos, offsets)[0],
+        on_token=on_token)
+
+
+def token_loop(model, cache, tokens: torch.Tensor, cfg: ServeConfig,
+               generator: Optional[torch.Generator], *, prefill, step, on_token=None
+               ) -> Tuple[np.ndarray, list]:
+    """The decode loop over ``prefill()`` (the prompt's last-token logits)
+    and ``step(cur, pos)`` (one decode step's logits for tokens ``cur``
+    (B, 1) at cache slot ``pos``, a 0-d tensor on the device, checked on
+    the host first).  Returns the full (B, S + new) token array and the
+    results of ``on_token()``, called after each token is sampled (the
+    server's latency clock)."""
+    b, sp = tokens.shape
     out = [tokens]
     marks = []
-    logits, cache = model.prefill(params, cache, tokens, offsets)
+    with obs.span("serve.prefill", batch=b, seq=sp):
+        logits = prefill()
     if cfg.max_new_tokens > 0:
         cur = _sample(logits, cfg, generator)
         out.append(cur[:, None])
         if on_token is not None:
             marks.append(on_token())
         for t in range(sp, sp + cfg.max_new_tokens - 1):
-            logits, cache = model.decode_step(params, cache, cur[:, None], t, offsets)
-            cur = _sample(logits, cfg, generator)
+            model.check_decode_pos(cache, t)
+            with obs.span("serve.decode_step", batch=b, pos=t):
+                pos = torch.full((), t, dtype=torch.int64, device=tokens.device)
+                cur = _sample(step(cur[:, None], pos), cfg, generator)
             out.append(cur[:, None])
             if on_token is not None:
                 marks.append(on_token())

@@ -18,22 +18,27 @@ independent derivations of the same communication:
                   ``check_capture`` holds a live run (served tokens, a
                   planned forward) to the traces of the plans it executed
 
-The reference's ``drift`` (``check_drift``, ``ranking_drift``) waits for
-the port's observability, calibration and tuning slices (``ROADMAP.md``,
-queue 1, items 3-5).
+  drift        -- ``check_drift``: obs == interceptor == trace on live
+                  runs of every lowering family, plus ranking drift (a
+                  stored machine profile against a fresh calibration) and
+                  tuning drift (a stored table's winners re-timed)
 """
-from . import conformance, interceptor, trace
+from . import conformance, drift, interceptor, trace
 from .conformance import (ConformanceError, ConformanceReport, check,
                           check_capture, compare_records, hlo_collective_bytes,
                           matrix_cells, predicted_words_per_device,
                           run_matrix)
+from .drift import (DRIFT_CELLS, RANKING_SHAPES, check_drift, measure_cell,
+                    ranking_drift, tuning_drift)
 from .interceptor import Capture, intercept, measure_plan
 from .trace import (CollectiveRecord, MachineTrace, Trace, canonical_perm,
                     fattree_a_level_words, fattree_level_words, padded_dims,
                     trace_fattree, trace_hex, trace_plan, tree_level_words)
 
 __all__ = [
-    "conformance", "interceptor", "trace",
+    "conformance", "drift", "interceptor", "trace",
+    "DRIFT_CELLS", "RANKING_SHAPES", "check_drift", "measure_cell", "ranking_drift",
+    "tuning_drift",
     "ConformanceError", "ConformanceReport", "check", "check_capture", "compare_records",
     "hlo_collective_bytes", "matrix_cells", "predicted_words_per_device",
     "run_matrix", "Capture", "intercept", "measure_plan",

@@ -457,3 +457,96 @@ def test_kernels_launch_from_a_fresh_thread(cuda_device):
     assert kernel.route(512, 384, 256, torch.bfloat16) == "wide"
     assert _row_rel(got["k1"], matmul(a, b, out_dtype=torch.float32)) < 1e-6
     assert _row_rel(_heads(got["k2"]), _heads(k2.mha(q, k, v, causal=True))) < 1e-6
+
+
+# -- serving buckets captured as CUDA graphs; the tuner on the card -------------------
+
+SERVE_PROMPTS = [[5, 6, 7], [9, 2, 3, 4, 1], [17, 3], [8, 8, 8, 8, 8, 8, 1]]
+
+
+def _smoke_llama(cuda_device):
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("llama3_2_1b")            # bf16, as served
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    return model, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [None, (2, 2)], ids=["unplanned", "2x2"])
+def test_captured_buckets_serve_the_eager_tokens_bitwise(cuda_device, mesh):
+    """Each bucket's prefill and decode step captured at warmup and
+    replayed: the same tokens, bit for bit, as the same server built eager;
+    replays counted from the captures, none from Python."""
+    from repro_torch.runtime.serve import ServeConfig
+    from repro_torch.serve import Server
+
+    model, params = _smoke_llama(cuda_device)
+    cfg = ServeConfig(max_new_tokens=6, max_seq=32)
+    graphs = Server(model, params, cfg, mesh=mesh, buckets=[(4, 8), (2, 16)])
+    eager = Server(model, params, cfg, mesh=mesh, buckets=[(4, 8), (2, 16)], graphs=False)
+    report = graphs.warmup()
+    eager.warmup()
+    assert all(r["graphs"] == 2 and r["capture_s"] > 0 for r in report.values())
+    for prompts in (SERVE_PROMPTS, SERVE_PROMPTS[:2], [[3] * 12]):
+        kernel.reset_launches()
+        got = graphs.generate(prompts)
+        assert got.graphs and kernel.launches == 0
+        want = eager.generate(prompts)
+        assert not want.graphs and got.new_tokens == want.new_tokens
+    rep = graphs.cache_report()
+    replays = sum(s["replays"] for g in rep["graphs"].values() for s in g.values())
+    if mesh is None:
+        per_forward = 7 * model.cfg.num_layers
+        assert rep["kernels"]["zorder_matmul"]["replayed"] == replays * per_forward
+    else:
+        assert graphs.plan_report()["strategies"] == eager.plan_report()["strategies"]
+        graphs.mesh.close()
+        eager.mesh.close()
+
+
+@pytest.mark.cuda
+def test_a_capture_that_cannot_succeed_raises(cuda_device, monkeypatch):
+    """A step that synchronises the device cannot be captured: warmup
+    raises instead of serving that bucket eagerly."""
+    from repro_torch.runtime.serve import ServeConfig
+    from repro_torch.serve import Server
+
+    model, params = _smoke_llama(cuda_device)
+    real = model.decode_step
+
+    def syncing(*args, **kw):
+        torch.cuda.synchronize()
+        return real(*args, **kw)
+
+    monkeypatch.setattr(model, "decode_step", syncing)
+    server = Server(model, params, ServeConfig(max_new_tokens=4, max_seq=32), buckets=[(2, 8)])
+    with pytest.raises(RuntimeError):
+        server.warmup()
+    torch.cuda.synchronize()
+    a = torch.ones(8, 64, device=cuda_device, dtype=torch.bfloat16)
+    assert torch.equal(matmul(a, a.t().contiguous()), matmul_ref(a, a.t().contiguous()))
+
+
+@pytest.mark.cuda
+def test_tuner_entries_round_trip_through_save_table(cuda_device, tmp_path):
+    from repro_torch.tune import (Tuner, candidate_route, candidate_space, load_table,
+                                  save_table, time_candidate)
+
+    tuner = Tuner(reps=2, device=cuda_device)
+    e1 = tuner.entry_for(4, 512, 256)
+    e2 = tuner.entry_for(200, 256, 512)
+    assert tuner.stats["searches"] == 2
+    assert (e1.block_m, e1.block_n, e1.block_k, e1.order) in candidate_space(16, 512, 256)
+    assert candidate_route((e2.block_m, e2.block_n, e2.block_k, e2.order), "bfloat16") in (
+        "wide", "thin", "wmma")
+    assert e1.seconds > 0 and e1.seconds == min(
+        t["seconds"] for t in tuner.trials if t["bucket"] == e1.bucket)
+    table = tuner.table()
+    assert table.device_kind == torch.cuda.get_device_name(cuda_device)
+    back = load_table(save_table(table, str(tmp_path / "t.json")))
+    assert back == table and back.lookup(4, 512, 256, "bfloat16") == e1
+    again = Tuner(table=back, device=cuda_device)
+    assert again.entry_for(4, 512, 256) == e1 and again.stats["searches"] == 0
+    assert time_candidate(16, 512, 256, "bfloat16", (16, 64, 64, "zorder")) > 0

@@ -42,6 +42,26 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert bad == "[]", line
 
 
+NEW_MODULES = ["repro_torch.obs.runtime", "repro_torch.obs.metrics", "repro_torch.obs.export",
+               "repro_torch.obs.calibrate", "repro_torch.tune.table",
+               "repro_torch.tune.search", "repro_torch.verify.drift",
+               "repro_torch.launch.perf_probe"]
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_the_hygiene_walk_covers_the_measurement_loop(name):
+    """The subprocess walk above imports every module of the package; the
+    measurement loop's modules are among them."""
+    import pkgutil
+
+    import repro_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert name in walked
+    assert any(path.replace("/", ".").endswith(name.split(".", 1)[1] + ".py")
+               for path in _port_sources())
+
+
 def _port_sources():
     src = os.path.join(ROOT, "src")
     files = sorted(glob.glob(os.path.join(src, "repro_torch", "**", "*.py"), recursive=True))

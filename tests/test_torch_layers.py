@@ -216,3 +216,95 @@ def test_rolling_decode_matches_reference_and_uncached_forward(danube_models):
         out, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(step), t)
         _close(out, ref)
         _close(out, full[:, t])
+
+
+# -- the cache slot as a device tensor ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def llama_models():
+    """(jax model, jax params, port model, port params): the fp32 Llama smoke model."""
+    jcfg = dataclasses.replace(jax_smoke_config("llama3_2_1b"), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config("llama3_2_1b"), dtype="float32")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    return jmodel, jparams, build_model(tcfg), tparams
+
+
+def _decode_both_ways(tmodel, tparams, tokens, offsets, max_seq):
+    """Prefill 1 token, then decode the rest twice: with the slot as an int
+    and as a 0-d int64 tensor; every step's logits and the caches."""
+    b, s = tokens.shape
+    caches = [tmodel.init_cache(b, max_seq, CPU) for _ in range(2)]
+    off = None if offsets is None else torch.from_numpy(offsets)
+    first = [tmodel.prefill(tparams, c, torch.from_numpy(tokens[:, :1]), off)[0] for c in caches]
+    assert torch.equal(*first)
+    steps = []
+    for t in range(1, s):
+        step = torch.from_numpy(tokens[:, t:t + 1])
+        by_int, _ = tmodel.decode_step(tparams, caches[0], step, t, off)
+        by_tensor, _ = tmodel.decode_step(tparams, caches[1], step,
+                                          torch.tensor(t, dtype=torch.int64), off)
+        steps.append((by_int, by_tensor))
+    return steps, caches
+
+
+@pytest.mark.parametrize("which", ["llama", "danube"])
+@pytest.mark.parametrize("with_offsets", [False, True])
+def test_tensor_slot_decode_is_bitwise_the_int_path(llama_models, danube_models, which,
+                                                   with_offsets):
+    """The same logits and caches, bit for bit, with the slot an int or a
+    device tensor; danube's 16-slot window cache rolls 7 steps past the wrap."""
+    _, _, tmodel, tparams = llama_models if which == "llama" else danube_models
+    tokens = np.random.default_rng(12).integers(0, 256, size=(2, 24))
+    offsets = np.array([0, 3], np.int64) if with_offsets else None
+    steps, (c_int, c_tensor) = _decode_both_ways(tmodel, tparams, tokens, offsets, 32)
+    for by_int, by_tensor in steps:
+        assert torch.equal(by_int, by_tensor)
+    for li, lt in zip(c_int["layers"], c_tensor["layers"]):
+        assert torch.equal(li["k"], lt["k"]) and torch.equal(li["v"], lt["v"])
+
+
+@pytest.mark.parametrize("which", ["llama", "danube"])
+def test_tensor_slot_decode_matches_the_reference(llama_models, danube_models, which):
+    """The tensor-slot decode against the reference's ``decode_step`` with a
+    traced slot, for the same weights (``params_from_jax``), within 1e-5."""
+    jmodel, jparams, tmodel, tparams = llama_models if which == "llama" else danube_models
+    tokens = np.random.default_rng(13).integers(0, 256, size=(2, 20))
+    jcache = jmodel.init_cache(2, 32)
+    tcache = tmodel.init_cache(2, 32, CPU)
+    ref, jcache = jmodel.prefill(jparams, jcache, jnp.asarray(tokens[:, :1]))
+    out, tcache = tmodel.prefill(tparams, tcache, torch.from_numpy(tokens[:, :1]))
+    _close(out, ref)
+    decode = jax.jit(jmodel.decode_step)
+    for t in range(1, 20):
+        step = tokens[:, t:t + 1]
+        ref, jcache = decode(jparams, jcache, jnp.asarray(step), jnp.int32(t))
+        out, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(step),
+                                         torch.tensor(t))
+        _close(out, ref)
+
+
+def test_the_int_slots_raises_stay_and_the_host_check_raises_for_a_tensor_slot(
+        llama_models, danube_models):
+    _, _, lmodel, lparams = llama_models
+    cache = lmodel.init_cache(1, 4, CPU)
+    one = torch.ones(1, 1, dtype=torch.long)
+    with pytest.raises(ValueError, match="overruns"):
+        lmodel.decode_step(lparams, cache, one, 4)
+    with pytest.raises(ValueError, match="overruns"):
+        lmodel.check_decode_pos(cache, 4)
+    lmodel.check_decode_pos(cache, 3)
+    _, _, dmodel, dparams = danube_models
+    rolling = dmodel.init_cache(1, 32, CPU)
+    eight = torch.from_numpy(np.random.default_rng(14).integers(0, 256, size=(1, 8)))
+    with pytest.raises(ValueError, match="rolling"):
+        dmodel.prefill(dparams, rolling, eight)
+    cfg = dmodel.cfg
+    x = torch.from_numpy(_np(15, 1, 8, cfg.d_model))
+    layer = dparams["layers"][0]["attn"]
+    with pytest.raises(ValueError, match="rolling"):
+        attention.gqa_attention(layer, x, cfg, torch.arange(8), rolling["layers"][0],
+                                torch.tensor(0))
+    dmodel.check_decode_pos(rolling, 1000)      # a rolling cache takes any slot

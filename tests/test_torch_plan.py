@@ -293,12 +293,17 @@ def test_rejections_match_reference(call, match):
 
 
 def test_tuning_waits_for_its_slice():
+    """The tuning slice is in: ``build_plan`` and ``planned_matmuls`` take a
+    table (held against the reference in ``tests/test_torch_tune.py``)."""
+    from repro_torch.tune import TunedBlocks, TuningTable
+
     mesh = fake_mesh((2, 2), ("x", "y"))
-    with pytest.raises(NotImplementedError, match="tuning"):
-        port_plan.build_plan(64, 64, 64, mesh=mesh, tuning=object())
-    with pytest.raises(NotImplementedError, match="tuning"):
-        with port_plan.planned_matmuls(mesh, tuning=object()):
-            pass
+    table = TuningTable(device_kind="cpu").with_entry(
+        32, 32, 32, "float32", TunedBlocks(16, 64, 32, "rowmajor", 1e-6, (64, 32, 32)))
+    plan = port_plan.build_plan(64, 64, 64, mesh=mesh, strategy="cannon", tuning=table)
+    assert plan.tiling.tuned and (plan.tiling.block_m, plan.tiling.order) == (16, "rowmajor")
+    with port_plan.planned_matmuls(mesh, tuning=table):
+        assert port_plan.planned_tuning() is table
 
 
 # -- cache, fingerprint ------------------------------------------------------------------

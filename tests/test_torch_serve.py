@@ -271,3 +271,91 @@ def test_plan_routed_server_matches_local(pair, strategy):
     np.testing.assert_array_equal(
         generate(tmodel, tparams, batch, scfg, lens=lens, mesh=planned.mesh, strategy=strategy),
         generate(tmodel, tparams, batch, scfg, lens=lens))
+
+
+# -- measurement loop: tuning, obs, captured buckets (eager on the CPU) -----------------
+
+
+def _timer(m, n, k, dtype, cand):
+    bm, bn, bk, order = cand
+    return 1e-9 * m * n * k * (1 + (order == "rowmajor") + (bm == 16))
+
+
+def test_tuned_plan_routed_server_matches_local(pair):
+    """``Server(mesh=(2, 2), tuning=tuner)``: warmup tunes every bucket's
+    per-rank kernel shapes (an injected timer: there is no kernel to time
+    on the CPU), serving searches nothing more, and the tokens equal
+    ``mesh=None``'s."""
+    from repro_torch.tune import Tuner
+
+    _, _, tmodel, tparams = pair
+    scfg = ServeConfig(max_new_tokens=6, max_seq=32)
+    tuner = Tuner(device="cpu", timer=_timer)
+    local = Server(tmodel, tparams, scfg, buckets=[(4, 8)])
+    tuned = Server(tmodel, tparams, scfg, mesh=(2, 2), tuning=tuner, buckets=[(4, 8)])
+    local.warmup()
+    report = tuned.warmup()
+    assert report["4x8"]["plans"] > 0 and "graphs" not in report["4x8"]
+    searches = tuner.stats["searches"]
+    assert searches > 0
+    lr, tr = local.generate(PROMPTS), tuned.generate(PROMPTS)
+    assert tr.new_tokens == lr.new_tokens and not tr.graphs
+    assert tr.plan_probe["missing"] == 0 and tr.plan_probe["tune_missing"] == 0
+    assert tr.plan_probe["tune_probed"] == searches
+    rep = tuned.cache_report()["tuning"]
+    assert rep["entries"] == searches and tuner.stats["searches"] == searches
+    assert rep["serve_window"]["misses"] == 0 and rep["serve_window"]["hit_rate"] in (1.0, None)
+    assert tuned.plan_report()["serve_window"]["misses"] == 0
+
+
+def test_server_counts_and_times_requests_under_obs(pair):
+    from repro_torch import obs
+
+    _, _, tmodel, tparams = pair
+    obs.reset_metrics()
+    srv = Server(tmodel, tparams, ServeConfig(max_new_tokens=4, max_seq=32), buckets=[(4, 8)])
+    try:
+        with obs.observe() as rec:
+            srv.warmup()
+            srv.generate(PROMPTS)
+            srv.generate([[3] * 12])            # longer than any bucket: cold
+        snap = obs.snapshot()
+        spans = rec.span_counts()
+    finally:
+        obs.reset()
+        obs.reset_metrics()
+    assert snap["serve.warmup.buckets"] == 1 and snap["serve.cold_bucket"] == 1
+    assert snap["serve.requests{bucket=4x8}"] == 4 and snap["serve.requests{bucket=cold}"] == 1
+    assert snap["serve.tokens"] == 5 * 4
+    assert snap["serve.ttft_us"]["count"] == 2 and snap["serve.decode_token_us"]["count"] == 6
+    assert spans["serve.warmup"] == 1 and spans["serve.prefill"] == 3
+    assert spans["serve.decode_step"] == 2 + 3 + 3 and spans["kernel.matmul"] > 0
+    assert not obs.enabled()
+
+
+def test_a_cpu_server_serves_eagerly_and_reports_no_graphs(pair):
+    _, _, tmodel, tparams = pair
+    srv = Server(tmodel, tparams, ServeConfig(max_new_tokens=3, max_seq=32), buckets=[(4, 8)])
+    assert not srv.graphs
+    srv.warmup()
+    res = srv.generate(PROMPTS)
+    assert not res.graphs and res.bucket == "4x8"
+    rep = srv.cache_report()
+    assert rep["graphs"] == {} and rep["kernels"]["zorder_matmul"]["replayed"] == 0
+
+
+def test_generate_checks_each_slot_on_the_host(pair, monkeypatch):
+    """The decode loop checks every slot on the host before the step that
+    takes it as a device tensor."""
+    _, _, tmodel, tparams = pair
+    seen = []
+    real = tmodel.check_decode_pos
+
+    def spy(cache, pos):
+        seen.append(pos)
+        return real(cache, pos)
+
+    monkeypatch.setattr(tmodel, "check_decode_pos", spy)
+    generate(tmodel, tparams, np.array([[5, 6, 7]], np.int32),
+             ServeConfig(max_new_tokens=4, max_seq=16))
+    assert seen == [3, 4, 5]
