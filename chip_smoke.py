@@ -31,8 +31,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    with 16 new tokens, twice, by graph replays, with identical tokens,
    each run replaying K1 exactly 112 x 16 times (7 projections x 16
    layers per forward, 1 prefill + 15 decode steps; counted as replays x
-   each graph's launches at capture), all on the thin route; the same
-   server built eager (``graphs=False``) gives the same tokens bitwise.
+   each graph's launches at capture), all on the thin route; the eager
+   path (``runtime.serve.decode_loop`` on the same bucket-padded batch)
+   gives the same tokens bitwise.
    Prints TTFT, p50/p99 per-token latency and tokens/s for both, and the
    device time of one prefill and one decode step (CUDA-graph replays).
    K1's count on this main path runs from 0 before the server is built.
@@ -88,7 +89,7 @@ Phases, each fatal on failure (no result line, non-zero exit):
 8. planned-serve -- phase 4's workload through ``Server(mesh=2x2)``, each
    bucket's steps captured with the rank threads launching on the
    capturing stream and replayed: identical tokens across two runs and
-   to the same planned server built eager (bitwise), the planned
+   to the eager planned path on the same padded batch (bitwise), the planned
    prefill's last-token logits within ``PLANNED_LOGITS_TOL`` per row of
    ``mesh=None`` (a ring_rs reducing the wrong way round must land
    outside), token agreement with ``mesh=None`` printed, the strategies
@@ -119,15 +120,20 @@ Phases, each fatal on failure (no result line, non-zero exit):
    local copy fitted to α–β, K1's peak at 8192^3 bf16, and the K1
    autotune over Llama's serving shapes (unplanned decode and prefill, and
    each planned product's per-rank block product on 2x2), every compiled
-   block shape x both orders; the profile (platform and device kind the
+   block shape x both orders, each candidate's first call held against
+   the plain version, a winner kept only if it beats the default blocks by
+   more than the timing noise; the profile (platform and device kind the
    card's, links labelled as device copies between rank threads) and the
    table (keyed by the card's name) saved to ``chiprun_out/``; each
    winner's blocks, order, route and time beside ``default_blocks``' at
    the same shape; ``Server(mesh=2x2, tuning=tuner)`` captured, its tokens
-   identical across two runs, its prefill logits within
-   ``PLANNED_LOGITS_TOL`` per row of the untuned planned ones; and
-   ``build_plan(profile=)``'s strategy at Llama's and danube's shapes
-   beside the TPU constants' picks.
+   identical across two runs and to the eager tuned planned path
+   (bitwise); every K1 call of that eager run at its own shape, blocks
+   and order (each a tuned plan's) within ``ROW_TOL`` of the plain
+   version; its prefill and every decode step's logits, fed the same
+   tokens, within ``PLANNED_LOGITS_TOL`` per row of the untuned planned
+   path's; and ``build_plan(profile=)``'s strategy at Llama's and danube's
+   shapes beside the TPU constants' picks.
 12. obs + drift -- ``check_drift(device=cuda)`` with phase 11's profile as
    the stored one: on each of the 7 drift cells the obs, interceptor and
    trace multisets are equal, and no ranking or tuning flip; then, under
@@ -178,6 +184,7 @@ import torch  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.device import param_device  # noqa: E402
 from repro_torch.dist import Mesh, _collectives, symmetric_matmul  # noqa: E402
 from repro_torch.dist.local import local_matmul  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
@@ -189,13 +196,16 @@ from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.launch import perf_probe  # noqa: E402
 from repro_torch.obs import calibrate  # noqa: E402
 from repro_torch.plan import build_plan, execute_plan, planned_matmuls, plan_cache  # noqa: E402
-from repro_torch.runtime.serve import ServeConfig, batch_requests  # noqa: E402
-from repro_torch.serve import Server  # noqa: E402
+from repro_torch.runtime.serve import (ServeConfig, batch_requests, decode_loop,  # noqa: E402
+                                       planned_scope, token_loop)
+from repro_torch.serve import Server, as_bucket, route as serve_route  # noqa: E402
+from repro_torch.serve.server import DUMMY_TOKEN, PAD_ID  # noqa: E402
 from repro_torch.verify import (ConformanceError, check, check_capture,  # noqa: E402
                                 compare_records, intercept, measure_plan, run_matrix,
                                 trace_plan)
 from repro_torch.verify.conformance import CASES, _overlap_modes, matrix_cells  # noqa: E402
-from repro_torch.tune import Tuner, candidate_route, load_table, time_candidate  # noqa: E402
+from repro_torch.tune import (Tuner, candidate_route, default_candidate, load_table,  # noqa: E402
+                              time_candidate)
 from repro_torch.verify.drift import DRIFT_CELLS, check_drift  # noqa: E402
 from repro_torch.verify.interceptor import phase_bytes  # noqa: E402
 
@@ -544,6 +554,27 @@ def phase_model(dev: torch.device) -> dict:
     return {"rel_err": errs, "launches": launches}
 
 
+def _run_row(tag: str, rep: int, vocab: int, *, bucket, graphs: bool, routes: dict,
+             counted: dict, taken: dict, ttft_s: float, steps_s, wall_s: float,
+             new_tokens: list) -> dict:
+    """One served run's row (K1 launches by route, planned products by
+    strategy, TTFT, p50 / p99, tokens/s, the new tokens), logged; every
+    token must be in the vocabulary."""
+    steps_s = np.asarray(steps_s)
+    p50, p99 = (float(np.percentile(steps_s, q) * 1e3) for q in (50, 99))
+    tps = sum(len(t) for t in new_tokens) / wall_s
+    log(f"[{tag}] run {rep} ({'graph replays' if graphs else 'eager'}): bucket "
+        f"{bucket} ttft {ttft_s * 1e3:.2f}ms p50 {p50:.3f}ms p99 {p99:.3f}ms {tps:.1f} tok/s; "
+        f"K1 {routes}" + (f"; products {taken}" if taken else ""))
+    for toks in new_tokens:
+        if len(toks) != SERVE_NEW or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"malformed tokens {toks}")
+    return {"bucket": bucket, "graphs": graphs, "launches": sum(routes.values()),
+            "routes": routes, "counted": counted, "strategies": taken,
+            "ttft_ms": ttft_s * 1e3, "p50_ms": p50, "p99_ms": p99, "tokens_per_s": tps,
+            "wall_s": wall_s, "tokens": new_tokens}
+
+
 def served_runs(server, prompts, reps: int, tag: str, vocab: int) -> list:
     """``reps`` runs of ``server.generate(prompts)``: per run the K1 launches
     by route (counted for an eager run, replays x each graph's capture for
@@ -559,22 +590,70 @@ def served_runs(server, prompts, reps: int, tag: str, vocab: int) -> list:
         now = server.cache_report()["kernels"]["zorder_matmul"]["replayed_by_route"]
         routes = {r: counted.get(r, 0) + now.get(r, 0) - replayed.get(r, 0)
                   for r in sorted(set(counted) | set(now))}
-        routes = _nonzero(routes)
         after = server.plan_report()["strategies"]
         taken = {st: v - before.get(st, 0) for st, v in after.items() if v != before.get(st, 0)}
-        q = res.latency_quantiles_ms()
-        runs.append({"bucket": res.bucket, "graphs": res.graphs, "launches": sum(routes.values()),
-                     "routes": routes, "counted": counted, "strategies": taken,
-                     "ttft_ms": res.ttft_s * 1e3, "p50_ms": q["p50_ms"], "p99_ms": q["p99_ms"],
-                     "tokens_per_s": res.tokens_per_s, "wall_s": res.wall_s,
-                     "tokens": res.new_tokens})
-        log(f"[{tag}] run {rep} ({'graph replays' if res.graphs else 'eager'}): bucket "
-            f"{res.bucket} ttft {res.ttft_s * 1e3:.2f}ms p50 {q['p50_ms']:.3f}ms p99 "
-            f"{q['p99_ms']:.3f}ms {res.tokens_per_s:.1f} tok/s; K1 {routes}"
-            + (f"; products {taken}" if taken else ""))
-        for toks in res.new_tokens:
-            if len(toks) != SERVE_NEW or not all(0 <= t < vocab for t in toks):
-                raise AssertionError(f"malformed tokens {toks}")
+        runs.append(_run_row(tag, rep, vocab, bucket=res.bucket, graphs=res.graphs,
+                             routes=_nonzero(routes), counted=counted, taken=taken,
+                             ttft_s=res.ttft_s, steps_s=res.step_latencies_s,
+                             wall_s=res.wall_s, new_tokens=res.new_tokens))
+    return runs
+
+
+def eager_runs(model, params, sc, prompts, reps: int, tag: str, *, mesh=None, tuning=None,
+               logits: list = None) -> list:
+    """``reps`` runs of the eager path a captured ``Server`` is held to:
+    ``runtime.serve.decode_loop`` on the batch the server routes
+    ``prompts`` to (``batch_requests(prompts + dummies, pad_to=bucket.seq)``),
+    in a fresh cache, under ``planned_scope(mesh, tuning=)``, timed as
+    ``Server.generate`` times its runs.  Rows as ``served_runs``', each
+    with the full (B, S + new) token array; ``logits`` (a list) collects
+    the last run's prefill and decode-step logits."""
+    dev = param_device(params)
+    bucket = serve_route(len(prompts), max(len(p) for p in prompts),
+                         [as_bucket(b) for b in SERVE_BUCKETS])
+    dummies = [[DUMMY_TOKEN]] * (bucket.batch - len(prompts))
+    batch, lens = batch_requests(list(prompts) + dummies, PAD_ID, pad_to=bucket.seq)
+    sp = batch.shape[1]
+
+    def mark():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    runs = []
+    for rep in range(reps):
+        k1.reset_launches()
+        before = lower_dist_mod.executions_snapshot()
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(batch, dtype=torch.int64, device=dev)
+        offsets = torch.as_tensor(sp - lens, dtype=torch.int64, device=dev)
+        cache = model.init_cache(bucket.batch, sc.max_seq, dev)
+        with torch.no_grad(), planned_scope(mesh, None, tuning):
+            if logits is None:
+                full, marks = decode_loop(model, params, cache, tokens, offsets, sc, None,
+                                          on_token=mark)
+            else:
+                logits.clear()
+
+                def keep(out):
+                    logits.append(out)
+                    return out
+
+                full, marks = token_loop(
+                    model, cache, tokens, sc, None,
+                    prefill=lambda: keep(model.prefill(params, cache, tokens, offsets)[0]),
+                    step=lambda cur, pos: keep(
+                        model.decode_step(params, cache, cur, pos, offsets)[0]),
+                    on_token=mark)
+        wall = time.perf_counter() - t0
+        counted = _nonzero(k1.launches_by_route)
+        after = lower_dist_mod.executions_snapshot()
+        taken = {st: v - before.get(st, 0) for st, v in after.items() if v != before.get(st, 0)}
+        new = [full[i, sp - int(lens[i]):].tolist()[int(lens[i]):] for i in range(len(prompts))]
+        row = _run_row(tag, rep, model.cfg.vocab_size, bucket=bucket.label, graphs=False,
+                       routes=counted, counted=counted, taken=taken, ttft_s=marks[0] - t0,
+                       steps_s=np.diff(np.asarray(marks)), wall_s=wall, new_tokens=new)
+        row["full"] = full.tolist()
+        runs.append(row)
     return runs
 
 
@@ -592,8 +671,8 @@ def path_counts(path: dict, runs: list) -> None:
 
 def phase_serve(dev: torch.device) -> dict:
     """Phase 4: Llama-3.2-1B behind ``Server``, each bucket's steps captured
-    as CUDA graphs at warmup and replayed, against the same server built
-    eager (``graphs=False``): identical tokens."""
+    as CUDA graphs at warmup and replayed, against the eager path on the
+    same bucket-padded batch: identical tokens."""
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -629,9 +708,7 @@ def phase_serve(dev: torch.device) -> dict:
     if alone.new_tokens[0] != runs[0]["tokens"][2]:
         raise AssertionError("a request served alone decodes differently from "
                              "the same request in a batch")
-    eager_server = Server(model, params, sc, buckets=SERVE_BUCKETS, graphs=False)
-    eager_server.warmup()
-    eager = served_runs(eager_server, prompts, 2, "serve", cfg.vocab_size)
+    eager = eager_runs(model, params, sc, prompts, 2, "serve")
     for r in eager:
         if r["graphs"] or r["routes"] != {"thin": want} or r["counted"] != r["routes"]:
             raise AssertionError(f"an eager run launched {r['routes']}, want {want} thin")
@@ -654,7 +731,7 @@ def phase_serve(dev: torch.device) -> dict:
     for step, r in device_ms["routes"].items():
         if r != {"thin": per_forward}:
             raise AssertionError(f"one {step} step launched K1 {r}, want {per_forward} thin")
-    del server, eager_server, params
+    del server, params
     torch.cuda.empty_cache()
     return {"params": n_params, "init_s": init_s, "warmup": warm, "runs": runs,
             "eager_runs": eager, "summary": summary, "path": path,
@@ -1294,8 +1371,8 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
 def phase_planned_serve(dev: torch.device) -> dict:
     """Phase 8: phase 4's workload through ``Server(mesh=2x2)``, captured
     per bucket (the rank threads launch on the capturing stream) and
-    replayed, against the same planned server built eager: identical
-    tokens; a failed capture fails the run."""
+    replayed, against the eager planned path on the same bucket-padded
+    batch: identical tokens; a failed capture fails the run."""
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -1324,9 +1401,7 @@ def phase_planned_serve(dev: torch.device) -> dict:
                                  f"{products} by graph replays, all K1 launches thin")
     if runs[0]["tokens"] != runs[1]["tokens"]:
         raise AssertionError("two planned generate runs disagree")
-    eager_server = Server(model, params, sc, mesh=mesh, buckets=SERVE_BUCKETS, graphs=False)
-    eager_server.warmup()
-    eager = served_runs(eager_server, prompts, 1, "planned-serve", cfg.vocab_size)
+    eager = eager_runs(model, params, sc, prompts, 1, "planned-serve", mesh=mesh)
     for r in eager:
         if (r["graphs"] or sum(r["strategies"].values()) != products
                 or set(r["routes"]) != {"thin"} or r["counted"] != r["routes"]):
@@ -1369,7 +1444,7 @@ def phase_planned_serve(dev: torch.device) -> dict:
         f"{step_ms['planned_ms']:.3f}ms, mesh=None {step_ms['local_ms']:.3f}ms; CUDA graph of "
         f"a planned decode step replays in {step_ms['graph']['replay_ms']:.3f}ms")
     mesh.close()
-    del server, eager_server, local, params
+    del server, local, params
     torch.cuda.empty_cache()
     return {"mesh": dict(mesh.shape), "warmup": warm, "runs": runs, "eager_runs": eager,
             "summary": summary, "path": path, "agree_with_local": agree,
@@ -1706,7 +1781,7 @@ def phase_calibrate(dev: torch.device) -> dict:
     for key, e in table.entries:
         dtype, bm, bn, bk = key
         cand = (e.block_m, e.block_n, e.block_k, e.order)
-        default = tuple(k1.default_blocks(bm, bn, bk, torch.bfloat16)) + ("zorder",)
+        default = default_candidate(bm, bn, bk, dtype)
         default_s = time_candidate(bm, bn, bk, dtype, default, reps=TUNE_REPS, device=dev)
         row = {"bucket": [bm, bn, bk], "dtype": dtype, "blocks": list(cand[:3]),
                "order": e.order, "route": candidate_route(cand, dtype), "us": e.seconds * 1e6,
@@ -1730,10 +1805,72 @@ def phase_calibrate(dev: torch.device) -> dict:
             "profile_path": prof_path, "table_path": table_path}
 
 
+@contextlib.contextmanager
+def k1_calls():
+    """Within the scope, list each K1 call ``ops.matmul`` makes (from every
+    rank thread) as (m, n, k, blocks, order, dtype, out dtype)."""
+    ops = importlib.import_module("repro_torch.kernels.matmul.ops")
+    real = ops._run
+    calls = []
+
+    def recording(a, b, blocks, order, out_dtype):
+        calls.append((a.shape[0], b.shape[1], a.shape[1], tuple(blocks), order, a.dtype,
+                      out_dtype))
+        return real(a, b, blocks, order, out_dtype)
+
+    with mock.patch.object(ops, "_run", recording):
+        yield calls
+
+
+def check_tuned_calls(calls: list, tuned_plans: list, dev: torch.device) -> dict:
+    """Every distinct K1 call of a tuned run: its blocks and order must be
+    a tuned plan's, and K1 with them at the call's own shape and types must
+    agree with its plain version within ``ROW_TOL`` on fresh seeded
+    operands."""
+    tilings = {((p.tiling.block_m, p.tiling.block_n, p.tiling.block_k), p.tiling.order)
+               for p in tuned_plans}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst, rows = 0.0, []
+    for (m, n, k, blocks, order, dt, out_dtype), count in sorted(Counter(calls).items(), key=str):
+        if (blocks, order) not in tilings:
+            raise AssertionError(f"a tuned run called K1 at {m}x{n}x{k} with {blocks}/{order}, "
+                                 f"which no tuned plan names ({sorted(tilings)})")
+        a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        b = torch.randn((k, n), generator=gen, device=dev).to(dt)
+        got = matmul(a, b, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
+                     order=order, out_dtype=out_dtype)
+        e = row_err(got, matmul_ref(a, b, out_dtype))
+        if not e["row_rel"] < min(ROW_TOL[dt], ROW_TOL[out_dtype]):
+            raise AssertionError(f"K1 with tuned {blocks}/{order} at {m}x{n}x{k} disagrees with "
+                                 f"its plain version: {e}")
+        worst = max(worst, e["row_rel"])
+        rows.append({"shape": [m, n, k], "blocks": list(blocks), "order": order,
+                     "route": k1.ROUTE_OF[dt, blocks],
+                     "out_dtype": str(out_dtype).replace("torch.", ""), "calls": count,
+                     "row_rel": e["row_rel"]})
+    return {"distinct": rows, "calls": len(calls), "worst_row_rel": worst}
+
+
+def forced_logits(model, params, dev, full: list, sp: int, offsets, mesh, tuning) -> list:
+    """The prefill's and every decode step's logits of the planned path
+    (``tuning=`` or not) fed the token array ``full`` (B, S + new)."""
+    full = torch.as_tensor(full, dtype=torch.int64, device=dev)
+    cache = model.init_cache(full.shape[0], 64, dev)
+    with torch.no_grad(), planned_scope(mesh, None, tuning):
+        out = [model.prefill(params, cache, full[:, :sp], offsets)[0]]
+        for t in range(sp, full.shape[1] - 1):
+            pos = torch.full((), t, dtype=torch.int64, device=dev)
+            out.append(model.decode_step(params, cache, full[:, t:t + 1], pos, offsets)[0])
+    return out
+
+
 def tuned_planned_serve(dev: torch.device, mesh, table) -> dict:
     """Phase 4's workload through ``Server(mesh=2x2, tuning=tuner)``:
-    captured, identical tokens across two runs, the tuner's serve window,
-    and the tuned planned prefill's logits against the untuned ones."""
+    captured, identical tokens across two runs and to the eager tuned
+    planned path (bitwise); every K1 call of that eager run held to the
+    plain version at its shape, blocks and order; the tuner's serve
+    window; and the tuned prefill and decode-step logits, fed the same
+    tokens, against the untuned planned ones."""
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -1747,30 +1884,59 @@ def tuned_planned_serve(dev: torch.device, mesh, table) -> dict:
     if runs[0]["tokens"] != runs[1]["tokens"] or not all(r["graphs"] for r in runs):
         raise AssertionError("two tuned planned runs disagree (or were not replayed)")
     tuned_plans = [p for p in plan_cache.plans() if p.mesh is mesh and p.tiling.tuned]
-    batch, lens = batch_requests(prompts, pad_to=SERVE_BUCKETS[0][1])
-    tokens = torch.as_tensor(batch, dtype=torch.int64, device=dev)
-    offsets = torch.as_tensor(batch.shape[1] - lens, dtype=torch.int64, device=dev)
-
-    def prefill():
-        return model.prefill(params, model.init_cache(len(prompts), 64, dev), tokens, offsets)[0]
-
-    with torch.no_grad():
-        with planned_matmuls(mesh):
-            ref = prefill()
-        with planned_matmuls(mesh, tuning=tuner):
-            got = prefill()
-    e = _check_rows("tuned-serve", "tuned planned prefill logits vs untuned planned", got, ref,
-                    PLANNED_LOGITS_TOL)
+    if not tuned_plans:
+        raise AssertionError("no plan on the mesh took tuned blocks")
+    tuned_logits: list = []
+    with k1_calls() as calls:
+        eager = eager_runs(model, params, sc, prompts, 1, "tuned-serve", mesh=mesh,
+                           tuning=tuner, logits=tuned_logits)
+    if eager[0]["tokens"] != runs[0]["tokens"]:
+        raise AssertionError("the captured tuned planned steps' tokens differ from the eager "
+                             "tuned planned path's")
+    checked = check_tuned_calls(calls, tuned_plans, dev)
+    log(f"[tuned-serve] tokens bitwise equal across the two captured runs and the eager tuned "
+        f"run; its {checked['calls']} K1 calls, {len(checked['distinct'])} distinct (shape, "
+        f"blocks, order, out type), each a tuned plan's and within ROW_TOL of the plain "
+        f"version at its own shape (worst row rel {checked['worst_row_rel']:.3e}): " + ", ".join(
+            f"{'x'.join(map(str, r['shape']))} {'x'.join(map(str, r['blocks']))}/{r['order']} "
+            f"{r['route']} x{r['calls']}" for r in checked["distinct"]))
+    # the untuned planned path fed the eager tuned run's tokens, step by step
+    full = eager[0]["full"]
+    sp = len(full[0]) - SERVE_NEW
+    batch, lens = batch_requests(list(prompts) + [[DUMMY_TOKEN]] * (len(full) - len(prompts)),
+                                 PAD_ID, pad_to=sp)
+    offsets = torch.as_tensor(sp - lens, dtype=torch.int64, device=dev)
+    untuned = forced_logits(model, params, dev, full, sp, offsets, mesh, None)
+    if not len(untuned) == len(tuned_logits) == SERVE_NEW:
+        raise AssertionError(f"{len(untuned)} untuned and {len(tuned_logits)} tuned steps")
+    steps = []
+    for i, (got, ref) in enumerate(zip(tuned_logits, untuned)):
+        e = row_err(got, ref)
+        steps.append(e)
+        if not (e["finite"] and e["row_rel"] < PLANNED_LOGITS_TOL):
+            raise AssertionError(f"tuned planned {'prefill' if i == 0 else f'decode step {i}'} "
+                                 f"logits vs untuned planned: {e} (limit {PLANNED_LOGITS_TOL})")
+    log(f"[tuned-serve] tuned vs untuned planned logits fed the same tokens, prefill + "
+        f"{len(steps) - 1} decode steps: worst row rel {max(e['row_rel'] for e in steps):.3e} "
+        f"(prefill {steps[0]['row_rel']:.3e}; limit {PLANNED_LOGITS_TOL:g})")
     rep = server.cache_report()["tuning"]
+    moved = [{"bucket": list(key[1:]), "blocks": [e.block_m, e.block_n, e.block_k],
+              "order": e.order, "route": candidate_route((e.block_m, e.block_n, e.block_k),
+                                                         key[0]), "us": e.seconds * 1e6}
+             for key, e in tuner.table().entries
+             if (e.block_m, e.block_n, e.block_k, e.order) != default_candidate(*key[1:], key[0])]
+    log(f"[tuned-serve] the tuner's {rep['entries']} buckets, {len(moved)} away from K1's "
+        f"default blocks: " + ", ".join(
+            f"{'x'.join(map(str, r['bucket']))} {'x'.join(map(str, r['blocks']))}/{r['order']} "
+            f"({r['route']}) {r['us']:.2f}us" for r in moved))
     log(f"[tuned-serve] {len(tuned_plans)} tuned plans on the mesh "
         f"({sorted({p.tiling.block_m for p in tuned_plans})} block_m, orders "
         f"{sorted({p.tiling.order for p in tuned_plans})}); tuner {rep}")
-    if not tuned_plans:
-        raise AssertionError("no plan on the mesh took tuned blocks")
-    del server, params
+    del server, params, tuned_logits, untuned
     torch.cuda.empty_cache()
-    return {"warmup": warm, "runs": runs, "prefill_logits": e, "tuning": rep,
-            "tuned_plans": len(tuned_plans),
+    return {"warmup": warm, "runs": runs, "eager_runs": eager, "k1_calls": checked,
+            "logits_per_step": steps, "tuning": rep, "tuned_plans": len(tuned_plans),
+            "away_from_default": moved,
             "summary": {key: float(np.median([r[key] for r in runs]))
                         for key in ("ttft_ms", "p50_ms", "p99_ms", "tokens_per_s")}}
 
@@ -2093,7 +2259,9 @@ def main() -> int:
                    "conformance": report["conformance"]["k1_routes"],
                    "calibrate_and_tune": report["calibrate"]["k1_routes"],
                    "tuned_planned_serve_graph_replays":
-                       report["calibrate"]["tuned_serve"]["runs"][0]["routes"]},
+                       report["calibrate"]["tuned_serve"]["runs"][0]["routes"],
+                   "tuned_planned_serve_eager":
+                       report["calibrate"]["tuned_serve"]["eager_runs"][0]["routes"]},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"])),

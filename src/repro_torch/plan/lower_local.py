@@ -8,15 +8,15 @@ per-rank bodies run:
   * default tiling -> ``repro_torch.dist.local.local_matmul`` verbatim (K1
     on the card with its default blocks and the Z-order tile walk, the
     plain version on the CPU);
-  * an order or blocks override -> a closure over
-    ``repro_torch.kernels.matmul.ops.matmul`` with those arguments.  A block
-    shape K1 was not compiled for raises there; nothing falls back to the
-    plain version on the card.
-  * tuned blocks (``tiling.tuned``, from a tuning table's bucket) -> the
-    same closure, except that a call whose operands the tuned route
-    cannot read (the wide and thin routes need 16-byte aligned bases, and
-    a bucket says nothing of a view's base) takes K1's default blocks,
-    counted in ``tune.blocks_refused`` under obs tracing.
+  * an order or blocks override, or tuned blocks (``tiling.tuned``, from
+    a tuning table's bucket) -> a closure over
+    ``repro_torch.kernels.matmul.ops.matmul`` with those arguments.  A
+    block shape K1 was not compiled for raises there; nothing falls back
+    to the plain version or to other blocks on the card.  An operand
+    whose base is not 16-byte aligned (a view into a larger buffer; the
+    wide and thin routes read 16-byte chunks) is copied to a fresh,
+    aligned buffer first, so the plan's blocks -- the ones a tuning table
+    timed -- run on every call.
 """
 from __future__ import annotations
 
@@ -24,9 +24,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch import obs
 from repro_torch.dist.local import local_matmul
-from repro_torch.kernels.matmul.ops import accepts, matmul
+from repro_torch.kernels.matmul.ops import matmul
 
 from .ir import SchedulePlan, TilingPlan
 
@@ -40,18 +39,18 @@ def lower_tiling(tiling: TilingPlan):
                            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if out_dtype is None:
             out_dtype = torch.promote_types(a.dtype, b.dtype)
-        rows = a.reshape(-1, a.shape[-1]).contiguous()
-        blocks = dict(block_m=tiling.block_m, block_n=tiling.block_n, block_k=tiling.block_k)
-        if tiling.tuned and not accepts(
-                rows.shape[1], b.shape[1], rows.dtype, tuple(blocks.values()),
-                rows.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
-            blocks = {}
-            if obs.enabled():
-                obs.counter("tune.blocks_refused").inc()
-        out = matmul(rows, b, order=tiling.order, out_dtype=out_dtype, **blocks)
+        rows = _aligned(a.reshape(-1, a.shape[-1]).contiguous())
+        out = matmul(rows, _aligned(b), block_m=tiling.block_m, block_n=tiling.block_n,
+                     block_k=tiling.block_k, order=tiling.order, out_dtype=out_dtype)
         return out.reshape(*a.shape[:-1], b.shape[1])
 
     return tiled_local_matmul
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it in a fresh (aligned) buffer when its base is
+    not 16-byte aligned."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def lower_local(plan: SchedulePlan):

@@ -19,10 +19,11 @@ decode program per bucket at warmup and replays them.  Here:
     fits (left-padding prompts with per-row position offsets, padding the
     batch with dummy rows), copies it into the bucket's static buffers and
     replays the graphs, sampling between replays on the device.  Tokens
-    equal the eager path's bitwise (``graphs=False`` keeps every bucket
-    eager; so does a CPU model).  A request no bucket fits is served
-    eagerly (cold) and counted.  TTFT and per-token latency are measured
-    around synchronised device work.
+    equal the eager path's bitwise: ``runtime.serve.generate`` on the same
+    bucket-padded batch (``batch_requests(prompts + dummies,
+    pad_to=bucket.seq)``).  A CPU model is served eagerly; so is a request
+    no bucket fits (cold), which is counted.  TTFT and per-token latency
+    are measured around synchronised device work.
 
 Replays launch nothing from Python, so the kernel launch counters, the
 plan engine's execution counts and the interceptor see nothing of them:
@@ -145,12 +146,11 @@ def _moved(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
 class Server:
     """Serving harness over one model (see module doc).  The model must
     take per-row position offsets (``DecoderLM`` does), so prompts can be
-    left-padded into a bucket.  ``graphs=False`` serves every bucket
-    eagerly (the bitwise baseline of the captured steps)."""
+    left-padded into a bucket."""
 
     def __init__(self, model, params, cfg: ServeConfig, *, mesh=None,
                  strategy: Optional[str] = None, tuning=None,
-                 buckets: Sequence = DEFAULT_BUCKETS, graphs: bool = True):
+                 buckets: Sequence = DEFAULT_BUCKETS):
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -160,7 +160,7 @@ class Server:
             raise ValueError(f"strategy={strategy!r} needs a mesh")
         self.strategy = strategy
         self.tuning = tuning
-        self.graphs = bool(graphs) and self.device.type == "cuda"
+        self.graphs = self.device.type == "cuda"     # buckets captured at warmup
         self._plans: Dict[str, int] = collections.Counter()
         self._warm_plans: Dict[str, int] = {}
         self.buckets: Tuple[Bucket, ...] = tuple(
@@ -183,7 +183,7 @@ class Server:
 
     def warmup(self) -> Dict:
         """Run a dummy prefill + up to three decode steps per bucket, then
-        (on CUDA, ``graphs``) capture the bucket's prefill and decode step.
+        (on CUDA) capture the bucket's prefill and decode step.
         Returns ``{label: {"warm_s", "plans", "capture_s", "graphs"}}``."""
         report: Dict[str, Dict] = {}
         before = executions_snapshot()
@@ -449,10 +449,10 @@ def _zero(cache: Dict) -> None:
 
 
 def warmup(model, params, cfg: ServeConfig, *, mesh=None, strategy: Optional[str] = None,
-           tuning=None, buckets: Sequence = DEFAULT_BUCKETS, graphs: bool = True) -> Server:
+           tuning=None, buckets: Sequence = DEFAULT_BUCKETS) -> Server:
     """Build a ``Server`` and warm its buckets in one call; the per-bucket
     report is kept as ``server.warmup_report``."""
     server = Server(model, params, cfg, mesh=mesh, strategy=strategy, tuning=tuning,
-                    buckets=buckets, graphs=graphs)
+                    buckets=buckets)
     server.warmup_report = server.warmup()
     return server

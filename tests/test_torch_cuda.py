@@ -473,37 +473,60 @@ def _smoke_llama(cuda_device):
     return model, params
 
 
+def _eager_tokens(server, prompts):
+    """``runtime.serve.generate`` on the batch ``server`` routes
+    ``prompts`` to, padded as it pads them: the eager path's new tokens
+    per request, and the planned products it ran by strategy."""
+    from repro_torch.plan.lower_dist import executions_snapshot
+    from repro_torch.runtime.serve import batch_requests, generate
+    from repro_torch.serve.buckets import route
+    from repro_torch.serve.server import DUMMY_TOKEN, PAD_ID
+
+    bucket = route(len(prompts), max(len(p) for p in prompts), server.buckets)
+    dummies = [[DUMMY_TOKEN]] * (bucket.batch - len(prompts))
+    batch, lens = batch_requests(list(prompts) + dummies, PAD_ID, pad_to=bucket.seq)
+    before = executions_snapshot()
+    full = generate(server.model, server.params, batch, server.cfg, lens=lens,
+                    mesh=server.mesh)
+    after = executions_snapshot()
+    sp = batch.shape[1]
+    tokens = [full[i, sp - int(lens[i]):].tolist()[int(lens[i]):] for i in range(len(prompts))]
+    return tokens, {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mesh", [None, (2, 2)], ids=["unplanned", "2x2"])
 def test_captured_buckets_serve_the_eager_tokens_bitwise(cuda_device, mesh):
     """Each bucket's prefill and decode step captured at warmup and
-    replayed: the same tokens, bit for bit, as the same server built eager;
-    replays counted from the captures, none from Python."""
+    replayed: the same tokens, bit for bit, as ``runtime.serve.generate``
+    on the same bucket-padded batch; replays counted from the captures,
+    none from Python."""
+    import collections
+
     from repro_torch.runtime.serve import ServeConfig
     from repro_torch.serve import Server
 
     model, params = _smoke_llama(cuda_device)
     cfg = ServeConfig(max_new_tokens=6, max_seq=32)
     graphs = Server(model, params, cfg, mesh=mesh, buckets=[(4, 8), (2, 16)])
-    eager = Server(model, params, cfg, mesh=mesh, buckets=[(4, 8), (2, 16)], graphs=False)
     report = graphs.warmup()
-    eager.warmup()
     assert all(r["graphs"] == 2 and r["capture_s"] > 0 for r in report.values())
+    eager_products = collections.Counter()
     for prompts in (SERVE_PROMPTS, SERVE_PROMPTS[:2], [[3] * 12]):
         kernel.reset_launches()
         got = graphs.generate(prompts)
         assert got.graphs and kernel.launches == 0
-        want = eager.generate(prompts)
-        assert not want.graphs and got.new_tokens == want.new_tokens
+        want, products = _eager_tokens(graphs, prompts)
+        eager_products.update(products)
+        assert got.new_tokens == want
     rep = graphs.cache_report()
     replays = sum(s["replays"] for g in rep["graphs"].values() for s in g.values())
     if mesh is None:
         per_forward = 7 * model.cfg.num_layers
         assert rep["kernels"]["zorder_matmul"]["replayed"] == replays * per_forward
     else:
-        assert graphs.plan_report()["strategies"] == eager.plan_report()["strategies"]
+        assert graphs.plan_report()["strategies"] == dict(eager_products)
         graphs.mesh.close()
-        eager.mesh.close()
 
 
 @pytest.mark.cuda

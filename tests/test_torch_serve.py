@@ -344,6 +344,27 @@ def test_a_cpu_server_serves_eagerly_and_reports_no_graphs(pair):
     assert rep["graphs"] == {} and rep["kernels"]["zorder_matmul"]["replayed"] == 0
 
 
+@pytest.mark.parametrize("prompts", [PROMPTS, PROMPTS[:2], [[3] * 7]])
+def test_server_tokens_are_generate_on_the_bucket_padded_batch(pair, prompts):
+    """The eager baseline the captured buckets are held to on the card:
+    ``generate`` on ``batch_requests(prompts + dummies, pad_to=bucket.seq)``
+    gives the server's tokens, dummy rows and padding stripped."""
+    from repro_torch.serve.server import DUMMY_TOKEN, PAD_ID
+
+    _, _, tmodel, tparams = pair
+    scfg = ServeConfig(max_new_tokens=5, max_seq=32)
+    srv = Server(tmodel, tparams, scfg, buckets=[(2, 8), (4, 8)])
+    srv.warmup()
+    res = srv.generate(prompts)
+    bucket = route(len(prompts), max(len(p) for p in prompts), srv.buckets)
+    assert res.bucket == bucket.label
+    batch, lens = batch_requests(list(prompts) + [[DUMMY_TOKEN]] * (bucket.batch - len(prompts)),
+                                 PAD_ID, pad_to=bucket.seq)
+    full = generate(tmodel, tparams, batch, scfg, lens=lens)
+    sp = batch.shape[1]
+    assert res.sequences == [full[i, sp - int(lens[i]):].tolist() for i in range(len(prompts))]
+
+
 def test_generate_checks_each_slot_on_the_host(pair, monkeypatch):
     """The decode loop checks every slot on the host before the step that
     takes it as a device tensor."""

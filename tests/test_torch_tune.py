@@ -6,8 +6,9 @@
   reference's MXU padding and the port's unpadded FLOPs agree).  The
   port's buckets keep K1's route thresholds apart.
 * The search: ``candidate_space`` is exactly what ``ops.matmul`` accepts;
-  the tuner searches once per bucket and, on the CPU, only with an
-  injected timer (there is no kernel to time).
+  a candidate displaces K1's default blocks only when it beats them by
+  more than the timing noise; the tuner searches once per bucket and, on
+  the CPU, only with an injected timer (there is no kernel to time).
 * The planner: with the same table entries at every strategy's local
   bucket, ``build_plan(tuning=...)`` and ``rank_mesh_strategies`` agree
   with ``repro.plan`` on fake meshes -- strategy, overlap, tuned tiling,
@@ -31,8 +32,9 @@ from repro_torch.dist.mesh import Mesh
 from repro_torch.kernels.matmul import kernel, matmul
 from repro_torch.obs.profile import LinkParams, MachineProfile
 from repro_torch.tune import (TunedBlocks, TuningTable, Tuner, candidate_route,
-                              candidate_space, load_table, save_table, scaled_call_seconds,
-                              shape_bucket, tune_shape, tune_shapes)
+                              candidate_space, default_candidate, load_table, save_table,
+                              scaled_call_seconds, shape_bucket, tune_shape, tune_shapes)
+from repro_torch.tune.search import NOISE
 
 port_ir = __import__("repro_torch.plan.ir", fromlist=["ir"])
 ref_ir = __import__("repro.plan.ir", fromlist=["ir"])
@@ -320,25 +322,85 @@ def test_tuned_plans_execute_on_a_cpu_thread_mesh(strategy):
     mesh.close()
 
 
-def test_tuned_blocks_the_call_cannot_take_fall_back_to_default_blocks():
+def test_tuned_blocks_run_on_a_misaligned_view(monkeypatch):
     """A bucket says nothing of a view's base address: thin blocks on a
-    misaligned view run K1's default blocks (wmma) instead of raising."""
-    from repro_torch import obs
+    misaligned view run on an aligned copy of it, with the plan's blocks."""
+    import importlib
 
+    lower_local = importlib.import_module("repro_torch.plan.lower_local")
     tiling = port_plan.TilingPlan(order="rowmajor", block_m=16, block_n=64, block_k=64,
                                   tuned=True)
     fn = port_plan.lower_tiling(tiling)
-    base = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+    base = torch.from_numpy(rng.standard_normal(4 * 64 + 1, dtype=np.float32)).to(
+        torch.bfloat16)
     a = base[1:].view(4, 64)                   # 2-byte offset: not 16-byte aligned
-    b = torch.ones(64, 64, dtype=torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((64, 64), dtype=np.float32)).to(torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         matmul(a, b, block_m=16, block_n=64, block_k=64)
-    with obs.observe():
-        obs.reset_metrics()
-        out = fn(a, b)
-        assert obs.snapshot()["tune.blocks_refused"] == 1
-    obs.reset_metrics()
-    assert torch.equal(out, matmul(a, b))
+    calls = []
+
+    def recording(x, y, **kw):
+        calls.append((x.data_ptr() % 16, y.data_ptr() % 16, kw))
+        return matmul(x, y, **kw)
+
+    monkeypatch.setattr(lower_local, "matmul", recording)
+    out = fn(a, b)
+    assert calls == [(0, 0, dict(block_m=16, block_n=64, block_k=64, order="rowmajor",
+                                 out_dtype=torch.bfloat16))]
+    assert torch.equal(out, matmul(a.clone(), b))
+
+
+def _margin_timer(default_s, challenger_s):
+    """Seconds for the default candidate and one challenger, each a
+    sequence (one per timing); every other candidate is slower than both."""
+    seen = []
+
+    def timer(m, n, k, dtype, cand):
+        seen.append(cand)
+        if cand == default_candidate(m, n, k, dtype):
+            return default_s[seen.count(cand) - 1]
+        if cand == (64, 64, 64, "rowmajor"):
+            return challenger_s[seen.count(cand) - 1]
+        return 1.0
+    return timer
+
+
+FAST = 1e-5 * (1 - 2 * NOISE)
+
+
+@pytest.mark.parametrize("default_s, challenger_s, wins", [
+    ((1e-5, 1e-5), (1e-5 * (1 - NOISE / 2),) * 2, False),   # inside the noise floor
+    ((1e-5, 1e-5), (FAST, FAST), True),                  # beyond it, twice
+    ((1e-5, 1e-5), (FAST, 1e-5), False),                 # beyond it once: the re-timing ties
+    ((1e-5, 0.7e-5), (0.6e-5, 0.6e-5), False),           # inside the default's own spread
+    ((1e-5, 1e-5), (1e-5,), False),                      # a tie keeps the default
+])
+def test_a_candidate_must_beat_the_default_by_more_than_the_noise(default_s, challenger_s,
+                                                                  wins):
+    trials = []
+    e = tune_shape(16, 512, 2048, "bfloat16", timer=_margin_timer(default_s, challenger_s),
+                   trials=trials)
+    default = default_candidate(16, 512, 2048, "bfloat16")
+    assert default == (16, 64, 64, "zorder") and trials[0]["blocks"] == default[:3]
+    assert len(trials) == len(candidate_space(16, 512, 2048))   # re-timings are no trials
+    got = (e.block_m, e.block_n, e.block_k, e.order)
+    assert got == ((64, 64, 64, "rowmajor") if wins else default)
+    assert e.seconds == (min(challenger_s) if wins else min(default_s))
+
+
+def test_the_default_is_timed_when_a_bounded_space_leaves_it_out():
+    default = default_candidate(16, 512, 2048, "bfloat16")
+    sampled = candidate_space(16, 512, 2048, max_candidates=2)
+    assert default not in sampled
+    timed = []
+
+    def timer(m, n, k, dtype, cand):
+        timed.append(cand)
+        return 1e-5
+    e = tune_shape(16, 512, 2048, "bfloat16", max_candidates=2, timer=timer)
+    assert timed == [default, *sampled, default]
+    assert (e.block_m, e.block_n, e.block_k, e.order) == default
 
 
 def test_the_tuning_planned_scope_reaches_linear():
