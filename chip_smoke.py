@@ -147,6 +147,28 @@ Phases, each fatal on failure (no result line, non-zero exit):
    its top kernels and operators, and the planned forward's accumulate
    chain (fp32 zero, fp32 add, cast) and device copies beside the
    unplanned forward's; both traces saved gzipped to ``chiprun_out/``.
+14. train -- the training path, every leg fatal: (a) K1's autograd node
+   (``ops.ZorderMatmul``) at each of Llama's 7 projections at 2048 tokens,
+   bf16: the forward, dA = dC B^T and dB = A^T dC held per row to the
+   plain version on the same CUDA tensors (``ROW_TOL``), every launch on
+   the wide route, each product timed beside the plain version,
+   ``torch.matmul`` and its bound, and the backward's transposed copies;
+   (b) one fp32 step of a 2-layer full-width Llama on the card and on the
+   CPU, the same weights and batch: the loss and every master leaf's
+   gradient within ``TRAIN_GRAD_TOL`` (relative L2), every projection's
+   gradient non-zero, while a control whose products detach K1's output
+   lands outside the limit and the trainer refuses it; (c) the main path:
+   ``python -m repro_torch.launch.train --arch llama3.2-1b --steps 30
+   --batch 8 --seq 256 --ckpt <dir>`` (its ``main``), full width, bf16:
+   the logged loss falls, K1 launches 336 a step all wide (counts from 0
+   just before), the peak memory and the checkpoints' size; then the same
+   step timed (CUDA events: loss and gradients, optimizer; host clock;
+   tokens/s) and profiled (K1's device time beside its bound, the fp32
+   unembed's ``aten::mm``); (d) the reference's ``train_4k`` cell cut to
+   one sequence of 4096 tokens, ``remat="full"``: 2 steps, finite losses,
+   448 wide K1 launches a step (the forward recomputed), peak memory; (e)
+   the smoke Llama with a failure injected: one restart, a falling loss,
+   the restored state equal bit for bit to its checkpoint file.
 
 On one card the collectives are device copies and "overlap" is only the
 order in which the rank threads issue work: no number of phases 7-9 or 11
@@ -169,9 +191,11 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from unittest import mock
@@ -183,7 +207,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import store as train_store  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data.pipeline import (DataConfig, batch_iterator, device_put_batch,  # noqa: E402
+                                       synth_batch)
 from repro_torch.device import param_device  # noqa: E402
 from repro_torch.dist import Mesh, _collectives, symmetric_matmul  # noqa: E402
 from repro_torch.dist.local import local_matmul  # noqa: E402
@@ -194,10 +221,13 @@ from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
 from repro_torch.models.lm import cross_entropy  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.launch import perf_probe  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.obs import calibrate  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.plan import build_plan, execute_plan, planned_matmuls, plan_cache  # noqa: E402
 from repro_torch.runtime.serve import (ServeConfig, batch_requests, decode_loop,  # noqa: E402
                                        planned_scope, token_loop)
+from repro_torch.runtime.train import TrainConfig, Trainer  # noqa: E402
 from repro_torch.serve import Server, as_bucket, route as serve_route  # noqa: E402
 from repro_torch.serve.server import DUMMY_TOKEN, PAD_ID  # noqa: E402
 from repro_torch.verify import (ConformanceError, check, check_capture,  # noqa: E402
@@ -208,6 +238,7 @@ from repro_torch.tune import (Tuner, candidate_route, default_candidate, load_ta
                               time_candidate)
 from repro_torch.verify.drift import DRIFT_CELLS, check_drift  # noqa: E402
 from repro_torch.verify.interceptor import phase_bytes  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
 # the module, not the function ``repro_torch.plan.lower_dist`` of its name
 lower_dist_mod = importlib.import_module("repro_torch.plan.lower_dist")
@@ -679,7 +710,7 @@ def phase_serve(dev: torch.device) -> dict:
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
@@ -759,16 +790,6 @@ def step_device_ms(model, params, dev: torch.device, bucket) -> dict:
             out[name] = graph_ms(step, [()])
     return out
 
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 def event_ms(fn, reps: int) -> float:
     """Mean device ms per call of ``fn()``: one warm call, then ``reps``
@@ -2148,6 +2169,380 @@ def phase_profiler(dev: torch.device) -> dict:
     return {**out, "chain_extra_ms": extra}
 
 
+# -- training (phase 14) -------------------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-1b"
+# the main path: the launcher at its default batch and sequence, 30 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 30
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ)]
+TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
+# fp32 card-vs-CPU step: 2 full-width layers, one sequence of 64 tokens;
+# each master leaf's gradient within this relative L2 error (fp32 products
+# on both sides, sums in other orders: a sound port reads 1e-6 or so; a
+# projection weight that gets no gradient reads 1)
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SEQ = 2, 64
+TRAIN_GRAD_TOL = 1e-3
+# the reference's train_4k cell (seq 4096, batch 256 over 256 chips) cut
+# to one sequence on one card, every block recomputed in the backward
+TRAIN_4K_SEQ, TRAIN_4K_STEPS = 4096, 2
+TRAIN_TIMED_STEPS = 3
+TRAIN_GRAPH_CALLS = 4      # products a timed CUDA graph replays
+# the restart leg: the reference's test_restart_and_loss_decreases on the card
+RESTART_CFG = dict(steps=24, lr=1e-3, warmup=4, ckpt_every=8, log_every=8, fail_at_step=13)
+# checkpoints go under the checkout's build/ (ignored by git and never
+# copied back), each leg's removed when it ends
+CKPT_DIR = os.path.join(ROOT, "build")
+TRAIN_LOG = re.compile(r"^\[trainer\] step\s+(\d+) loss ([-\d.naif]+) \((\d+) ms\)$")
+
+
+class _Tee(io.TextIOBase):
+    """Writes to several streams: the launcher's log is shown and kept."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def train_kernel_check(dev: torch.device, gen: torch.Generator) -> dict:
+    """(a) K1's autograd node at each of Llama's 7 projections at 2048
+    tokens, bf16: the forward and both backward products held per row to
+    the plain version on the same CUDA tensors, each launch on the wide
+    route; then each product timed beside the plain version,
+    ``torch.matmul`` and its bound, and the backward's transposed copies
+    (CUDA-graph replays, so no host launch time is in them)."""
+    t = TRAIN_TOKENS
+    rows, copies, worst_abs = [], [], 0.0
+    for (k, n) in LAYER_KN:
+        a = torch.randn(t, k, generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
+        b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(
+            torch.bfloat16).requires_grad_(True)
+        dc = torch.randn(t, n, generator=gen, device=dev).to(torch.bfloat16)
+        before = dict(k1.launches_by_route)
+        out = matmul(a, b)
+        fwd_routes = routes_moved(before)
+        before = dict(k1.launches_by_route)
+        out.backward(dc)
+        bwd_routes = routes_moved(before)
+        torch.cuda.synchronize()
+        if fwd_routes != {"wide": 1} or bwd_routes != {"wide": 2}:
+            raise AssertionError(f"({t}, {k}, {n}): forward {fwd_routes}, backward {bwd_routes}, "
+                                 f"want every product on the wide route")
+        ad, bd = a.detach(), b.detach()
+        bt, at = bd.t().contiguous(), ad.t().contiguous()
+        errs = {"forward": row_err(out, matmul_ref(ad, bd)),
+                "dA": row_err(a.grad, matmul_ref(dc, bt)),
+                "dB": row_err(b.grad, matmul_ref(at, dc))}
+        log(f"[train-kernel] bf16 {t}x{k}x{n}: " + ", ".join(
+            f"{p} worst row rel {e['row_rel']:.3e}" for p, e in errs.items())
+            + f" (limit {ROW_TOL[torch.bfloat16]:g}); forward {fwd_routes}, backward {bwd_routes}")
+        for p, e in errs.items():
+            worst_abs = max(worst_abs, e["max_abs_err"])
+            if not e["finite"] or e["row_rel"] >= ROW_TOL[torch.bfloat16]:
+                raise AssertionError(f"K1's {p} at ({t}, {k}, {n}) disagrees with the plain "
+                                     f"version: {e}")
+        operands = {"forward": (ad, bd), "dA": (dc, bt), "dB": (at, dc)}
+        for p, (x, y) in operands.items():
+            m_, k_ = x.shape
+            n_ = y.shape[1]
+            tm = {}
+            # in turns: kernel, plain, library, kernel
+            for name, fn in (("ms", matmul), ("plain_ms", matmul_ref),
+                             ("library_ms", torch.matmul), ("ms", matmul)):
+                tm.setdefault(name, []).append(graph_ms(fn, [(x, y)] * TRAIN_GRAPH_CALLS))
+            tm = {name: min(v) for name, v in tm.items()}
+            bms, by = bound(m_, k_, n_, torch.bfloat16)
+            rows.append({"product": p, "shape": [m_, k_, n_], "route": "wide", **tm,
+                         "bound_ms": bms, "bound_by": by, "row_rel": errs[p]["row_rel"]})
+        copies.append({"shape": [t, k, n], **{
+            name: graph_ms(lambda x: x.t().contiguous(), [(x,)] * TRAIN_GRAPH_CALLS)
+            for name, x in (("B^T", bd), ("A^T", ad))}})
+        del a, b, dc, out, ad, bd, bt, at
+    layers = get_config(TRAIN_ARCH).num_layers
+    per_step = {key: layers * sum(r[key] for r in rows)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    flops = layers * sum(2.0 * math.prod(r["shape"]) for r in rows)
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = layers * sum(((r["shape"][0] + r["shape"][2]) * r["shape"][1]
+                            + r["shape"][0] * r["shape"][2]) * 2 for r in rows) / PEAK_BYTES_S
+    per_step["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    per_step["copies_ms"] = layers * sum(c["B^T"] + c["A^T"] for c in copies)
+    per_step["tflop"] = flops / 1e12
+    log(f"[train-kernel] K1 per training step ({3 * 7 * layers} products, each alone): "
+        f"{per_step['ms']:.2f}ms, bound {per_step['bound_ms']:.2f}ms ({per_step['bound_by']}, "
+        f"{per_step['tflop']:.2f} TFLOP), torch.matmul {per_step['library_ms']:.2f}ms, plain "
+        f"{per_step['plain_ms']:.2f}ms; the backward's transposed copies "
+        f"{per_step['copies_ms']:.2f}ms")
+    torch.cuda.empty_cache()
+    return {"rows": rows, "copies": copies, "per_step": per_step, "worst_abs_err": worst_abs}
+
+
+def _train_batch(vocab: int, batch: int, seq: int, dev: torch.device, step: int = 0) -> dict:
+    return device_put_batch(synth_batch(DataConfig(vocab_size=vocab, seq_len=seq,
+                                                   global_batch=batch), step), dev)
+
+
+def _control_grads(trainer, master, batch) -> list:
+    """Every master leaf's gradient as autograd gives it, zero where the
+    loss does not reach the leaf (the trainer refuses that case)."""
+    leaves = tree_leaves(master)
+    for w in leaves:
+        w.requires_grad_(True)
+    params = tree_map(lambda w: w.to(trainer.compute_type(w)), master)
+    loss, _ = trainer.model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for w in leaves:
+        w.requires_grad_(False)
+    return [torch.zeros_like(w) if g is None else g for g, w in zip(grads, leaves)]
+
+
+def train_grad_check(dev: torch.device) -> dict:
+    """(b) One fp32 train step of a 2-layer full-width Llama on the card and
+    on the CPU, the same weights and batch: the loss and every master
+    leaf's gradient within ``TRAIN_GRAD_TOL``, every projection's non-zero;
+    a control whose products detach K1's output lands outside the limit
+    (and the trainer refuses it)."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_CHECK_LAYERS,
+                              dtype="float32")
+    model = build_model(cfg)
+    master = adamw.init(model.init(torch.Generator(device=dev).manual_seed(3), dev))["master"]
+    cpu = torch.device("cpu")
+    keys = ["//".join(map(str, p)) for p, _ in tree_paths(master)]
+    out = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        m = master if d == dev else tree_map(lambda t: t.to(cpu, copy=True), master)
+        k1.reset_launches()
+        loss, _, grads = Trainer(model, TrainConfig(), device=d).loss_and_grads(
+            m, _train_batch(cfg.vocab_size, 1, TRAIN_CHECK_SEQ, d))
+        out[name] = (loss.item(), [g.cpu() for g in grads], _nonzero(k1.launches_by_route))
+    want_launches = {"fma": 3 * 7 * TRAIN_CHECK_LAYERS}
+    if out["card"][2] != want_launches or out["cpu"][2]:
+        raise AssertionError(f"K1 launches: card {out['card'][2]}, cpu {out['cpu'][2]}; "
+                             f"want {want_launches} on the card, none on the cpu")
+
+    def rel(g, c):
+        return ((g.double() - c.double()).norm() / c.double().norm().clamp_min(1e-300)).item()
+
+    errs = {k: rel(g, c) for k, g, c in zip(keys, out["card"][1], out["cpu"][1])}
+    zero = [k for k, g in zip(keys, out["card"][1]) if g.ndim == 2 and "layers" in k
+            and not bool(g.abs().sum() > 0)]
+    loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst = max(errs, key=errs.get)
+    log(f"[train-check] {TRAIN_CHECK_LAYERS}-layer full-width fp32 step, 1x{TRAIN_CHECK_SEQ} "
+        f"tokens: loss card {out['card'][0]:.6f} cpu {out['cpu'][0]:.6f} (rel {loss_rel:.2e}); "
+        f"{len(errs)} master leaves, worst gradient rel L2 {errs[worst]:.3e} ({worst}), limit "
+        f"{TRAIN_GRAD_TOL:g}; zero projection gradients: {zero}; K1 {out['card'][2]}")
+    if zero or errs[worst] >= TRAIN_GRAD_TOL or loss_rel >= TRAIN_GRAD_TOL:
+        raise AssertionError(f"card and cpu training steps disagree: worst {worst} "
+                             f"{errs[worst]}, loss {loss_rel}, zero gradients {zero}")
+
+    local_mod = importlib.import_module("repro_torch.dist.local")
+
+    def detached(a, b, **kw):   # K1's output with no autograd node
+        return matmul(a.detach(), b.detach(), **kw)
+
+    batch = _train_batch(cfg.vocab_size, 1, TRAIN_CHECK_SEQ, dev)
+    trainer = Trainer(model, TrainConfig(), device=dev)
+    with mock.patch.object(local_mod, "matmul", detached):
+        try:
+            trainer.loss_and_grads(master, batch)
+            refused = None
+        except RuntimeError as e:    # a master leaf the loss does not reach
+            refused = str(e)[:120]
+        ctrl = _control_grads(trainer, master, batch)
+    ctrl_errs = {k: rel(g.cpu(), c) for k, g, c in zip(keys, ctrl, out["cpu"][1])}
+    caught = max(ctrl_errs.values())
+    log(f"[train-check] control, K1's output detached: worst gradient rel L2 {caught:.3e} "
+        f"(must be >= {TRAIN_GRAD_TOL:g}); the trainer refused it: {refused}")
+    if caught < TRAIN_GRAD_TOL or refused is None:
+        raise AssertionError(f"a detached K1 product passed: worst {caught}, the trainer "
+                             f"refused it: {refused}")
+    del master, ctrl
+    torch.cuda.empty_cache()
+    return {"loss": {"card": out["card"][0], "cpu": out["cpu"][0]}, "grad_rel_l2": errs,
+            "worst": [worst, errs[worst]], "launches": out["card"][2],
+            "control_worst": caught, "control_refused": refused}
+
+
+def _train_step_times(trainer, state, batch, steps: int) -> dict:
+    """Per step: CUDA events around the loss and gradients and around the
+    optimizer, the host clock around the whole step (ended by a sync)."""
+    step = trainer.make_train_step()
+    state, _ = step(state, batch)           # warm
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        lr = trainer.sched(state["step"])
+        _, _, grads = trainer.loss_and_grads(state["master"], batch)
+        ev[1].record()
+        state, _ = adamw.step(state, grads, lr, trainer.opt_cfg)
+        ev[2].record()
+        torch.cuda.synchronize()
+        rows.append({"host_ms": (time.perf_counter() - t0) * 1e3,
+                     "device_ms": ev[0].elapsed_time(ev[2]),
+                     "grads_ms": ev[0].elapsed_time(ev[1]), "optimizer_ms": ev[1].elapsed_time(ev[2])})
+        del grads
+    return {key: float(np.median([r[key] for r in rows])) for key in rows[0]} | {"runs": rows}
+
+
+def _profile_step(trainer, state, batch) -> dict:
+    """One train step under ``torch.profiler``: device time of K1, of the
+    unembed (``aten::mm``: its forward and two backward products are the
+    step's only ``mm``), and of the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = trainer.make_train_step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    split = profile_split(prof)
+    mm = [r for r in split["top_operators"] if r["op"] == "aten::mm"]
+    return {"device_ms": split["device_ms"], "k1_ms": split["k1_ms"],
+            "k1_launches": split["k1_launches"], "unembed_ms": mm[0]["ms"] if mm else 0.0,
+            "top_operators": split["top_operators"], "rest_top_kernels": split["rest_top_kernels"]}
+
+
+def phase_train(dev: torch.device, gen: torch.Generator) -> dict:
+    """Phase 14: the training path (module docstring)."""
+    cfg = get_config(TRAIN_ARCH)
+    out = {"kernel": train_kernel_check(dev, gen), "check": train_grad_check(dev)}
+
+    # (c) the main path: the launcher at full width, counts from 0 just before
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=CKPT_DIR)
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+        rc = launch_train.main(TRAIN_ARGV + ["--ckpt", ckpt])
+    wall = time.perf_counter() - t0
+    path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    logged = [m.groups() for m in map(TRAIN_LOG.match, buf.getvalue().splitlines()) if m]
+    losses = [float(x) for _, x, _ in logged]
+    latest = train_store.latest_step(ckpt)
+    ckpt_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt)
+                  for f in fs) / 1e9
+    shutil.rmtree(ckpt)
+    want = {"wide": 3 * 7 * cfg.num_layers * TRAIN_STEPS}
+    log(f"[train] launcher: rc {rc}, {len(logged)} steps logged in {wall:.1f}s (the steps "
+        f"{sum(int(ms) for _, _, ms in logged) / 1e3:.1f}s of it), loss "
+        f"{losses[0] if losses else None} -> {losses[-1] if losses else None}; K1 on the main "
+        f"path {path['routes']} (want {want}); peak memory {peak / 2 ** 30:.2f} GiB; "
+        f"checkpoints {ckpt_gb:.1f} GB on disk, LATEST step {latest}")
+    if rc != 0 or len(logged) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"the launcher's run: rc {rc}, logged {logged}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if path["routes"] != want or latest != TRAIN_STEPS:
+        raise AssertionError(f"K1 on the main path {path['routes']}, want {want}; LATEST {latest}")
+    out["path"] = {**path, "rc": rc, "losses": losses, "wall_s": wall,
+                   "host_ms_logged": [int(ms) for _, _, ms in logged],
+                   "peak_gib": peak / 2 ** 30, "ckpt_gb": ckpt_gb}
+
+    # the same step timed and profiled, outside the launcher
+    model = build_model(cfg)
+    trainer = Trainer(model, TrainConfig(steps=TRAIN_STEPS), device=dev)
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+    times = _train_step_times(trainer, state, batch, TRAIN_TIMED_STEPS)
+    prof = _profile_step(trainer, state, batch)
+    times["tokens_per_s"] = TRAIN_TOKENS / times["host_ms"] * 1e3
+    times["busy_share"] = prof["device_ms"] / times["device_ms"]
+    k = out["kernel"]["per_step"]
+    log(f"[train] step at {TRAIN_BATCH}x{TRAIN_SEQ}: host {times['host_ms']:.1f}ms, device "
+        f"{times['device_ms']:.1f}ms (loss and gradients {times['grads_ms']:.1f}, optimizer "
+        f"{times['optimizer_ms']:.1f}), {times['tokens_per_s']:.0f} tokens/s; profiled: device "
+        f"{prof['device_ms']:.1f}ms (busy {times['busy_share']:.0%} of the step), K1 {prof['k1_ms']:.1f}ms ({prof['k1_launches']} launches; "
+        f"bound {k['bound_ms']:.2f}ms), unembed (fp32 aten::mm x3) {prof['unembed_ms']:.1f}ms; "
+        f"top operators " + ", ".join(f"{r['op']} {r['ms']:.1f}ms" for r in prof["top_operators"][:6]))
+    out["timing"] = {**times, "profile": prof}
+    del state, batch, trainer
+    torch.cuda.empty_cache()
+
+    # (d) train_4k cut to one sequence, every block recomputed
+    cfg4k = dataclasses.replace(cfg, remat="full")
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    fit = Trainer(build_model(cfg4k), TrainConfig(steps=TRAIN_4K_STEPS, warmup=1, log_every=1),
+                  device=dev).fit(torch.Generator(device=dev).manual_seed(0), batch_iterator(
+                      DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_4K_SEQ, global_batch=1)))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    l4k = [h["loss"] for h in fit["history"]]
+    r4k = _nonzero(k1.launches_by_route)
+    want4k = {"wide": 4 * 7 * cfg.num_layers * TRAIN_4K_STEPS}   # forward recomputed once
+    log(f"[train-4k] 1x{TRAIN_4K_SEQ}, remat='full': losses {l4k}, steps "
+        f"{[round(h['sec_per_step'] * 1e3, 1) for h in fit['history']]} ms, {wall:.1f}s in all; "
+        f"peak memory {peak / 2 ** 30:.2f} GiB; K1 {r4k} (want {want4k})")
+    if len(l4k) != TRAIN_4K_STEPS or not all(map(math.isfinite, l4k)) or r4k != want4k:
+        raise AssertionError(f"train_4k: losses {l4k}, K1 {r4k}")
+    out["train_4k"] = {"losses": l4k, "peak_gib": peak / 2 ** 30, "routes": r4k,
+                       "ms_per_step": [h["sec_per_step"] * 1e3 for h in fit["history"]]}
+    del fit
+    torch.cuda.empty_cache()
+
+    out["restart"] = train_restart(dev)
+    return out
+
+
+def train_restart(dev: torch.device) -> dict:
+    """(e) The smoke Llama on the card with a failure injected: exactly one
+    restart, a falling loss, and the state the trainer restored equal bit
+    for bit to the checkpoint file it came from."""
+    cfg = get_smoke_config(TRAIN_ARCH)
+    ckpt = tempfile.mkdtemp(prefix="train_restart_", dir=CKPT_DIR)
+    restored = []
+    real_restore = train_store.restore
+
+    def spy(ckpt_dir, template, step=None):
+        s, tree = real_restore(ckpt_dir, template, step)
+        restored.append((s, [(p, t.detach().cpu().clone()) for p, t in tree_paths(tree)]))
+        return s, tree
+
+    k1.reset_launches()
+    with mock.patch.object(train_store, "restore", spy):
+        fit = Trainer(build_model(cfg), TrainConfig(ckpt_dir=ckpt, **RESTART_CFG), device=dev).fit(
+            torch.Generator(device=dev).manual_seed(0),
+            batch_iterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)))
+    losses = [h["loss"] for h in fit["history"]]
+    routes = _nonzero(k1.launches_by_route)
+    if fit["restarts"] != 1 or len(restored) != 1 or not losses[-1] < losses[0]:
+        raise AssertionError(f"restart leg: {fit['restarts']} restarts, {len(restored)} "
+                             f"restores, losses {losses}")
+    step, leaves = restored[0]
+    with np.load(os.path.join(ckpt, f"step_{step:08d}", "arrays.npz")) as npz:
+        files = {k: npz[k] for k in npz.files}
+    differ = []
+    for p, t in leaves:
+        key = "//".join(map(str, p))
+        mine = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+        disk = files[key].view(np.int16) if t.dtype == torch.bfloat16 else files[key]
+        if mine.dtype != disk.dtype or not np.array_equal(mine, disk):
+            differ.append(key)
+    shutil.rmtree(ckpt)
+    log(f"[train-restart] smoke on the card, failure at step {RESTART_CFG['fail_at_step']}: "
+        f"{fit['restarts']} restart from step {step}, losses {[round(x, 4) for x in losses]}; "
+        f"{len(leaves)} restored leaves equal the checkpoint bitwise: {not differ}; K1 {routes}")
+    if differ:
+        raise AssertionError(f"restored leaves differ from the checkpoint: {differ}")
+    return {"restarts": fit["restarts"], "restored_step": step, "losses": losses,
+            "leaves": len(leaves), "routes": routes}
+
+
 def decode_step_row(timings: list, m: int = 4) -> dict:
     """K1's numbers for one serving forward at M rows (4: a decode step at
     batch 4; 64: the prefill of the 4x16 bucket): the 7 projections of
@@ -2220,6 +2615,7 @@ def main() -> int:
     report["calibrate"] = phase_calibrate(dev)
     report["obs_drift"] = phase_obs_drift(dev, report["calibrate"]["profile_path"])
     report["profiler"] = phase_profiler(dev)
+    report["train"] = phase_train(dev, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -2247,7 +2643,11 @@ def main() -> int:
                              "tuned_planned_serve_graph_replays_per_generate":
                                  report["calibrate"]["tuned_serve"]["runs"][0]["launches"],
                              "profiled_planned_forward":
-                                 report["profiler"]["planned"]["k1_launches"]},
+                                 report["profiler"]["planned"]["k1_launches"],
+                             "train": report["train"]["path"]["launches"],
+                             "train_4k_remat_full": sum(report["train"]["train_4k"]["routes"].values()),
+                             "train_check_fp32": sum(report["train"]["check"]["launches"].values()),
+                             "train_restart_smoke": sum(report["train"]["restart"]["routes"].values())},
         "routes": {"serve": report["serve"]["path"]["routes"],
                    "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
@@ -2261,8 +2661,13 @@ def main() -> int:
                    "tuned_planned_serve_graph_replays":
                        report["calibrate"]["tuned_serve"]["runs"][0]["routes"],
                    "tuned_planned_serve_eager":
-                       report["calibrate"]["tuned_serve"]["eager_runs"][0]["routes"]},
+                       report["calibrate"]["tuned_serve"]["eager_runs"][0]["routes"],
+                   "train": report["train"]["path"]["routes"],
+                   "train_4k_remat_full": report["train"]["train_4k"]["routes"],
+                   "train_check_fp32": report["train"]["check"]["launches"],
+                   "train_restart_smoke": report["train"]["restart"]["routes"]},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
+                           report["train"]["kernel"]["worst_abs_err"],
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"])),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
@@ -2273,7 +2678,10 @@ def main() -> int:
             "thin: serving prefill, M = 64 (112 products)":
                 decode_step_row(report["kernel"]["timings"], 64),
             "wide: danube forward, M = 32768 (168 products)":
-                report["long_prefill"]["k1_per_forward"]},
+                report["long_prefill"]["k1_per_forward"],
+            f"wide: Llama training step, {TRAIN_TOKENS} tokens (336 products: forward, dA, dB)":
+                {key: report["train"]["kernel"]["per_step"][key]
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
     }, flash_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   device=torch.cuda.get_device_name(0))

@@ -1,11 +1,16 @@
-"""Parameters from the JAX package's layout into the port's.
+"""Parameters and optimizer state between the JAX package's layout and the
+port's, both ways.
 
 The reference keeps a nested dict of arrays with every per-layer parameter
 stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
-(L, d, h*hd)).  The port keeps a list of per-layer dicts.  The input here
-is that tree with numpy leaves (``jax.tree.map(np.asarray, params)``);
-numpy has no bfloat16 of its own, so every leaf crosses through float32
-and is cast back to its source type on the torch side.
+(L, d, h*hd)).  The port keeps a list of per-layer dicts.  Into the port,
+the input is that tree with numpy leaves (``jax.tree.map(np.asarray,
+params)``) or torch tensors (a tree ``checkpoint.store`` restored in that
+layout); numpy has no bfloat16 of its own, so every leaf crosses through
+float32 and is cast back to its source type on the torch side (exact).
+Out of the port, ``params_to_jax`` / ``state_to_jax`` stack the layers
+back into torch tensors on the CPU, types kept: ``checkpoint.store``
+writes them in the reference's format, bf16 as its bits.
 """
 from __future__ import annotations
 
@@ -22,6 +27,10 @@ _TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
     """One leaf: float32 or bfloat16 in, the same type out."""
+    if torch.is_tensor(a):
+        if a.dtype not in _TYPES.values():
+            raise ValueError(f"unsupported parameter type {a.dtype}")
+        return a.detach().to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name not in _TYPES:
         raise ValueError(f"unsupported parameter type {a.dtype}")
@@ -40,17 +49,55 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig,
     """The reference ``DecoderLM`` parameter tree -> the port's params."""
     device = resolve_device(device)
     stacked = np_params["layers"]
-    n = np.asarray(stacked["attn_norm"]).shape[0]
+    n = stacked["attn_norm"].shape[0]
     if n != cfg.num_layers:
         raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
 
     def layer(i, x):
         if isinstance(x, dict):
             return {k: layer(i, v) for k, v in x.items()}
-        return tensor_from_numpy(np.asarray(x)[i], device)
+        return tensor_from_numpy(x[i] if torch.is_tensor(x) else np.asarray(x)[i], device)
 
     return {
         "embed": _tree(np_params["embed"], device),
         "final_norm": tensor_from_numpy(np_params["final_norm"], device),
         "layers": [layer(i, stacked) for i in range(n)],
     }
+
+
+def _host(x):
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    return x.detach().cpu()
+
+
+def params_to_jax(params: Dict) -> Dict:
+    """The port's params -> the reference ``DecoderLM`` layout: each
+    per-layer leaf stacked on a leading layer axis; torch tensors on the
+    CPU, types kept."""
+    layers = params["layers"]
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return torch.stack([x.detach().cpu() for x in xs])
+
+    return {"embed": _host(params["embed"]),
+            "final_norm": _host(params["final_norm"]),
+            "layers": stack(*layers)}
+
+
+def state_to_jax(state: Dict) -> Dict:
+    """An AdamW state of the port (``optim.adamw``) -> the reference's
+    (``repro.optim.adamw``): step, and master / m / v stacked."""
+    return {"step": state["step"].detach().cpu().to(torch.int32),
+            **{k: params_to_jax(state[k]) for k in ("master", "m", "v")}}
+
+
+def state_from_jax(np_state: Dict, cfg: ModelConfig, device: DeviceLike = None) -> Dict:
+    """The reference's AdamW state (numpy or torch leaves) -> the port's."""
+    device = resolve_device(device)
+    step = np_state["step"]
+    step = step if torch.is_tensor(step) else torch.from_numpy(np.array(step, np.int32))
+    return {"step": step.to(device=device, dtype=torch.int32),
+            **{k: params_from_jax(np_state[k], cfg, device) for k in ("master", "m", "v")}}

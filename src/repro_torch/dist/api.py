@@ -332,6 +332,10 @@ def symmetric_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh=None,
     program per rank of it."""
     from repro_torch.plan import build_plan, execute_plan
 
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise NotImplementedError(
+            "planned products have no backward yet (sharded training, ROADMAP "
+            "queue 1): run the product outside planned_matmuls or under torch.no_grad()")
     plan = build_plan(
         a.shape[-2], b.shape[-1], a.shape[-1], mesh=mesh, strategy=strategy,
         batch=tuple(a.shape[:-2]),

@@ -45,6 +45,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (sq >= REF_MIN_SEQ and skv >= REF_MIN_SEQ and not causal
             and skv % min(REF_BLOCK_KV, skv)):
         raise NotImplementedError("non-causal padding not needed by the models")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # on both devices, so the CPU's plain version does not train what the
+        # card refuses
+        raise NotImplementedError("flash attention has no backward kernel yet: "
+                                  "call it under torch.no_grad(), or train with "
+                                  "attn_impl='xla'")
     if q.device.type == "cpu":
         def to_heads(x):  # (B, S, H, D) -> (B*H, S, D)
             return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
@@ -52,7 +58,4 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = attention_ref(to_heads(q), to_heads(k), to_heads(v), causal=causal,
                           window=window, scale=scale)
         return o.reshape(b, hq, sq, d).transpose(1, 2)
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError("flash attention has no backward kernel yet: "
-                                  "call it under torch.no_grad()")
     return kernel.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)

@@ -92,11 +92,49 @@ def matmul(
         raise ValueError(f"the {kernel.ROUTE_OF[a.dtype, blocks]} route's blocks {blocks} "
                          f"take k and n multiples of 8 (k > 0) and 16-byte aligned bases; "
                          f"got k={k}, n={n}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return ZorderMatmul.apply(a, b, blocks, order, out_dtype)
+    return _launch(a, b, blocks, order, out_dtype)
+
+
+def _launch(a, b, blocks, order, out_dtype):
     # nothing to time (or to wait for) inside a CUDA-graph capture
     if obs.enabled() and not (a.device.type == "cuda"
                               and torch.cuda.is_current_stream_capturing()):
         return _observed(a, b, blocks, order, out_dtype)
     return _run(a, b, blocks, order, out_dtype)
+
+
+def _fresh(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, contiguous, with a 16-byte aligned base (what the
+    wide and thin routes read)."""
+    t = t.to(dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class ZorderMatmul(torch.autograd.Function):
+    """C = A @ B through the kernel, differentiable (module docstring).
+    Operands of one type with an ``out_dtype`` gradient of another (a bf16
+    product with fp32 output) run their backward products in the wider
+    type: the bf16 values are exact there."""
+
+    @staticmethod
+    def forward(ctx, a, b, blocks, order, out_dtype):
+        ctx.save_for_backward(a, b)
+        ctx.order = order
+        return _launch(a, b, blocks, order, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dt = torch.promote_types(dc.dtype, a.dtype)
+        g = _fresh(dc, dt)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = matmul(g, _fresh(b.t(), dt), order=ctx.order, out_dtype=a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = matmul(_fresh(a.t(), dt), g, order=ctx.order, out_dtype=b.dtype)
+        return da, db, None, None, None
 
 
 def _run(a, b, blocks, order, out_dtype):

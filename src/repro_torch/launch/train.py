@@ -1,0 +1,69 @@
+"""Training launcher for the port, on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+        --steps 30 --batch 8 --seq 256 --ckpt /path/to/ckpt
+
+Counterpart of ``repro.launch.train``: random weights from ``--seed``,
+synthetic data (``data.pipeline``, seeded by ``--seed`` too), AdamW with a
+warmup-cosine schedule, asynchronous checkpoints and restore from
+``--ckpt``.  Runs on ``cuda`` unless ``--device cpu`` is given (then every
+product takes the kernel's plain version); ``--smoke`` selects the reduced
+config.  One device builds no mesh: ``--tp`` is accepted, as the
+reference's launcher takes it, and ignored with a note (sharded training is
+ROADMAP queue 1, item 8).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data.pipeline import DataConfig, batch_iterator
+from repro_torch.device import resolve_device
+from repro_torch.kernels.matmul import kernel as k1
+from repro_torch.models.registry import build_model
+from repro_torch.runtime.train import TrainConfig, Trainer
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--tp", type=int, default=None,
+                    help="ignored: one device trains without a mesh")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    if args.tp is not None:
+        print(f"[launch] --tp {args.tp} ignored: one device, no mesh")
+    print(f"[launch] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+          f"device={device} mesh=1 device")
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                    global_batch=args.batch, seed=args.seed)
+    tc = TrainConfig(steps=args.steps, lr=args.lr,
+                     warmup=max(args.steps // 20, 5),
+                     ckpt_dir=args.ckpt, ckpt_every=max(args.steps // 4, 10),
+                     log_every=max(args.steps // 20, 1))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    out = Trainer(model, tc, device=device).fit(gen, batch_iterator(dc))
+    h = out["history"]
+    print(f"[launch] done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} "
+          f"({out['restarts']} restarts); zorder_matmul launches: {k1.launches} "
+          f"{ {r: n for r, n in k1.launches_by_route.items() if n} }")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,12 +6,21 @@ dicts run in a Python loop, and the per-layer KV caches are preallocated
 tensors written in place.  ``decode_step`` takes the cache slot as an int
 or as a 0-d int64 tensor on the model's device (the reference's traced
 ``pos``), so one captured CUDA graph serves every step.
+
+``forward`` and ``loss`` are differentiable: every projection's product is
+the Z-order kernel's autograd node (``kernels.matmul.ops.ZorderMatmul``).
+The reference's remat policies (``_remat``) map as: ``"none"`` keeps every
+activation; ``"full"`` recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` (keep only the
+products' outputs) is not ported and raises when gradients are on, so
+serving a ``"dots"`` config is unaffected.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.layers.attention import check_cache_write, gqa_cache
@@ -56,16 +65,36 @@ class DecoderLM:
         x = embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        block = self._remat()
         for lp in params["layers"]:
-            x, a, _ = block_apply(lp, x, cfg, self.kind, positions)
+            x, a = block(lp, x, positions)
             aux = aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(params["embed"], x, cfg.vocab_size), aux
 
+    def _block(self, lp: Params, x: torch.Tensor, positions: torch.Tensor):
+        x, a, _ = block_apply(lp, x, self.cfg, self.kind, positions)
+        return x, a
+
+    def _remat(self):
+        """One uncached block under the config's remat policy (module
+        docstring); without gradients every policy runs the block as is."""
+        policy = self.cfg.remat
+        if policy not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat policy {policy!r}")
+        if policy == "none" or not torch.is_grad_enabled():
+            return self._block
+        if policy == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save only the products' outputs) is not ported yet "
+                "(ROADMAP queue 1): train with remat='none' or 'full'")
+        return lambda lp, x, positions: checkpoint(self._block, lp, x, positions,
+                                                   use_reentrant=False)
+
     def loss(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
-        """Forward only (no backward kernels yet): mean token cross-entropy
-        over ``batch["labels"]`` (-100 = ignore) plus 0.01 x the aux loss,
-        and the parts as {"ce", "aux"}."""
+        """Mean token cross-entropy over ``batch["labels"]`` (-100 =
+        ignore) plus 0.01 x the aux loss, and the parts as {"ce", "aux"}.
+        Differentiable with respect to ``params`` (module docstring)."""
         logits, aux = self.forward(params, batch["tokens"])
         ce = cross_entropy(logits, batch["labels"])
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}

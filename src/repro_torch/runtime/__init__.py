@@ -1,1 +1,1 @@
-"""Runtime: the serving decode loop."""
+"""Runtime: the serving decode loop and the trainer."""

@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint import params_from_jax
+from repro_torch.checkpoint import params_from_jax, state_from_jax
 from repro_torch.configs import get_smoke_config
+from repro_torch.data.pipeline import device_put_batch
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models.registry import build_model
+from repro_torch.runtime.train import TrainConfig, Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,13 +48,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 NEW_MODULES = ["repro_torch.obs.runtime", "repro_torch.obs.metrics", "repro_torch.obs.export",
                "repro_torch.obs.calibrate", "repro_torch.tune.table",
                "repro_torch.tune.search", "repro_torch.verify.drift",
-               "repro_torch.launch.perf_probe"]
+               "repro_torch.launch.perf_probe", "repro_torch.tree",
+               "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+               "repro_torch.checkpoint.store", "repro_torch.runtime.train",
+               "repro_torch.launch.train"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_the_hygiene_walk_covers_the_measurement_loop(name):
     """The subprocess walk above imports every module of the package; the
-    measurement loop's modules are among them."""
+    measurement loop's and the training path's modules are among them."""
     import pkgutil
 
     import repro_torch
@@ -93,7 +99,8 @@ def test_no_import_of_jax_or_repro_anywhere_in_the_source(path):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "model_init",
-                                   "params_from_jax", "launch_serve"])
+                                   "params_from_jax", "launch_serve", "launch_train",
+                                   "trainer", "device_put_batch", "state_from_jax"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     """Without device="cpu" the entry points ask for CUDA and raise where
     it is missing, instead of carrying on quietly on the CPU."""
@@ -106,8 +113,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
             build_model(cfg).init(torch.Generator().manual_seed(0))
         elif entry == "params_from_jax":
             params_from_jax({"layers": {"attn_norm": np.ones((2, 64), np.float32)}}, cfg)
-        else:
+        elif entry == "launch_serve":
             launch_serve.main(["--smoke", "--max-new", "2"])
+        elif entry == "launch_train":
+            launch_train.main(["--smoke", "--steps", "2"])
+        elif entry == "trainer":
+            Trainer(build_model(cfg), TrainConfig())
+        elif entry == "device_put_batch":
+            device_put_batch({"tokens": np.zeros((1, 2), np.int32)})
+        else:
+            state_from_jax({"step": np.int32(0)}, cfg)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -6,16 +6,18 @@ kernel itself runs only on the card (``tests/test_torch_cuda.py``).  Inputs come
 seeded numpy generator and reach both packages as the same values (bf16
 rounded once, on the JAX side, then carried through float32).
 """
+import jax
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
 from repro.core import zorder as jax_zorder
+from repro.dist.local import local_matmul as jax_local_matmul
 from repro.kernels.matmul import matmul as jax_matmul
 from repro_torch.core import zorder
 from repro_torch.dist.local import local_matmul
-from repro_torch.kernels.matmul import kernel, matmul
+from repro_torch.kernels.matmul import kernel, matmul, ops
 
 SHAPES = [(128, 128, 128), (256, 384, 512), (200, 300, 260), (512, 128, 384),
           (4, 256, 128)]   # the last one is decode-shaped: batch rows x d
@@ -275,3 +277,105 @@ def test_launch_bookkeeping_is_exact_across_threads():
     assert all(t is tables[0] for t in tables) and all(c is counters[0] for c in counters)
     kernel.reset_launches()
     assert kernel.launches == 0 and sum(kernel.launches_by_route.values()) == 0
+
+
+# -- the autograd Function: gradients against jax.grad of the reference ------
+
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# (lead dims of a, k, n): 2-D rows, 3-D activations folded into rows, ragged
+GRAD_SHAPES = [((64,), 48, 40), ((2, 24), 64, 32), ((3, 5), 17, 9)]
+
+
+def _grad_case(lead, k, n, dtype_name, seed=3):
+    """Operands and an output cotangent, the same values for both packages."""
+    jdt, tdt, _ = DTYPES[dtype_name]
+    rng = np.random.default_rng(seed)
+    a = jnp.asarray(rng.standard_normal((*lead, k), dtype=np.float32), jdt)
+    b = jnp.asarray(rng.standard_normal((k, n), dtype=np.float32), jdt)
+    ct = jnp.asarray(rng.standard_normal((*lead, n), dtype=np.float32), jdt)
+    to_t = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)  # noqa: E731
+    return (a, b, ct), tuple(to_t(x) for x in (a, b, ct))
+
+
+def _k1_nodes(t):
+    """The ``ZorderMatmul`` nodes of the graph behind ``t``."""
+    seen, todo, found = set(), [t.grad_fn], 0
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        found += isinstance(node, ops.ZorderMatmul._backward_cls)
+        todo.extend(nxt for nxt, _ in node.next_functions)
+    return found
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("lead,k,n", GRAD_SHAPES)
+def test_function_gradients_match_jax_grad_of_local_matmul(lead, k, n, dtype_name):
+    (a, b, ct), (ta, tb, tct) = _grad_case(lead, k, n, dtype_name)
+    _, vjp = jax.vjp(jax_local_matmul, a, b)
+    ga, gb = vjp(ct)
+    ta.requires_grad_(True)
+    tb.requires_grad_(True)
+    out = local_matmul(ta, tb)
+    assert _k1_nodes(out) == 1
+    out.backward(tct)
+    for port, ref in ((ta.grad, ga), (tb.grad, gb)):
+        assert port.dtype == ta.dtype and port.shape == ref.shape
+        err = _rel_err(port.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+        assert err < GRAD_TOL[dtype_name], err
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+def test_function_is_the_node_of_a_2d_product(dtype_name):
+    _, (ta, tb, _) = _grad_case((32,), 16, 8, dtype_name)
+    out = matmul(ta.requires_grad_(True), tb)
+    assert isinstance(out.grad_fn, ops.ZorderMatmul._backward_cls)
+    with torch.no_grad():
+        assert matmul(ta, tb).grad_fn is None
+    assert matmul(ta.detach(), tb).grad_fn is None
+
+
+def test_bf16_product_with_fp32_output_differentiates_in_fp32():
+    """A bf16 product rounded to fp32: its fp32 cotangent meets the bf16
+    operands in fp32 (exact), one rounding to bf16 per gradient."""
+    (a, b, ct), (ta, tb, _) = _grad_case((16,), 24, 8, "bfloat16")
+    ct32 = jnp.asarray(np.random.default_rng(5).standard_normal((16, 8), dtype=np.float32))
+    _, vjp = jax.vjp(lambda x, y: jax_local_matmul(x, y, out_dtype=jnp.float32), a, b)
+    ga, gb = vjp(ct32)
+    ta.requires_grad_(True)
+    tb.requires_grad_(True)
+    out = local_matmul(ta, tb, out_dtype=torch.float32)
+    out.backward(torch.from_numpy(np.array(ct32)))
+    for port, ref in ((ta.grad, ga), (tb.grad, gb)):
+        assert port.dtype == torch.bfloat16
+        assert _rel_err(port.float().numpy(), np.asarray(ref.astype(jnp.float32))) < 2e-2
+
+
+@pytest.mark.parametrize("needs", ["both", "a", "b"])
+def test_backward_runs_the_kernels_products(monkeypatch, needs):
+    """The gradients come from the Function's own products through
+    ``ops._run`` (the kernel on the card, the plain version here), not
+    from autograd of the plain version: one call forward, one per operand
+    that requires grad backward, each at its transposed shape."""
+    calls = []
+    run = ops._run
+
+    def counted(a, b, blocks, order, out_dtype):
+        calls.append((tuple(a.shape), tuple(b.shape), a.is_contiguous(), b.is_contiguous()))
+        return run(a, b, blocks, order, out_dtype)
+
+    monkeypatch.setattr(ops, "_run", counted)
+    _, (ta, tb, tct) = _grad_case((40,), 24, 16, "float32")
+    ta.requires_grad_(needs in ("both", "a"))
+    tb.requires_grad_(needs in ("both", "b"))
+    matmul(ta, tb).backward(tct)
+    want = [((40, 24), (24, 16), True, True)]
+    if needs in ("both", "a"):
+        want.append(((40, 16), (16, 24), True, True))     # dA = dC @ B^T
+    if needs in ("both", "b"):
+        want.append(((24, 40), (40, 16), True, True))     # dB = A^T @ dC
+    assert calls == want
+    assert (ta.grad is not None) == (needs in ("both", "a"))
+    assert (tb.grad is not None) == (needs in ("both", "b"))
