@@ -169,6 +169,30 @@ Phases, each fatal on failure (no result line, non-zero exit):
    448 wide K1 launches a step (the forward recomputed), peak memory; (e)
    the smoke Llama with a failure injected: one restart, a falling loss,
    the restored state equal bit for bit to its checkpoint file.
+15. zoo-serve -- the MoE and MLA decoders, every leg fatal, each model
+   freed before the next: (a) a full-width, 2-layer fp32 deepseek-moe-16b
+   (its dense first layer and one MoE layer of all 64 experts) and
+   minicpm3-4b (two MLA layers), prefill + one decode step on the card
+   through K1 and on the CPU through the plain version, the same weights,
+   logits within ``MODEL_TOL``; (b) the full deepseek-moe-16b (28 layers,
+   bf16, random weights from a seeded generator) and (c) the full
+   minicpm3-4b (62 layers) behind ``Server``, run as phase 4 runs Llama:
+   tokens identical across two runs, a request served alone as in the
+   batch, bitwise the eager path's on the same bucket-padded batch, K1
+   replayed 7 x 28 = 196 and 7 x 62 = 434 times a forward (q, k, v, o or
+   MLA's wq_a, wq_b, wkv_a, wo; the dense MLP or the shared experts), all
+   thin; TTFT, p50 / p99, tokens/s, a step's device time by graph replay,
+   peak memory; every distinct K1 call (shape, blocks, order, types) of
+   one eager prefill and decode step at each bucket (M = 4, 8, 64, 256;
+   thin and wide) against the plain version on fresh seeded operands
+   within ``ROW_TOL``, and the batch-4 decode step's K1 calls timed beside
+   ``torch.matmul``, the plain version and their bound (phase 2's way);
+   the decode step's weight-read bound, deepseek's expert
+   products alone (``moe.expert_ffn`` over the 27 MoE layers' weights,
+   CUDA events) beside their bound, and one eager decode step profiled
+   (K1 and the rest by kernel name).  The reference's dense dispatch runs
+   every expert on every step, and MLA's cached path multiplies ``wkv_b``
+   in einsums, outside K1.
 
 On one card the collectives are device copies and "overlap" is only the
 order in which the rank threads issue work: no number of phases 7-9 or 11
@@ -218,6 +242,7 @@ from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
+from repro_torch.layers import moe as moe_layer  # noqa: E402
 from repro_torch.models.lm import cross_entropy  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.launch import perf_probe  # noqa: E402
@@ -546,8 +571,11 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_model(dev: torch.device) -> dict:
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2, dtype="float32")
+def phase_model(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "model") -> dict:
+    """A full-width, 2-layer fp32 ``arch``: prefill + one decode step on the
+    card through K1 and on the CPU through the plain version, the same
+    weights; logits within ``MODEL_TOL``, 7 K1 launches a layer a step."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(1), dev)
     cpu = torch.device("cpu")
@@ -572,11 +600,12 @@ def phase_model(dev: torch.device) -> dict:
             raise AssertionError(f"{what} logits malformed: {tuple(g.shape)}")
         errs[what] = ((g - c).abs().max() / c.abs().max()).item()
     launches = out["card"][3]
-    log(f"[model] 2-layer full-width fp32: prefill rel_err={errs['prefill']:.3e} "
+    log(f"[{tag}] {cfg.name} 2-layer full-width fp32: prefill rel_err={errs['prefill']:.3e} "
         f"decode rel_err={errs['decode']:.3e} K1 launches on card={launches} "
         f"(plain version on the cpu: {out['cpu'][3]} launches)")
-    if launches != 2 * 7 * 2 or out["cpu"][3] != 0:
-        raise AssertionError(f"expected 28 K1 launches on the card, 0 on the cpu; "
+    if launches != 2 * 7 * cfg.num_layers or out["cpu"][3] != 0:
+        raise AssertionError(f"expected {2 * 7 * cfg.num_layers} K1 launches on the card, "
+                             f"0 on the cpu; "
                              f"got {launches}, {out['cpu'][3]}")
     if max(errs.values()) >= MODEL_TOL:
         raise AssertionError(f"card and cpu logits disagree: {errs}")
@@ -700,12 +729,16 @@ def path_counts(path: dict, runs: list) -> None:
         raise AssertionError("the main path launched K1 no time")
 
 
-def phase_serve(dev: torch.device) -> dict:
-    """Phase 4: Llama-3.2-1B behind ``Server``, each bucket's steps captured
-    as CUDA graphs at warmup and replayed, against the eager path on the
-    same bucket-padded batch: identical tokens."""
-    cfg = get_config("llama3.2-1b")
+def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve",
+                measure=None) -> dict:
+    """Phase 4 (Llama-3.2-1B; phase 15 the zoo's models): ``arch`` at full
+    width and depth behind ``Server``, each bucket's steps captured as CUDA
+    graphs at warmup and replayed, against the eager path on the same
+    bucket-padded batch: identical tokens.  ``measure(model, params)`` runs
+    before the model is freed; its result is kept as ``"measured"``."""
+    cfg = get_config(arch)
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
@@ -722,11 +755,11 @@ def phase_serve(dev: torch.device) -> dict:
     server = Server(model, params, sc, buckets=SERVE_BUCKETS)
     warm = server.warmup()
     path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route)}
-    log(f"[serve] {cfg.name}: {n_params / 1e9:.3f}B params bf16 in {init_s:.1f}s; warmup "
+    log(f"[{tag}] {cfg.name}: {n_params / 1e9:.3f}B params bf16 in {init_s:.1f}s; warmup "
         + ", ".join(f"{k} {v['warm_s']:.2f}s + {v['graphs']} graphs captured in "
                     f"{v['capture_s']:.2f}s" for k, v in warm.items())
         + f"; K1 counted in warmup and captures {path['routes']}")
-    runs = served_runs(server, prompts, 2, "serve", cfg.vocab_size)
+    runs = served_runs(server, prompts, 2, tag, cfg.vocab_size)
     path_counts(path, runs)
     for r in runs:
         if not r["graphs"] or r["counted"] or r["routes"] != {"thin": want}:
@@ -739,14 +772,14 @@ def phase_serve(dev: torch.device) -> dict:
     if alone.new_tokens[0] != runs[0]["tokens"][2]:
         raise AssertionError("a request served alone decodes differently from "
                              "the same request in a batch")
-    eager = eager_runs(model, params, sc, prompts, 2, "serve")
+    eager = eager_runs(model, params, sc, prompts, 2, tag)
     for r in eager:
         if r["graphs"] or r["routes"] != {"thin": want} or r["counted"] != r["routes"]:
             raise AssertionError(f"an eager run launched {r['routes']}, want {want} thin")
         if r["tokens"] != runs[0]["tokens"]:
             raise AssertionError("the captured steps' tokens differ from the eager path's")
     path["report"] = server.cache_report()
-    log(f"[serve] tokens bitwise equal: graph replays, eager, a request served alone; "
+    log(f"[{tag}] tokens bitwise equal: graph replays, eager, a request served alone; "
         f"req0 tokens {runs[0]['tokens'][0][:8]}...; K1 on the main path: counted "
         f"{path['launches']} (warmup and captures), replayed "
         f"{path['report']['kernels']['zorder_matmul']['replayed']} "
@@ -755,18 +788,22 @@ def phase_serve(dev: torch.device) -> dict:
     summary = {name: {key: float(np.median([r[key] for r in rs]))
                       for key in ("ttft_ms", "p50_ms", "p99_ms", "tokens_per_s")}
                for name, rs in (("graphs", runs), ("eager", eager))}
-    log(f"[serve] device time per step (CUDA-graph replay, bucket 4x16): prefill "
+    log(f"[{tag}] device time per step (CUDA-graph replay, bucket 4x16): prefill "
         f"{device_ms['prefill']:.3f}ms, decode {device_ms['decode']:.3f}ms; decode p50 on the "
         f"host clock: graph replays {summary['graphs']['p50_ms']:.3f}ms, eager "
         f"{summary['eager']['p50_ms']:.3f}ms; K1 per step by route: {device_ms['routes']}")
     for step, r in device_ms["routes"].items():
         if r != {"thin": per_forward}:
             raise AssertionError(f"one {step} step launched K1 {r}, want {per_forward} thin")
+    measured = None if measure is None else measure(model, params)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"[{tag}] peak memory allocated {peak:.2f} GiB")
     del server, params
     torch.cuda.empty_cache()
     return {"params": n_params, "init_s": init_s, "warmup": warm, "runs": runs,
             "eager_runs": eager, "summary": summary, "path": path,
-            "launches_per_generate": want, "step_device_ms": device_ms}
+            "launches_per_generate": want, "step_device_ms": device_ms,
+            "peak_gib": peak, "measured": measured}
 
 
 def step_device_ms(model, params, dev: torch.device, bucket) -> dict:
@@ -1843,33 +1880,35 @@ def k1_calls():
         yield calls
 
 
-def check_tuned_calls(calls: list, tuned_plans: list, dev: torch.device) -> dict:
-    """Every distinct K1 call of a tuned run: its blocks and order must be
-    a tuned plan's, and K1 with them at the call's own shape and types must
-    agree with its plain version within ``ROW_TOL`` on fresh seeded
-    operands."""
-    tilings = {((p.tiling.block_m, p.tiling.block_n, p.tiling.block_k), p.tiling.order)
-               for p in tuned_plans}
+def check_k1_calls(calls: list, dev: torch.device, tuned_plans=None) -> dict:
+    """Every distinct K1 call of a run (as ``k1_calls`` lists them): K1
+    with the call's own shape, blocks, order and types must agree with its
+    plain version within ``ROW_TOL`` on fresh seeded operands.  With
+    ``tuned_plans``, its blocks and order must also be a tuned plan's."""
+    tilings = None if tuned_plans is None else {
+        ((p.tiling.block_m, p.tiling.block_n, p.tiling.block_k), p.tiling.order)
+        for p in tuned_plans}
     gen = torch.Generator(device=dev).manual_seed(5)
-    worst, rows = 0.0, []
+    worst, worst_abs, rows = 0.0, 0.0, []
     for (m, n, k, blocks, order, dt, out_dtype), count in sorted(Counter(calls).items(), key=str):
-        if (blocks, order) not in tilings:
+        if tilings is not None and (blocks, order) not in tilings:
             raise AssertionError(f"a tuned run called K1 at {m}x{n}x{k} with {blocks}/{order}, "
                                  f"which no tuned plan names ({sorted(tilings)})")
         a = torch.randn((m, k), generator=gen, device=dev).to(dt)
-        b = torch.randn((k, n), generator=gen, device=dev).to(dt)
+        b = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(dt)
         got = matmul(a, b, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
                      order=order, out_dtype=out_dtype)
         e = row_err(got, matmul_ref(a, b, out_dtype))
-        if not e["row_rel"] < min(ROW_TOL[dt], ROW_TOL[out_dtype]):
-            raise AssertionError(f"K1 with tuned {blocks}/{order} at {m}x{n}x{k} disagrees with "
+        if not e["finite"] or not e["row_rel"] < min(ROW_TOL[dt], ROW_TOL[out_dtype]):
+            raise AssertionError(f"K1 with {blocks}/{order} at {m}x{n}x{k} {dt} disagrees with "
                                  f"its plain version: {e}")
-        worst = max(worst, e["row_rel"])
+        worst, worst_abs = max(worst, e["row_rel"]), max(worst_abs, e["max_abs_err"])
         rows.append({"shape": [m, n, k], "blocks": list(blocks), "order": order,
-                     "route": k1.ROUTE_OF[dt, blocks],
+                     "route": k1.ROUTE_OF[dt, blocks], "dtype": str(dt).replace("torch.", ""),
                      "out_dtype": str(out_dtype).replace("torch.", ""), "calls": count,
-                     "row_rel": e["row_rel"]})
-    return {"distinct": rows, "calls": len(calls), "worst_row_rel": worst}
+                     "row_rel": e["row_rel"], "max_abs_err": e["max_abs_err"]})
+    return {"distinct": rows, "calls": len(calls), "worst_row_rel": worst,
+            "worst_abs_err": worst_abs}
 
 
 def forced_logits(model, params, dev, full: list, sp: int, offsets, mesh, tuning) -> list:
@@ -1914,7 +1953,7 @@ def tuned_planned_serve(dev: torch.device, mesh, table) -> dict:
     if eager[0]["tokens"] != runs[0]["tokens"]:
         raise AssertionError("the captured tuned planned steps' tokens differ from the eager "
                              "tuned planned path's")
-    checked = check_tuned_calls(calls, tuned_plans, dev)
+    checked = check_k1_calls(calls, dev, tuned_plans)
     log(f"[tuned-serve] tokens bitwise equal across the two captured runs and the eager tuned "
         f"run; its {checked['calls']} K1 calls, {len(checked['distinct'])} distinct (shape, "
         f"blocks, order, out type), each a tuned plan's and within ROW_TOL of the plain "
@@ -2590,6 +2629,188 @@ def flash_row(report: dict) -> dict:
     }
 
 
+# -- the MoE and MLA decoders (phase 15) ------------------------------------------------
+
+ZOO_ARCHS = ("deepseek-moe-16b", "minicpm3-4b")
+
+
+def weight_bytes(params) -> int:
+    """Bytes a decode step reads of the weights: every leaf but the
+    embedding table, of which it gathers a few rows (an untied model's
+    unembedding matrix is read whole)."""
+    table = params["embed"]["embedding"]
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params)
+               if t is not table)
+
+
+def expert_products(model, params, dev: torch.device, batch: int) -> dict:
+    """The MoE layers' expert products alone (``moe.expert_ffn``: gate, up,
+    SiLU, down on the stacked weights) at a decode step's shape, every MoE
+    layer's weights in turn in one CUDA graph (CUDA events), beside the
+    bound of reading those weights and the slots once."""
+    cfg = model.cfg
+    e, d, ff = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    cap = moe_layer._capacity(1, e, cfg.top_k, cfg.capacity_factor)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xe = torch.randn(batch, e, cap, d, generator=gen, device=dev).to(model.dtype)
+    calls = [(lp["moe"], xe) for lp in params["layers"]]
+    with torch.no_grad():
+        per_layer = graph_ms(moe_layer.expert_ffn, calls)
+    esize = torch.finfo(model.dtype).bits // 8
+    nbytes = len(calls) * (3 * e * d * ff + 2 * xe.numel()) * esize
+    flops = len(calls) * 2 * 3 * xe.numel() * ff
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[model.dtype] * 1e3
+    return {"layers": len(calls), "slots": list(xe.shape), "ms": per_layer * len(calls),
+            "ms_per_layer": per_layer, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def profile_decode_step(model, params, dev: torch.device, bucket) -> dict:
+    """One eager decode step at a bucket's shape under ``torch.profiler``
+    (untimed; the step's device time comes from graph replays): device
+    time by kernel name into K1 and the rest, the rest by top kernels and
+    operators; and K1's bound for the step, summed over the products it
+    ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch, seq = bucket
+    cache = model.init_cache(batch, 64, dev)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        1, model.cfg.vocab_size, size=(batch, seq))).to(dev)
+    offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        model.prefill(params, cache, tokens, offsets)
+        step = lambda: model.decode_step(params, cache, tokens[:, -1:], seq, offsets)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        with k1_calls() as calls, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    out = profile_split(prof)
+    out["k1_bound_ms"] = sum(bound(m, k, n, dtype)[0] for m, n, k, _, _, dtype, _ in calls)
+    return out
+
+
+def path_k1_calls(model, params, dev: torch.device) -> dict:
+    """K1's calls (``k1_calls``) of one eager prefill and one eager decode
+    step at each serving bucket, by (step, bucket)."""
+    out = {}
+    with torch.no_grad():
+        for batch, seq in SERVE_BUCKETS:
+            cache = model.init_cache(batch, 64, dev)
+            tokens = torch.from_numpy(np.random.default_rng(4).integers(
+                1, model.cfg.vocab_size, size=(batch, seq))).to(dev)
+            offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
+            with k1_calls() as pre:
+                model.prefill(params, cache, tokens, offsets)
+            with k1_calls() as dec:
+                model.decode_step(params, cache, tokens[:, -1:], seq, offsets)
+            out[f"prefill {batch}x{seq}"], out[f"decode {batch}x{seq}"] = pre, dec
+    return out
+
+
+def k1_step_times(calls: list, dev: torch.device) -> dict:
+    """K1, ``torch.matmul`` (the yardstick, never called by the port) and
+    the plain version on one forward's K1 calls: each distinct call timed
+    in turns by CUDA-graph replays over weight copies that exceed L2 (as
+    phase 2 times Llama's), times its count; and the bound of those calls."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tot = {"ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    t_bytes = t_ops = 0.0
+    for (m, n, k, blocks, order, dt, out_dtype), count in sorted(Counter(calls).items(), key=str):
+        if out_dtype != dt or dt != torch.bfloat16:
+            raise AssertionError(f"a serving step called K1 at {m}x{n}x{k} {dt} -> {out_dtype}")
+        _, wcalls = _decode_operands(dev, gen, m, k, n)
+
+        def kernel(a, b, blocks=blocks, order=order):
+            return matmul(a, b, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
+                          order=order)
+        t = {}
+        for name in ("ms", "library_ms", "plain_ms", "plain_ms", "library_ms", "ms"):
+            fn = {"ms": kernel, "library_ms": torch.matmul, "plain_ms": matmul_ref}[name]
+            t.setdefault(name, []).append(graph_ms(fn, wcalls))
+        for name, v in t.items():
+            tot[name] += count * min(v)
+        tot["bound_ms"] += count * bound(m, k, n, dt)[0]
+        t_bytes += count * (m * k + k * n + m * n) * 2 / PEAK_BYTES_S
+        t_ops += count * 2.0 * m * k * n / PEAK_FLOPS[dt]
+        del wcalls
+    tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    tot["products"] = len(calls)
+    return tot
+
+
+def check_zoo_k1(model, params, dev: torch.device, tag: str) -> dict:
+    """Every distinct K1 call of the served model's eager prefills and
+    decode steps at both buckets held against the plain version
+    (``check_k1_calls``), the worst row per shape logged; then the batch-4
+    decode step's calls timed (``k1_step_times``)."""
+    by_step = path_k1_calls(model, params, dev)
+    per_forward = 7 * model.cfg.num_layers
+    for step, calls in by_step.items():
+        if len(calls) != per_forward:
+            raise AssertionError(f"an eager {step} called K1 {len(calls)} times, "
+                                 f"want {per_forward}")
+    checked = check_k1_calls([c for calls in by_step.values() for c in calls], dev)
+    routes = {step: dict(Counter(k1.ROUTE_OF[c[5], c[3]] for c in calls))
+              for step, calls in by_step.items()}
+    log(f"[{tag}] K1 at the served model's own shapes: {checked['calls']} calls of the eager "
+        f"prefills and decode steps at both buckets ({routes}), {len(checked['distinct'])} "
+        f"distinct, each within ROW_TOL of the plain version (worst row rel "
+        f"{checked['worst_row_rel']:.3e}): " + ", ".join(
+            f"{'x'.join(map(str, r['shape']))} {r['route']} x{r['calls']} {r['row_rel']:.2e}"
+            for r in checked["distinct"]))
+    step = SERVE_BUCKETS[0]
+    times = k1_step_times(by_step[f"decode {step[0]}x{step[1]}"], dev)
+    log(f"[{tag}] K1 on one decode step's {times['products']} products at batch {step[0]}, "
+        f"timed alone: {times['ms']:.3f}ms, bound {times['bound_ms']:.3f}ms "
+        f"({times['bound_by']}), torch.matmul {times['library_ms']:.3f}ms, plain "
+        f"{times['plain_ms']:.3f}ms")
+    return {"routes": routes, "check": checked, "decode_step": times}
+
+
+def zoo_measure(dev: torch.device, tag: str):
+    """What phase 15 measures of a served model before it is freed: the
+    weight-read bound of a decode step, the expert products alone (MoE),
+    and one profiled decode step."""
+    def measure(model, params) -> dict:
+        batch = SERVE_BUCKETS[0][0]
+        nbytes = weight_bytes(params)
+        out = {"weight_bytes": nbytes, "weight_bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+        if model.cfg.num_experts:
+            out["experts"] = ex = expert_products(model, params, dev, batch)
+            log(f"[{tag}] expert products alone, {ex['layers']} MoE layers at slots "
+                f"{ex['slots']}: {ex['ms']:.3f}ms a decode step ({ex['ms_per_layer']:.4f}ms a "
+                f"layer), bound {ex['bound_ms']:.3f}ms ({ex['bound_by']}, "
+                f"{ex['bytes'] / 1e9:.2f} GB)")
+        out["k1"] = check_zoo_k1(model, params, dev, tag)
+        out["profile"] = prof = profile_decode_step(model, params, dev, SERVE_BUCKETS[0])
+        log(f"[{tag}] decode step weight-read bound {out['weight_bound_ms']:.3f}ms "
+            f"({nbytes / 1e9:.2f} GB); profiled eager step: device {prof['device_ms']:.3f}ms, "
+            f"K1 {prof['k1_ms']:.3f}ms ({prof['k1_launches']} launches, bound "
+            f"{prof['k1_bound_ms']:.3f}ms), rest "
+            f"{prof['rest_ms']:.3f}ms: " + ", ".join(
+                f"{k['kernel'][:60]} {k['ms']:.3f}ms x{k['launches']}"
+                for k in prof["rest_top_kernels"][:5]))
+        return out
+    return measure
+
+
+def phase_zoo_serve(dev: torch.device) -> dict:
+    """Phase 15: for deepseek-moe-16b and minicpm3-4b, (a) the full-width
+    2-layer fp32 model card vs CPU (phase 3's check), then (b, c) the full
+    model behind ``Server`` as phase 4 runs Llama, and what ``zoo_measure``
+    measures; each model freed before the next."""
+    out = {}
+    for arch in ZOO_ARCHS:
+        tag = f"zoo-{arch}"
+        out[arch] = {"model": phase_model(dev, arch, tag),
+                     "serve": phase_serve(dev, arch, tag, measure=zoo_measure(dev, tag))}
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2616,6 +2837,7 @@ def main() -> int:
     report["obs_drift"] = phase_obs_drift(dev, report["calibrate"]["profile_path"])
     report["profiler"] = phase_profiler(dev)
     report["train"] = phase_train(dev, gen)
+    report["zoo_serve"] = phase_zoo_serve(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -2647,7 +2869,15 @@ def main() -> int:
                              "train": report["train"]["path"]["launches"],
                              "train_4k_remat_full": sum(report["train"]["train_4k"]["routes"].values()),
                              "train_check_fp32": sum(report["train"]["check"]["launches"].values()),
-                             "train_restart_smoke": sum(report["train"]["restart"]["routes"].values())},
+                             "train_restart_smoke": sum(report["train"]["restart"]["routes"].values()),
+                             **{f"zoo_{arch}_{leg}": v
+                                for arch, z in report["zoo_serve"].items()
+                                for leg, v in (("serve", z["serve"]["path"]["launches"]),
+                                               ("serve_graph_replays_per_generate",
+                                                z["serve"]["runs"][0]["launches"]),
+                                               ("serve_eager_per_generate",
+                                                z["serve"]["eager_runs"][0]["launches"]),
+                                               ("check_fp32", z["model"]["launches"]))}},
         "routes": {"serve": report["serve"]["path"]["routes"],
                    "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
@@ -2665,9 +2895,17 @@ def main() -> int:
                    "train": report["train"]["path"]["routes"],
                    "train_4k_remat_full": report["train"]["train_4k"]["routes"],
                    "train_check_fp32": report["train"]["check"]["launches"],
-                   "train_restart_smoke": report["train"]["restart"]["routes"]},
+                   "train_restart_smoke": report["train"]["restart"]["routes"],
+                   **{f"zoo_{arch}_{leg}": v
+                      for arch, z in report["zoo_serve"].items()
+                      for leg, v in (("serve", z["serve"]["path"]["routes"]),
+                                     ("serve_graph_replays", z["serve"]["runs"][0]["routes"]),
+                                     *((f"serve_{step}_step", r) for step, r in
+                                       z["serve"]["step_device_ms"]["routes"].items()))}},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            report["train"]["kernel"]["worst_abs_err"],
+                           *(z["serve"]["measured"]["k1"]["check"]["worst_abs_err"]
+                             for z in report["zoo_serve"].values()),
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"])),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
@@ -2681,7 +2919,13 @@ def main() -> int:
                 report["long_prefill"]["k1_per_forward"],
             f"wide: Llama training step, {TRAIN_TOKENS} tokens (336 products: forward, dA, dB)":
                 {key: report["train"]["kernel"]["per_step"][key]
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            **{f"thin: {arch} decode step, M = 4 ({t['products']} products)":
+               {**{key: t[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                           "bound_by")},
+                "profiled_in_the_step_ms": z["serve"]["measured"]["profile"]["k1_ms"]}
+               for arch, z in report["zoo_serve"].items()
+               for t in (z["serve"]["measured"]["k1"]["decode_step"],)}},
     }, flash_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   device=torch.cuda.get_device_name(0))

@@ -3,7 +3,9 @@ port's, both ways.
 
 The reference keeps a nested dict of arrays with every per-layer parameter
 stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
-(L, d, h*hd)).  The port keeps a list of per-layer dicts.  Into the port,
+(L, d, h*hd); an MoE layer's expert weights are (L, E, d, ff); deepseek-moe's
+leading dense layers are a stack of their own, ``params["dense_layers"]``).
+The port keeps a list of per-layer dicts under the same keys.  Into the port,
 the input is that tree with numpy leaves (``jax.tree.map(np.asarray,
 params)``) or torch tensors (a tree ``checkpoint.store`` restored in that
 layout); numpy has no bfloat16 of its own, so every leaf crosses through
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import layer_stacks
 
 _TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,21 +51,21 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig,
                     device: DeviceLike = None) -> Dict:
     """The reference ``DecoderLM`` parameter tree -> the port's params."""
     device = resolve_device(device)
-    stacked = np_params["layers"]
-    n = stacked["attn_norm"].shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
 
     def layer(i, x):
         if isinstance(x, dict):
             return {k: layer(i, v) for k, v in x.items()}
         return tensor_from_numpy(x[i] if torch.is_tensor(x) else np.asarray(x)[i], device)
 
-    return {
-        "embed": _tree(np_params["embed"], device),
-        "final_norm": tensor_from_numpy(np_params["final_norm"], device),
-        "layers": [layer(i, stacked) for i in range(n)],
-    }
+    out = {"embed": _tree(np_params["embed"], device),
+           "final_norm": tensor_from_numpy(np_params["final_norm"], device)}
+    for key, _, want in layer_stacks(cfg):
+        stacked = np_params[key]
+        n = stacked["attn_norm"].shape[0]
+        if n != want:
+            raise ValueError(f"tree has {n} {key}, config {want}")
+        out[key] = [layer(i, stacked) for i in range(n)]
+    return out
 
 
 def _host(x):
@@ -73,18 +76,18 @@ def _host(x):
 
 def params_to_jax(params: Dict) -> Dict:
     """The port's params -> the reference ``DecoderLM`` layout: each
-    per-layer leaf stacked on a leading layer axis; torch tensors on the
-    CPU, types kept."""
-    layers = params["layers"]
-
+    per-layer leaf (of ``layers`` and, where present, ``dense_layers``)
+    stacked on a leading layer axis; torch tensors on the CPU, types kept."""
     def stack(*xs):
         if isinstance(xs[0], dict):
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
         return torch.stack([x.detach().cpu() for x in xs])
 
-    return {"embed": _host(params["embed"]),
-            "final_norm": _host(params["final_norm"]),
-            "layers": stack(*layers)}
+    out = {"embed": _host(params["embed"]), "final_norm": _host(params["final_norm"])}
+    for key in ("dense_layers", "layers"):
+        if key in params:
+            out[key] = stack(*params[key])
+    return out
 
 
 def state_to_jax(state: Dict) -> Dict:

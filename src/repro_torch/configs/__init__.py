@@ -2,9 +2,12 @@
 
 ``get_config(name)`` returns the published configuration and
 ``get_smoke_config(name)`` a reduced same-family one for CPU tests, as in
-``repro.configs``.  Ported so far: Llama-3.2-1B and h2o-danube-3-4b (dense
-GQA; danube adds a 4096-token sliding window and head dim 120).  The other
-reference architectures wait for their layer families.
+``repro.configs``.  Ported so far, the reference's ``DecoderLM`` families:
+dense GQA (Llama-3.2-1B; h2o-danube-3-4b with a 4096-token sliding window
+and head dim 120; granite-20b, MQA), MLA (minicpm3-4b), MoE (deepseek-moe-16b
+with shared experts and a leading dense layer; qwen3-moe-30b-a3b) and the
+early-fusion VLM backbone (chameleon-34b).  The recurrent and
+encoder-decoder architectures wait for their families.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("llama3_2_1b", "h2o_danube3_4b")
+ARCHS = ("llama3_2_1b", "granite_20b", "minicpm3_4b", "h2o_danube3_4b", "chameleon_34b",
+         "qwen3_moe_30b_a3b", "deepseek_moe_16b")
 
 ALIASES = {"llama3.2-1b": "llama3_2_1b", "h2o-danube-3-4b": "h2o_danube3_4b"}
 

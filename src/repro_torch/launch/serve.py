@@ -3,12 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --buckets 4x16 8x32 --max-new 16 [--mesh 2x2 [--strategy cannon]]
 
-Builds random weights from ``--seed`` (no checkpoint download), warms the
-(batch, seq) buckets, serves a synthetic request batch through the bucket
-router and prints throughput, TTFT, per-token latency quantiles and the
-Z-order kernel's launch count (on the card each bucket's steps are
-captured as CUDA graphs at warmup and replayed).  ``--mesh RxC`` routes every projection
-through the plan engine on an R x C mesh whose ranks all run on the one
+``--arch`` takes any ported architecture (``repro_torch.configs.ARCHS``:
+the dense, MoE and MLA decoders).  Builds random weights from ``--seed``
+(no checkpoint download), warms the (batch, seq) buckets, serves a
+synthetic request batch through the bucket router and prints throughput,
+TTFT, per-token latency quantiles and the Z-order kernel's launch count
+(on the card each bucket's steps are captured as CUDA graphs at warmup
+and replayed).  ``--mesh RxC`` routes every projection through the plan
+engine on an R x C mesh whose ranks all run on the one
 device (threads of this process), and prints the strategies it took;
 ``--strategy`` pins one.  Runs on ``cuda`` unless ``--device cpu`` is given
 (then every product takes the kernel's plain version); ``--smoke`` selects

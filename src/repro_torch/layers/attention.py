@@ -1,7 +1,8 @@
-"""GQA attention (covers MHA, MQA and sliding windows) with a KV cache.
+"""Attention layers with their caches: GQA (covers MHA, MQA and sliding
+windows) and MLA (latent-compressed KV, minicpm3).
 
-Counterpart of the GQA half of ``repro.layers.attention``.  Two attention
-cores, chosen by ``cfg.attn_impl`` as in the reference:
+Counterpart of ``repro.layers.attention``.  Two attention cores for GQA,
+chosen by ``cfg.attn_impl`` as in the reference:
 
 * ``xla`` -- the reference's chunked masked einsum and softmax in plain
   PyTorch, with fp32 statistics;
@@ -10,7 +11,15 @@ cores, chosen by ``cfg.attn_impl`` as in the reference:
   j, and has no mask for the per-row offsets of a cached serving batch.
 
 The q/k/v/o projections go through ``linear`` and so through the Z-order
-matmul kernel.  MLA waits for its slice.
+matmul kernel.
+
+MLA, as in the reference, never calls ``mha``.  Uncached, it expands the
+latent into per-head keys and values (``wkv_b`` through ``linear``) and
+attends with ``chunked_attention``.  Cached, it keeps the latent
+``{"c_kv", "k_rope"}`` and attends in the latent space: ``w_uk`` folded
+into the query, the shared rope key added, the offsets mask, ``w_uv``
+applied after, all in fp32 einsums (the reference's absorbed decode, which
+runs outside any Pallas kernel), so ``wkv_b`` takes no kernel launch there.
 
 The KV cache is preallocated and written in place (the reference returns
 a new cache from ``dynamic_update_slice``); a write past the cache end
@@ -38,6 +47,7 @@ import torch
 from repro_torch.kernels.flash_attention import mha
 from repro_torch.models.config import ModelConfig
 from .linear import linear, linear_params
+from .norms import rms_norm, rms_norm_params
 from .rope import apply_rope
 
 Params = Dict[str, torch.Tensor]
@@ -121,9 +131,11 @@ def gqa_params(generator: torch.Generator, cfg: ModelConfig,
 def check_cache_write(cfg: ModelConfig, cache: Cache, pos: int, s: int) -> None:
     """Raise where writing ``s`` tokens at slot ``pos`` would go wrong: a
     multi-token write into a rolling window cache, or a write past the
-    cache end."""
-    s_cache = cache["k"].shape[1]
-    rolling = cfg.window > 0 and s_cache == cfg.window
+    cache end.  ``cache`` is a GQA cache ``{"k", "v"}`` or an MLA latent
+    cache ``{"c_kv", "k_rope"}`` (never rolling, as in the reference)."""
+    latent = "c_kv" in cache
+    s_cache = cache["c_kv" if latent else "k"].shape[1]
+    rolling = not latent and cfg.window > 0 and s_cache == cfg.window
     if rolling and s > 1:
         raise ValueError(f"a write of {s} tokens into a rolling {s_cache}-slot "
                          f"window cache: only one token at a time is positioned "
@@ -207,3 +219,113 @@ def gqa_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
     shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (minicpm3): latent-compressed KV with absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def mla_params(generator: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype, device) -> Params:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": linear_params(generator, d, qr, dtype, device),
+        "q_norm": rms_norm_params(qr, device),
+        "wq_b": linear_params(generator, qr, h * (nope + rope), dtype, device),
+        "wkv_a": linear_params(generator, d, kvr + rope, dtype, device),
+        "kv_norm": rms_norm_params(kvr, device),
+        "wkv_b": linear_params(generator, kvr, h * (nope + vd), dtype, device),
+        "wo": linear_params(generator, h * vd, d, dtype, device),
+    }
+
+
+def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    b, s, _ = x.shape
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = linear(rms_norm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps), p["wq_b"])
+    q = q.reshape(b, s, cfg.num_heads, nope + rope)
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    kvr = cfg.kv_lora_rank
+    kv = linear(x, p["wkv_a"])
+    c_kv = rms_norm(kv[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_attention(
+    p: Params, x: torch.Tensor, cfg: ModelConfig,
+    positions: torch.Tensor,
+    cache: Optional[Cache] = None,
+    pos=None,
+    offsets: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """x: (B, S, d).  Without a cache: the expanded path.  With one: write
+    this step's latent at slot ``pos`` (an int, or a 0-d int64 tensor on
+    x's device, unchecked) in place and attend over the whole latent cache
+    (the absorbed path).  ``offsets`` and ``positions`` as in
+    ``gqa_attention``."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+
+    if cache is None:
+        # expanded path: materialise per-head K/V from the latent
+        kvb = linear(c_kv, p["wkv_b"]).reshape(b, s, h, nope + vd)
+        k_nope, v = kvb[..., :nope], kvb[..., nope:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        pdt = torch.bfloat16 if cfg.attn_probs_dtype == "bf16" else torch.float32
+        o = chunked_attention(q, k, v, positions, positions, chunk=cfg.attn_chunk,
+                              scale=scale, probs_dtype=pdt)
+    else:
+        if torch.is_tensor(pos):
+            rows = pos + torch.arange(s, device=x.device)
+            cache["c_kv"].index_copy_(1, rows, c_kv)
+            cache["k_rope"].index_copy_(1, rows, k_rope)
+        else:
+            check_cache_write(cfg, cache, pos, s)
+            cache["c_kv"][:, pos:pos + s] = c_kv
+            cache["k_rope"][:, pos:pos + s] = k_rope
+        cc, cr = cache["c_kv"].float(), cache["k_rope"].float()
+        # wkv_b's columns are per-head blocks of (nope + vd), as the
+        # expanded path's reshape reads them
+        w_b = p["wkv_b"].reshape(kvr, h, nope + vd).float()
+        w_uk, w_uv = w_b[:, :, :nope], w_b[:, :, nope:]
+        q_c = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk)   # w_uk folded into q
+        sc = torch.einsum("bshl,btl->bsht", q_c, cc)
+        sc = sc + torch.einsum("bshr,btr->bsht", q_rope.float(), cr)
+        sc = sc * scale
+        kpos = torch.arange(cc.shape[1], device=x.device)
+        if offsets is not None:
+            # per-row logical slot positions; left-padding slots (< 0) are
+            # masked, as GQA's kpos >= 0
+            kpos_b = kpos[None, :] - offsets[:, None]                  # (B, T)
+            valid = ((kpos_b[:, None, :] <= positions[:, :, None])
+                     & (kpos_b[:, None, :] >= 0))                      # (B, S, T)
+            sc = torch.where(valid[:, :, None, :], sc, _NEG)
+        else:
+            valid = kpos[None, :] <= positions[:, None]                # (S, T)
+            sc = torch.where(valid[None, :, None, :], sc, _NEG)
+        pr = torch.softmax(sc, dim=-1)
+        att_c = torch.einsum("bsht,btl->bshl", pr, cc)
+        o = torch.einsum("bshl,lhv->bshv", att_c, w_uv).to(x.dtype)
+    o = linear(o.reshape(b, s, h * vd), p["wo"])
+    return o, cache
+
+
+def mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
+              device) -> Cache:
+    return {
+        "c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_dim), dtype=dtype, device=device),
+    }

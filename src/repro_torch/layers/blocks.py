@@ -1,6 +1,8 @@
-"""Residual blocks.  Ported so far: ``attn_mlp`` (pre-norm GQA attention +
-dense SwiGLU, the llama family); the other kinds of ``repro.layers.blocks``
-wait for their layers."""
+"""Residual blocks.  Ported so far, the kinds of ``repro.layers.blocks``
+that ``DecoderLM`` runs: ``attn_mlp`` (pre-norm attention + dense SwiGLU:
+the llama family, chameleon, minicpm3) and ``attn_moe`` (pre-norm
+attention + MoE: qwen3-moe, deepseek-moe), each with GQA or MLA attention
+as ``cfg.attn_type`` says.  The recurrent kinds wait for their layers."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -8,17 +10,20 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from .attention import gqa_attention, gqa_params
+from .attention import gqa_attention, gqa_params, mla_attention, mla_params
 from .mlp import mlp, mlp_params
+from .moe import moe, moe_params
 from .norms import rms_norm, rms_norm_params
 
 Params = Dict
 
+KINDS = ("attn_mlp", "attn_moe")
+
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind != "attn_mlp":
+    if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(f"attention {cfg.attn_type!r} is not ported yet")
 
 
@@ -26,12 +31,15 @@ def block_params(generator: torch.Generator, cfg: ModelConfig, kind: str,
                  dtype: torch.dtype, device) -> Params:
     _check_kind(cfg, kind)
     d = cfg.d_model
-    return {
-        "attn_norm": rms_norm_params(d, device),
-        "attn": gqa_params(generator, cfg, dtype, device),
-        "mlp_norm": rms_norm_params(d, device),
-        "mlp": mlp_params(generator, d, cfg.d_ff, dtype, device),
-    }
+    attn = mla_params if cfg.attn_type == "mla" else gqa_params
+    p = {"attn_norm": rms_norm_params(d, device),
+         "attn": attn(generator, cfg, dtype, device),
+         "mlp_norm": rms_norm_params(d, device)}
+    if kind == "attn_mlp":
+        p["mlp"] = mlp_params(generator, d, cfg.d_ff, dtype, device)
+    else:
+        p["moe"] = moe_params(generator, cfg, dtype, device)
+    return p
 
 
 def block_apply(
@@ -41,13 +49,17 @@ def block_apply(
     pos=None,
     offsets: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
-    """Returns (x, aux, cache) like the reference; ``aux`` (the MoE load
-    loss) is 0 for ``attn_mlp``."""
+    """Returns (x, aux, cache) like the reference; ``aux`` is the MoE
+    load-balancing loss, 0 for ``attn_mlp``."""
     _check_kind(cfg, kind)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    attn = mla_attention if cfg.attn_type == "mla" else gqa_attention
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    a, cache = gqa_attention(p["attn"], h, cfg, positions, cache, pos, offsets=offsets)
+    a, cache = attn(p["attn"], h, cfg, positions, cache, pos, offsets=offsets)
     x = x + a
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    x = x + mlp(p["mlp"], h)
-    return x, aux, cache
+    if kind == "attn_mlp":
+        m = mlp(p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        m, aux = moe(p["moe"], h, cfg)
+    return x + m, aux, cache

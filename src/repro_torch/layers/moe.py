@@ -1,0 +1,133 @@
+"""Mixture-of-Experts: top-k token-choice routing with capacity (GShard
+dispatch/combine) and optional always-on shared experts (deepseek-moe).
+
+Counterpart of ``repro.layers.moe``, with the same semantics: tokens route
+in groups of ``min(moe_group_size, S)`` (``S % g`` must be 0), the router
+runs in fp32, gates are the top-k softmax probabilities renormalised,
+each choice takes the next free slot of its expert in the group (a
+per-choice cumulative count) and tokens past the capacity are dropped.
+The Switch load-balancing loss comes back beside the output.
+
+The expert products (SiLU(gate) * up, then down, on the stacked
+``(E, d, ff)`` / ``(E, ff, d)`` weights), the router and the one-hot
+dispatch and combine are ``torch.einsum`` products, as the reference
+computes them with ``jnp.einsum`` outside any Pallas kernel; the shared
+experts are an ``mlp`` and so go through ``linear`` and the Z-order
+kernel.  Every expert runs on every token group (the reference's dense
+dispatch): a decode step reads all expert weights.
+
+The layer can be captured in a CUDA graph: static shapes and no host
+synchronisation.  The one-hots are comparisons with an ``arange`` (not
+``F.one_hot``, which checks its indices on the host), and the top-k comes
+from a stable descending sort, so equal probabilities pick the lower
+expert index first, as ``jax.lax.top_k`` does (``torch.topk`` promises no
+order among ties).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from .mlp import mlp, mlp_params
+
+Params = Dict[str, torch.Tensor]
+
+
+def moe_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+               device) -> Params:
+    """The reference's distributions: router N(0, 0.02) in fp32, stacked
+    expert weights N(0, 1/d_in); shared experts one ``mlp`` of width
+    ``moe_d_ff * num_shared_experts``."""
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+
+    def normal(shape, std, out_dtype):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) * std
+        return w.to(device=device, dtype=out_dtype)
+
+    p: Params = {
+        "router": normal((d, e), 0.02, torch.float32),
+        "w_gate": normal((e, d, ff), d ** -0.5, dtype),
+        "w_up": normal((e, d, ff), d ** -0.5, dtype),
+        "w_down": normal((e, ff, d), ff ** -0.5, dtype),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_params(generator, d, ff * cfg.num_shared_experts, dtype, device)
+    return p
+
+
+def _capacity(group: int, num_experts: int, top_k: int, factor: float) -> int:
+    cap = int(group * top_k / num_experts * factor)
+    return max(4, (cap + 3) // 4 * 4)
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """fp32 one-hot of int ``idx`` over ``n`` classes, on the device."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values along the last dim and their indices,
+    largest first and equal values in index order, as ``jax.lax.top_k``."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its dispatched slots: xe (N, E, C, d) ->
+    (N, E, C, d) in xe's type; each product's output rounded to xe's type
+    before the fp32 SiLU and product, as the reference casts them."""
+    gate = torch.einsum("necd,edf->necf", xe, p["w_gate"]).float()
+    up = torch.einsum("necd,edf->necf", xe, p["w_up"]).float()
+    h = F.silu(gate) * up
+    return torch.einsum("necf,efd->necd", h.to(xe.dtype), p["w_down"])
+
+
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y (B, S, d) in x's type, aux loss fp32 scalar)."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    g = min(cfg.moe_group_size, s)
+    if s % g:
+        raise ValueError(f"sequence length {s} is not a multiple of the routing "
+                         f"group {g} (moe_group_size {cfg.moe_group_size})")
+    n = b * (s // g)
+    cap = _capacity(g, e, k, cfg.capacity_factor)
+    xg = x.reshape(n, g, d)
+    xf = xg.float()
+
+    logits = torch.einsum("ngd,de->nge", xf, p["router"].float())
+    probs = torch.softmax(logits, dim=-1)                           # (N, g, E)
+    gate_vals, expert_idx = top_k(probs, k)                         # (N, g, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+
+    # per-choice accumulation keeps intermediates at (N, g, E, C)
+    dispatch = torch.zeros((n, g, e, cap), dtype=torch.float32, device=x.device)
+    combine = torch.zeros_like(dispatch)
+    counts = torch.zeros((n, 1, e), dtype=torch.float32, device=x.device)  # used slots
+    for c in range(k):
+        oh = _one_hot(expert_idx[:, :, c], e)
+        pos = torch.cumsum(oh, dim=1) - 1.0 + counts                # (N, g, E)
+        keep = (pos < cap).float() * oh
+        slot = pos.clamp(0, cap - 1).to(torch.int64)
+        sel = _one_hot(slot, cap) * keep[..., None]
+        dispatch = dispatch + sel
+        combine = combine + sel * gate_vals[:, :, c, None, None]
+        counts = counts + keep.sum(dim=1, keepdim=True)
+
+    xe = torch.einsum("ngd,ngec->necd", xf, dispatch).to(x.dtype)   # (N, E, C, d)
+    ye = expert_ffn(p, xe)
+    y = torch.einsum("necd,ngec->ngd", ye.float(), combine)
+    y = y.to(x.dtype).reshape(b, s, d)
+
+    if "shared" in p:
+        y = y + mlp(p["shared"], x)
+
+    # Switch load-balance loss: E * mean_e f_e * P_e
+    f = _one_hot(expert_idx, e).sum(dim=2).mean(dim=1)              # (N, E)
+    pmean = probs.mean(dim=1)                                       # (N, E)
+    aux = e * (f * pmean).sum(dim=-1).mean()
+    return y, aux

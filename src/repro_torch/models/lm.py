@@ -1,11 +1,16 @@
-"""Decoder-only LM, dense family (counterpart of ``repro.models.lm``).
+"""Decoder-only LM covering the dense, MoE and VLM (early-fusion) families
+(counterpart of ``repro.models.lm``): GQA or MLA attention, dense or MoE
+blocks, and deepseek-moe's leading dense layers in their own short stack
+(``params["dense_layers"]``, ``cache["dense_layers"]``), run before the
+others.
 
 The reference stacks each parameter on a leading layer axis and runs the
 layers with ``lax.scan``; here the layers are a Python list of parameter
-dicts run in a Python loop, and the per-layer KV caches are preallocated
-tensors written in place.  ``decode_step`` takes the cache slot as an int
-or as a 0-d int64 tensor on the model's device (the reference's traced
-``pos``), so one captured CUDA graph serves every step.
+dicts run in a Python loop, and the per-layer caches (GQA's K/V, MLA's
+latent) are preallocated tensors written in place.  ``decode_step`` takes
+the cache slot as an int or as a 0-d int64 tensor on the model's device
+(the reference's traced ``pos``), so one captured CUDA graph serves every
+step.
 
 ``forward`` and ``loss`` are differentiable: every projection's product is
 the Z-order kernel's autograd node (``kernels.matmul.ops.ZorderMatmul``).
@@ -17,13 +22,13 @@ serving a ``"dots"`` config is unaffected.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.layers.attention import check_cache_write, gqa_cache
+from repro_torch.layers.attention import check_cache_write, gqa_cache, mla_cache
 from repro_torch.layers.blocks import block_apply, block_params
 from repro_torch.layers.embed import embed, embed_params, unembed
 from repro_torch.layers.norms import rms_norm, rms_norm_params
@@ -33,13 +38,22 @@ Params = Dict
 Cache = Dict
 
 
+def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
+    """(key, block kind, layer count) of each per-layer stack of the params
+    and the cache, in the order the layers run: deepseek-moe's leading
+    dense layers, then the rest."""
+    nd = cfg.first_dense_layers
+    kind = "attn_moe" if cfg.num_experts else "attn_mlp"
+    return ([("dense_layers", "attn_mlp", nd)] if nd else []) + [
+        ("layers", kind, cfg.num_layers - nd)]
+
+
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.num_experts or cfg.first_dense_layers or cfg.attn_type != "gqa":
-            raise NotImplementedError(
-                f"{cfg.name}: only dense GQA decoders are ported so far")
+        if cfg.attn_type not in ("gqa", "mla"):
+            raise NotImplementedError(f"{cfg.name}: attention {cfg.attn_type!r} is not "
+                                      f"ported yet")
         self.cfg = cfg
-        self.kind = "attn_mlp"
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
     # -- params -------------------------------------------------------------
@@ -49,13 +63,20 @@ class DecoderLM:
         ``generator``'s device and moved to ``device`` (default ``cuda``)."""
         device = resolve_device(device)
         cfg = self.cfg
-        return {
+        params = {
             "embed": embed_params(generator, cfg.vocab_size, cfg.d_model,
                                   cfg.tie_embeddings, self.dtype, device),
             "final_norm": rms_norm_params(cfg.d_model, device),
-            "layers": [block_params(generator, cfg, self.kind, self.dtype, device)
-                       for _ in range(cfg.num_layers)],
         }
+        for key, kind, n in layer_stacks(cfg):
+            params[key] = [block_params(generator, cfg, kind, self.dtype, device)
+                           for _ in range(n)]
+        return params
+
+    def stacks(self, tree: Dict) -> List[Tuple[str, list]]:
+        """(block kind, per-layer list) of ``tree`` (params or cache) in the
+        order the layers run (``layer_stacks``)."""
+        return [(kind, tree[key]) for key, kind, _ in layer_stacks(self.cfg)]
 
     # -- forward ------------------------------------------------------------
     def forward(self, params: Params, tokens: torch.Tensor
@@ -66,14 +87,15 @@ class DecoderLM:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         block = self._remat()
-        for lp in params["layers"]:
-            x, a = block(lp, x, positions)
-            aux = aux + a
+        for kind, layers in self.stacks(params):
+            for lp in layers:
+                x, a = block(lp, x, positions, kind)
+                aux = aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(params["embed"], x, cfg.vocab_size), aux
 
-    def _block(self, lp: Params, x: torch.Tensor, positions: torch.Tensor):
-        x, a, _ = block_apply(lp, x, self.cfg, self.kind, positions)
+    def _block(self, lp: Params, x: torch.Tensor, positions: torch.Tensor, kind: str):
+        x, a, _ = block_apply(lp, x, self.cfg, kind, positions)
         return x, a
 
     def _remat(self):
@@ -88,8 +110,8 @@ class DecoderLM:
             raise NotImplementedError(
                 "remat='dots' (save only the products' outputs) is not ported yet "
                 "(ROADMAP queue 1): train with remat='none' or 'full'")
-        return lambda lp, x, positions: checkpoint(self._block, lp, x, positions,
-                                                   use_reentrant=False)
+        return lambda lp, x, positions, kind: checkpoint(self._block, lp, x, positions,
+                                                         kind, use_reentrant=False)
 
     def loss(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         """Mean token cross-entropy over ``batch["labels"]`` (-100 =
@@ -101,8 +123,12 @@ class DecoderLM:
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device) -> Cache:
-        return {"layers": [gqa_cache(self.cfg, batch, max_seq, self.dtype, device)
-                           for _ in range(self.cfg.num_layers)]}
+        """One cache per layer: GQA's K/V or MLA's latent, with the leading
+        dense layers' caches under ``"dense_layers"``."""
+        cfg = self.cfg
+        mk = mla_cache if cfg.attn_type == "mla" else gqa_cache
+        return {key: [mk(cfg, batch, max_seq, self.dtype, device) for _ in range(n)]
+                for key, _, n in layer_stacks(cfg)}
 
     def prefill(self, params: Params, cache: Cache, tokens: torch.Tensor,
                 offsets: Optional[torch.Tensor] = None
@@ -136,16 +162,19 @@ class DecoderLM:
 
     def check_decode_pos(self, cache: Cache, pos: int) -> None:
         """Raise where a decode step at slot ``pos`` (an int on the host)
-        would write past the cache end."""
-        check_cache_write(self.cfg, cache["layers"][0], pos, 1)
+        would write past the cache end: GQA's K/V or MLA's latent cache,
+        the first layer's (every layer's cache has the same slots)."""
+        _, first_stack = self.stacks(cache)[0]
+        check_cache_write(self.cfg, first_stack[0], pos, 1)
 
     def _cached_forward(self, params: Params, cache: Cache, tokens: torch.Tensor,
                         positions: torch.Tensor, pos,
                         offsets: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
         cfg = self.cfg
         x = embed(params["embed"], tokens)
-        for lp, lc in zip(params["layers"], cache["layers"]):
-            x, _, _ = block_apply(lp, x, cfg, self.kind, positions, lc, pos, offsets)
+        for (kind, layers), (_, caches) in zip(self.stacks(params), self.stacks(cache)):
+            for lp, lc in zip(layers, caches):
+                x, _, _ = block_apply(lp, x, cfg, kind, positions, lc, pos, offsets)
         # only the last position's logits are returned: unembed just that row
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         return unembed(params["embed"], x, cfg.vocab_size)[:, -1], cache

@@ -60,6 +60,7 @@ from repro_torch.plan import cache_info, plan_cache
 from repro_torch.plan.lower_dist import executions_snapshot
 from repro_torch.runtime.serve import (ServeConfig, batch_requests, decode_loop, planned_scope,
                                        token_loop)
+from repro_torch.tree import tree_leaves
 
 from .buckets import Bucket, as_bucket, route
 
@@ -443,9 +444,10 @@ class Server:
 
 
 def _zero(cache: Dict) -> None:
-    for layer in cache["layers"]:
-        for t in layer.values():
-            t.zero_()
+    """Zero every layer's cache: ``layers`` and, where the model has them,
+    the leading ``dense_layers``; GQA's K/V or MLA's latent alike."""
+    for t in tree_leaves(cache):
+        t.zero_()
 
 
 def warmup(model, params, cfg: ServeConfig, *, mesh=None, strategy: Optional[str] = None,

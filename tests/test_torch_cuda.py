@@ -651,3 +651,83 @@ def test_trainer_restarts_on_the_card(cuda_device, tmp_path):
     losses = [h["loss"] for h in out["history"]]
     assert losses[-1] < losses[0]
     assert out["state"]["master"]["embed"]["embedding"].device.type == "cuda"
+
+
+# -- the MoE and MLA decoders on the card -------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
+def test_zoo_smoke_model_on_card_matches_cpu(cuda_device, arch):
+    """fp32 smoke model, the same weights on both devices: prefill and one
+    decode step through K1 on the card, the plain version on the CPU;
+    logits within 1e-4.  K1 takes 4 attention products a layer (q, k, v, o;
+    MLA's cached wq_a, wq_b, wkv_a, wo) and 3 more for a dense MLP or
+    shared experts: qwen3's MoE layers have none."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0), "cpu")
+    params = _to_device(cpu_params, cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(1, 256, size=(2, 8)))
+    offsets = torch.tensor([0, 3])
+    out = {}
+    for dev, p in ((cuda_device, params), (torch.device("cpu"), cpu_params)):
+        cache = model.init_cache(2, 16, dev)
+        before = kernel.launches
+        with torch.no_grad():
+            pre, _ = model.prefill(p, cache, tokens.to(dev), offsets.to(dev))
+            dec, _ = model.decode_step(p, cache, tokens[:, -1:].to(dev),
+                                       torch.tensor(8, device=dev), offsets.to(dev))
+        out[dev.type] = (pre.cpu(), dec.cpu(), kernel.launches - before)
+    per_layer = 4 + 3 * bool(cfg.num_shared_experts or not cfg.num_experts)
+    nd = cfg.first_dense_layers
+    per_forward = 7 * nd + per_layer * (cfg.num_layers - nd)
+    assert out["cuda"][2] == 2 * per_forward and out["cpu"][2] == 0
+    for i in (0, 1):
+        assert _rel_err(out["cuda"][i][:, :256], out["cpu"][i][:, :256]) < 1e-4
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "minicpm3-4b"])
+def test_captured_moe_and_mla_steps_serve_the_eager_tokens_bitwise(cuda_device, arch):
+    """The bf16 smoke deepseek (a dense layer, then MoE) and minicpm3 (MLA)
+    behind ``Server``: each bucket's prefill and decode step captured (the
+    MoE routing and the latent cache write included) and replayed give the
+    eager path's tokens bit for bit, and one captured decode step's logits
+    equal an eager step's on the same cache."""
+    from repro_torch.runtime.serve import ServeConfig
+    from repro_torch.serve import Server
+
+    model = build_model(get_smoke_config(arch))
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    server = Server(model, params, ServeConfig(max_new_tokens=6, max_seq=32),
+                    buckets=[(4, 8), (2, 16)])
+    report = server.warmup()
+    assert all(r["graphs"] == 2 for r in report.values())
+    for prompts in (SERVE_PROMPTS, SERVE_PROMPTS[:2], [[3] * 12]):
+        kernel.reset_launches()
+        got = server.generate(prompts)
+        assert got.graphs and kernel.launches == 0
+        assert got.new_tokens == _eager_tokens(server, prompts)[0]
+    rep = server.cache_report()
+    replays = sum(s["replays"] for g in rep["graphs"].values() for s in g.values())
+    assert rep["kernels"]["zorder_matmul"]["replayed"] == replays * 7 * model.cfg.num_layers
+    # one decode step: captured against eager, on copies of the same cache
+    g = server._captured[next(iter(server._captured))]
+    cache = _to_device(g.cache, cuda_device)         # a copy of the bucket's cache
+    g.cur.fill_(5)
+    g.pos.fill_(g.tokens.shape[1])
+    with torch.no_grad():
+        eager, _ = model.decode_step(params, cache, g.cur.clone(), g.pos.clone(),
+                                     g.offsets.clone())
+    captured = server._replay_step(g.steps["decode"])
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)

@@ -51,13 +51,17 @@ NEW_MODULES = ["repro_torch.obs.runtime", "repro_torch.obs.metrics", "repro_torc
                "repro_torch.launch.perf_probe", "repro_torch.tree",
                "repro_torch.optim.adamw", "repro_torch.data.pipeline",
                "repro_torch.checkpoint.store", "repro_torch.runtime.train",
-               "repro_torch.launch.train"]
+               "repro_torch.launch.train", "repro_torch.layers.moe",
+               "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.qwen3_moe_30b_a3b",
+               "repro_torch.configs.minicpm3_4b", "repro_torch.configs.granite_20b",
+               "repro_torch.configs.chameleon_34b"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_the_hygiene_walk_covers_the_measurement_loop(name):
     """The subprocess walk above imports every module of the package; the
-    measurement loop's and the training path's modules are among them."""
+    measurement loop's, the training path's and the layer zoo's modules
+    are among them."""
     import pkgutil
 
     import repro_torch

@@ -308,3 +308,53 @@ def test_the_int_slots_raises_stay_and_the_host_check_raises_for_a_tensor_slot(
         attention.gqa_attention(layer, x, cfg, torch.arange(8), rolling["layers"][0],
                                 torch.tensor(0))
     dmodel.check_decode_pos(rolling, 1000)      # a rolling cache takes any slot
+
+
+# -- the zoo's blocks: attn_moe, and MLA inside either kind --------------------------
+
+
+@pytest.mark.parametrize("arch, stack, kind", [
+    ("deepseek-moe-16b", "dense_layers", "attn_mlp"), ("deepseek-moe-16b", "layers", "attn_moe"),
+    ("qwen3-moe-30b-a3b", "layers", "attn_moe"), ("minicpm3-4b", "layers", "attn_mlp")])
+@pytest.mark.parametrize("cached", [False, True])
+def test_zoo_block_matches_reference(arch, stack, kind, cached):
+    """One block of each new kind and attention, uncached (S = 64) and as a
+    cached prefill of 8 left-padded tokens: (x, aux) against the reference's
+    ``block_apply`` within 1e-5 (aux 1e-6)."""
+    from repro.layers.blocks import block_apply as jax_block_apply
+    from repro_torch.layers.blocks import block_apply
+
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    jp = jax.tree.map(lambda a: a[0], jparams[stack])
+    tp = tparams[stack][0]
+    if not cached:
+        x, pos = _np(30, 2, 64, 64), np.arange(64)
+        ref, ref_aux, _ = jax_block_apply(jp, jnp.asarray(x), jcfg, kind, jnp.asarray(pos))
+        out, aux, cache = block_apply(tp, torch.from_numpy(x), tcfg, kind, torch.from_numpy(pos))
+        assert cache is None
+    else:
+        off = np.array([0, 3])
+        x, pos = _np(31, 2, 8, 64), np.arange(8)[None, :] - off[:, None]
+        jc = jax.tree.map(lambda a: a[0], jmodel.init_cache(2, 16)[stack])
+        tc = tmodel.init_cache(2, 16, CPU)[stack][0]
+        ref, ref_aux, _ = jax_block_apply(jp, jnp.asarray(x), jcfg, kind, jnp.asarray(pos), jc,
+                                          jnp.int32(0), jnp.asarray(off))
+        out, aux, _ = block_apply(tp, torch.from_numpy(x), tcfg, kind, torch.from_numpy(pos), tc,
+                                  0, torch.from_numpy(off))
+    _close(out, ref)
+    assert abs(float(aux) - float(ref_aux)) < 1e-6
+    assert (float(aux) > 0) == (kind == "attn_moe")
+
+
+def test_block_kinds_not_yet_ported_raise():
+    from repro_torch.layers.blocks import block_params
+
+    cfg = get_smoke_config("deepseek-moe-16b")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        block_params(torch.Generator().manual_seed(0), cfg, "mamba", torch.float32, CPU)
+    with pytest.raises(NotImplementedError, match="attention 'none'"):
+        build_model(dataclasses.replace(cfg, attn_type="none"))

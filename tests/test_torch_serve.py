@@ -216,7 +216,7 @@ def test_configs_hold_the_published_llama():
     per_layer = cfg._attn_params() + cfg._mlp_params(cfg.d_ff)
     assert per_layer == 60_817_408
     with pytest.raises(ValueError, match="not ported"):
-        get_config("granite-20b")
+        get_config("zamba2-2.7b")
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
@@ -380,3 +380,245 @@ def test_generate_checks_each_slot_on_the_host(pair, monkeypatch):
     generate(tmodel, tparams, np.array([[5, 6, 7]], np.int32),
              ServeConfig(max_new_tokens=4, max_seq=16))
     assert seen == [3, 4, 5]
+
+
+# -- the MoE and MLA decoders, and the dense configs that lacked only their file --------
+
+ZOO = ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "minicpm3-4b", "granite-20b", "chameleon-34b"]
+
+
+def _row_rel(port, ref) -> float:
+    """Worst row's relative L2 error (rows along the last dim)."""
+    port = port.detach().float().numpy() if torch.is_tensor(port) else np.asarray(port)
+    ref = np.asarray(ref, np.float32)
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    p, r = port.reshape(-1, ref.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    return float(np.max(np.linalg.norm(p - r, axis=1)
+                        / np.maximum(np.linalg.norm(r, axis=1), 1e-30)))
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
+@pytest.mark.parametrize("arch", ZOO)
+def test_configs_hold_the_reference_zoo(arch, which):
+    """Each new config is the reference's, field by field."""
+    get = {"CONFIG": (get_config, jax_get_config),
+           "SMOKE": (get_smoke_config, jax_smoke_config)}[which]
+    port, ref = (g(arch) for g in get)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+def test_full_width_zoo_shapes():
+    """The two models served on the card: deepseek-moe-16b (a dense first
+    layer, 27 MoE layers of 64 routed experts top-6 and 2 shared) and
+    minicpm3-4b (62 MLA layers)."""
+    ds, mc = get_config("deepseek-moe-16b"), get_config("minicpm3-4b")
+    assert (ds.num_layers, ds.first_dense_layers, ds.num_experts, ds.top_k,
+            ds.num_shared_experts, ds.moe_d_ff, ds.d_ff) == (28, 1, 64, 6, 2, 1408, 10944)
+    assert (mc.num_layers, mc.attn_type, mc.q_lora_rank, mc.kv_lora_rank) == (62, "mla", 768,
+                                                                               256)
+    assert all(get_config(a).remat == "dots" for a in ZOO)
+    for arch, family in zip(ZOO, ("moe", "moe", "dense", "dense", "vlm")):
+        assert type(build_model(get_config(arch))).__name__ == "DecoderLM"
+        assert get_config(arch).family == family
+
+
+@pytest.fixture(scope="module", params=ZOO)
+def zoo(request):
+    """(jax model, jax params, port model, port params) of one fp32 smoke
+    model of the zoo."""
+    arch = request.param
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    return jmodel, jparams, build_model(tcfg), tparams
+
+
+def test_zoo_forward_loss_and_aux_match_jax(zoo):
+    """Logits per row within 1e-5 over the real vocabulary, the loss within
+    1e-5 and the MoE aux loss within 1e-6 (0 for the dense models)."""
+    jmodel, jparams, tmodel, tparams = zoo
+    v = tmodel.cfg.vocab_size
+    rng = np.random.default_rng(20)
+    tokens = rng.integers(0, v, size=(2, 64))
+    labels = rng.integers(0, v, size=(2, 64))
+    labels[0, :5] = -100
+    ref, ref_aux = jmodel.forward(jparams, jnp.asarray(tokens))
+    ref_loss, ref_parts = jmodel.loss(jparams, {"tokens": jnp.asarray(tokens),
+                                                "labels": jnp.asarray(labels)})
+    with torch.no_grad():
+        out, aux = tmodel.forward(tparams, torch.from_numpy(tokens))
+        loss, parts = tmodel.loss(tparams, {"tokens": torch.from_numpy(tokens),
+                                            "labels": torch.from_numpy(labels)})
+    assert _row_rel(out[..., :v], np.asarray(ref)[..., :v]) < 1e-5
+    assert abs(float(aux) - float(ref_aux)) < 1e-6
+    assert abs(float(parts["aux"]) - float(ref_parts["aux"])) < 1e-6
+    assert abs(float(loss) - float(ref_loss)) < 1e-5 * abs(float(ref_loss))
+    assert (float(aux) > 0) == bool(tmodel.cfg.num_experts)
+
+
+@pytest.mark.parametrize("with_offsets", [False, True])
+def test_zoo_prefill_and_tensor_slot_decode_match_jax(zoo, with_offsets):
+    """``prefill(offsets=)`` over a left-padded batch, then 4 decode steps
+    with the slot a 0-d tensor: last-token logits per row within 1e-5."""
+    jmodel, jparams, tmodel, tparams = zoo
+    v = tmodel.cfg.vocab_size
+    prompts = [[5, 6, 7], [9, 2, 3, 4, 1], [17, 3], [8, 8, 8, 8, 8, 8, 1, 2]]
+    batch, lens = batch_requests(prompts)
+    b, sp = batch.shape
+    off = (sp - lens).astype(np.int64) if with_offsets else None
+    jo = jnp.asarray(off, jnp.int32) if with_offsets else None
+    to = torch.from_numpy(off) if with_offsets else None
+    jcache = jmodel.init_cache(b, 16)
+    tcache = tmodel.init_cache(b, 16, torch.device("cpu"))
+    ref, jcache = jmodel.prefill(jparams, jcache, jnp.asarray(batch), jo)
+    with torch.no_grad():
+        out, tcache = tmodel.prefill(tparams, tcache, torch.from_numpy(batch).long(), to)
+    assert _row_rel(out[:, :v], np.asarray(ref)[:, :v]) < 1e-5
+    cur = np.argmax(np.asarray(ref)[:, :v], axis=-1)
+    for t in range(sp, sp + 4):
+        ref, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(cur[:, None]),
+                                         jnp.int32(t), jo)
+        with torch.no_grad():
+            out, tcache = tmodel.decode_step(tparams, tcache,
+                                             torch.from_numpy(cur[:, None]).long(),
+                                             torch.tensor(t), to)
+        assert _row_rel(out[:, :v], np.asarray(ref)[:, :v]) < 1e-5
+        cur = np.argmax(np.asarray(ref)[:, :v], axis=-1)
+
+
+def test_zoo_server_tokens_match_reference_generate(zoo):
+    """``Server`` (bucket 4x16) against the reference's ``generate`` on the
+    same bucket-padded batch (``batch_requests(prompts + dummies,
+    pad_to=16)``): greedy tokens equal.  The MoE routes the padded batch,
+    pad tokens included, so the reference is run on that batch, not on each
+    prompt alone."""
+    from repro_torch.serve.server import DUMMY_TOKEN, PAD_ID
+
+    jmodel, jparams, tmodel, tparams = zoo
+    scfg = dict(max_new_tokens=6, max_seq=32)
+    srv = Server(tmodel, tparams, ServeConfig(**scfg), buckets=[(4, 16)])
+    srv.warmup()
+    for prompts in (PROMPTS, PROMPTS[:3]):
+        res = srv.generate(prompts)
+        assert res.bucket == "4x16"
+        batch, lens = batch_requests(list(prompts) + [[DUMMY_TOKEN]] * (4 - len(prompts)),
+                                     PAD_ID, pad_to=16)
+        full = jax_generate(jmodel, jparams, batch, JaxServeConfig(**scfg), lens=lens)
+        assert res.sequences == [full[i, 16 - int(lens[i]):].tolist()
+                                 for i in range(len(prompts))]
+
+
+def test_zoo_params_and_optimizer_state_cross_both_ways_bitwise(zoo):
+    """The reference's tree (``dense_layers``, the stacked (L, E, d, ff)
+    expert weights, the fp32 router, the shared experts, the MLA leaves) into
+    the port and back, leaf for leaf; AdamW state too."""
+    from repro.optim import adamw as jax_adamw
+    from repro_torch.checkpoint import params_to_jax, state_from_jax, state_to_jax
+
+    jmodel, jparams, tmodel, _ = zoo
+    cfg = tmodel.cfg
+    for tree, there, back in (
+            (jparams, lambda t: params_from_jax(t, cfg, device="cpu"), params_to_jax),
+            (jax_adamw.init(jparams), lambda t: state_from_jax(t, cfg, device="cpu"),
+             state_to_jax)):
+        np_tree = jax.tree.map(np.asarray, tree)
+        round_trip = back(there(np_tree))
+        want = jax.tree_util.tree_flatten_with_path(np_tree)[0]
+        got = dict(jax.tree_util.tree_flatten_with_path(
+            jax.tree.map(lambda t: t.float().numpy(), round_trip))[0])
+        assert len(got) == len(want)
+        for path, leaf in want:
+            np.testing.assert_array_equal(got[path], np.asarray(leaf, np.float32),
+                                          err_msg=jax.tree_util.keystr(path))
+    stacks = {k: len(v) for k, v in params_from_jax(
+        jax.tree.map(np.asarray, jparams), cfg, device="cpu").items() if k.endswith("layers")}
+    nd = cfg.first_dense_layers
+    assert stacks == ({"dense_layers": nd} if nd else {}) | {"layers": cfg.num_layers - nd}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "minicpm3-4b"])
+def test_moe_padding_routes_pad_tokens_as_the_reference_does(arch):
+    """Reference behaviour, copied on purpose: the MoE routes pad tokens and
+    sizes its groups by the padded length, so a 12-token prompt left-padded
+    by 4 into a 16-token batch gives last-token logits far (> 1e-2) from
+    the same prompt prefilled alone, on both packages alike, while each
+    agrees with the other within 1e-5.  Without MoE (minicpm3) padding
+    changes nothing past fp32 rounding."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    v = tcfg.vocab_size
+    prompt = np.random.default_rng(21).integers(1, v, size=(1, 12))
+    padded = np.concatenate([np.zeros((1, 4), prompt.dtype), prompt], axis=1)
+    logits = {}
+    for name, toks, off in (("alone", prompt, None), ("padded", padded, np.array([4]))):
+        ref, _ = jmodel.prefill(jparams, jmodel.init_cache(1, 16), jnp.asarray(toks),
+                                None if off is None else jnp.asarray(off, jnp.int32))
+        with torch.no_grad():
+            out, _ = tmodel.prefill(tparams, tmodel.init_cache(1, 16, torch.device("cpu")),
+                                    torch.from_numpy(toks),
+                                    None if off is None else torch.from_numpy(off))
+        assert _row_rel(out[:, :v], np.asarray(ref)[:, :v]) < 1e-5
+        logits[name] = (out[:, :v], np.asarray(ref)[:, :v])
+    port_gap = _row_rel(logits["padded"][0], logits["alone"][0].numpy())
+    ref_gap = _row_rel(logits["padded"][1], logits["alone"][1])
+    if tcfg.num_experts:
+        assert port_gap > 1e-2 and ref_gap > 1e-2
+    else:
+        assert port_gap < 1e-5 and ref_gap < 1e-5
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_launcher_serves_the_zoo_smoke_on_cpu(arch, capsys):
+    from repro_torch.launch import serve as launch_serve
+
+    assert launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--max-new", "3",
+                              "--buckets", "4x16"]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={get_smoke_config(arch).name}" in out and "bucket=4x16" in out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "minicpm3-4b"])
+def test_plan_routed_zoo_server_matches_local(arch):
+    """``Server(mesh=(2, 2))`` on the CPU thread mesh: every ``linear``
+    (attention, the dense layer, the shared experts, MLA's projections) runs
+    through the plan engine, the MoE and MLA einsums stay local, and the
+    tokens equal ``mesh=None``'s; 7 planned products a layer a forward."""
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    tmodel = build_model(tcfg)
+    tparams = tmodel.init(torch.Generator().manual_seed(3), "cpu")
+    scfg = ServeConfig(max_new_tokens=4, max_seq=32)
+    local = Server(tmodel, tparams, scfg, buckets=[(4, 8)])
+    planned = Server(tmodel, tparams, scfg, mesh=(2, 2), buckets=[(4, 8)])
+    local.warmup()
+    planned.warmup()
+    assert planned.generate(PROMPTS).new_tokens == local.generate(PROMPTS).new_tokens
+    assert sum(planned.plan_report()["strategies"].values()) == 4 * 7 * tcfg.num_layers
+
+
+def test_server_zeroes_the_dense_layers_cache_too():
+    """A bucket's cache is zeroed for each batch, the leading dense layers'
+    included: the same batch served twice gives the same tokens, and
+    ``_zero`` clears every leaf of an MoE or MLA model's cache."""
+    from repro_torch.serve.server import _zero
+
+    for arch in ("deepseek-moe-16b", "minicpm3-4b"):
+        tmodel = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
+        cache = tmodel.init_cache(2, 8, torch.device("cpu"))
+        for stack in cache.values():
+            for layer in stack:
+                for t in layer.values():
+                    t.fill_(1.0)
+        _zero(cache)
+        assert all(not t.any() for stack in cache.values() for layer in stack
+                   for t in layer.values())
+        assert ("dense_layers" in cache) == (arch == "deepseek-moe-16b")
+        tparams = tmodel.init(torch.Generator().manual_seed(4), "cpu")
+        srv = Server(tmodel, tparams, ServeConfig(max_new_tokens=4, max_seq=32),
+                     buckets=[(4, 8)])
+        srv.warmup()
+        assert srv.generate(PROMPTS).new_tokens == srv.generate(PROMPTS).new_tokens
