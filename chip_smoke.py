@@ -193,6 +193,27 @@ Phases, each fatal on failure (no result line, non-zero exit):
    (K1 and the rest by kernel name).  The reference's dense dispatch runs
    every expert on every step, and MLA's cached path multiplies ``wkv_b``
    in einsums, outside K1.
+16. families -- the recurrent and encoder-decoder families, every leg
+   fatal, each model freed before the next: (a) zamba2-2.7b (6 Mamba
+   layers and the shared block), xlstm-350m (one mmm-s group) and
+   seamless-m4t-medium (1 encoder + 1 decoder layer) at full width in
+   fp32, card vs CPU, the same weights: the uncached forward's, the
+   teacher-forced prefill's and one decode step's logits within
+   ``MODEL_TOL``, K1 all fma; (b) the full zamba2-2.7b (54 layers) and
+   xlstm-350m (24) behind ``Server``, run as phase 4 runs Llama (the
+   prefill is one decode step a prompt token, captured whole): tokens
+   bitwise equal across runs, alone and eager, K1 180 and 78 a step all
+   thin, and measured as phase 15 measures the zoo (every distinct K1 call
+   vs the plain version, the decode step's K1 timed beside ``torch.matmul``
+   and its bound, the weight and state bound, a profiled step); (c) the
+   full seamless-m4t-medium: ``encode`` of a seeded (4, 1024, 1024)
+   source with K2 non-causal, ``prefill_cross``, 16 greedy steps; the xla
+   route fed the same tokens within ``PREFILL_LOGITS_TOL`` per row, another
+   source changes the tokens, K2 at the encoder's shape and every distinct
+   K1 call vs the plain version; (d) the full zamba2 forward at 8192 tokens
+   (``attn_impl="flash"``): K1 180 wide, K2 9 wgmma at head dim 80, within
+   ``PREFILL_LOGITS_TOL`` of the xla route, profiled into K1, K2 and the
+   SSD chunk scan, K2 at that shape vs its plain version and SDPA.
 
 On one card the collectives are device copies and "overlap" is only the
 order in which the rank threads issue work: no number of phases 7-9 or 11
@@ -242,6 +263,7 @@ from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
+from repro_torch.layers import mamba2 as mamba2_layer  # noqa: E402
 from repro_torch.layers import moe as moe_layer  # noqa: E402
 from repro_torch.models.lm import cross_entropy  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -252,6 +274,8 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.plan import build_plan, execute_plan, planned_matmuls, plan_cache  # noqa: E402
 from repro_torch.runtime.serve import (ServeConfig, batch_requests, decode_loop,  # noqa: E402
                                        planned_scope, token_loop)
+from repro_torch.runtime.serve import decode_step as serve_step  # noqa: E402
+from repro_torch.runtime.serve import prefill as serve_prefill  # noqa: E402
 from repro_torch.runtime.train import TrainConfig, Trainer  # noqa: E402
 from repro_torch.serve import Server, as_bucket, route as serve_route  # noqa: E402
 from repro_torch.serve.server import DUMMY_TOKEN, PAD_ID  # noqa: E402
@@ -717,6 +741,31 @@ def eager_runs(model, params, sc, prompts, reps: int, tag: str, *, mesh=None, tu
     return runs
 
 
+def k1_per_step(cfg) -> int:
+    """K1 launches of one forward step (a one-pass prefill or a decode
+    step): 7 a decoder layer (4 attention products, MLA's included, and 3
+    of a dense MLP or the shared experts); zamba2 2 a Mamba layer (in_proj,
+    out_proj) and 8 a shared block (shared_in, q, k, v, o, gate, up, down);
+    xLSTM 4 an mLSTM block, 1 an sLSTM block; the encoder-decoder's decode
+    step 9 a decoder layer (self q, k, v, o; cross q and o over the cached
+    K/V; the MLP's 3)."""
+    if cfg.family == "hybrid":
+        return 2 * cfg.num_layers + 8 * (cfg.num_layers // cfg.shared_attn_every)
+    if cfg.family == "ssm":
+        n_m = sum(1 for b in cfg.block_pattern if b == "mlstm")
+        groups = cfg.num_layers // len(cfg.block_pattern)
+        return groups * (4 * n_m + len(cfg.block_pattern) - n_m)
+    if cfg.family == "audio":
+        return 9 * cfg.dec_layers
+    return 7 * cfg.num_layers
+
+
+def prefill_steps(model, seq: int) -> int:
+    """Forward steps of a prefill of ``seq`` tokens: one pass where the
+    model has ``prefill``, else one decode step a token (teacher forcing)."""
+    return 1 if hasattr(model, "prefill") else seq
+
+
 def path_counts(path: dict, runs: list) -> None:
     """Add the runs' counted K1 launches (none for graph replays) to the
     count the main path's warmup and captures left, and fail if the path
@@ -748,8 +797,11 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in (5, 9, 12, 16)]
-    per_forward = 7 * cfg.num_layers
-    want = per_forward * SERVE_NEW
+    per_forward = k1_per_step(cfg)
+    seq = serve_route(len(prompts), max(len(p) for p in prompts),
+                      [as_bucket(b) for b in SERVE_BUCKETS]).seq
+    forwards = prefill_steps(model, seq) + SERVE_NEW - 1
+    want = per_forward * forwards
     # the main path: counts from 0 before the server is built, read after its runs
     k1.reset_launches()
     server = Server(model, params, sc, buckets=SERVE_BUCKETS)
@@ -765,7 +817,7 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
         if not r["graphs"] or r["counted"] or r["routes"] != {"thin": want}:
             raise AssertionError(f"a captured run launched {r['routes']} (counted from Python "
                                  f"{r['counted']}), want {want} on the thin route by graph "
-                                 f"replays ({per_forward} per forward x {SERVE_NEW} forwards)")
+                                 f"replays ({per_forward} per forward x {forwards} forwards)")
     if runs[0]["tokens"] != runs[1]["tokens"]:
         raise AssertionError("two generate runs with the same seed disagree")
     alone = server.generate([prompts[2]])
@@ -793,8 +845,9 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
         f"host clock: graph replays {summary['graphs']['p50_ms']:.3f}ms, eager "
         f"{summary['eager']['p50_ms']:.3f}ms; K1 per step by route: {device_ms['routes']}")
     for step, r in device_ms["routes"].items():
-        if r != {"thin": per_forward}:
-            raise AssertionError(f"one {step} step launched K1 {r}, want {per_forward} thin")
+        n = per_forward * (prefill_steps(model, SERVE_BUCKETS[0][1]) if step == "prefill" else 1)
+        if r != {"thin": n}:
+            raise AssertionError(f"one {step} step launched K1 {r}, want {n} thin")
     measured = None if measure is None else measure(model, params)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     log(f"[{tag}] peak memory allocated {peak:.2f} GiB")
@@ -802,7 +855,8 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
     torch.cuda.empty_cache()
     return {"params": n_params, "init_s": init_s, "warmup": warm, "runs": runs,
             "eager_runs": eager, "summary": summary, "path": path,
-            "launches_per_generate": want, "step_device_ms": device_ms,
+            "launches_per_generate": want, "forwards_per_generate": forwards,
+            "step_device_ms": device_ms,
             "peak_gib": peak, "measured": measured}
 
 
@@ -816,8 +870,8 @@ def step_device_ms(model, params, dev: torch.device, bucket) -> dict:
     tokens = torch.from_numpy(rng.integers(1, model.cfg.vocab_size, size=(batch, seq)))
     tokens = tokens.to(dev)
     offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
-    steps = {"prefill": lambda: model.prefill(params, cache, tokens, offsets),
-             "decode": lambda: model.decode_step(params, cache, tokens[:, -1:], seq, offsets)}
+    steps = {"prefill": lambda: serve_prefill(model, params, cache, tokens, offsets),
+             "decode": lambda: serve_step(model, params, cache, tokens[:, -1:], seq, offsets)}
     out = {"routes": {}}
     with torch.no_grad():
         for name, step in steps.items():
@@ -852,12 +906,12 @@ def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_bound(b, sq, skv, hq, hkv, d, window, dtype=torch.bfloat16):
+def flash_bound(b, sq, skv, hq, hkv, d, window, dtype=torch.bfloat16, causal=True):
     """(ms, "bytes" | "operations"): Q, K, V and O moved once at the memory
     rate, or 4 D flops per unmasked pair and query head at the type's peak."""
     esize = torch.finfo(dtype).bits // 8
     t_bytes = 2 * b * d * (sq * hq + skv * hkv) * esize / PEAK_BYTES_S
-    t_ops = 4.0 * d * b * hq * attention_pairs(sq, skv, True, window) / PEAK_FLOPS[dtype]
+    t_ops = 4.0 * d * b * hq * attention_pairs(sq, skv, causal, window) / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -868,14 +922,14 @@ def max_sm_clock_hz() -> float:
     return float(out.splitlines()[0]) * 1e6
 
 
-def exp_floor_ms(b, sq, skv, hq, window, dev: torch.device) -> float:
+def exp_floor_ms(b, sq, skv, hq, window, dev: torch.device, causal: bool = True) -> float:
     """One exp2 per unmasked (query, key) pair and query head on the
     special-function units, at ``EXP2_PER_CLOCK_PER_SM`` a clock on every SM
     at the maximum SM clock.  Printed beside the bound, which it does not
     change."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rate = EXP2_PER_CLOCK_PER_SM * sms * max_sm_clock_hz()
-    return b * hq * attention_pairs(sq, skv, True, window) / rate * 1e3
+    return b * hq * attention_pairs(sq, skv, causal, window) / rate * 1e3
 
 
 def key_tiles(sq, skv, window) -> dict:
@@ -899,11 +953,11 @@ def _bshd(x):  # (BH, S, D) -> a (1, S, BH, D) view
     return x.unsqueeze(0).transpose(1, 2)
 
 
-def sdpa_yardstick(q, k, v, window: int):
+def sdpa_yardstick(q, k, v, window: int, causal: bool = True):
     """``F.scaled_dot_product_attention`` on the same inputs, KV heads
-    expanded for it beforehand: (callable, backend name).  Causal without
-    a window takes the flash backend; a window needs a mask, which only the
-    memory-efficient backend takes."""
+    expanded for it beforehand: (callable, backend name).  Causal or not,
+    without a window it takes the flash backend; a window needs a mask,
+    which only the memory-efficient backend takes."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     import torch.nn.functional as F
 
@@ -911,7 +965,7 @@ def sdpa_yardstick(q, k, v, window: int):
     qt = q.transpose(1, 2)
     kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
     if window == 0:
-        backend, kw = SDPBackend.FLASH_ATTENTION, {"is_causal": True}
+        backend, kw = SDPBackend.FLASH_ATTENTION, {"is_causal": causal}
     else:
         i = torch.arange(q.shape[1], device=q.device)[:, None]
         j = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -2124,7 +2178,15 @@ def profile_split(prof) -> dict:
     chain's kernels (``CHAIN_KERNELS``)."""
     kernels, ops = Counter(), Counter()
     counts = Counter()
+    ranges = {}
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False):
+            # a record_function range: its device time (the kernels of its
+            # operators, host side; its span, device side), kept apart
+            side = "cpu" if str(getattr(e, "device_type", "")).endswith("CPU") else "device"
+            ranges.setdefault(e.key, {})[side] = {
+                "ms": float(getattr(e, "device_time_total", 0) or 0) / 1e3, "count": e.count}
+            continue
         us = _device_us(e)
         if not us:
             continue
@@ -2148,7 +2210,7 @@ def profile_split(prof) -> dict:
             "rest_top_kernels": [{"kernel": key[:160], "ms": v / 1e3, "launches": counts[key]}
                                  for key, v in rest.most_common(8)],
             "top_operators": [{"op": key, "ms": v / 1e3} for key, v in ops.most_common(8)],
-            "chain": chain}
+            "chain": chain, "ranges": ranges}
 
 
 def phase_profiler(dev: torch.device) -> dict:
@@ -2603,6 +2665,7 @@ def flash_row(report: dict) -> dict:
     shapes beside it."""
     layers = get_config(PREFILL_ARCH).num_layers
     timings = report["flash_kernel"]["timings"]
+    fam = report["families"]
     t = timings["danube"]
     return {
         "name": "flash_attention",
@@ -2611,19 +2674,32 @@ def flash_row(report: dict) -> dict:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
         "launches": report["long_prefill"]["launches"]["K2"],
         "launches_by_path": {"long_prefill": report["long_prefill"]["launches"]["K2"],
-                             "planned_prefill": sum(report["planned_prefill"]["k2_routes"].values())},
+                             "planned_prefill": sum(report["planned_prefill"]["k2_routes"].values()),
+                             "family_seamless_encode": fam[ENCDEC_ARCH]["path"]["k2_launches"],
+                             "family_zamba2_prefill":
+                                 sum(fam["hybrid_prefill"]["launches"]["K2"].values())},
         "routes": {"long_prefill": report["long_prefill"]["k2_routes"],
                    "planned_prefill": report["planned_prefill"]["k2_routes"],
-                   "long_prefill_fp32_check": {"fma": report["long_prefill"]["fp32"]["launches"]}},
-        "max_abs_err": report["flash_kernel"]["worst_bf16_abs_err"],
+                   "long_prefill_fp32_check": {"fma": report["long_prefill"]["fp32"]["launches"]},
+                   "family_seamless_encode": fam[ENCDEC_ARCH]["path"]["k2_routes"],
+                   "family_zamba2_prefill": fam["hybrid_prefill"]["launches"]["K2"]},
+        "max_abs_err": max(report["flash_kernel"]["worst_bf16_abs_err"],
+                           *(fam[key]["k2"]["check"]["max_abs_err"]
+                             for key in (ENCDEC_ARCH, "hybrid_prefill"))),
         **{key: layers * t[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": t["bound_by"],
         "work": f"one bf16 long-prefill forward of {PREFILL_ARCH}: {layers} launches at "
                 f"(B, S_q, S_kv, H_q, H_kv, D, window) = {tuple(t['shape'])}; library: "
                 f"scaled_dot_product_attention[{t['sdpa_backend']}]",
-        "per_launch": {name: {key: r[key] for key in (
+        "per_launch": {**{name: {key: r[key] for key in (
             "shape", "ms", "mma_ms", "bound_ms", "library_ms", "plain_ms", "sdpa_backend",
             "tflops")} for name, r in timings.items()},
+            **{name: {key: r[key] for key in (
+                "shape", "causal", "ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
+                "sdpa_backend", "tflops")}
+               for name, r in (("seamless encoder (non-causal)", fam[ENCDEC_ARCH]["k2"]),
+                               ("zamba2 shared block (causal, D 80)",
+                                fam["hybrid_prefill"]["k2"]))}},
         "sources": {"wgmma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
                     "mma, fma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"},
     }
@@ -2636,11 +2712,21 @@ ZOO_ARCHS = ("deepseek-moe-16b", "minicpm3-4b")
 
 def weight_bytes(params) -> int:
     """Bytes a decode step reads of the weights: every leaf but the
-    embedding table, of which it gathers a few rows (an untied model's
-    unembedding matrix is read whole)."""
+    embedding table, of which it gathers a few rows; the unembedding
+    matrix is read whole, the table itself where the embeddings are tied."""
     table = params["embed"]["embedding"]
+    tied = "lm_head" not in params["embed"]
     return sum(t.numel() * t.element_size() for t in tree_leaves(params)
-               if t is not table)
+               if tied or t is not table)
+
+
+def state_bytes(model, dev: torch.device, batch: int) -> int:
+    """Bytes of a batch's recurrent state (the Mamba conv and SSM states,
+    the mLSTM and sLSTM states): a decode step reads and writes each once.
+    0 for a model whose cache is attention K/V only."""
+    cache = model.init_cache(batch, 64, dev)
+    return sum(t.numel() * t.element_size() for key in ("mamba", "m", "s")
+               for t in tree_leaves(cache.get(key, {})))
 
 
 def expert_products(model, params, dev: torch.device, batch: int) -> dict:
@@ -2679,8 +2765,8 @@ def profile_decode_step(model, params, dev: torch.device, bucket) -> dict:
         1, model.cfg.vocab_size, size=(batch, seq))).to(dev)
     offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
     with torch.no_grad():
-        model.prefill(params, cache, tokens, offsets)
-        step = lambda: model.decode_step(params, cache, tokens[:, -1:], seq, offsets)  # noqa: E731
+        serve_prefill(model, params, cache, tokens, offsets)
+        step = lambda: serve_step(model, params, cache, tokens[:, -1:], seq, offsets)  # noqa: E731
         step()
         torch.cuda.synchronize()
         with k1_calls() as calls, profile(
@@ -2703,9 +2789,9 @@ def path_k1_calls(model, params, dev: torch.device) -> dict:
                 1, model.cfg.vocab_size, size=(batch, seq))).to(dev)
             offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
             with k1_calls() as pre:
-                model.prefill(params, cache, tokens, offsets)
+                serve_prefill(model, params, cache, tokens, offsets)
             with k1_calls() as dec:
-                model.decode_step(params, cache, tokens[:, -1:], seq, offsets)
+                serve_step(model, params, cache, tokens[:, -1:], seq, offsets)
             out[f"prefill {batch}x{seq}"], out[f"decode {batch}x{seq}"] = pre, dec
     return out
 
@@ -2747,11 +2833,12 @@ def check_zoo_k1(model, params, dev: torch.device, tag: str) -> dict:
     (``check_k1_calls``), the worst row per shape logged; then the batch-4
     decode step's calls timed (``k1_step_times``)."""
     by_step = path_k1_calls(model, params, dev)
-    per_forward = 7 * model.cfg.num_layers
+    per_forward = k1_per_step(model.cfg)
     for step, calls in by_step.items():
-        if len(calls) != per_forward:
-            raise AssertionError(f"an eager {step} called K1 {len(calls)} times, "
-                                 f"want {per_forward}")
+        seq = int(step.split("x")[-1])
+        want = per_forward * (prefill_steps(model, seq) if step.startswith("prefill") else 1)
+        if len(calls) != want:
+            raise AssertionError(f"an eager {step} called K1 {len(calls)} times, want {want}")
     checked = check_k1_calls([c for calls in by_step.values() for c in calls], dev)
     routes = {step: dict(Counter(k1.ROUTE_OF[c[5], c[3]] for c in calls))
               for step, calls in by_step.items()}
@@ -2777,7 +2864,10 @@ def zoo_measure(dev: torch.device, tag: str):
     def measure(model, params) -> dict:
         batch = SERVE_BUCKETS[0][0]
         nbytes = weight_bytes(params)
-        out = {"weight_bytes": nbytes, "weight_bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+        sbytes = state_bytes(model, dev, batch)
+        out = {"weight_bytes": nbytes, "weight_bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+               "state_bytes": sbytes,
+               "step_bound_ms": (nbytes + 2 * sbytes) / PEAK_BYTES_S * 1e3}
         if model.cfg.num_experts:
             out["experts"] = ex = expert_products(model, params, dev, batch)
             log(f"[{tag}] expert products alone, {ex['layers']} MoE layers at slots "
@@ -2787,7 +2877,9 @@ def zoo_measure(dev: torch.device, tag: str):
         out["k1"] = check_zoo_k1(model, params, dev, tag)
         out["profile"] = prof = profile_decode_step(model, params, dev, SERVE_BUCKETS[0])
         log(f"[{tag}] decode step weight-read bound {out['weight_bound_ms']:.3f}ms "
-            f"({nbytes / 1e9:.2f} GB); profiled eager step: device {prof['device_ms']:.3f}ms, "
+            f"({nbytes / 1e9:.2f} GB; with the recurrent state read and written, "
+            f"{sbytes / 1e9:.3f} GB, {out['step_bound_ms']:.3f}ms); profiled eager step: "
+            f"device {prof['device_ms']:.3f}ms, "
             f"K1 {prof['k1_ms']:.3f}ms ({prof['k1_launches']} launches, bound "
             f"{prof['k1_bound_ms']:.3f}ms), rest "
             f"{prof['rest_ms']:.3f}ms: " + ", ".join(
@@ -2809,6 +2901,453 @@ def phase_zoo_serve(dev: torch.device) -> dict:
                      "serve": phase_serve(dev, arch, tag, measure=zoo_measure(dev, tag))}
         torch.cuda.empty_cache()
     return out
+
+
+# -- the recurrent and encoder-decoder families (phase 16) -------------------------------
+
+SERVED_FAMILIES = ("zamba2-2.7b", "xlstm-350m")
+ENCDEC_ARCH = "seamless-m4t-medium"
+HYBRID_ARCH = "zamba2-2.7b"
+# (a): one group at full width, fp32: zamba2's 6 Mamba layers and the shared
+# block; xLSTM's mmm-s; one encoder and one decoder layer
+FAMILY_CHECK_DEPTH = {"zamba2-2.7b": {"num_layers": 6}, "xlstm-350m": {"num_layers": 4},
+                      ENCDEC_ARCH: {"num_layers": 2, "enc_layers": 1, "dec_layers": 1}}
+FAMILY_CHECK_SRC = 256     # (a): seamless's source frames on both devices
+ENCDEC_SRC = (4, 1024)     # (c): source batch and frames
+ENCDEC_NEW = 16            # (c): greedy tokens decoded from the cross cache
+HYBRID_PREFILL_S = 8192    # (d): tokens of the uncached zamba2 forward
+
+
+def family_check(dev: torch.device, arch: str) -> dict:
+    """Phase 16a: ``arch`` at full width, one group deep, fp32, on the card
+    through K1 and on the CPU through the plain version, the same weights:
+    the uncached forward's logits (seamless: ``forward`` = encode +
+    decode_train), the teacher-forced prefill's last-token logits
+    (seamless after ``encode`` and ``prefill_cross``) and one decode
+    step's, each within ``MODEL_TOL``; K1 launched the path's count on the
+    card (all fma), none on the CPU."""
+    tag = f"family-check-{arch}"
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **FAMILY_CHECK_DEPTH[arch])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1), dev)
+    cpu = torch.device("cpu")
+    cpu_params = _to(params, cpu)
+    rng = np.random.default_rng(1)
+    sp = 16
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(2, sp)))
+    src = None
+    per_step = k1_per_step(cfg)
+    want = per_step * (1 + sp + 1)
+    if cfg.family == "audio":
+        src = torch.from_numpy(rng.standard_normal((2, FAMILY_CHECK_SRC, cfg.d_model),
+                                                   dtype=np.float32))
+        # the encoder twice (forward, then for the cross cache): 7 a layer;
+        # forward's decoder 11 a layer (cross k and v too); prefill_cross 2
+        # a decoder layer; then the steps
+        want = 14 * cfg.enc_layers + 13 * cfg.dec_layers + per_step * (sp + 1)
+    out = {}
+    for name, p, d in (("card", params, dev), ("cpu", cpu_params, cpu)):
+        k1.reset_launches()
+        with torch.no_grad():
+            if src is None:
+                fwd, _ = model.forward(p, tokens.to(d))
+                cache = model.init_cache(2, 32, d)
+            else:
+                fwd, _ = model.forward(p, {"src_embed": src.to(d), "tokens": tokens.to(d)})
+                cache = model.prefill_cross(p, model.encode(p, src.to(d)),
+                                            model.init_cache(2, 32, d, src_len=FAMILY_CHECK_SRC))
+            pre = serve_prefill(model, p, cache, tokens.to(d))
+            nxt = pre.argmax(-1) if name == "card" else out["card"]["next"]
+            dec = serve_step(model, p, cache, nxt.to(d)[:, None],
+                             torch.tensor(sp, dtype=torch.int64, device=d))
+        out[name] = {"forward": fwd.cpu(), "prefill": pre.cpu(), "decode": dec.cpu(),
+                     "next": nxt.cpu(), "routes": _nonzero(k1.launches_by_route)}
+    v = cfg.vocab_size
+    errs = {}
+    for what in ("forward", "prefill", "decode"):
+        g, c = out["card"][what][..., :v], out["cpu"][what][..., :v]
+        if not (bool(torch.isfinite(g).all()) and g.shape == c.shape and g.shape[-1] == v):
+            raise AssertionError(f"[{tag}] {what} logits malformed: {tuple(g.shape)}")
+        errs[what] = ((g - c).abs().max() / c.abs().max()).item()
+    routes = out["card"]["routes"]
+    log(f"[{tag}] {cfg.name} full width, {FAMILY_CHECK_DEPTH[arch]}, fp32: forward rel_err="
+        f"{errs['forward']:.3e} prefill (teacher-forced, {sp} steps) rel_err="
+        f"{errs['prefill']:.3e} decode rel_err={errs['decode']:.3e}; K1 on the card {routes} "
+        f"(want {want} fma), on the cpu {out['cpu']['routes']}")
+    if routes != {"fma": want} or out["cpu"]["routes"]:
+        raise AssertionError(f"[{tag}] K1 launched {routes} on the card, "
+                             f"{out['cpu']['routes']} on the cpu; want {want} fma, none")
+    if max(errs.values()) >= MODEL_TOL:
+        raise AssertionError(f"[{tag}] card and cpu logits disagree: {errs}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return {"rel_err": errs, "launches": want, "routes": routes,
+            "depth": FAMILY_CHECK_DEPTH[arch]}
+
+
+def k2_case(dev: torch.device, gen: torch.Generator, name: str, shape: tuple,
+            causal: bool) -> dict:
+    """K2 through ``mha`` at one of phase 16's shapes (B, S_q, S_kv, H_q,
+    H_kv, D, window): on the wgmma route, held row by row to its plain
+    version (head by head), and timed in turns beside
+    ``F.scaled_dot_product_attention`` (the yardstick) and the plain
+    version; its bound."""
+    b, sq, skv, hq, hkv, d, window = shape
+    q, k, v = _qkv(gen, dev, torch.bfloat16, b, sq, skv, hq, hkv, d)
+    sdpa, backend = sdpa_yardstick(q, k, v, window, causal)
+    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    g = hq // hkv
+    kept = {}
+
+    def kern():
+        kept["out"] = mha(q, k, v, causal=causal, window=window)
+
+    def plain():
+        kv = [(i // hq) * hkv + (i % hq) // g for i in range(qh.shape[0])]
+        kept["ref"] = [attention_ref(qh[i:i + 1], kh[j:j + 1], vh[j:j + 1], causal=causal,
+                                     window=window) for i, j in enumerate(kv)]
+
+    k2.reset_launches()
+    kern()
+    if _nonzero(k2.launches_by_route) != {"wgmma": 1}:
+        raise AssertionError(f"K2 {name}: mha took {k2.launches_by_route}, not wgmma")
+    t = {}
+    for key in ("ms", "library_ms", "plain_ms", "library_ms", "ms"):
+        fn = {"ms": kern, "library_ms": sdpa, "plain_ms": plain}[key]
+        t.setdefault(key, []).append(event_ms(fn, 1 if key == "plain_ms" else 5))
+    e = _check_rows("families", f"K2 bfloat16 wgmma {name} {list(shape)} causal={causal}",
+                    _heads(kept["out"]), torch.cat(kept["ref"]), ROW_TOL[torch.bfloat16])
+    bms, by = flash_bound(b, sq, skv, hq, hkv, d, window, causal=causal)
+    pairs = attention_pairs(sq, skv, causal, window)
+    row = {"shape": list(shape), "causal": causal, "dtype": "bfloat16", "route": "wgmma",
+           **{key: min(val) for key, val in t.items()}, "runs": t, "check": e,
+           "bound_ms": bms, "bound_by": by, "sdpa_backend": backend,
+           "exp_floor_ms": exp_floor_ms(b, sq, skv, hq, window, dev, causal),
+           "pairs_per_head": pairs}
+    row["bound_share"] = bms / row["ms"]
+    row["tflops"] = 4.0 * d * b * hq * pairs / row["ms"] / 1e9
+    log(f"[families] K2 {name} {list(shape)} causal={causal}: wgmma {row['ms']:.3f}ms "
+        f"({row['tflops']:.0f} TFLOP/s) bound {bms:.3f}ms ({by}, {row['bound_share']:.1%}) "
+        f"sdpa[{backend}] {row['library_ms']:.3f}ms plain (head by head) "
+        f"{row['plain_ms']:.3f}ms")
+    del q, k, v, qh, kh, vh, kept, sdpa
+    torch.cuda.empty_cache()
+    return row
+
+
+def encdec_greedy(model, params, memory: torch.Tensor, first: torch.Tensor, steps: int,
+                  forced: torch.Tensor = None):
+    """The encoder-decoder's inference path after ``encode``:
+    ``prefill_cross`` from ``memory`` into a fresh cache, then ``steps``
+    decode steps from ``first`` (B, 1), each fed the previous step's argmax
+    (or, with ``forced`` (B, steps), that token: teacher forcing).
+    Returns the argmax tokens (B, steps), each step's logits, and the host
+    clock after the cross cache and after each step (synchronised)."""
+    dev = memory.device
+    cache = model.init_cache(memory.shape[0], 64, dev, src_len=memory.shape[1])
+    model.prefill_cross(params, memory, cache)
+    cur, toks, logits, marks = first, [], [], [time.perf_counter()]
+    for t in range(steps):
+        model.check_decode_pos(cache, t)
+        out = model.decode_step(params, cache, cur,
+                                torch.full((), t, dtype=torch.int64, device=dev))[0]
+        nxt = out.argmax(-1)
+        toks.append(nxt)
+        logits.append(out)
+        cur = (nxt if forced is None else forced[:, t])[:, None]
+        torch.cuda.synchronize(dev)
+        marks.append(time.perf_counter())
+    return torch.stack(toks, dim=1), logits, marks
+
+
+def phase_encdec(dev: torch.device, gen: torch.Generator) -> dict:
+    """Phase 16c: full-depth bf16 seamless-m4t-medium (12 + 12 layers) on
+    its own inference path: ``encode`` of a seeded (4, 1024, 1024)
+    ``src_embed`` with ``attn_impl="flash"`` (K2 non-causal, 12 launches),
+    ``prefill_cross``, 16 greedy decode steps (the main path, counts from 0
+    just before); the same steps with ``attn_impl="xla"``, fed the same
+    tokens, within ``PREFILL_LOGITS_TOL`` per row; another source changes
+    the tokens; K2 at the encoder's shape against its plain version; every
+    distinct K1 call of the path against the plain version and timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = "family-seamless"
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH), attn_impl="flash")
+    model = build_model(cfg)
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    b, s_src = ENCDEC_SRC
+    src_gen = torch.Generator(device=dev).manual_seed(7)
+    src = torch.randn((b, s_src, cfg.d_model), generator=src_gen, device=dev)
+    first = torch.full((b, 1), DUMMY_TOKEN, dtype=torch.int64, device=dev)
+    per_step = k1_per_step(cfg)
+    want_k1 = {"wide": 7 * cfg.enc_layers + 2 * cfg.dec_layers, "thin": per_step * ENCDEC_NEW}
+    want_k2 = {"wgmma": cfg.enc_layers}
+    with torch.no_grad():
+        # the main path: counts from 0 just before, read just after
+        k1.reset_launches()
+        k2.reset_launches()
+        t0 = time.perf_counter()
+        memory = model.encode(params, src)
+        toks, logits, marks = encdec_greedy(model, params, memory, first, ENCDEC_NEW)
+        path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route),
+                "k2_launches": k2.launches, "k2_routes": _nonzero(k2.launches_by_route)}
+        if path["routes"] != want_k1 or path["k2_routes"] != want_k2:
+            raise AssertionError(f"[{tag}] the path launched K1 {path['routes']} (want "
+                                 f"{want_k1}), K2 {path['k2_routes']} (want {want_k2})")
+        if not (bool(torch.isfinite(memory).all()) and tuple(memory.shape) == (b, s_src,
+                                                                              cfg.d_model)):
+            raise AssertionError(f"[{tag}] encoder output malformed: {tuple(memory.shape)}")
+        steps_s = np.diff(np.asarray(marks))
+        ttft_s = marks[1] - t0
+        wall_s = marks[-1] - t0
+        new = toks.cpu().tolist()
+        if not all(0 <= x < cfg.vocab_size for row in new for x in row):
+            raise AssertionError(f"[{tag}] tokens outside the vocabulary: {new}")
+        # the xla route's encoder, fed the flash route's tokens; logits over
+        # the real vocabulary (the padded columns' -1e30 would swamp a row)
+        v = cfg.vocab_size
+        xmem = xla.encode(params, src)
+        mem_err = row_err(memory, xmem)
+        _, xlogits, _ = encdec_greedy(xla, params, xmem, first, ENCDEC_NEW, forced=toks)
+        errs = [row_err(a[:, :v], x[:, :v]) for a, x in zip(logits, xlogits)]
+        worst = max(e["row_rel"] for e in errs)
+        del xmem, xlogits
+        # another source
+        src2 = torch.randn((b, s_src, cfg.d_model), generator=src_gen, device=dev)
+        toks2, logits2, _ = encdec_greedy(model, params, model.encode(params, src2), first,
+                                          ENCDEC_NEW)
+        changed = (toks2 != toks).sum().item()
+        first_step_moved = row_err(logits2[0][:, :v], logits[0][:, :v])["row_rel"]
+        del logits2, src2
+        # device times: the encoder (CUDA events, and its kernels by name
+        # under torch.profiler); one decode step captured
+        encode_ms = event_ms(lambda: model.encode(params, src), 3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.encode(params, src)
+            torch.cuda.synchronize()
+        enc_prof = profile_split(prof)
+        cache = model.init_cache(b, 64, dev, src_len=s_src)
+        model.prefill_cross(params, memory, cache)
+        pos = torch.full((), ENCDEC_NEW, dtype=torch.int64, device=dev)
+        step_ms = graph_ms(lambda: model.decode_step(params, cache, first, pos), [()])
+        # K1's calls of the path, held to the plain version and timed
+        with k1_calls() as enc_calls:
+            model.encode(params, src)
+            model.prefill_cross(params, memory, cache)
+        with k1_calls() as dec_calls:
+            model.decode_step(params, cache, first, pos)
+    log(f"[{tag}] {cfg.name} bf16: encode (4 x {s_src} frames) + prefill_cross + "
+        f"{ENCDEC_NEW} greedy steps: K1 {path['routes']}, K2 {path['k2_routes']}; ttft "
+        f"{ttft_s * 1e3:.2f}ms, step p50 {np.percentile(steps_s, 50) * 1e3:.3f}ms p99 "
+        f"{np.percentile(steps_s, 99) * 1e3:.3f}ms, {b * ENCDEC_NEW / wall_s:.1f} tok/s (eager); "
+        f"device: encode {encode_ms:.3f}ms, a captured decode step {step_ms:.3f}ms; req0 "
+        f"tokens {new[0][:8]}...")
+    log(f"[{tag}] profiled encode: device {enc_prof['device_ms']:.3f}ms = K1 "
+        f"{enc_prof['k1_ms']:.3f}ms + K2 {enc_prof['k2_ms']:.3f}ms + rest "
+        f"{enc_prof['rest_ms']:.3f}ms; top kernels of the rest: " + ", ".join(
+            f"{k['kernel'][:50]} {k['ms']:.3f}ms x{k['launches']}"
+            for k in enc_prof["rest_top_kernels"][:5]) + "; top operators: " + ", ".join(
+            f"{o['op']} {o['ms']:.3f}ms" for o in enc_prof["top_operators"][:5]))
+    log(f"[{tag}] flash vs xla: encoder output worst row rel {mem_err['row_rel']:.3e}, decode "
+        f"logits worst row rel {worst:.3e} (limit {PREFILL_LOGITS_TOL:g}); another source "
+        f"changed {changed} of {b * ENCDEC_NEW} tokens, the first step's logits by "
+        f"{first_step_moved:.3e} per row")
+    if worst >= PREFILL_LOGITS_TOL or not all(e["finite"] for e in errs):
+        raise AssertionError(f"[{tag}] flash and xla routes disagree: worst row {worst}")
+    if not changed:
+        raise AssertionError(f"[{tag}] another source gave the same tokens: the decoder "
+                             f"does not read the source")
+    checked = check_k1_calls(enc_calls + dec_calls, dev)
+    log(f"[{tag}] K1 at the path's own shapes: {checked['calls']} calls, "
+        f"{len(checked['distinct'])} distinct, each within ROW_TOL of the plain version "
+        f"(worst row rel {checked['worst_row_rel']:.3e}): " + ", ".join(
+            f"{'x'.join(map(str, r['shape']))} {r['route']} x{r['calls']} {r['row_rel']:.2e}"
+            for r in checked["distinct"]))
+    times = {"decode_step": k1_step_times(dec_calls, dev),
+             "encode_and_cross": k1_step_times(enc_calls, dev)}
+    for what, t in times.items():
+        log(f"[{tag}] K1 on the {what.replace('_', ' ')}'s {t['products']} products, timed "
+            f"alone: {t['ms']:.3f}ms, bound {t['bound_ms']:.3f}ms ({t['bound_by']}), "
+            f"torch.matmul {t['library_ms']:.3f}ms, plain {t['plain_ms']:.3f}ms")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del params, memory, cache, logits
+    torch.cuda.empty_cache()
+    k2_row = k2_case(dev, gen, "seamless-encoder", (b, s_src, s_src, cfg.num_heads,
+                                                    cfg.num_kv_heads, cfg.head_dim, 0), False)
+    return {"path": path, "ttft_ms": ttft_s * 1e3, "p50_ms": float(np.percentile(steps_s, 50)
+                                                                    * 1e3),
+            "p99_ms": float(np.percentile(steps_s, 99) * 1e3),
+            "tokens_per_s": b * ENCDEC_NEW / wall_s, "encode_ms": encode_ms,
+            "encode_profile": {key: enc_prof[key] for key in (
+                "device_ms", "k1_ms", "k2_ms", "rest_ms", "rest_top_kernels", "top_operators")},
+            "decode_step_ms": step_ms, "tokens": new, "encoder_vs_xla": mem_err,
+            "logits_vs_xla_worst_row_rel": worst, "another_source_changed_tokens": changed,
+            "another_source_first_step_row_rel": first_step_moved, "k1": {"check": checked,
+                                                                          **times},
+            "k2": k2_row, "peak_gib": peak}
+
+
+def phase_hybrid_prefill(dev: torch.device, gen: torch.Generator) -> dict:
+    """Phase 16d: one uncached forward of full-depth bf16 zamba2-2.7b at
+    8192 tokens with ``attn_impl="flash"``: K2 9 launches (the shared
+    block, causal, head dim 80) all wgmma, K1 180 all wide; logits finite
+    and within ``PREFILL_LOGITS_TOL`` per row of the xla route; the
+    forward's device time (CUDA events) and, under ``torch.profiler``, its
+    split into K1, K2, the SSD chunk scan (a ``record_function`` range
+    around ``mamba2._ssd_chunk_scan``) and the rest; every distinct K1 call
+    against the plain version and timed; K2 at the shared block's shape
+    against its plain version and SDPA."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tag = "family-zamba2-prefill"
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), attn_impl="flash")
+    model = build_model(cfg)
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    s = HYBRID_PREFILL_S
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, s))).to(dev)
+    want = {"K1": {"wide": k1_per_step(cfg)},
+            "K2": {"wgmma": cfg.num_layers // cfg.shared_attn_every}}
+    real_scan = mamba2_layer._ssd_chunk_scan
+
+    def ranged_scan(*args, **kw):
+        with record_function("ssd_chunk_scan"):
+            return real_scan(*args, **kw)
+
+    with torch.no_grad():
+        k1.reset_launches()
+        k2.reset_launches()
+        t0 = time.perf_counter()
+        with k1_calls() as calls:
+            logits, _ = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got = {"K1": _nonzero(k1.launches_by_route), "K2": _nonzero(k2.launches_by_route)}
+        if got != want:
+            raise AssertionError(f"[{tag}] the forward launched {got}, want {want}")
+        if tuple(logits.shape) != (1, s, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"[{tag}] logits malformed: {tuple(logits.shape)}")
+        fwd_ms = event_ms(lambda: model.forward(params, tokens), 1)
+        xlogits, _ = xla.forward(params, tokens)
+        e = row_err(logits, xlogits)
+        del logits, xlogits
+        torch.cuda.empty_cache()
+        with mock.patch.object(mamba2_layer, "_ssd_chunk_scan", ranged_scan), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.forward(params, tokens)
+            torch.cuda.synchronize()
+    split = profile_split(prof)
+    ssd = split["ranges"].get("ssd_chunk_scan", {})
+    ssd_ms = ssd.get("cpu", {}).get("ms", 0.0)
+    log(f"[{tag}] {cfg.name} bf16 S={s} flash: K1 {got['K1']}, K2 {got['K2']}; first call "
+        f"{first_s:.2f}s with set-up; forward {fwd_ms:.1f}ms between CUDA events "
+        f"({s / (fwd_ms / 1e3):.0f} prefill tokens/s; the device busy "
+        f"{split['device_ms'] / fwd_ms:.0%} of it, by the profile below); flash vs xla logits "
+        f"worst row rel {e['row_rel']:.3e} (limit {PREFILL_LOGITS_TOL:g})")
+    log(f"[{tag}] profiled: device {split['device_ms']:.1f}ms = K1 {split['k1_ms']:.1f}ms + K2 "
+        f"{split['k2_ms']:.1f}ms + rest {split['rest_ms']:.1f}ms; of the rest, the SSD chunk "
+        f"scan {ssd_ms:.1f}ms (its kernels; device span "
+        f"{ssd.get('device', {}).get('ms', 0.0):.1f}ms, {ssd.get('cpu', {}).get('count', 0)} "
+        f"calls); top kernels: " + ", ".join(
+            f"{k['kernel'][:50]} {k['ms']:.1f}ms x{k['launches']}"
+            for k in split["rest_top_kernels"][:5]))
+    if not e["finite"] or e["row_rel"] >= PREFILL_LOGITS_TOL:
+        raise AssertionError(f"[{tag}] flash and xla routes disagree: {e}")
+    if not ssd_ms > 0:
+        raise AssertionError(f"[{tag}] the profile shows no SSD scan time: {ssd}")
+    checked = check_k1_calls(calls, dev)
+    times = k1_step_times(calls, dev)
+    log(f"[{tag}] K1's {checked['calls']} calls ({len(checked['distinct'])} distinct) within "
+        f"ROW_TOL (worst row rel {checked['worst_row_rel']:.3e}); timed alone "
+        f"{times['ms']:.1f}ms, bound {times['bound_ms']:.1f}ms ({times['bound_by']}), "
+        f"torch.matmul {times['library_ms']:.1f}ms, plain {times['plain_ms']:.1f}ms")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del params
+    torch.cuda.empty_cache()
+    k2_row = k2_case(dev, gen, "zamba2-shared", (1, s, s, cfg.num_heads, cfg.num_kv_heads,
+                                                 cfg.head_dim, 0), True)
+    return {"launches": got, "first_forward_s": first_s, "forward_ms": fwd_ms,
+            "tokens_per_s": s / (fwd_ms / 1e3), "vs_xla": e,
+            "profile": {key: split[key] for key in ("device_ms", "k1_ms", "k2_ms", "rest_ms",
+                                                    "k1_launches", "rest_top_kernels",
+                                                    "top_operators", "ranges")},
+            "ssd_scan_ms": ssd_ms, "k1": {"check": checked, "forward": times}, "k2": k2_row,
+            "peak_gib": peak}
+
+
+def phase_families(dev: torch.device, gen: torch.Generator) -> dict:
+    """Phase 16: (a) each new family one group deep, fp32, card vs CPU;
+    (b) zamba2-2.7b and xlstm-350m at full depth behind ``Server``, run as
+    phase 4 runs Llama and measured as phase 15 measures the zoo; (c)
+    seamless-m4t-medium encoded and decoded; (d) the uncached zamba2
+    forward at 8192 tokens.  Each model freed before the next."""
+    out = {"check": {arch: family_check(dev, arch)
+                     for arch in (*SERVED_FAMILIES, ENCDEC_ARCH)}}
+    for arch in SERVED_FAMILIES:
+        tag = f"family-{arch}"
+        out[arch] = phase_serve(dev, arch, tag, measure=zoo_measure(dev, tag))
+        torch.cuda.empty_cache()
+    out[ENCDEC_ARCH] = phase_encdec(dev, gen)
+    out["hybrid_prefill"] = phase_hybrid_prefill(dev, gen)
+    return out
+
+
+def family_launches(fam: dict) -> dict:
+    """K1's launches on phase 16's paths, for the kernels line."""
+    out = {}
+    for arch in SERVED_FAMILIES:
+        sv = fam[arch]
+        out.update({f"family_{arch}_serve": sv["path"]["launches"],
+                    f"family_{arch}_serve_graph_replays_per_generate": sv["runs"][0]["launches"],
+                    f"family_{arch}_serve_eager_per_generate": sv["eager_runs"][0]["launches"]})
+    for arch, c in fam["check"].items():
+        out[f"family_{arch}_check_fp32"] = c["launches"]
+    out["family_seamless_path"] = fam[ENCDEC_ARCH]["path"]["launches"]
+    out["family_zamba2_prefill"] = sum(fam["hybrid_prefill"]["launches"]["K1"].values())
+    return out
+
+
+def family_routes(fam: dict) -> dict:
+    """K1's launches by route on phase 16's paths, for the kernels line."""
+    out = {}
+    for arch in SERVED_FAMILIES:
+        sv = fam[arch]
+        out.update({f"family_{arch}_serve": sv["path"]["routes"],
+                    f"family_{arch}_serve_graph_replays": sv["runs"][0]["routes"],
+                    **{f"family_{arch}_serve_{step}_step": r
+                       for step, r in sv["step_device_ms"]["routes"].items()}})
+    out["family_seamless_path"] = fam[ENCDEC_ARCH]["path"]["routes"]
+    out["family_zamba2_prefill"] = fam["hybrid_prefill"]["launches"]["K1"]
+    return out
+
+
+def family_k1_rows(fam: dict) -> dict:
+    """K1's time beside its bound, the plain version's and the library's
+    on phase 16's paths, for the kernels line's ``per_route``."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    rows = {}
+    for arch in SERVED_FAMILIES:
+        m = fam[arch]["measured"]
+        t = m["k1"]["decode_step"]
+        rows[f"thin: {arch} decode step, M = 4 ({t['products']} products)"] = {
+            **{key: t[key] for key in keys},
+            "profiled_in_the_step_ms": m["profile"]["k1_ms"]}
+    sm = fam[ENCDEC_ARCH]["k1"]
+    rows[f"thin: {ENCDEC_ARCH} decode step, M = 4 ({sm['decode_step']['products']} products)"] = {
+        key: sm["decode_step"][key] for key in keys}
+    rows[f"wide: {ENCDEC_ARCH} encode + prefill_cross, M = 4096 "
+         f"({sm['encode_and_cross']['products']} products)"] = {
+        key: sm["encode_and_cross"][key] for key in keys}
+    hp = fam["hybrid_prefill"]
+    rows[f"wide: {HYBRID_ARCH} forward, M = {HYBRID_PREFILL_S} "
+         f"({hp['k1']['forward']['products']} products)"] = {
+        **{key: hp["k1"]["forward"][key] for key in keys},
+        "profiled_in_the_forward_ms": hp["profile"]["k1_ms"]}
+    return rows
 
 
 def main() -> int:
@@ -2838,6 +3377,7 @@ def main() -> int:
     report["profiler"] = phase_profiler(dev)
     report["train"] = phase_train(dev, gen)
     report["zoo_serve"] = phase_zoo_serve(dev)
+    report["families"] = phase_families(dev, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -2877,7 +3417,8 @@ def main() -> int:
                                                 z["serve"]["runs"][0]["launches"]),
                                                ("serve_eager_per_generate",
                                                 z["serve"]["eager_runs"][0]["launches"]),
-                                               ("check_fp32", z["model"]["launches"]))}},
+                                               ("check_fp32", z["model"]["launches"]))},
+                             **family_launches(report["families"])},
         "routes": {"serve": report["serve"]["path"]["routes"],
                    "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
@@ -2901,11 +3442,16 @@ def main() -> int:
                       for leg, v in (("serve", z["serve"]["path"]["routes"]),
                                      ("serve_graph_replays", z["serve"]["runs"][0]["routes"]),
                                      *((f"serve_{step}_step", r) for step, r in
-                                       z["serve"]["step_device_ms"]["routes"].items()))}},
+                                       z["serve"]["step_device_ms"]["routes"].items()))},
+                   **family_routes(report["families"])},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            report["train"]["kernel"]["worst_abs_err"],
                            *(z["serve"]["measured"]["k1"]["check"]["worst_abs_err"]
                              for z in report["zoo_serve"].values()),
+                           *(report["families"][key]["k1"]["check"]["worst_abs_err"]
+                             for key in (ENCDEC_ARCH, "hybrid_prefill")),
+                           *(report["families"][a]["measured"]["k1"]["check"]["worst_abs_err"]
+                             for a in SERVED_FAMILIES),
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"])),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
@@ -2925,7 +3471,8 @@ def main() -> int:
                                            "bound_by")},
                 "profiled_in_the_step_ms": z["serve"]["measured"]["profile"]["k1_ms"]}
                for arch, z in report["zoo_serve"].items()
-               for t in (z["serve"]["measured"]["k1"]["decode_step"],)}},
+               for t in (z["serve"]["measured"]["k1"]["decode_step"],)},
+            **family_k1_rows(report["families"])},
     }, flash_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   device=torch.cuda.get_device_name(0))

@@ -4,8 +4,13 @@ port's, both ways.
 The reference keeps a nested dict of arrays with every per-layer parameter
 stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
 (L, d, h*hd); an MoE layer's expert weights are (L, E, d, ff); deepseek-moe's
-leading dense layers are a stack of their own, ``params["dense_layers"]``).
-The port keeps a list of per-layer dicts under the same keys.  Into the port,
+leading dense layers are a stack of their own, ``params["dense_layers"]``;
+the hybrid's ``mamba_layers``, xLSTM's ``m_layers`` / ``s_layers``, the
+encoder-decoder's ``enc_layers`` / ``dec_layers``).  The port keeps a list
+of per-layer dicts under the same keys (each model's ``param_stacks()``
+names them); every other entry (the embedding, the norms, the hybrid's
+``shared_in`` and unstacked ``shared`` block) is the same tree on both
+sides.  Into the port,
 the input is that tree with numpy leaves (``jax.tree.map(np.asarray,
 params)``) or torch tensors (a tree ``checkpoint.store`` restored in that
 layout); numpy has no bfloat16 of its own, so every leaf crosses through
@@ -23,7 +28,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import layer_stacks
+from repro_torch.models.registry import build_model
 
 _TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -49,7 +54,7 @@ def _tree(x, device):
 
 def params_from_jax(np_params: Dict, cfg: ModelConfig,
                     device: DeviceLike = None) -> Dict:
-    """The reference ``DecoderLM`` parameter tree -> the port's params."""
+    """A reference model's parameter tree (any family) -> the port's params."""
     device = resolve_device(device)
 
     def layer(i, x):
@@ -57,14 +62,22 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig,
             return {k: layer(i, v) for k, v in x.items()}
         return tensor_from_numpy(x[i] if torch.is_tensor(x) else np.asarray(x)[i], device)
 
-    out = {"embed": _tree(np_params["embed"], device),
-           "final_norm": tensor_from_numpy(np_params["final_norm"], device)}
-    for key, _, want in layer_stacks(cfg):
-        stacked = np_params[key]
-        n = stacked["attn_norm"].shape[0]
-        if n != want:
-            raise ValueError(f"tree has {n} {key}, config {want}")
-        out[key] = [layer(i, stacked) for i in range(n)]
+    def first_leaf(x):
+        return first_leaf(next(iter(x.values()))) if isinstance(x, dict) else x
+
+    stacks = dict(build_model(cfg).param_stacks())
+    out = {}
+    for key, x in np_params.items():
+        if key not in stacks:
+            out[key] = _tree(x, device)
+            continue
+        n = first_leaf(x).shape[0]
+        if n != stacks[key]:
+            raise ValueError(f"tree has {n} {key}, config {stacks[key]}")
+        out[key] = [layer(i, x) for i in range(n)]
+    missing = sorted(set(stacks) - set(out))
+    if missing:
+        raise ValueError(f"tree has no {missing}")
     return out
 
 
@@ -75,19 +88,15 @@ def _host(x):
 
 
 def params_to_jax(params: Dict) -> Dict:
-    """The port's params -> the reference ``DecoderLM`` layout: each
-    per-layer leaf (of ``layers`` and, where present, ``dense_layers``)
-    stacked on a leading layer axis; torch tensors on the CPU, types kept."""
+    """The port's params -> the reference's layout: each per-layer list's
+    leaves stacked on a leading layer axis, every other entry as it is;
+    torch tensors on the CPU, types kept."""
     def stack(*xs):
         if isinstance(xs[0], dict):
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
         return torch.stack([x.detach().cpu() for x in xs])
 
-    out = {"embed": _host(params["embed"]), "final_norm": _host(params["final_norm"])}
-    for key in ("dense_layers", "layers"):
-        if key in params:
-            out[key] = stack(*params[key])
-    return out
+    return {key: stack(*x) if isinstance(x, list) else _host(x) for key, x in params.items()}
 
 
 def state_to_jax(state: Dict) -> Dict:

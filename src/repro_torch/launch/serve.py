@@ -3,8 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --buckets 4x16 8x32 --max-new 16 [--mesh 2x2 [--strategy cannon]]
 
-``--arch`` takes any ported architecture (``repro_torch.configs.ARCHS``:
-the dense, MoE and MLA decoders).  Builds random weights from ``--seed``
+``--arch`` takes any architecture of ``repro_torch.configs.ARCHS``: the
+dense, MoE and MLA decoders, the zamba2 hybrid and xLSTM (their prompts
+fed through the decode step, left-padding included, as the reference's
+``generate`` does) and the seamless-m4t encoder-decoder, served as the
+reference's ``generate`` serves it (decode steps over a zero
+cross-attention cache: no source is encoded).  Builds random weights from ``--seed``
 (no checkpoint download), warms the (batch, seq) buckets, serves a
 synthetic request batch through the bucket router and prints throughput,
 TTFT, per-token latency quantiles and the Z-order kernel's launch count

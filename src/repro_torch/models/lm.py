@@ -48,7 +48,34 @@ def layer_stacks(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
         ("layers", kind, cfg.num_layers - nd)]
 
 
+def decode_positions(pos, device) -> torch.Tensor:
+    """The (1,) query position of a decode step at cache slot ``pos`` (an
+    int, or a 0-d int64 tensor on the device, kept there)."""
+    if torch.is_tensor(pos):
+        return pos.reshape(1)
+    return torch.full((1,), pos, dtype=torch.int64, device=device)
+
+
+def remat(fn, cfg: ModelConfig):
+    """``fn`` (one uncached block) under the config's remat policy (module
+    docstring); without gradients every policy runs the block as is."""
+    policy = cfg.remat
+    if policy not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if policy == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save only the products' outputs) is not ported yet "
+            "(ROADMAP queue 1): train with remat='none' or 'full'")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 class DecoderLM:
+    # prefill / decode_step take per-row left-padding offsets (``generate``
+    # passes them only to a model that says so, as the reference does)
+    supports_position_offsets = True
+
     def __init__(self, cfg: ModelConfig):
         if cfg.attn_type not in ("gqa", "mla"):
             raise NotImplementedError(f"{cfg.name}: attention {cfg.attn_type!r} is not "
@@ -73,6 +100,11 @@ class DecoderLM:
                            for _ in range(n)]
         return params
 
+    def param_stacks(self) -> List[Tuple[str, int]]:
+        """(key, layer count) of each per-layer list of the params (the
+        reference stacks each on a leading axis)."""
+        return [(key, n) for key, _, n in layer_stacks(self.cfg)]
+
     def stacks(self, tree: Dict) -> List[Tuple[str, list]]:
         """(block kind, per-layer list) of ``tree`` (params or cache) in the
         order the layers run (``layer_stacks``)."""
@@ -86,7 +118,7 @@ class DecoderLM:
         x = embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        block = self._remat()
+        block = remat(self._block, cfg)
         for kind, layers in self.stacks(params):
             for lp in layers:
                 x, a = block(lp, x, positions, kind)
@@ -97,21 +129,6 @@ class DecoderLM:
     def _block(self, lp: Params, x: torch.Tensor, positions: torch.Tensor, kind: str):
         x, a, _ = block_apply(lp, x, self.cfg, kind, positions)
         return x, a
-
-    def _remat(self):
-        """One uncached block under the config's remat policy (module
-        docstring); without gradients every policy runs the block as is."""
-        policy = self.cfg.remat
-        if policy not in ("none", "full", "dots"):
-            raise ValueError(f"unknown remat policy {policy!r}")
-        if policy == "none" or not torch.is_grad_enabled():
-            return self._block
-        if policy == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save only the products' outputs) is not ported yet "
-                "(ROADMAP queue 1): train with remat='none' or 'full'")
-        return lambda lp, x, positions, kind: checkpoint(self._block, lp, x, positions,
-                                                         kind, use_reentrant=False)
 
     def loss(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         """Mean token cross-entropy over ``batch["labels"]`` (-100 =
@@ -154,10 +171,8 @@ class DecoderLM:
         device): check it with ``check_decode_pos`` first."""
         if offsets is not None:
             positions = pos - offsets[:, None]
-        elif torch.is_tensor(pos):
-            positions = pos.reshape(1)
         else:
-            positions = torch.full((1,), pos, dtype=torch.int64, device=tokens.device)
+            positions = decode_positions(pos, tokens.device)
         return self._cached_forward(params, cache, tokens, positions, pos, offsets)
 
     def check_decode_pos(self, cache: Cache, pos: int) -> None:

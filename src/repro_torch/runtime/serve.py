@@ -2,6 +2,12 @@
 
 Counterpart of ``repro.runtime.serve``.  ``generate`` runs one prefill
 over the (left-padded) prompt batch, then one decode step per new token.
+A model with a ``prefill`` method (``DecoderLM``) prefills in one pass; the
+others (the hybrid, xLSTM and encoder-decoder models) are fed the prompt
+through ``decode_step`` one token at a time (teacher forcing), as the
+reference's ``_default_prefill`` does.  Per-row left-padding offsets go
+only to a model with ``supports_position_offsets``; the others run a
+padded row's pad tokens as the reference does.
 PyTorch runs eagerly, so there is nothing to compile or memoize
 (``repro_torch.serve.Server`` captures each bucket's steps as CUDA graphs
 instead).  Each decode step takes its cache slot as a 0-d tensor on the
@@ -73,7 +79,7 @@ def generate(
     device = param_device(params)
     cache = model.init_cache(b, cfg.max_seq, device)
     offsets = None
-    if lens is not None:
+    if lens is not None and takes_offsets(model):
         offsets = torch.as_tensor(sp - np.asarray(lens), dtype=torch.int64, device=device)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=device)
     with torch.no_grad(), planned_scope(mesh, strategy, tuning):
@@ -91,16 +97,50 @@ def planned_scope(mesh, strategy: Optional[str] = None, tuning=None):
     return contextlib.nullcontext()
 
 
+def takes_offsets(model) -> bool:
+    """Whether ``model`` masks left-padding by per-row position offsets."""
+    return getattr(model, "supports_position_offsets", False)
+
+
+def prefill(model, params, cache, tokens: torch.Tensor,
+            offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The prompt's last-token logits (B, V_padded), the cache filled.
+
+    ``model.prefill`` in one pass where the model has one; otherwise
+    ``decode_step`` on each prompt token in turn at slots 0..S-1 (teacher
+    forcing, no offsets), step t's slot a 0-d view of one ``arange`` on the
+    device, so no step waits for the host and the loop can be captured
+    whole.  The last slot is checked on the host first."""
+    if hasattr(model, "prefill"):
+        return model.prefill(params, cache, tokens, offsets)[0]
+    s = tokens.shape[1]
+    model.check_decode_pos(cache, s - 1)
+    slots = torch.arange(s, dtype=torch.int64, device=tokens.device)
+    logits = None
+    for t in range(s):
+        logits = model.decode_step(params, cache, tokens[:, t:t + 1], slots[t])[0]
+    return logits
+
+
+def decode_step(model, params, cache, cur: torch.Tensor, pos,
+                offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decode step's logits (B, V_padded): ``offsets`` go only to a
+    model that takes them."""
+    if offsets is not None and takes_offsets(model):
+        return model.decode_step(params, cache, cur, pos, offsets)[0]
+    return model.decode_step(params, cache, cur, pos)[0]
+
+
 def decode_loop(model, params, cache, tokens: torch.Tensor,
                 offsets: Optional[torch.Tensor], cfg: ServeConfig,
                 generator: Optional[torch.Generator], on_token=None
                 ) -> Tuple[np.ndarray, list]:
     """Prefill + ``max_new_tokens - 1`` decode steps on a prepared cache,
-    eagerly (``token_loop`` with the model's own steps)."""
+    eagerly (``token_loop`` with ``prefill`` and ``decode_step``)."""
     return token_loop(
         model, cache, tokens, cfg, generator,
-        prefill=lambda: model.prefill(params, cache, tokens, offsets)[0],
-        step=lambda cur, pos: model.decode_step(params, cache, cur, pos, offsets)[0],
+        prefill=lambda: prefill(model, params, cache, tokens, offsets),
+        step=lambda cur, pos: decode_step(model, params, cache, cur, pos, offsets),
         on_token=on_token)
 
 

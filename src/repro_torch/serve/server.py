@@ -11,9 +11,10 @@ decode program per bucket at warmup and replays them.  Here:
     the plan cache and a live ``tuning=`` tuner has searched each
     bucket's per-rank kernel shapes.  Then, on CUDA, it captures the
     bucket's prefill and its decode step as ``torch.cuda.CUDAGraph``s,
-    planned or not: static token, offset, current-token and slot (``pos``)
-    buffers, the bucket's preallocated cache, one graph memory pool for
-    all buckets.  A planned step's rank threads launch on the capturing
+    planned or not (a model without ``prefill`` has its teacher-forced
+    prompt loop captured whole: S decode steps in one graph): static token,
+    offset, current-token and slot (``pos``) buffers, the bucket's
+    preallocated cache, one graph memory pool for all buckets.  A planned step's rank threads launch on the capturing
     stream.  A failed capture raises; nothing falls back to eager.
   * ``generate()`` routes a request batch to the smallest bucket that
     fits (left-padding prompts with per-row position offsets, padding the
@@ -58,8 +59,9 @@ from repro_torch.dist.mesh import Mesh, parse_mesh
 from repro_torch.kernels.matmul import kernel as zorder_kernel
 from repro_torch.plan import cache_info, plan_cache
 from repro_torch.plan.lower_dist import executions_snapshot
-from repro_torch.runtime.serve import (ServeConfig, batch_requests, decode_loop, planned_scope,
-                                       token_loop)
+from repro_torch.runtime.serve import (ServeConfig, batch_requests, decode_loop, decode_step,
+                                       planned_scope, token_loop)
+from repro_torch.runtime.serve import prefill as run_prefill
 from repro_torch.tree import tree_leaves
 
 from .buckets import Bucket, as_bucket, route
@@ -145,9 +147,11 @@ def _moved(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
 
 
 class Server:
-    """Serving harness over one model (see module doc).  The model must
-    take per-row position offsets (``DecoderLM`` does), so prompts can be
-    left-padded into a bucket."""
+    """Serving harness over one model (see module doc).  A model that takes
+    per-row position offsets (``DecoderLM``) masks a left-padded prompt's
+    padding; the others (hybrid, xLSTM, encoder-decoder) run it through
+    their steps, as the reference's ``generate`` does, so a request decodes
+    as the same bucket-padded row does, not as the prompt alone."""
 
     def __init__(self, model, params, cfg: ServeConfig, *, mesh=None,
                  strategy: Optional[str] = None, tuning=None,
@@ -256,10 +260,10 @@ class Server:
 
         def prefill():
             _zero(cache)
-            return self.model.prefill(self.params, cache, g.tokens, g.offsets)[0]
+            return run_prefill(self.model, self.params, cache, g.tokens, g.offsets)
 
         def decode():
-            return self.model.decode_step(self.params, cache, g.cur, g.pos, g.offsets)[0]
+            return decode_step(self.model, self.params, cache, g.cur, g.pos, g.offsets)
 
         g.steps["prefill"] = self._capture_step(prefill)
         if self.cfg.max_new_tokens > 1:
@@ -444,8 +448,8 @@ class Server:
 
 
 def _zero(cache: Dict) -> None:
-    """Zero every layer's cache: ``layers`` and, where the model has them,
-    the leading ``dense_layers``; GQA's K/V or MLA's latent alike."""
+    """Zero every leaf of the cache: K/V, MLA latents, recurrent states and
+    cross-attention K/V alike."""
     for t in tree_leaves(cache):
         t.zero_()
 

@@ -554,8 +554,15 @@ def test_a_capture_that_cannot_succeed_raises(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_tuner_entries_round_trip_through_save_table(cuda_device, tmp_path):
-    from repro_torch.tune import (Tuner, candidate_route, candidate_space, load_table,
-                                  save_table, time_candidate)
+    """``tune_shape``'s contract: an entry is K1's default candidate unless
+    the fastest trial beat the default's trial by more than the noise
+    margin (and, not held here, a re-timing agreed); its seconds are the
+    smaller of the kept candidate's trial and its re-timing, so at most
+    that trial and above 0.  The entries survive ``save_table`` /
+    ``load_table``, and a tuner on the loaded table searches nothing."""
+    from repro_torch.tune import (Tuner, candidate_route, candidate_space, default_candidate,
+                                  load_table, save_table, time_candidate)
+    from repro_torch.tune.search import NOISE
 
     tuner = Tuner(reps=2, device=cuda_device)
     e1 = tuner.entry_for(4, 512, 256)
@@ -564,8 +571,16 @@ def test_tuner_entries_round_trip_through_save_table(cuda_device, tmp_path):
     assert (e1.block_m, e1.block_n, e1.block_k, e1.order) in candidate_space(16, 512, 256)
     assert candidate_route((e2.block_m, e2.block_n, e2.block_k, e2.order), "bfloat16") in (
         "wide", "thin", "wmma")
-    assert e1.seconds > 0 and e1.seconds == min(
-        t["seconds"] for t in tuner.trials if t["bucket"] == e1.bucket)
+    for e in (e1, e2):
+        trial = {t["blocks"] + (t["order"],): t["seconds"]
+                 for t in tuner.trials if t["bucket"] == e.bucket}
+        kept = (e.block_m, e.block_n, e.block_k, e.order)
+        default = default_candidate(*e.bucket, "bfloat16")
+        assert default in trial and kept in trial
+        if kept != default:
+            assert trial[kept] == min(trial.values())
+            assert trial[kept] < trial[default] * (1.0 - NOISE)
+        assert 0 < e.seconds <= trial[kept]
     table = tuner.table()
     assert table.device_kind == torch.cuda.get_device_name(cuda_device)
     back = load_table(save_table(table, str(tmp_path / "t.json")))
@@ -731,3 +746,109 @@ def test_captured_moe_and_mla_steps_serve_the_eager_tokens_bitwise(cuda_device, 
     captured = server._replay_step(g.steps["decode"])
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+# -- the recurrent and encoder-decoder families on the card ---------------------------
+
+NEW_FAMILIES = ["zamba2-2.7b", "xlstm-350m", "seamless-m4t-medium"]
+
+
+def _k1_per_step(cfg) -> int:
+    """K1 launches of one decode step of a smoke model: zamba2 2 a Mamba
+    layer (in_proj, out_proj) and 8 a shared block (shared_in, q, k, v, o,
+    gate, up, down); xlstm 4 an mLSTM block, 1 an sLSTM block; seamless 9
+    a decoder layer (self q, k, v, o; cross q, o over the cached K/V; the
+    MLP's 3)."""
+    if cfg.family == "hybrid":
+        return 2 * cfg.num_layers + 8 * (cfg.num_layers // cfg.shared_attn_every)
+    if cfg.family == "ssm":
+        n_m = sum(1 for b in cfg.block_pattern if b == "mlstm")
+        groups = cfg.num_layers // len(cfg.block_pattern)
+        return groups * (4 * n_m + (len(cfg.block_pattern) - n_m))
+    return 9 * cfg.dec_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_family_smoke_model_on_card_matches_cpu(cuda_device, arch):
+    """fp32 smoke model, the same weights on both devices: the uncached
+    forward (seamless: encode + decode_train) and a teacher-forced prefill
+    of 8 tokens + one decode step (seamless after ``prefill_cross``); the
+    card through K1, the CPU through the plain version; logits within
+    1e-4."""
+    from repro_torch.runtime.serve import prefill
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0), "cpu")
+    params = _to_device(cpu_params, cuda_device)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(1, 256, size=(2, 8)))
+    src = torch.from_numpy(rng.standard_normal((2, 32, cfg.d_model), dtype=np.float32))
+    out = {}
+    for dev, p in ((cuda_device, params), (torch.device("cpu"), cpu_params)):
+        before = kernel.launches
+        with torch.no_grad():
+            if cfg.family == "audio":
+                fwd, _ = model.forward(p, {"src_embed": src.to(dev), "tokens": tokens.to(dev)})
+                cache = model.prefill_cross(p, model.encode(p, src.to(dev)),
+                                            model.init_cache(2, 16, dev, src_len=32))
+            else:
+                fwd, _ = model.forward(p, tokens.to(dev))
+                cache = model.init_cache(2, 16, dev)
+            pre = prefill(model, p, cache, tokens.to(dev))
+            dec, _ = model.decode_step(p, cache, tokens[:, -1:].to(dev),
+                                       torch.tensor(8, device=dev))
+        out[dev.type] = (fwd.cpu(), pre.cpu(), dec.cpu(), kernel.launches - before)
+    assert out["cpu"][3] == 0 and out["cuda"][3] > 9 * _k1_per_step(cfg)
+    for i in (0, 1, 2):
+        assert _rel_err(out["cuda"][i][..., :256], out["cpu"][i][..., :256]) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_captured_recurrent_and_encdec_steps_serve_the_eager_tokens_bitwise(cuda_device, arch):
+    """The bf16 smoke models behind ``Server``: each bucket's teacher-forced
+    prefill (S decode steps in one graph) and decode step captured and
+    replayed give the eager path's tokens bit for bit; the replays launch
+    the captured K1 count, S + new - 1 steps a request."""
+    from repro_torch.runtime.serve import ServeConfig
+    from repro_torch.serve import Server
+
+    model = build_model(get_smoke_config(arch))
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    server = Server(model, params, ServeConfig(max_new_tokens=6, max_seq=32),
+                    buckets=[(4, 8), (2, 16)])
+    report = server.warmup()
+    assert all(r["graphs"] == 2 for r in report.values())
+    for prompts in (SERVE_PROMPTS, SERVE_PROMPTS[:2], [[3] * 12]):
+        kernel.reset_launches()
+        got = server.generate(prompts)
+        assert got.graphs and kernel.launches == 0
+        assert got.new_tokens == _eager_tokens(server, prompts)[0]
+    per_step = _k1_per_step(model.cfg)
+    for label, g in server.cache_report()["graphs"].items():
+        seq = int(label.split("x")[1])
+        assert sum(g["prefill"]["k1_per_replay"].values()) == seq * per_step
+        assert sum(g["decode"]["k1_per_replay"].values()) == per_step
+
+
+# K2 at the new families' full widths: zamba2's shared block (32 heads of 80,
+# causal; the forward of chip_smoke phase 16d at 4096 of its 8192 tokens)
+# and seamless's encoder (16 heads of 64, non-causal, 4 x 1024 frames)
+NEW_FAMILY_K2 = [(1, 4096, 4096, 32, 32, 80, True, 0), (4, 1024, 1024, 16, 16, 64, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", NEW_FAMILY_K2, ids=["zamba2-shared", "seamless-encoder"])
+def test_k2_at_the_new_families_shapes(cuda_device, shape):
+    b, sq, skv, hq, hkv, d, causal, window = shape
+    q, k, v = _qkv(cuda_device, torch.bfloat16, b, sq, skv, hq, hkv, d, seed=d)
+    k2.kernel.reset_launches()
+    out = k2.mha(q, k, v, causal=causal, window=window)
+    again = k2.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k2.kernel.launches_by_route == {"wgmma": 2, "mma": 0, "fma": 0}
+    assert torch.equal(out, again)
+    ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), causal=causal, window=window)
+    assert _row_rel(_heads(out), ref) < ROW_TOL_BF16

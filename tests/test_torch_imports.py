@@ -54,14 +54,19 @@ NEW_MODULES = ["repro_torch.obs.runtime", "repro_torch.obs.metrics", "repro_torc
                "repro_torch.launch.train", "repro_torch.layers.moe",
                "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.qwen3_moe_30b_a3b",
                "repro_torch.configs.minicpm3_4b", "repro_torch.configs.granite_20b",
-               "repro_torch.configs.chameleon_34b"]
+               "repro_torch.configs.chameleon_34b", "repro_torch.layers.mamba2",
+               "repro_torch.layers.xlstm", "repro_torch.layers.ring_blocks",
+               "repro_torch.models.hybrid", "repro_torch.models.xlstm_model",
+               "repro_torch.models.encdec", "repro_torch.configs.zamba2_2_7b",
+               "repro_torch.configs.xlstm_350m", "repro_torch.configs.seamless_m4t_medium"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_the_hygiene_walk_covers_the_measurement_loop(name):
     """The subprocess walk above imports every module of the package; the
     measurement loop's, the training path's and the layer zoo's modules
-    are among them."""
+    (the recurrent and encoder-decoder families and the ring-TP block
+    too) are among them."""
     import pkgutil
 
     import repro_torch

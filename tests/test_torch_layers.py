@@ -351,10 +351,17 @@ def test_zoo_block_matches_reference(arch, stack, kind, cached):
 
 
 def test_block_kinds_not_yet_ported_raise():
-    from repro_torch.layers.blocks import block_params
+    """Every block kind of the reference is ported (the recurrent ones
+    build); a kind the reference does not have raises, as there, and so
+    does an attention type no config uses."""
+    from repro_torch.layers.blocks import KINDS, block_params
 
+    assert KINDS == ("attn_mlp", "attn_moe", "mamba", "mlstm", "slstm")
+    zcfg = get_smoke_config("zamba2-2.7b")
+    assert set(block_params(torch.Generator().manual_seed(0), zcfg, "mamba", torch.float32,
+                            CPU)) == {"norm", "mamba"}
     cfg = get_smoke_config("deepseek-moe-16b")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        block_params(torch.Generator().manual_seed(0), cfg, "mamba", torch.float32, CPU)
+    with pytest.raises(ValueError, match="unknown block kind 'enc_attn_mlp'"):
+        block_params(torch.Generator().manual_seed(0), cfg, "enc_attn_mlp", torch.float32, CPU)
     with pytest.raises(NotImplementedError, match="attention 'none'"):
         build_model(dataclasses.replace(cfg, attn_type="none"))

@@ -215,8 +215,9 @@ def test_configs_hold_the_published_llama():
     # 7 projections per layer stream 60.8M weights: the decode bound's bytes
     per_layer = cfg._attn_params() + cfg._mlp_params(cfg.d_ff)
     assert per_layer == 60_817_408
+    # every architecture of the reference is ported; an unknown one raises
     with pytest.raises(ValueError, match="not ported"):
-        get_config("zamba2-2.7b")
+        get_config("mamba3-8b")
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
