@@ -147,8 +147,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    its top kernels and operators, and the planned forward's accumulate
    chain (fp32 zero, fp32 add, cast) and device copies beside the
    unplanned forward's; both traces saved gzipped to ``chiprun_out/``.
-14. train -- the training path, every leg fatal: (a) K1's autograd node
-   (``ops.ZorderMatmul``) at each of Llama's 7 projections at 2048 tokens,
+14. train -- the training path, every leg fatal: (a) K1's registered op
+   (``torch.ops.repro_torch.zorder_matmul``, differentiable) at each of
+   Llama's 7 projections at 2048 tokens,
    bf16: the forward, dA = dC B^T and dB = A^T dC held per row to the
    plain version on the same CUDA tensors (``ROW_TOL``), every launch on
    the wide route, each product timed beside the plain version,
@@ -214,6 +215,28 @@ Phases, each fatal on failure (no result line, non-zero exit):
    (``attn_impl="flash"``): K1 180 wide, K2 9 wgmma at head dim 80, within
    ``PREFILL_LOGITS_TOL`` of the xla route, profiled into K1, K2 and the
    SSD chunk scan, K2 at that shape vs its plain version and SDPA.
+17. zoo-train -- every family trained, every leg fatal, each model freed
+   before the next: (a) phase 14b's fp32 step, card vs CPU with the
+   detached control, for zamba2-2.7b (6 Mamba layers and the shared
+   block), xlstm-350m (mmm-s), deepseek-moe-16b (its dense layer and one
+   MoE layer of all 64 experts), minicpm3-4b (2 MLA layers) and
+   seamless-m4t-medium (1 + 1 layers, a seeded source), each under its
+   config's remat policy; (b) one bf16 step of full-width zamba2 at 12
+   layers, 2 x 512 tokens, under "none", "full" and "dots": K1 120, 144
+   and 120 launches ("dots" recomputes no product), "dots" gradients
+   within ``ROW_TOL`` of "none"'s, each mode's peak memory ("dots" below
+   "none"); (c) the main path of this phase: ``launch.train.main(["--arch",
+   "zamba2-2.7b", "--steps", "20", "--batch", "2", "--seq", "512"])``, full
+   width and depth, bf16, ``remat="dots"``: every logged loss finite, the
+   last below the first, K1 540 a step all wide (counts from 0 just
+   before), peak memory; then the step timed (host clock, CUDA events:
+   loss and gradients vs optimizer, tokens/s), profiled (K1, the SSD
+   scan's forward, the fp32 unembed), and its K1 calls held against the
+   plain version and timed beside ``torch.matmul`` and their bound; (d)
+   the same for ``--arch xlstm-350m --steps 20 --batch 8 --seq 256`` (234
+   a step); (e) deepseek-moe-16b cut to 4 layers (its dense layer and 3
+   MoE layers) through ``Trainer.fit``, 10 steps of 4 x 256, ``"dots"``,
+   measured as (c) (84 a step).
 
 On one card the collectives are device copies and "overlap" is only the
 order in which the rank threads issue work: no number of phases 7-9 or 11
@@ -230,6 +253,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import gzip
 import importlib
 import io
@@ -758,6 +782,22 @@ def k1_per_step(cfg) -> int:
     if cfg.family == "audio":
         return 9 * cfg.dec_layers
     return 7 * cfg.num_layers
+
+
+def train_products(cfg) -> int:
+    """K1 products of one training forward (each has a dA and a dB too):
+    4 attention products a decoder layer (MLA 5: ``wkv_b`` too), 3 a dense
+    MLP or shared experts (none for routed experts alone); the recurrent
+    families as ``k1_per_step``; the encoder-decoder 7 an encoder layer, 11
+    a decoder layer (cross q, k, v and o over the encoder output)."""
+    if cfg.family == "audio":
+        return 7 * cfg.enc_layers + 11 * cfg.dec_layers
+    if cfg.family in ("hybrid", "ssm"):
+        return k1_per_step(cfg)
+    dense = cfg.first_dense_layers if cfg.num_experts else cfg.num_layers
+    shared = 3 if cfg.num_shared_experts else 0
+    return ((5 if cfg.attn_type == "mla" else 4) * cfg.num_layers + 3 * dense
+            + shared * (cfg.num_layers - dense))
 
 
 def prefill_steps(model, seq: int) -> int:
@@ -2210,6 +2250,7 @@ def profile_split(prof) -> dict:
             "rest_top_kernels": [{"kernel": key[:160], "ms": v / 1e3, "launches": counts[key]}
                                  for key, v in rest.most_common(8)],
             "top_operators": [{"op": key, "ms": v / 1e3} for key, v in ops.most_common(8)],
+            "mm_ms": ops["aten::mm"] / 1e3,
             "chain": chain, "ranges": ranges}
 
 
@@ -2397,7 +2438,7 @@ def _control_grads(trainer, master, batch) -> list:
     leaves = tree_leaves(master)
     for w in leaves:
         w.requires_grad_(True)
-    params = tree_map(lambda w: w.to(trainer.compute_type(w)), master)
+    params = tree_map(lambda w, t: w.to(t), master, trainer.compute_dtypes())
     loss, _ = trainer.model.loss(params, batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     for w in leaves:
@@ -2405,28 +2446,45 @@ def _control_grads(trainer, master, batch) -> list:
     return [torch.zeros_like(w) if g is None else g for g, w in zip(grads, leaves)]
 
 
-def train_grad_check(dev: torch.device) -> dict:
-    """(b) One fp32 train step of a 2-layer full-width Llama on the card and
-    on the CPU, the same weights and batch: the loss and every master
-    leaf's gradient within ``TRAIN_GRAD_TOL``, every projection's non-zero;
-    a control whose products detach K1's output lands outside the limit
-    (and the trainer refuses it)."""
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_CHECK_LAYERS,
-                              dtype="float32")
+def train_grad_check(dev: torch.device, arch: str = TRAIN_ARCH, depth: dict = None,
+                     tag: str = "train-check") -> dict:
+    """(b) One fp32 train step of ``arch`` at full width and ``depth`` (a
+    2-layer Llama; phase 17a the zoo, each with its config's remat policy)
+    on the card and on the CPU, the same weights and batch (seamless also a
+    seeded ``src_embed``): the loss and every master leaf's gradient within
+    ``TRAIN_GRAD_TOL``, every gradient finite and every projection's
+    non-zero; a control whose products detach K1's output lands outside
+    the limit (and the trainer refuses it)."""
+    t_start = time.perf_counter()
+    depth = depth or {"num_layers": TRAIN_CHECK_LAYERS}
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **depth)
     model = build_model(cfg)
-    master = adamw.init(model.init(torch.Generator(device=dev).manual_seed(3), dev))["master"]
+    master = tree_map(lambda t: t.float(),
+                      model.init(torch.Generator(device=dev).manual_seed(3), dev))
     cpu = torch.device("cpu")
     keys = ["//".join(map(str, p)) for p, _ in tree_paths(master)]
-    out = {}
+
+    def batch_on(d):
+        b = _train_batch(cfg.vocab_size, 1, TRAIN_CHECK_SEQ, d)
+        if cfg.family == "audio":
+            b["src_embed"] = torch.from_numpy(np.random.default_rng(3).standard_normal(
+                (1, TRAIN_CHECK_SEQ, cfg.d_model), dtype=np.float32)).to(d)
+        return b
+
+    out, secs = {}, {}
     for name, d in (("card", dev), ("cpu", cpu)):
+        t0 = time.perf_counter()
         m = master if d == dev else tree_map(lambda t: t.to(cpu, copy=True), master)
         k1.reset_launches()
-        loss, _, grads = Trainer(model, TrainConfig(), device=d).loss_and_grads(
-            m, _train_batch(cfg.vocab_size, 1, TRAIN_CHECK_SEQ, d))
-        out[name] = (loss.item(), [g.cpu() for g in grads], _nonzero(k1.launches_by_route))
-    want_launches = {"fma": 3 * 7 * TRAIN_CHECK_LAYERS}
+        loss, _, grads = Trainer(model, TrainConfig(), device=d).loss_and_grads(m, batch_on(d))
+        # both sides' gradients compared on the card (fp64 norms of 0.5 B-element
+        # leaves take seconds on the host)
+        out[name] = (loss.item(), [g.to(dev) for g in grads], _nonzero(k1.launches_by_route))
+        del m, grads
+        secs[name] = time.perf_counter() - t0
+    want_launches = {"fma": 3 * train_products(cfg)}
     if out["card"][2] != want_launches or out["cpu"][2]:
-        raise AssertionError(f"K1 launches: card {out['card'][2]}, cpu {out['cpu'][2]}; "
+        raise AssertionError(f"[{tag}] K1 launches: card {out['card'][2]}, cpu {out['cpu'][2]}; "
                              f"want {want_launches} on the card, none on the cpu")
 
     def rel(g, c):
@@ -2435,22 +2493,26 @@ def train_grad_check(dev: torch.device) -> dict:
     errs = {k: rel(g, c) for k, g, c in zip(keys, out["card"][1], out["cpu"][1])}
     zero = [k for k, g in zip(keys, out["card"][1]) if g.ndim == 2 and "layers" in k
             and not bool(g.abs().sum() > 0)]
-    loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    nonfinite = [k for k, g in zip(keys, out["card"][1]) if not bool(torch.isfinite(g).all())]
+    loss_card, loss_cpu = out["card"][0], out["cpu"][0]
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     worst = max(errs, key=errs.get)
-    log(f"[train-check] {TRAIN_CHECK_LAYERS}-layer full-width fp32 step, 1x{TRAIN_CHECK_SEQ} "
-        f"tokens: loss card {out['card'][0]:.6f} cpu {out['cpu'][0]:.6f} (rel {loss_rel:.2e}); "
-        f"{len(errs)} master leaves, worst gradient rel L2 {errs[worst]:.3e} ({worst}), limit "
-        f"{TRAIN_GRAD_TOL:g}; zero projection gradients: {zero}; K1 {out['card'][2]}")
-    if zero or errs[worst] >= TRAIN_GRAD_TOL or loss_rel >= TRAIN_GRAD_TOL:
-        raise AssertionError(f"card and cpu training steps disagree: worst {worst} "
-                             f"{errs[worst]}, loss {loss_rel}, zero gradients {zero}")
+    log(f"[{tag}] {cfg.name} full width, {depth}, remat={cfg.remat!r}, fp32 step, "
+        f"1x{TRAIN_CHECK_SEQ} tokens: loss card {out['card'][0]:.6f} cpu {out['cpu'][0]:.6f} "
+        f"(rel {loss_rel:.2e}); {len(errs)} master leaves, worst gradient rel L2 "
+        f"{errs[worst]:.3e} ({worst}), limit {TRAIN_GRAD_TOL:g}; zero projection gradients: "
+        f"{zero}; non-finite: {nonfinite}; K1 {out['card'][2]}")
+    if zero or nonfinite or errs[worst] >= TRAIN_GRAD_TOL or loss_rel >= TRAIN_GRAD_TOL:
+        raise AssertionError(f"[{tag}] card and cpu training steps disagree: worst {worst} "
+                             f"{errs[worst]}, loss {loss_rel}, zero gradients {zero}, "
+                             f"non-finite {nonfinite}")
 
     local_mod = importlib.import_module("repro_torch.dist.local")
 
     def detached(a, b, **kw):   # K1's output with no autograd node
         return matmul(a.detach(), b.detach(), **kw)
 
-    batch = _train_batch(cfg.vocab_size, 1, TRAIN_CHECK_SEQ, dev)
+    batch = batch_on(dev)
     trainer = Trainer(model, TrainConfig(), device=dev)
     with mock.patch.object(local_mod, "matmul", detached):
         try:
@@ -2459,18 +2521,21 @@ def train_grad_check(dev: torch.device) -> dict:
         except RuntimeError as e:    # a master leaf the loss does not reach
             refused = str(e)[:120]
         ctrl = _control_grads(trainer, master, batch)
-    ctrl_errs = {k: rel(g.cpu(), c) for k, g, c in zip(keys, ctrl, out["cpu"][1])}
+    ctrl_errs = {k: rel(g, c) for k, g, c in zip(keys, ctrl, out["cpu"][1])}
     caught = max(ctrl_errs.values())
-    log(f"[train-check] control, K1's output detached: worst gradient rel L2 {caught:.3e} "
-        f"(must be >= {TRAIN_GRAD_TOL:g}); the trainer refused it: {refused}")
+    secs["all"] = time.perf_counter() - t_start
+    log(f"[{tag}] control, K1's output detached: worst gradient rel L2 {caught:.3e} "
+        f"(must be >= {TRAIN_GRAD_TOL:g}); the trainer refused it: {refused}; seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     if caught < TRAIN_GRAD_TOL or refused is None:
-        raise AssertionError(f"a detached K1 product passed: worst {caught}, the trainer "
-                             f"refused it: {refused}")
-    del master, ctrl
+        raise AssertionError(f"[{tag}] a detached K1 product passed: worst {caught}, the "
+                             f"trainer refused it: {refused}")
+    launches = out["card"][2]
+    del master, ctrl, out
     torch.cuda.empty_cache()
-    return {"loss": {"card": out["card"][0], "cpu": out["cpu"][0]}, "grad_rel_l2": errs,
-            "worst": [worst, errs[worst]], "launches": out["card"][2],
-            "control_worst": caught, "control_refused": refused}
+    return {"loss": {"card": loss_card, "cpu": loss_cpu}, "grad_rel_l2": errs,
+            "worst": [worst, errs[worst]], "launches": launches,
+            "control_worst": caught, "control_refused": refused, "seconds": secs}
 
 
 def _train_step_times(trainer, state, batch, steps: int) -> dict:
@@ -2497,21 +2562,46 @@ def _train_step_times(trainer, state, batch, steps: int) -> dict:
     return {key: float(np.median([r[key] for r in rows])) for key in rows[0]} | {"runs": rows}
 
 
-def _profile_step(trainer, state, batch) -> dict:
-    """One train step under ``torch.profiler``: device time of K1, of the
-    unembed (``aten::mm``: its forward and two backward products are the
-    step's only ``mm``), and of the rest."""
-    from torch.profiler import ProfilerActivity, profile
+@contextlib.contextmanager
+def _profiled_step(host_side: bool = True):
+    """Within the scope, ``torch.profiler`` over CUDA and (``host_side``)
+    the CPU, with a ``record_function`` range around
+    ``mamba2._ssd_chunk_scan`` (the SSD scan's forward, and its recompute
+    under ``"dots"``; its backward kernels are not in it); yields a dict
+    that holds, after the scope, the device time of K1 and of the rest by
+    kernel name, and from the host side the unembed's (``aten::mm``: its
+    forward and two backward products are a step's only ``mm``), the
+    scan's and the operators'.  The host side costs about 10 s of trace
+    processing per 10^5 operators."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    step = trainer.make_train_step()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
+    real_scan = mamba2_layer._ssd_chunk_scan
+
+    def ranged_scan(*args, **kw):
+        with record_function("ssd_chunk_scan"):
+            return real_scan(*args, **kw)
+
+    out = {}
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_side else [])
+    with mock.patch.object(mamba2_layer, "_ssd_chunk_scan", ranged_scan), profile(
+            activities=activities) as prof:
+        yield out
         torch.cuda.synchronize()
     split = profile_split(prof)
-    mm = [r for r in split["top_operators"] if r["op"] == "aten::mm"]
-    return {"device_ms": split["device_ms"], "k1_ms": split["k1_ms"],
-            "k1_launches": split["k1_launches"], "unembed_ms": mm[0]["ms"] if mm else 0.0,
-            "top_operators": split["top_operators"], "rest_top_kernels": split["rest_top_kernels"]}
+    ssd = split["ranges"].get("ssd_chunk_scan", {}).get("cpu", {})
+    out.update({"device_ms": split["device_ms"], "k1_ms": split["k1_ms"],
+                "k1_launches": split["k1_launches"], "unembed_ms": split["mm_ms"],
+                "ssd_scan_forward_ms": ssd.get("ms", 0.0), "ssd_scan_calls": ssd.get("count", 0),
+                "top_operators": split["top_operators"],
+                "rest_top_kernels": split["rest_top_kernels"]})
+
+
+def _profile_step(trainer, state, batch) -> dict:
+    """One train step under ``_profiled_step``."""
+    step = trainer.make_train_step()
+    with _profiled_step() as prof:
+        step(state, batch)
+    return prof
 
 
 def phase_train(dev: torch.device, gen: torch.Generator) -> dict:
@@ -3350,6 +3440,294 @@ def family_k1_rows(fam: dict) -> dict:
     return rows
 
 
+# -- every family trained (phase 17) ----------------------------------------------------
+
+# (a): full width, reduced depth, fp32, card vs CPU: zamba2's first group (6
+# Mamba layers and the shared block), xLSTM's mmm-s, deepseek's dense layer
+# and one MoE layer of all 64 experts, 2 MLA layers, 1 encoder + 1 decoder layer
+ZOO_TRAIN_CHECK_DEPTH = {"zamba2-2.7b": {"num_layers": 6}, "xlstm-350m": {"num_layers": 4},
+                         "deepseek-moe-16b": {"num_layers": 2}, "minicpm3-4b": {"num_layers": 2},
+                         ENCDEC_ARCH: {"num_layers": 2, "enc_layers": 1, "dec_layers": 1}}
+# (b): the remat policies side by side on zamba2's first two groups, bf16
+REMAT_LAYERS, REMAT_BATCH, REMAT_SEQ = 12, 2, 512
+# (c, d): the launcher at full width and depth; (e): deepseek-moe-16b cut to
+# its dense layer and 3 MoE layers (the whole model's AdamW state, ~260 GB,
+# does not fit one card), driven through Trainer
+ZOO_TRAIN_RUNS = {"zamba2-2.7b": (2, 512, 20), "xlstm-350m": (8, 256, 20)}
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_RUN = "deepseek-moe-16b", 4, (4, 256, 10)
+
+
+def k1_train_times(calls: list, dev: torch.device) -> dict:
+    """K1 on one training step's calls (``k1_calls``: forward, dA, dB):
+    each distinct call held against its plain version per row
+    (``ROW_TOL``) on seeded operands, and K1, ``torch.matmul`` (the
+    yardstick, never called by the port) and the plain version timed in
+    turns by CUDA-graph replays (phase 14a's way), times its count; and the
+    bound of those calls."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    tot = {"ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    t_bytes = t_ops = worst = worst_abs = 0.0
+    for (m, n, k, blocks, order, dt, out_dtype), count in sorted(Counter(calls).items(), key=str):
+        a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(dt)
+
+        def kernel(x, y, blocks=blocks, order=order, out_dtype=out_dtype):
+            return matmul(x, y, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
+                          order=order, out_dtype=out_dtype)
+        e = row_err(kernel(a, b), matmul_ref(a, b, out_dtype))
+        if not e["finite"] or not e["row_rel"] < ROW_TOL[dt]:
+            raise AssertionError(f"K1 at {m}x{n}x{k} {dt} disagrees with its plain version: {e}")
+        worst, worst_abs = max(worst, e["row_rel"]), max(worst_abs, e["max_abs_err"])
+        t = {}
+        for name in ("ms", "library_ms", "plain_ms", "ms"):
+            fn = {"ms": kernel, "library_ms": torch.matmul, "plain_ms": matmul_ref}[name]
+            t.setdefault(name, []).append(graph_ms(fn, [(a, b)] * TRAIN_GRAPH_CALLS))
+        for name, v in t.items():
+            tot[name] += count * min(v)
+        tot["bound_ms"] += count * bound(m, k, n, dt)[0]
+        esize = torch.finfo(dt).bits // 8
+        t_bytes += count * (m * k + k * n + m * n) * esize / PEAK_BYTES_S
+        t_ops += count * 2.0 * m * k * n / PEAK_FLOPS[dt]
+        del a, b
+    tot.update(bound_by="bytes" if t_bytes >= t_ops else "operations", products=len(calls),
+               distinct=len(set(calls)), tflop=t_ops * PEAK_FLOPS[torch.bfloat16] / 1e12,
+               worst_row_rel=worst, worst_abs_err=worst_abs)
+    return tot
+
+
+def remat_compare(dev: torch.device) -> dict:
+    """(b) One bf16 step of full-width zamba2 at ``REMAT_LAYERS`` layers
+    under each remat policy, the same masters and batch: K1 launches
+    ("dots" as many as "none", 3 x the forward's products; "full" also the
+    Mamba layers' forward products again), every gradient of "dots" within
+    ``ROW_TOL[bf16]`` relative L2 of "none"'s, and each step's peak memory
+    above what was allocated before it ("dots" below "none")."""
+    tag = "zoo-train-remat"
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), num_layers=REMAT_LAYERS)
+    master = tree_map(lambda t: t.float(), build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(4), dev))
+    batch = _train_batch(cfg.vocab_size, REMAT_BATCH, REMAT_SEQ, dev)
+    fwd = train_products(cfg)
+    want = {"none": 3 * fwd, "dots": 3 * fwd, "full": 3 * fwd + 2 * cfg.num_layers}
+    out, ref = {}, None
+    for mode in ("none", "full", "dots"):
+        trainer = Trainer(build_model(dataclasses.replace(cfg, remat=mode)), TrainConfig(),
+                          device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        k1.reset_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = trainer.loss_and_grads(master, batch)
+        torch.cuda.synchronize()
+        row = {"loss": loss.item(), "seconds": time.perf_counter() - t0,
+               "routes": _nonzero(k1.launches_by_route),
+               "peak_gib": (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30}
+        if mode == "none":
+            ref = grads
+        elif mode == "dots":
+            errs = [((g.double() - r.double()).norm() / r.double().norm().clamp_min(1e-300)).item()
+                    for g, r in zip(grads, ref)]
+            row["worst_grad_rel_vs_none"] = max(errs)
+        out[mode] = row
+        del grads
+        log(f"[{tag}] {cfg.name} {REMAT_LAYERS} layers, bf16, {REMAT_BATCH}x{REMAT_SEQ}, "
+            f"remat={mode!r}: loss {row['loss']:.4f}, K1 {row['routes']} (want {want[mode]}), "
+            f"peak {row['peak_gib']:.2f} GiB above the masters, {row['seconds']:.2f}s"
+            + (f"; worst gradient rel L2 vs 'none' {row['worst_grad_rel_vs_none']:.3e} "
+               f"(limit {ROW_TOL[torch.bfloat16]:g})" if mode == "dots" else ""))
+    del ref, master
+    torch.cuda.empty_cache()
+    bad = {m: r["routes"] for m, r in out.items() if sum(r["routes"].values()) != want[m]}
+    if bad or out["dots"]["worst_grad_rel_vs_none"] >= ROW_TOL[torch.bfloat16]:
+        raise AssertionError(f"[{tag}] K1 launches {bad} (want {want}), or 'dots' gradients "
+                             f"{out['dots']['worst_grad_rel_vs_none']} off 'none'")
+    if not out["dots"]["peak_gib"] < out["none"]["peak_gib"]:
+        raise AssertionError(f"[{tag}] 'dots' peaks at {out['dots']['peak_gib']:.2f} GiB, "
+                             f"not below 'none' ({out['none']['peak_gib']:.2f})")
+    log(f"[{tag}] took {time.perf_counter() - t_start:.1f}s")
+    return out
+
+
+@contextlib.contextmanager
+def metered_steps(profile_at: int, host_side: bool):
+    """Within the scope, each step of the trainer's loop (``Trainer.fit``,
+    the launcher's too) is timed: CUDA events around the loss and
+    gradients and around the optimizer, the host clock around the whole
+    step (ended by the sync ``fit`` makes after it anyway); step number
+    ``profile_at`` (from 0) runs under ``_profiled_step(host_side)`` with its K1 calls
+    recorded (``k1_calls``).  Yields {"rows": [...], "profile": {...},
+    "calls": [...]}, filled as the steps run."""
+    meter = {"rows": [], "profile": {}, "calls": []}
+
+    def make_train_step(self):
+        def train_step(state, batch):
+            i = len(meter["rows"])
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            scope = contextlib.ExitStack()
+            if i == profile_at:
+                meter["profile"] = scope.enter_context(_profiled_step(host_side))
+                meter["calls"] = scope.enter_context(k1_calls())
+            with scope:
+                t0 = time.perf_counter()
+                ev[0].record()
+                lr = self.sched(state["step"])
+                loss, metrics, grads = self.loss_and_grads(state["master"], batch)
+                ev[1].record()
+                state, opt_metrics = adamw.step(state, grads, lr, self.opt_cfg)
+                ev[2].record()
+                torch.cuda.synchronize()
+            meter["rows"].append((time.perf_counter() - t0, ev))
+            return state, {"loss": loss, **metrics, **opt_metrics}
+        return train_step
+
+    with mock.patch.object(Trainer, "make_train_step", make_train_step):
+        yield meter
+
+
+def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) -> dict:
+    """(c, d) ``launch.train.main(["--arch", ..., "--steps", ..., "--batch",
+    ..., "--seq", ...])`` at full width and depth (``launcher``), or (e)
+    ``Trainer.fit`` on ``cfg`` with the launcher's schedule, bf16, the
+    config's remat policy: every logged loss finite and the last below the
+    first, K1 3 x the forward's products a step, all wide (counts from 0
+    just before), the peak memory.  Its own steps are measured
+    (``metered_steps``): the medians over the steps after the first, the
+    profiled one left out, of the host step time, tokens/s and the
+    CUDA-event split (loss and gradients, optimizer); the next-to-last step
+    profiled (K1 and the rest by kernel; for zamba2 also the unembed, the
+    SSD scan's forward and the operators), and its K1 calls held against
+    the plain version and timed beside ``torch.matmul`` and their bound."""
+    batch, seq, steps = run
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    # the host side of the trace where the SSD scan's range is read: xLSTM's
+    # step alone is ~2 x 10^5 operators (its sLSTM steps through time)
+    with metered_steps(steps - 2, host_side=cfg.family == "hybrid") as meter:
+        if launcher:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+                rc = launch_train.main(["--arch", cfg.name, "--steps", str(steps), "--batch",
+                                        str(batch), "--seq", str(seq)])
+            logged = [m.groups() for m in map(TRAIN_LOG.match, buf.getvalue().splitlines()) if m]
+            losses = [float(x) for _, x, _ in logged]
+        else:
+            fit = Trainer(build_model(cfg), TrainConfig(steps=steps, warmup=max(steps // 20, 5),
+                                                        log_every=1), device=dev).fit(
+                torch.Generator(device=dev).manual_seed(0), batch_iterator(
+                    DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)))
+            rc, losses = 0, [h["loss"] for h in fit["history"]]
+            del fit
+    wall = time.perf_counter() - t0
+    routes = _nonzero(k1.launches_by_route)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = 3 * train_products(cfg)
+    want = {"wide": per_step * steps}
+    log(f"[{tag}] {'launcher' if launcher else 'Trainer.fit'}: {cfg.name} "
+        f"({cfg.num_layers} layers, remat={cfg.remat!r}), {batch}x{seq} tokens, rc {rc}, "
+        f"{len(losses)} steps in {wall:.1f}s, loss {losses[0] if losses else None} -> "
+        f"{losses[-1] if losses else None}; K1 {routes} (want {want}: {per_step} a step); peak "
+        f"memory {peak:.2f} GiB")
+    if rc != 0 or len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{tag}] the run: rc {rc}, losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] the loss did not fall: {losses}")
+    if routes != want:
+        raise AssertionError(f"[{tag}] K1 launched {routes}, want {want}")
+    calls, prof = meter["calls"], meter["profile"]
+    if len(calls) != per_step:
+        raise AssertionError(f"[{tag}] the profiled step called K1 {len(calls)} times, "
+                             f"want {per_step}")
+    steady = [(host, ev) for i, (host, ev) in enumerate(meter["rows"])
+              if i and i != steps - 2]
+    times = {"host_ms": float(np.median([h * 1e3 for h, _ in steady])),
+             "device_ms": float(np.median([ev[0].elapsed_time(ev[2]) for _, ev in steady])),
+             "grads_ms": float(np.median([ev[0].elapsed_time(ev[1]) for _, ev in steady])),
+             "optimizer_ms": float(np.median([ev[1].elapsed_time(ev[2]) for _, ev in steady])),
+             "first_step_ms": meter["rows"][0][0] * 1e3}
+    times["tokens_per_s"] = batch * seq / times["host_ms"] * 1e3
+    times["busy_share"] = prof["device_ms"] / times["device_ms"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1t = k1_train_times(calls, dev)
+    log(f"[{tag}] its steps at {batch}x{seq} (medians of {len(steady)}): host "
+        f"{times['host_ms']:.1f}ms, device {times['device_ms']:.1f}ms (loss and gradients "
+        f"{times['grads_ms']:.1f}, optimizer {times['optimizer_ms']:.1f}), "
+        f"{times['tokens_per_s']:.0f} tokens/s, the first {times['first_step_ms']:.0f}ms; step "
+        f"{steps - 1} profiled: device {prof['device_ms']:.1f}ms (busy {times['busy_share']:.0%}), "
+        f"K1 {prof['k1_ms']:.1f}ms ({prof['k1_launches']} launches), the SSD scan's forward "
+        f"{prof['ssd_scan_forward_ms']:.1f}ms ({prof['ssd_scan_calls']} calls), unembed "
+        f"(fp32 aten::mm) {prof['unembed_ms']:.1f}ms; top operators " + ", ".join(
+            f"{r['op']} {r['ms']:.1f}ms" for r in prof["top_operators"][:6])
+        + "; top kernels besides K1 " + ", ".join(
+            f"{k['kernel'][:50]} {k['ms']:.1f}ms x{k['launches']}"
+            for k in prof["rest_top_kernels"][:4]))
+    log(f"[{tag}] K1's {k1t['products']} calls of that step ({k1t['distinct']} distinct, each "
+        f"within ROW_TOL, worst row rel {k1t['worst_row_rel']:.3e}) timed alone: "
+        f"{k1t['ms']:.2f}ms, bound {k1t['bound_ms']:.2f}ms ({k1t['bound_by']}, "
+        f"{k1t['tflop']:.2f} TFLOP), torch.matmul {k1t['library_ms']:.2f}ms, plain "
+        f"{k1t['plain_ms']:.2f}ms; the leg took {time.perf_counter() - t0:.1f}s")
+    return {"launches": sum(routes.values()), "routes": routes, "losses": losses,
+            "host_ms_per_step": [h * 1e3 for h, _ in meter["rows"]], "wall_s": wall,
+            "seconds": time.perf_counter() - t0, "peak_gib": peak,
+            "timing": {**times, "profile": prof}, "k1": k1t, "layers": cfg.num_layers,
+            "batch": batch, "seq": seq}
+
+
+def phase_zoo_train(dev: torch.device) -> dict:
+    """Phase 17: (a) five families' fp32 gradients card vs CPU; (b) the
+    remat policies side by side; (c) zamba2-2.7b and (d) xlstm-350m trained
+    through the launcher at full width and depth; (e) deepseek-moe-16b at 4
+    layers through ``Trainer``.  Each model freed before the next."""
+    t0 = time.perf_counter()
+    out = {"check": {arch: train_grad_check(dev, arch, depth, f"zoo-train-check-{arch}")
+                     for arch, depth in ZOO_TRAIN_CHECK_DEPTH.items()}}
+    out["remat"] = remat_compare(dev)
+    for arch, run in ZOO_TRAIN_RUNS.items():
+        out[arch] = zoo_train_leg(dev, f"zoo-train-{arch}", get_config(arch), run, True)
+    moe_cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    out[MOE_TRAIN_ARCH] = zoo_train_leg(dev, f"zoo-train-{MOE_TRAIN_ARCH}", moe_cfg,
+                                        MOE_TRAIN_RUN, False)
+    out[MOE_TRAIN_ARCH]["reduced"] = (f"num_layers {get_config(MOE_TRAIN_ARCH).num_layers} -> "
+                                      f"{MOE_TRAIN_LAYERS}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[zoo-train] phase 17 took {out['seconds']:.1f}s")
+    return out
+
+
+def zoo_train_launches(zt: dict) -> dict:
+    """K1's launches on phase 17's paths, for the kernels line."""
+    return {**{f"zoo_train_{arch}": zt[arch]["launches"]
+               for arch in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)},
+            **{f"zoo_train_check_{arch}_fp32": sum(c["launches"].values())
+               for arch, c in zt["check"].items()},
+            **{f"zoo_train_remat_{mode}_step": sum(r["routes"].values())
+               for mode, r in zt["remat"].items()}}
+
+
+def zoo_train_routes(zt: dict) -> dict:
+    """K1's launches by route on phase 17's paths, for the kernels line."""
+    return {**{f"zoo_train_{arch}": zt[arch]["routes"]
+               for arch in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)},
+            **{f"zoo_train_check_{arch}_fp32": c["launches"] for arch, c in zt["check"].items()},
+            **{f"zoo_train_remat_{mode}_step": r["routes"] for mode, r in zt["remat"].items()}}
+
+
+def zoo_train_rows(zt: dict) -> dict:
+    """K1's time beside its bound, the plain version's and the library's
+    on phase 17's training steps, for the kernels line's ``per_route``."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return {f"wide: {arch} training step, {zt[arch]['batch']}x{zt[arch]['seq']} tokens, "
+            f"{zt[arch]['layers']} layers ({zt[arch]['k1']['products']} products: forward, dA, "
+            f"dB)": {**{key: zt[arch]["k1"][key] for key in keys},
+                     "profiled_in_the_step_ms": zt[arch]["timing"]["profile"]["k1_ms"]}
+            for arch in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3378,6 +3756,7 @@ def main() -> int:
     report["train"] = phase_train(dev, gen)
     report["zoo_serve"] = phase_zoo_serve(dev)
     report["families"] = phase_families(dev, gen)
+    report["zoo_train"] = phase_zoo_train(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -3418,7 +3797,8 @@ def main() -> int:
                                                ("serve_eager_per_generate",
                                                 z["serve"]["eager_runs"][0]["launches"]),
                                                ("check_fp32", z["model"]["launches"]))},
-                             **family_launches(report["families"])},
+                             **family_launches(report["families"]),
+                             **zoo_train_launches(report["zoo_train"])},
         "routes": {"serve": report["serve"]["path"]["routes"],
                    "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
@@ -3443,7 +3823,8 @@ def main() -> int:
                                      ("serve_graph_replays", z["serve"]["runs"][0]["routes"]),
                                      *((f"serve_{step}_step", r) for step, r in
                                        z["serve"]["step_device_ms"]["routes"].items()))},
-                   **family_routes(report["families"])},
+                   **family_routes(report["families"]),
+                   **zoo_train_routes(report["zoo_train"])},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            report["train"]["kernel"]["worst_abs_err"],
                            *(z["serve"]["measured"]["k1"]["check"]["worst_abs_err"]
@@ -3453,7 +3834,9 @@ def main() -> int:
                            *(report["families"][a]["measured"]["k1"]["check"]["worst_abs_err"]
                              for a in SERVED_FAMILIES),
                            *(r["check"]["max_abs_err"]
-                             for r in report["flash_kernel"]["projections"])),
+                             for r in report["flash_kernel"]["projections"]),
+                           *(report["zoo_train"][a]["k1"]["worst_abs_err"]
+                             for a in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH))),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "work": "one bf16 decode step at batch 4: 16 layers x 7 projections",
@@ -3472,7 +3855,8 @@ def main() -> int:
                 "profiled_in_the_step_ms": z["serve"]["measured"]["profile"]["k1_ms"]}
                for arch, z in report["zoo_serve"].items()
                for t in (z["serve"]["measured"]["k1"]["decode_step"],)},
-            **family_k1_rows(report["families"])},
+            **family_k1_rows(report["families"]),
+            **zoo_train_rows(report["zoo_train"])},
     }, flash_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   device=torch.cuda.get_device_name(0))

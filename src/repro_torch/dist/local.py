@@ -6,9 +6,9 @@ one-device layers never reach the Pallas kernel.  Here the leading dims
 fold into rows, so every projection goes through
 ``kernels.matmul.ops.matmul`` (the CUDA kernel on the card, the plain
 version on the CPU).  Same function: fp32 accumulation, one rounding to
-``out_dtype``.  Under autograd the product is ``ops.ZorderMatmul`` on both
-devices, so its gradients are the kernel's own backward products, on the
-CPU too.
+``out_dtype``.  Under autograd the product is K1's registered op
+(``torch.ops.repro_torch.zorder_matmul``) on both devices, so its gradients
+are the kernel's own backward products, on the CPU too.
 """
 from __future__ import annotations
 

@@ -14,11 +14,19 @@ host clock on the CPU) lands in the ``kernel.matmul.us`` histogram, its
 FLOPs in ``kernel.matmul.flops`` and, on the card, its share of the
 published peak in ``kernel.matmul.roofline_fraction``.  Disabled mode adds
 one flag read and nothing else.
+
+Under autograd (grad enabled and an operand that requires grad) the
+product is the registered op ``torch.ops.repro_torch.zorder_matmul``: its
+backward computes dA = dC B^T and dB = A^T dC through ``matmul`` again, on
+fresh transposed copies, so all three products run on the kernel.  Being
+an op of the dispatcher, it is what a selective-checkpoint policy sees and
+keeps (``models.lm.remat``, ``"dots"``).  Without grad, ``matmul`` calls
+the kernel directly: no dispatcher hop in eager or captured serving.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -93,7 +101,7 @@ def matmul(
                          f"take k and n multiples of 8 (k > 0) and 16-byte aligned bases; "
                          f"got k={k}, n={n}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return ZorderMatmul.apply(a, b, blocks, order, out_dtype)
+        return zorder_matmul_op(a, b, list(blocks), order, out_dtype)
     return _launch(a, b, blocks, order, out_dtype)
 
 
@@ -112,29 +120,44 @@ def _fresh(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-class ZorderMatmul(torch.autograd.Function):
-    """C = A @ B through the kernel, differentiable (module docstring).
-    Operands of one type with an ``out_dtype`` gradient of another (a bf16
-    product with fp32 output) run their backward products in the wider
-    type: the bf16 values are exact there."""
+@torch.library.custom_op("repro_torch::zorder_matmul", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def zorder_matmul_op(a: torch.Tensor, b: torch.Tensor, blocks: List[int], order: str,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """C = A @ B through the kernel (the plain version on the CPU), as a
+    differentiable op of the dispatcher (module docstring).  ``matmul``
+    checks the arguments first.  The output is always a new tensor."""
+    return _launch(a, b, tuple(blocks), order, out_dtype)
 
-    @staticmethod
-    def forward(ctx, a, b, blocks, order, out_dtype):
-        ctx.save_for_backward(a, b)
-        ctx.order = order
-        return _launch(a, b, blocks, order, out_dtype)
 
-    @staticmethod
-    def backward(ctx, dc):
-        a, b = ctx.saved_tensors
-        dt = torch.promote_types(dc.dtype, a.dtype)
-        g = _fresh(dc, dt)
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = matmul(g, _fresh(b.t(), dt), order=ctx.order, out_dtype=a.dtype)
-        if ctx.needs_input_grad[1]:
-            db = matmul(_fresh(a.t(), dt), g, order=ctx.order, out_dtype=b.dtype)
-        return da, db, None, None, None
+@zorder_matmul_op.register_fake
+def _(a, b, blocks, order, out_dtype):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
+
+
+def _save_operands(ctx, inputs, output):
+    a, b, _, order, _ = inputs
+    ctx.save_for_backward(a, b)
+    ctx.order = order
+
+
+def _backward(ctx, dc):
+    """dA = dC B^T, dB = A^T dC through ``matmul``.  Operands of one type
+    with an ``out_dtype`` gradient of another (a bf16 product with fp32
+    output) run their backward products in the wider type: the bf16 values
+    are exact there."""
+    a, b = ctx.saved_tensors
+    dt = torch.promote_types(dc.dtype, a.dtype)
+    g = _fresh(dc, dt)
+    da = db = None
+    if ctx.needs_input_grad[0]:
+        da = matmul(g, _fresh(b.t(), dt), order=ctx.order, out_dtype=a.dtype)
+    if ctx.needs_input_grad[1]:
+        db = matmul(_fresh(a.t(), dt), g, order=ctx.order, out_dtype=b.dtype)
+    return da, db, None, None, None
+
+
+zorder_matmul_op.register_autograd(_backward, setup_context=_save_operands)
 
 
 def _run(a, b, blocks, order, out_dtype):

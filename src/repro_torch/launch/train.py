@@ -11,6 +11,18 @@ product takes the kernel's plain version); ``--smoke`` selects the reduced
 config.  One device builds no mesh: ``--tp`` is accepted, as the
 reference's launcher takes it, and ignored with a note (sharded training is
 ROADMAP queue 1, item 8).
+
+``--arch`` takes every config name: each family trains with its config's
+remat policy (``"dots"`` for all but Llama and xLSTM), e.g.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+        --steps 20 --batch 2 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --smoke --device cpu
+
+except the encoder-decoder seamless-m4t-medium, which the launcher refuses:
+the synthetic data has no source frames (in either package), so it trains
+through ``runtime.train.Trainer`` on batches that carry a seeded
+``src_embed`` beside the tokens, as ``EncDecLM.loss`` takes them.
 """
 from __future__ import annotations
 
@@ -44,6 +56,9 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "audio":
+        ap.error(f"{cfg.name} needs source frames the synthetic data does not have: "
+                 f"train it through Trainer with a src_embed in each batch")
     model = build_model(cfg)
     if args.tp is not None:
         print(f"[launch] --tp {args.tp} ignored: one device, no mesh")

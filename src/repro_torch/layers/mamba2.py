@@ -74,11 +74,27 @@ def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
 
 
+def causal_gate(mask: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
+    """``exp(decay)`` where ``mask`` holds, else 0, as
+    ``exp(where(mask, decay, -inf))``.  The reference computes
+    ``where(mask, exp(decay), 0)`` (Mamba-2's SSD and mLSTM's chunk scans).
+    Above the diagonal a decay is a positive sum of log decays, its ``exp``
+    can overflow to inf, and the backward then multiplies the masked
+    entries' zero cotangent by that inf: NaN in every gradient upstream of
+    the scan (zamba2's smoke model in the reference).  Masking before the
+    ``exp`` gives the same forward bit for bit (kept entries are the same
+    ``exp``, masked ones 0 either way) and finite gradients, equal to the
+    reference's wherever those are finite."""
+    return torch.exp(torch.where(mask, decay, -torch.inf))
+
+
 def _ssd_chunk_scan(xh, dt, Bm, Cm, A, chunk: int, gate_dtype=None):
     """Chunked SSD.  xh: (B, S, H, P); dt: (B, S, H) fp32; Bm, Cm: (B, S, N);
     A: (H,) negative.  Returns y (B, S, H, P) fp32 and the final state
     (B, H, P, N).  ``gate_dtype=torch.bfloat16`` rounds the (L, L, H)
-    weights before their product with x, as the reference's knob."""
+    weights before their product with x, as the reference's knob.  The
+    intra-chunk decays pass through ``causal_gate``, which departs from the
+    reference's expression (its docstring says why)."""
     b, s, h, p = xh.shape
     n = Bm.shape[-1]
     pad = (-s) % chunk
@@ -98,7 +114,7 @@ def _ssd_chunk_scan(xh, dt, Bm, Cm, A, chunk: int, gate_dtype=None):
         # intra-chunk: y_i = sum_{j<=i} C_i.B_j exp(cum_i - cum_j) dt_j x_j
         scores = torch.einsum("bin,bjn->bij", Cf, Bf)                    # (B, L, L)
         decay = cum[:, :, None, :] - cum[:, None, :, :]                  # (B, L, L, H)
-        gate = torch.where(mask[None, :, :, None], torch.exp(decay), 0.0)
+        gate = causal_gate(mask[None, :, :, None], decay)
         w = scores[..., None] * gate * dtk[:, None, :, :]                # (B, L, L, H)
         if gate_dtype is not None:
             w = w.to(gate_dtype)

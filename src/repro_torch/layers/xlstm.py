@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .linear import linear, linear_params
-from .mamba2 import _pad_seq
+from .mamba2 import _pad_seq, causal_gate
 from .norms import rms_norm, rms_norm_params
 
 Params = Dict[str, torch.Tensor]
@@ -59,7 +59,9 @@ def _mlstm_chunk_scan(q, k, v, li, lf, chunk: int, gate_dtype=None):
     """q, k, v: (B, S, H, D); li, lf: (B, S, H) log input / forget gates.
     Returns y (B, S, H, D) fp32 and the final (C, n) state.
     ``gate_dtype=torch.bfloat16`` rounds the (L, L, H) weights before their
-    product with v, as the reference's knob."""
+    product with v, as the reference's knob.  The intra-chunk decays pass
+    through ``mamba2.causal_gate``, masked before the ``exp`` where the
+    reference masks after it (its docstring says why)."""
     b, s, h, dh = q.shape
     pad = (-s) % chunk
     if pad:  # causal-safe trailing pad; sliced back at return
@@ -77,7 +79,7 @@ def _mlstm_chunk_scan(q, k, v, li, lf, chunk: int, gate_dtype=None):
         # intra-chunk attention-like term
         sc = torch.einsum("bihd,bjhd->bijh", qk, kk) * scale
         decay = cum[:, :, None, :] - cum[:, None, :, :] + lik[:, None, :, :]
-        gate = torch.where(mask[None, :, :, None], torch.exp(decay), 0.0)
+        gate = causal_gate(mask[None, :, :, None], decay)
         w = sc * gate                                                    # (B, L, L, H)
         if gate_dtype is not None:
             w = w.to(gate_dtype)

@@ -13,21 +13,39 @@ the cache slot as an int or as a 0-d int64 tensor on the model's device
 step.
 
 ``forward`` and ``loss`` are differentiable: every projection's product is
-the Z-order kernel's autograd node (``kernels.matmul.ops.ZorderMatmul``).
-The reference's remat policies (``_remat``) map as: ``"none"`` keeps every
-activation; ``"full"`` recomputes each block in the backward
-(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` (keep only the
-products' outputs) is not ported and raises when gradients are on, so
-serving a ``"dots"`` config is unaffected.
+the Z-order kernel's registered op (``torch.ops.repro_torch.zorder_matmul``,
+``kernels.matmul.ops``), its backward two more kernel products.  The
+reference's remat policies (``_remat``) map as (``remat``; every model
+family wraps the blocks the reference wraps):
+
+* ``"none"`` keeps every activation;
+* ``"full"`` recomputes each block in the backward
+  (``torch.utils.checkpoint``, non-reentrant);
+* ``"dots"`` is ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``:
+  non-reentrant ``checkpoint`` with a selective-checkpoint policy that
+  saves the outputs of the 2-D products without batch dims, K1's op and
+  ``aten.mm``, and recomputes everything else in the backward: ``bmm``,
+  norms, RoPE and elementwise work.  Inside today's blocks every
+  projection is K1 and no ``aten.mm`` runs: ``torch.einsum`` lowers to
+  ``bmm`` even without batch dims, so the fp32 router and gate einsums
+  (which the reference saves) are recomputed with the attention scores,
+  the SSD and mLSTM scans and the expert products.  What is saved
+  changes memory and time, never values; the backward re-runs no K1
+  product.
+
+Without gradients every policy runs the block as is.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike, resolve_device
+import repro_torch.kernels.matmul.ops  # noqa: F401  (registers the op ``_SAVED`` names)
 from repro_torch.layers.attention import check_cache_write, gqa_cache, mla_cache
 from repro_torch.layers.blocks import block_apply, block_params
 from repro_torch.layers.embed import embed, embed_params, unembed
@@ -56,6 +74,15 @@ def decode_positions(pos, device) -> torch.Tensor:
     return torch.full((1,), pos, dtype=torch.int64, device=device)
 
 
+# the ops whose outputs ``"dots"`` keeps: the 2-D products without batch dims
+_SAVED = (torch.ops.repro_torch.zorder_matmul.default, torch.ops.aten.mm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat(fn, cfg: ModelConfig):
     """``fn`` (one uncached block) under the config's remat policy (module
     docstring); without gradients every policy runs the block as is."""
@@ -65,9 +92,8 @@ def remat(fn, cfg: ModelConfig):
     if policy == "none" or not torch.is_grad_enabled():
         return fn
     if policy == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the products' outputs) is not ported yet "
-            "(ROADMAP queue 1): train with remat='none' or 'full'")
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=partial(
+            create_selective_checkpoint_contexts, _dots_policy))
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 

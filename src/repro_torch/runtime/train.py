@@ -3,11 +3,16 @@
 Counterpart of ``repro.runtime.train``, on one device:
 
   * the state is fp32 masters and AdamW moments (``optim.adamw``); each
-    step casts the masters to the compute types (vectors, the norm
-    weights, stay fp32, as ``DecoderLM.init`` makes them; everything else
-    the model's type) inside autograd, so the gradients land on the
-    masters in fp32, and every projection's three products (forward, dA,
-    dB) run on the Z-order kernel (``kernels.matmul.ops.ZorderMatmul``);
+    step casts every master to the type ``model.init`` gave that leaf (the
+    reference's ``_dtypes``: norms, the MoE router and xLSTM's gate
+    projections fp32, Mamba-2's ``conv_b`` the model's type) inside
+    autograd, so the gradients land on the masters in fp32, and every
+    projection's three products (forward, dA, dB) run on the Z-order
+    kernel (``torch.ops.repro_torch.zorder_matmul``);
+  * a state passed to ``fit`` (a checkpoint) takes the same types, read
+    from ``model.init`` under ``FakeTensorMode`` (no numbers drawn, no
+    memory); the reference's restore branch instead casts every fp32
+    master to bf16, norms included;
   * the learning rate follows ``warmup_cosine``; the optimizer updates the
     state in place;
   * each step ends with a device sync on the loss (the reference's
@@ -29,6 +34,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import device_put_batch
@@ -61,15 +67,24 @@ class Trainer:
         self.device = resolve_device(device)
         self.opt_cfg = adamw.AdamWConfig()
         self.sched = adamw.warmup_cosine(train_cfg.lr, train_cfg.warmup, train_cfg.steps)
+        self._dtypes = None
 
     # -- state ----------------------------------------------------------------
     def init_state(self, generator: torch.Generator) -> Dict[str, Any]:
-        """AdamW state around ``model.init(generator)`` on the device."""
-        return adamw.init(self.model.init(generator, self.device))
+        """AdamW state around ``model.init(generator)`` on the device; each
+        leaf's type is recorded as its compute type."""
+        params = self.model.init(generator, self.device)
+        self._dtypes = tree_map(lambda p: p.dtype, params)
+        return adamw.init(params)
 
-    def compute_type(self, w: torch.Tensor) -> torch.dtype:
-        """The type a master leaf is cast to for the step (module docstring)."""
-        return torch.float32 if w.ndim == 1 else self.model.dtype
+    def compute_dtypes(self) -> Any:
+        """The tree of types the masters are cast to for a step: those
+        ``model.init`` gives each leaf (module docstring)."""
+        if self._dtypes is None:
+            with FakeTensorMode():
+                params = self.model.init(torch.Generator(), "cpu")
+            self._dtypes = tree_map(lambda p: p.dtype, params)
+        return self._dtypes
 
     # -- step -----------------------------------------------------------------
     def loss_and_grads(self, master: Any, batch: Dict
@@ -77,11 +92,12 @@ class Trainer:
         """(loss, the loss's parts, the gradient of every master leaf in
         ``tree_leaves`` order), the masters cast to their compute types
         inside autograd.  A leaf the loss does not reach raises."""
+        dtypes = self.compute_dtypes()
         leaves = tree_leaves(master)
         for w in leaves:
             w.requires_grad_(True)
         try:
-            params = tree_map(lambda w: w.to(self.compute_type(w)), master)
+            params = tree_map(lambda w, t: w.to(t), master, dtypes)
             loss, metrics = self.model.loss(params, batch)
             grads = torch.autograd.grad(loss, leaves)
         finally:

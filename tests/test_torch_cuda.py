@@ -232,6 +232,8 @@ WGMMA_SHAPES = [(1, 256, 256, 4, 1, 64, True, 0), (2, 300, 300, 4, 4, 80, True, 
                 (1, 1000, 1024, 4, 4, 120, False, 100), (1, 4200, 4200, 4, 1, 120, True, 4032),
                 (1, 1000, 1000, 4, 1, 120, True, 255)]
 ROW_TOL_BF16 = 1e-2   # worst output row's relative L2 error (chip_smoke.py's ROW_TOL)
+# the autograd node of the registered op ``repro_torch::zorder_matmul``
+K1_NODE = "GeneratedBackwardFor_repro_torch_zorder_matmul_defaultBackward"
 
 
 def _row_rel(out, ref):
@@ -596,11 +598,9 @@ def test_tuner_entries_round_trip_through_save_table(cuda_device, tmp_path):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(256, 512, 264), (2048, 2048, 512), (300, 72, 136)])
 def test_k1_backward_matches_plain_version(cuda_device, shape, dtype):
-    """dA and dB of the Function on the card against the plain version's
-    products on the same CUDA tensors; bf16 aligned shapes run all three
-    products on the wide route."""
-    from repro_torch.kernels.matmul.ops import ZorderMatmul
-
+    """dA and dB of the registered op on the card against the plain
+    version's products on the same CUDA tensors; bf16 aligned shapes run
+    all three products on the wide route."""
     m, k, n = shape
     rng = np.random.default_rng(m)
     a, b, dc = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device, dtype)
@@ -609,7 +609,7 @@ def test_k1_backward_matches_plain_version(cuda_device, shape, dtype):
     b.requires_grad_(True)
     kernel.reset_launches()
     out = matmul(a, b)
-    assert isinstance(out.grad_fn, ZorderMatmul._backward_cls)
+    assert out.grad_fn.name() == K1_NODE
     out.backward(dc)
     torch.cuda.synchronize()
     routes = {r: v for r, v in kernel.launches_by_route.items() if v}
@@ -621,6 +621,40 @@ def test_k1_backward_matches_plain_version(cuda_device, shape, dtype):
     tol = ROW_TOL_BF16 if dtype == torch.bfloat16 else 1e-4
     assert _row_rel(a.grad, matmul_ref(dc, b.detach().t().contiguous())) < tol
     assert _row_rel(b.grad, matmul_ref(a.detach().t().contiguous(), dc)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_op_under_dots_checkpointing_matches_plain_version(cuda_device, dtype):
+    """A block of two products (product, SiLU, product) under
+    ``remat="dots"``: its output and the gradients of its input and both
+    weights on the card within ``ROW_TOL`` of the same block on the CPU
+    (the plain version); 2 K1 launches forward and 4 backward, the
+    products' outputs saved, none recomputed."""
+    from repro_torch.models.lm import remat
+
+    cfg = dataclasses.replace(get_smoke_config("llama3_2_1b"), remat="dots")
+    rng = np.random.default_rng(7)
+    x, w1, w2, dy = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32) / s[0] ** 0.5)
+                     for s in ((512, 256), (256, 264), (264, 128), (512, 128)))
+
+    def block(x, w1, w2):
+        return matmul(torch.nn.functional.silu(matmul(x, w1)), w2)
+
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        args = [t.to(dev, dtype).requires_grad_(True) for t in (x, w1, w2)]
+        kernel.reset_launches()
+        y = remat(block, cfg)(*args)
+        forward = kernel.launches
+        y.backward(dy.to(dev, dtype))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (forward, kernel.launches) == (2, 6)
+        out[dev.type] = [y.detach().cpu()] + [a.grad.cpu() for a in args]
+    tol = ROW_TOL_BF16 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert _row_rel(got, want) < tol
 
 
 @pytest.mark.cuda

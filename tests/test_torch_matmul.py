@@ -297,15 +297,19 @@ def _grad_case(lead, k, n, dtype_name, seed=3):
     return (a, b, ct), tuple(to_t(x) for x in (a, b, ct))
 
 
+# the autograd node of the registered op ``repro_torch::zorder_matmul``
+K1_NODE = "GeneratedBackwardFor_repro_torch_zorder_matmul_defaultBackward"
+
+
 def _k1_nodes(t):
-    """The ``ZorderMatmul`` nodes of the graph behind ``t``."""
+    """The K1 op's nodes in the graph behind ``t``."""
     seen, todo, found = set(), [t.grad_fn], 0
     while todo:
         node = todo.pop()
         if node is None or node in seen:
             continue
         seen.add(node)
-        found += isinstance(node, ops.ZorderMatmul._backward_cls)
+        found += node.name() == K1_NODE
         todo.extend(nxt for nxt, _ in node.next_functions)
     return found
 
@@ -331,10 +335,27 @@ def test_function_gradients_match_jax_grad_of_local_matmul(lead, k, n, dtype_nam
 def test_function_is_the_node_of_a_2d_product(dtype_name):
     _, (ta, tb, _) = _grad_case((32,), 16, 8, dtype_name)
     out = matmul(ta.requires_grad_(True), tb)
-    assert isinstance(out.grad_fn, ops.ZorderMatmul._backward_cls)
+    assert out.grad_fn.name() == K1_NODE
     with torch.no_grad():
         assert matmul(ta, tb).grad_fn is None
     assert matmul(ta.detach(), tb).grad_fn is None
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("out_name", list(DTYPES))
+def test_the_registered_op_passes_opcheck(dtype_name, out_name):
+    """``torch.library.opcheck``: the schema (no input mutated, the output
+    no alias of an input), the autograd registration and the fake
+    implementation.  The compile legs are left out: the backward reads
+    data pointers (``ops._fresh``), and nothing compiles the op."""
+    _, (ta, tb, _) = _grad_case((16,), 32, 24, dtype_name)
+    blocks = list(kernel.default_blocks(16, 24, 32, ta.dtype, True))
+    out_dtype = DTYPES[out_name][1]
+    torch.library.opcheck(ops.zorder_matmul_op, (ta.requires_grad_(True),
+                                                 tb.requires_grad_(True), blocks, "zorder",
+                                                 out_dtype),
+                          test_utils=("test_schema", "test_autograd_registration",
+                                      "test_faketensor"))
 
 
 def test_bf16_product_with_fp32_output_differentiates_in_fp32():

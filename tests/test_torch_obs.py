@@ -10,6 +10,7 @@ matmul span, the plan cache and server counters, and the calibration
 pass on a CPU thread mesh.  Every test starts and ends with the port's
 recorder and registry empty and tracing off.
 """
+import dataclasses
 import json
 from collections import Counter
 
@@ -228,6 +229,25 @@ def test_matmul_span_and_metrics_on_the_cpu():
     assert snap["kernel.matmul.flops"] == 2.0 * 8 * 16 * 32
     assert snap["kernel.matmul.us"]["count"] == 1
     assert "kernel.matmul.roofline_fraction" not in snap   # a card's metric only
+
+
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_each_product_of_a_training_step_is_one_span(remat):
+    """Under grad a product runs through the registered op: its forward,
+    dA and dB are one ``kernel.matmul`` span each, and ``"dots"``
+    recomputes none of them."""
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.models.lm import remat as remat_block
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config("llama3_2_1b"), remat=remat)
+    x = torch.ones(8, 32, requires_grad=True)
+    w1, w2 = torch.ones(32, 16, requires_grad=True), torch.ones(16, 8, requires_grad=True)
+    with obs.observe() as rec:
+        y = remat_block(lambda x, w1, w2: matmul(torch.relu(matmul(x, w1)), w2), cfg)(x, w1, w2)
+        y.sum().backward()
+    assert rec.span_counts() == {"kernel.matmul": 6}
+    assert obs.snapshot()["kernel.matmul.us"]["count"] == 6
 
 
 def test_build_plan_span_and_cache_counters(cpu_mesh):

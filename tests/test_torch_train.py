@@ -15,6 +15,8 @@ gradients' differences); data and checkpoints bitwise.
 """
 import dataclasses
 import os
+import re
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +32,7 @@ from repro.optim import adamw as jax_adamw
 from repro.runtime.train import TrainConfig as JaxTrainConfig, Trainer as JaxTrainer
 from repro_torch.checkpoint import (params_from_jax, params_to_jax, state_from_jax,
                                     state_to_jax, store)
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data.pipeline import (DataConfig, batch_iterator, device_put_batch,
                                        synth_batch)
 from repro_torch.dist import Mesh, symmetric_matmul
@@ -45,6 +47,8 @@ from repro_torch.runtime.train import TrainConfig, Trainer
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 ARCH = "llama3_2_1b"
+# the autograd node of the registered op ``repro_torch::zorder_matmul``
+K1_NODE = "GeneratedBackwardFor_repro_torch_zorder_matmul_defaultBackward"
 
 
 def _rel_l2(port, ref):
@@ -85,7 +89,7 @@ def _k1_nodes(t):
         if node is None or node in seen:
             continue
         seen.add(node)
-        found += isinstance(node, ops.ZorderMatmul._backward_cls)
+        found += node.name() == K1_NODE
         todo.extend(nxt for nxt, _ in node.next_functions)
     return found
 
@@ -113,8 +117,8 @@ def test_loss_and_every_gradient_match_jax_grad(fp32_pair):
 
 
 def test_every_projection_is_a_kernel_node(fp32_pair):
-    """The loss's graph holds one ``ZorderMatmul`` node per projection: the
-    gradient of every projection weight is the kernel's own backward."""
+    """The loss's graph holds one K1 op node per projection: the gradient
+    of every projection weight is the kernel's own backward."""
     _, _, model, tparams = fp32_pair
     params = tree_map(lambda t: t.clone().requires_grad_(True), tparams)
     loss, _ = model.loss(params, device_put_batch(_batch(model.cfg.vocab_size, 16), "cpu"))
@@ -136,16 +140,57 @@ def test_remat_full_gives_the_gradients_of_none(fp32_pair):
         torch.testing.assert_close(g1, g0, rtol=1e-6, atol=0)
 
 
-def test_remat_dots_raises_under_grad_only(fp32_pair):
+def _grads_and_products(model, tparams, batch, monkeypatch):
+    """(loss, gradients, plain-version products) of one trainer step."""
+    calls = []
+    real = ops.matmul_ref
+    monkeypatch.setattr(ops, "matmul_ref", lambda *a, **k: calls.append(1) or real(*a, **k))
+    master = tree_map(lambda t: t.clone(), tparams)
+    loss, _, grads = Trainer(model, TrainConfig(), device="cpu").loss_and_grads(master, batch)
+    monkeypatch.setattr(ops, "matmul_ref", real)
+    return loss, grads, len(calls)
+
+
+def test_remat_dots_gives_the_gradients_of_none(fp32_pair, monkeypatch):
+    _, _, model, tparams = fp32_pair
+    batch = device_put_batch(_batch(model.cfg.vocab_size), "cpu")
+    out = {remat: _grads_and_products(build_model(dataclasses.replace(model.cfg, remat=remat)),
+                                      tparams, batch, monkeypatch)
+           for remat in ("none", "dots")}
+    assert torch.equal(out["none"][0], out["dots"][0])
+    for g0, g1 in zip(out["none"][1], out["dots"][1]):
+        torch.testing.assert_close(g1, g0, rtol=1e-6, atol=0)
+    assert get_config("h2o-danube-3-4b").remat == "dots"
+
+
+def test_remat_dots_recomputes_no_product(fp32_pair, monkeypatch):
+    """Plain-version products a step: the forward's, dA and dB under
+    "none" and "dots" (the products' outputs are saved), the forward's
+    once more under "full"."""
+    _, _, model, tparams = fp32_pair
+    batch = device_put_batch(_batch(model.cfg.vocab_size, 32), "cpu")
+    calls = {remat: _grads_and_products(build_model(dataclasses.replace(model.cfg, remat=remat)),
+                                        tparams, batch, monkeypatch)[2]
+             for remat in ("none", "dots", "full")}
+    forward = 7 * model.cfg.num_layers
+    assert calls == {"none": 3 * forward, "dots": 3 * forward, "full": 4 * forward}
+
+
+def test_remat_dots_serves_as_before(fp32_pair, monkeypatch):
+    """Without grad a "dots" config runs its blocks as is: the same logits
+    bit for bit, one plain-version product a projection, and the kernel
+    called directly, never through the registered op."""
     _, _, model, tparams = fp32_pair
     m = build_model(dataclasses.replace(model.cfg, remat="dots"))
     tokens = torch.from_numpy(_batch(256, 16)["tokens"]).long()
     with torch.no_grad():
         ref = model.forward(tparams, tokens)[0]
+        calls = []
+        real = ops.matmul_ref
+        monkeypatch.setattr(ops, "matmul_ref", lambda *a, **k: calls.append(1) or real(*a, **k))
+        monkeypatch.setattr(ops, "zorder_matmul_op", None)    # a call would raise
         torch.testing.assert_close(m.forward(tparams, tokens)[0], ref, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="remat='dots'"):
-        m.forward(tparams, tokens)
-    assert get_config("h2o-danube-3-4b").remat == "dots"   # served, never trained here
+    assert len(calls) == 7 * model.cfg.num_layers
 
 
 @pytest.mark.parametrize("what", ["symmetric_matmul", "planned_linear"])
@@ -412,3 +457,24 @@ def test_launcher_trains_on_cpu_when_asked(tmp_path, capsys):
     assert "--tp 4 ignored" in out and "[launch] done: loss" in out
     assert "zorder_matmul launches: 0" in out
     assert store.latest_step(str(tmp_path)) == 6
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in (ARCH, "seamless_m4t_medium")])
+def test_launcher_trains_every_family_on_cpu(arch, capsys):
+    """Each config's smoke model through the launcher, with its own remat
+    policy set to its full config's (``"dots"`` for all but xLSTM)."""
+    full = get_config(arch)
+    with mock.patch.object(launch_train, "get_smoke_config",
+                           lambda name: dataclasses.replace(get_smoke_config(name),
+                                                            remat=full.remat)):
+        assert launch_train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+                                  "--batch", "2", "--seq", "16"]) == 0
+    done = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[launch] done")]
+    first, last = (float(x) for x in re.findall(r"loss (\S+) -> (\S+) ", done[0])[0])
+    assert np.isfinite(first) and np.isfinite(last)
+
+
+def test_launcher_refuses_the_encoder_decoder(capsys):
+    with pytest.raises(SystemExit):
+        launch_train.main(["--arch", "seamless-m4t-medium", "--smoke", "--device", "cpu"])
+    assert "src_embed" in capsys.readouterr().err
