@@ -237,6 +237,35 @@ Phases, each fatal on failure (no result line, non-zero exit):
    a step); (e) deepseek-moe-16b cut to 4 layers (its dense layer and 3
    MoE layers) through ``Trainer.fit``, 10 steps of 4 x 256, ``"dots"``,
    measured as (c) (84 a step).
+18. sharded-train -- training on a mesh of rank threads on the card, every
+   leg fatal: (a) one fp32 step of a full-width, 2-layer Llama-3.2-1B on
+   the (data 2, model 2) mesh (``Trainer(mesh=)``'s step: every projection
+   and both of its gradients a planned product, 3 x 14) against
+   ``mesh=None`` on the card, each master leaf's gradient within
+   ``SHARD_GRAD_TOL`` (relative L2), while a planned backward that drops
+   one product's dB lands outside it; (b) the main path of this phase:
+   ``launch.train.main([..., "--tp", "2", "--ranks", "4"])``, the full
+   Llama-3.2-1B, bf16 with fp32 masters placed by ``param_shardings``, 5
+   steps of 8 x 256 (counts from 0 just before), and the same 5 steps
+   through the launcher without a mesh: each step's loss within
+   ``SHARD_LOSS_GAP``, 336 planned products a step (112 forward, 224 in the
+   planned backward, which autograd runs on its device thread) by
+   strategy, no K1 product outside the rank threads (Llama's remat
+   "none" recomputes nothing), K1 launches a step by route, each rank's
+   state bytes equal to what ``param_shardings`` predicts and the distinct
+   blocks' to the unplaced state's, the step's host time, tokens/s and
+   peak memory beside ``mesh=None``'s, and one step's per-rank K1 calls
+   held against the plain version and timed beside ``torch.matmul`` and
+   their bound; (c) elastic: 2 full-width layers, 2 steps on (pod 2, data
+   1, model 2) with a checkpoint, a failure injected, the pod dropped
+   (``shrink_after_failure``), the checkpoint re-placed onto (data 1,
+   model 2) (``replace_state``), 2 more steps: the four losses within
+   ``SHARD_LOSS_GAP`` of 4 unbroken steps without a mesh; (d)
+   ``compress_tree_psum`` over 4 rank threads on (a)'s model's gradient
+   leaves, each rank's from its own batch: the bytes ``_collectives.stats``
+   counts against an fp32 psum's, the mean's error after 1 and 8 rounds
+   (error feedback), each rank's error-fed stream within the reference
+   test's bound scaled to the leaf's gradient scale.
 
 On one card the collectives are device copies and "overlap" is only the
 order in which the rank threads issue work: no number of phases 7-9 or 11
@@ -265,6 +294,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 from unittest import mock
@@ -312,6 +342,10 @@ from repro_torch.tune import (Tuner, candidate_route, default_candidate, load_ta
 from repro_torch.verify.drift import DRIFT_CELLS, check_drift  # noqa: E402
 from repro_torch.verify.interceptor import phase_bytes  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
+from repro_torch.models.sharding_rules import param_shardings  # noqa: E402
+from repro_torch.optim import compress  # noqa: E402
+from repro_torch.plan.lower_dist import block_slices  # noqa: E402
+from repro_torch.runtime import elastic, sharding  # noqa: E402
 
 # the module, not the function ``repro_torch.plan.lower_dist`` of its name
 lower_dist_mod = importlib.import_module("repro_torch.plan.lower_dist")
@@ -3728,6 +3762,502 @@ def zoo_train_rows(zt: dict) -> dict:
             for arch in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)}
 
 
+# -- sharded training (phase 18) ---------------------------------------------------
+
+# (a) fp32 gradients on the 2x2 rank-thread mesh against mesh=None, both on
+# the card: Llama-3.2-1B at full width and 2 of its 16 layers, 2 x 64
+# tokens.  Both sides fp32 through K1's fma route, sums in other orders (the
+# planned products split the contraction): a sound port reads ~1e-6 per
+# leaf; a product whose dB is dropped reads 1.
+SHARD_MESH = ((2, 2), ("data", "model"))
+SHARD_CHECK_LAYERS, SHARD_CHECK_BATCH, SHARD_CHECK_SEQ = 2, 2, 64
+SHARD_GRAD_TOL = 1e-4
+# (b) the launcher on the mesh: full width and depth, bf16, 8 x 256 tokens
+# a step, 5 steps, and the same 5 steps without a mesh from the same seed.
+# bf16 products rounded in other orders move a step's loss by ~1e-3; the
+# gap allowed is 2e-2 absolute at every step.
+SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 8, 256, 5
+SHARD_LOSS_GAP = 2e-2
+SHARD_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(SHARD_STEPS), "--batch", str(SHARD_BATCH),
+              "--seq", str(SHARD_SEQ)]
+# (c) elastic: 2 full-width layers, (pod 2, data 1, model 2) -> (data 1, model 2)
+ELASTIC_MESH = ((2, 1, 2), ("pod", "data", "model"))
+ELASTIC_LAYERS, ELASTIC_BATCH, ELASTIC_SEQ = 2, 4, 128
+# (d) compressed_psum: 4 ranks, each with the gradients of its own batch of
+# (a)'s model; 8 rounds with error feedback.  The reference's
+# test_error_feedback_unbiased holds one stream's drift to 1e-4 at a
+# gradient scale of 0.1: here the bound is scaled to each leaf's scale.
+COMPRESS_RANKS, COMPRESS_ROUNDS = 4, 8
+EF_BOUND, EF_SCALE = 1e-4, 0.1
+
+
+def _rel_l2(g: torch.Tensor, want: torch.Tensor) -> float:
+    return ((g.double() - want.double()).norm() / want.double().norm().clamp_min(1e-300)).item()
+
+
+def _grad_rels(got: list, want: list, keys: list) -> dict:
+    return {k: _rel_l2(g, w) for k, g, w in zip(keys, got, want)}
+
+
+def sharded_grad_check(dev: torch.device) -> dict:
+    """(a) The loss and every master leaf's gradient of one fp32 step on
+    the 2x2 mesh (``planned_matmuls``: every product and both gradients
+    planned) against ``mesh=None`` on the card, worst leaf within
+    ``SHARD_GRAD_TOL``, 3 x 14 planned products; a control whose planned
+    backward drops one product's dB must land outside the limit."""
+    tag = "shard-check"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                              num_layers=SHARD_CHECK_LAYERS)
+    model = build_model(cfg)
+    master = tree_map(lambda t: t.float(),
+                      model.init(torch.Generator(device=dev).manual_seed(3), dev))
+    batch = _train_batch(cfg.vocab_size, SHARD_CHECK_BATCH, SHARD_CHECK_SEQ, dev)
+    keys = ["//".join(map(str, p)) for p, _ in tree_paths(master)]
+    mesh = Mesh(*SHARD_MESH, device=dev)
+    plain = Trainer(model, TrainConfig(), device=dev)
+    sharded = Trainer(model, TrainConfig(), mesh=mesh)
+    loss0, _, want = plain.loss_and_grads(master, batch)
+
+    def planned():
+        with sharding.use_mesh(mesh), planned_matmuls(mesh):
+            return sharded.loss_and_grads(master, batch)
+
+    k1.reset_launches()
+    lower_dist_mod.reset_executions()
+    loss1, _, got = planned()
+    torch.cuda.synchronize()
+    routes, execs = _nonzero(k1.launches_by_route), lower_dist_mod.executions_snapshot()
+    errs = _grad_rels(got, want, keys)
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(loss1.item() - loss0.item()) / abs(loss0.item())
+    del got
+    dist_api = importlib.import_module("repro_torch.dist.api")
+    real_backward = dist_api._PlannedMatmul.backward
+    dropped = []
+
+    def zero_first_db(ctx, dc):      # the first product the backward reaches
+        da, db, rest = real_backward(ctx, dc)
+        if not dropped and db is not None:
+            dropped.append(tuple(db.shape))
+            db = torch.zeros_like(db)
+        return da, db, rest
+
+    with mock.patch.object(dist_api._PlannedMatmul, "backward", staticmethod(zero_first_db)):
+        _, _, ctrl = planned()
+    ctrl_errs = _grad_rels(ctrl, want, keys)
+    caught = max(ctrl_errs.values())
+    products = 3 * train_products(cfg)
+    log(f"[{tag}] {cfg.name} full width, {SHARD_CHECK_LAYERS} layers, fp32, "
+        f"{SHARD_CHECK_BATCH}x{SHARD_CHECK_SEQ} tokens on {dict(mesh.shape)} vs mesh=None: loss "
+        f"rel {loss_rel:.2e}, worst gradient rel L2 {errs[worst]:.3e} ({worst}) of {len(errs)} "
+        f"leaves, limit {SHARD_GRAD_TOL:g}; planned {execs} (want {products}); K1 {routes}; "
+        f"control, dB of the product {dropped} dropped: worst {caught:.3e} (must be >= "
+        f"{SHARD_GRAD_TOL:g}); {time.perf_counter() - t0:.1f}s")
+    if errs[worst] >= SHARD_GRAD_TOL or loss_rel >= SHARD_GRAD_TOL \
+            or sum(execs.values()) != products or set(routes) != {"fma"}:
+        raise AssertionError(f"[{tag}] the planned step disagrees: worst {worst} {errs[worst]}, "
+                             f"loss {loss_rel}, planned {execs}, K1 {routes}")
+    if caught < SHARD_GRAD_TOL or len(dropped) != 1:
+        raise AssertionError(f"[{tag}] a dropped dB passed: worst {caught}, dropped {dropped}")
+    mesh.close()
+    del master, want, ctrl
+    torch.cuda.empty_cache()
+    return {"loss": {"mesh": loss1.item(), "none": loss0.item()}, "grad_rel_l2": errs,
+            "worst": [worst, errs[worst]], "planned": execs, "routes": routes,
+            "control_worst": caught, "control_dropped_db": dropped,
+            "seconds": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def sharded_meter():
+    """Within the scope: each planned product counted by side (forward, or
+    inside a planned backward, which autograd runs on its device thread on
+    the card: its threads' names kept) and strategy; each K1 call recorded (``k1_calls``' tuple) and counted by
+    whether a rank thread made it; the trainer ``fit`` returned kept."""
+    plan_pkg = importlib.import_module("repro_torch.plan")
+    ops = importlib.import_module("repro_torch.kernels.matmul.ops")
+    dist_api = importlib.import_module("repro_torch.dist.api")
+    real_exec, real_run, real_fit = plan_pkg.execute_plan, ops._run, Trainer.fit
+    real_backward = dist_api._PlannedMatmul.backward
+    meter = {"planned": Counter(), "calls": [], "outside_ranks": 0, "fit": None,
+             "backward_threads": set()}
+    inside = threading.local()
+
+    def marked_backward(ctx, dc):
+        meter["backward_threads"].add(threading.current_thread().name)
+        inside.backward = True
+        try:
+            return real_backward(ctx, dc)
+        finally:
+            inside.backward = False
+
+    def counted_exec(plan, a, b):
+        side = "backward" if getattr(inside, "backward", False) else "forward"
+        meter["planned"][side, f"{plan.strategy}{'+ov' if plan.overlap else ''}"] += 1
+        return real_exec(plan, a, b)
+
+    def recorded_run(a, b, blocks, order, out_dtype):
+        if not threading.current_thread().name.startswith("mesh-rank"):
+            meter["outside_ranks"] += 1
+        meter["calls"].append((a.shape[0], b.shape[1], a.shape[1], tuple(blocks), order,
+                               a.dtype, out_dtype))
+        return real_run(a, b, blocks, order, out_dtype)
+
+    def kept_fit(self, *args, **kw):
+        out = real_fit(self, *args, **kw)
+        meter["fit"] = out
+        return out
+
+    with mock.patch.object(plan_pkg, "execute_plan", counted_exec), \
+            mock.patch.object(dist_api._PlannedMatmul, "backward",
+                              staticmethod(marked_backward)), \
+            mock.patch.object(ops, "_run", recorded_run), \
+            mock.patch.object(Trainer, "fit", kept_fit):
+        yield meter
+
+
+ALLOC_STATS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+
+@contextlib.contextmanager
+def _run_conditions(dev: torch.device):
+    """Within the scope: the host time each step spends in
+    ``Trainer.loss_and_grads`` and in ``adamw.step`` (no sync added), the
+    caching allocator's retries and device allocations, the threads alive,
+    and the card's SM clock and power draw sampled each second by
+    ``nvidia-smi`` in a thread of its own."""
+    real_lg, real_step = Trainer.loss_and_grads, adamw.step
+    out = {"loss_and_grads_ms": [], "adamw_ms": [], "threads": threading.active_count(),
+           "reserved_gib_before": torch.cuda.memory_reserved(dev) / 2 ** 30, "smi": []}
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                out[key].append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(1.0):
+            r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, timeout=30)
+            if r.returncode == 0 and r.stdout.strip():
+                out["smi"].append([float(v) for v in r.stdout.split(",")[:2]])
+
+    before = torch.cuda.memory_stats(dev)
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        with mock.patch.object(Trainer, "loss_and_grads", timed(real_lg, "loss_and_grads_ms")), \
+                mock.patch.object(adamw, "step", timed(real_step, "adamw_ms")):
+            yield out
+    finally:
+        done.set()
+        sampler.join(60)
+    after = torch.cuda.memory_stats(dev)
+    out.update({k: after.get(k, 0) - before.get(k, 0) for k in ALLOC_STATS})
+    clocks = [c for c, _ in out["smi"]]
+    out["sm_clock_mhz_median"] = float(np.median(clocks)) if clocks else None
+    out["power_w_median"] = float(np.median([w for _, w in out["smi"]])) if clocks else None
+
+
+def _launcher_run(argv: list, dev: torch.device) -> dict:
+    """``launch.train.main(argv)``: its logged losses and step times, K1's
+    launches by route (counted from 0 just before), the peak memory and
+    the run's conditions (``_run_conditions``)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(buf, sys.stdout)), _run_conditions(dev) as cond:
+        rc = launch_train.main(argv)
+    wall = time.perf_counter() - t0
+    logged = [m.groups() for m in map(TRAIN_LOG.match, buf.getvalue().splitlines()) if m]
+    return {"rc": rc, "losses": [float(x) for _, x, _ in logged],
+            "host_ms": [int(ms) for _, _, ms in logged], "wall_s": wall,
+            "routes": _nonzero(k1.launches_by_route), "launches": k1.launches,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30, "conditions": cond}
+
+
+def _conditions_line(c: dict) -> str:
+    return (f"host ms in loss_and_grads {[round(x) for x in c['loss_and_grads_ms']]}, in "
+            f"adamw.step {[round(x) for x in c['adamw_ms']]}; allocator retries "
+            f"{c['num_alloc_retries']}, device allocs / frees {c['num_device_alloc']} / "
+            f"{c['num_device_free']}, reserved before {c['reserved_gib_before']:.2f} GiB; "
+            f"{c['threads']} threads alive; SM clock {c['sm_clock_mhz_median']} MHz, power "
+            f"{c['power_w_median']} W (medians of {len(c['smi'])} samples)")
+
+
+def _state_bytes(state, mesh) -> dict:
+    """Each rank's bytes of the placed state, the distinct blocks' in all,
+    and what ``param_shardings`` predicts per rank (master, m, v in fp32
+    and the int32 step)."""
+    shardings = param_shardings(state["master"], mesh)
+    held = {r: sum(x[r].numel() * x[r].element_size() for x in tree_leaves(state))
+            for r in mesh.local_ranks()}
+    def block_numel(shape, spec, r):
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        return math.prod(len(range(*s.indices(n)))
+                         for s, n in zip(block_slices(shape, spec, mesh, r), shape))
+
+    predicted = {r: 3 * 4 * sum(block_numel(x.shape, ns.spec, r)
+                                for x, ns in zip(tree_leaves(state["master"]),
+                                                 tree_leaves(shardings))) + 4
+                 for r in mesh.local_ranks()}
+    distinct = sum(b.numel() * b.element_size() for x in tree_leaves(state) for b in x.distinct())
+    full = sum(4 * math.prod(x.shape) for x in tree_leaves(state))
+    return {"per_rank": held, "predicted_per_rank": predicted, "distinct": distinct,
+            "unplaced": full}
+
+
+def sharded_main_path(dev: torch.device) -> dict:
+    """(b) The launcher on the 2x2 mesh (``--tp 2 --ranks 4``), full-width
+    Llama-3.2-1B, 5 steps of 8 x 256 tokens, bf16, fp32 masters, then the
+    same 5 steps without a mesh from the same seed (module docstring)."""
+    tag = "shard-train"
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    lower_dist_mod.reset_executions()
+    with sharded_meter() as meter:
+        run = _launcher_run(SHARD_ARGV + ["--tp", "2", "--ranks", "4"], dev)
+        fit = meter["fit"]
+        state, history = fit["state"], fit["history"]
+        mesh = tree_leaves(state)[0].sharding.mesh
+        nbytes = _state_bytes(state, mesh)
+        del state, fit, meter["fit"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = _launcher_run(SHARD_ARGV, dev)
+    per_step = {side: {s: n // SHARD_STEPS for (sd, s), n in sorted(meter["planned"].items())
+                       if sd == side} for side in ("forward", "backward")}
+    planned = {side: sum(v.values()) for side, v in per_step.items()}
+    want_planned = {"forward": train_products(cfg), "backward": 2 * train_products(cfg)}
+    gaps = [abs(a - b) for a, b in zip(run["losses"], plain["losses"])]
+    steady = [h["sec_per_step"] * 1e3 for h in history[1:]]
+    step_ms = float(np.median(steady))
+    calls = meter["calls"]
+    one_step = [c for c, n in Counter(calls).items() for _ in range(n // SHARD_STEPS)]
+    routes_step = {r: n // SHARD_STEPS for r, n in run["routes"].items()}
+    log(f"[{tag}] launcher on {dict(mesh.shape)} (rank threads on the card): rc {run['rc']}, "
+        f"losses {run['losses']}; mesh=None {plain['losses']}; gaps "
+        f"{[round(g, 5) for g in gaps]} (limit {SHARD_LOSS_GAP:g}); planned a step: forward "
+        f"{per_step['forward']}, backward {per_step['backward']} (want {want_planned}); K1 a "
+        f"step {routes_step}, {meter['outside_ranks']} K1 calls outside the rank threads; the "
+        f"planned backward ran on {sorted(meter['backward_threads'])}; step "
+        f"{step_ms:.1f}ms host (steps {[round(h, 1) for h in [x['sec_per_step'] * 1e3 for x in history]]}), "
+        f"{SHARD_BATCH * SHARD_SEQ / step_ms * 1e3:.0f} tokens/s; mesh=None steps "
+        f"{plain['host_ms']} ms; peak {run['peak_gib']:.2f} GiB (mesh=None "
+        f"{plain['peak_gib']:.2f}); state bytes per rank {nbytes['per_rank']} (param_shardings "
+        f"predicts {nbytes['predicted_per_rank']}), distinct {nbytes['distinct'] / 1e9:.3f} GB "
+        f"vs unplaced {nbytes['unplaced'] / 1e9:.3f} GB")
+    log(f"[{tag}] on the mesh: {_conditions_line(run['conditions'])}")
+    log(f"[{tag}] mesh=None: {_conditions_line(plain['conditions'])}")
+    if run["rc"] != 0 or plain["rc"] != 0 or len(run["losses"]) != SHARD_STEPS \
+            or len(plain["losses"]) != SHARD_STEPS or not all(map(math.isfinite, run["losses"])):
+        raise AssertionError(f"[{tag}] runs: {run}, {plain}")
+    if max(gaps) > SHARD_LOSS_GAP:
+        raise AssertionError(f"[{tag}] loss gaps {gaps} over {SHARD_LOSS_GAP}")
+    if planned != want_planned or meter["outside_ranks"]:
+        raise AssertionError(f"[{tag}] planned a step {planned}, want {want_planned}; "
+                             f"{meter['outside_ranks']} K1 calls ran locally")
+    if nbytes["per_rank"] != nbytes["predicted_per_rank"] \
+            or nbytes["distinct"] != nbytes["unplaced"]:
+        raise AssertionError(f"[{tag}] state bytes {nbytes}")
+    if not run["launches"]:
+        raise AssertionError(f"[{tag}] the sharded path launched K1 no time")
+    k1t = k1_train_times(one_step, dev)
+    log(f"[{tag}] K1's {k1t['products']} per-rank block products of one step "
+        f"({k1t['distinct']} distinct, each within ROW_TOL, worst row rel "
+        f"{k1t['worst_row_rel']:.3e}) timed alone: {k1t['ms']:.2f}ms, bound "
+        f"{k1t['bound_ms']:.2f}ms ({k1t['bound_by']}), torch.matmul {k1t['library_ms']:.2f}ms, "
+        f"plain {k1t['plain_ms']:.2f}ms; the leg took {time.perf_counter() - t0:.1f}s")
+    return {"launches": run["launches"], "routes": run["routes"], "routes_per_step": routes_step,
+            "losses": run["losses"], "losses_mesh_none": plain["losses"], "gaps": gaps,
+            "planned_per_step": per_step, "local_k1_calls": meter["outside_ranks"],
+            "backward_threads": sorted(meter["backward_threads"]),
+            "step_ms": step_ms, "step_ms_all": [h["sec_per_step"] * 1e3 for h in history],
+            "tokens_per_s": SHARD_BATCH * SHARD_SEQ / step_ms * 1e3,
+            "mesh_none_host_ms": plain["host_ms"], "peak_gib": run["peak_gib"],
+            "conditions": run["conditions"], "conditions_mesh_none": plain["conditions"],
+            "peak_gib_mesh_none": plain["peak_gib"], "state_bytes": nbytes, "k1": k1t,
+            "mesh": dict(mesh.shape), "seconds": time.perf_counter() - t0}
+
+
+def sharded_elastic(dev: torch.device) -> dict:
+    """(c) 2 steps on (pod 2, data 1, model 2) with a checkpoint, a failure
+    injected at the third, the pod dropped (``shrink_after_failure``), the
+    checkpoint re-placed onto (data 1, model 2) (``replace_state``), 2 more
+    steps: the four losses within ``SHARD_LOSS_GAP`` of 4 unbroken steps
+    without a mesh.  Full width, 2 layers, bf16."""
+    tag = "shard-elastic"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=ELASTIC_LAYERS)
+    model = build_model(cfg)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=ELASTIC_SEQ, global_batch=ELASTIC_BATCH)
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="elastic_", dir=CKPT_DIR)
+
+    def fit(mesh, steps, state=None, ckpt_dir=ckpt, **kw):
+        tc = TrainConfig(steps=steps, lr=1e-3, warmup=1, ckpt_dir=ckpt_dir, ckpt_every=2,
+                         log_every=1, **kw)
+        start = train_store.latest_step(ckpt_dir) or 0 if ckpt_dir else 0
+        return Trainer(model, tc, mesh=mesh, device=dev).fit(
+            torch.Generator(device=dev).manual_seed(0), batch_iterator(dc, start_step=start),
+            state=state)
+
+    try:
+        pods = elastic.make_mesh(*ELASTIC_MESH, device=dev)
+        first = fit(pods, 2)
+        try:
+            fit(pods, 4, fail_at_step=2, max_restarts=0)
+            raise AssertionError(f"[{tag}] the injected failure did not surface")
+        except RuntimeError as e:
+            if "injected node failure" not in str(e):
+                raise
+        survivors = elastic.shrink_after_failure(pods)
+        step, full = train_store.restore(ckpt, first["state"])
+        del first["state"]
+        state = elastic.replace_state(full, survivors)
+        del full
+        rest = fit(survivors, 4, state=state)
+        del state
+        pods.close()
+        survivors.close()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    unbroken = fit(None, 4, ckpt_dir=None)
+    got = [h["loss"] for h in first["history"] + rest["history"]]
+    want = [h["loss"] for h in unbroken["history"]]
+    gaps = [abs(a - b) for a, b in zip(got, want)]
+    log(f"[{tag}] {dict(pods.shape)} -> {dict(survivors.shape)} after a failure at step 2 "
+        f"(restored step {step}): losses {got}; unbroken mesh=None {want}; gaps "
+        f"{[round(g, 5) for g in gaps]} (limit {SHARD_LOSS_GAP:g}); "
+        f"{time.perf_counter() - t0:.1f}s")
+    if step != 2 or len(got) != 4 or len(want) != 4 or max(gaps) > SHARD_LOSS_GAP:
+        raise AssertionError(f"[{tag}] the elastic restart: step {step}, {got} vs {want}")
+    del rest, unbroken
+    torch.cuda.empty_cache()
+    return {"from": dict(pods.shape), "to": dict(survivors.shape), "losses": got,
+            "losses_unbroken": want, "gaps": gaps, "seconds": time.perf_counter() - t0}
+
+
+def sharded_compress(dev: torch.device) -> dict:
+    """(d) ``compress_tree_psum`` over a 4-rank thread mesh on the gradient
+    leaves of (a)'s model, each rank's from its own batch: the bytes
+    ``_collectives.stats`` counts against an fp32 psum's, the mean's
+    relative error after one round and, with error feedback, after
+    ``COMPRESS_ROUNDS``; each rank's error-fed stream (the reference's
+    test_error_feedback_unbiased on every leaf) within its bound."""
+    tag = "shard-compress"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                              num_layers=SHARD_CHECK_LAYERS)
+    model = build_model(cfg)
+    master = tree_map(lambda t: t.float(),
+                      model.init(torch.Generator(device=dev).manual_seed(3), dev))
+    trainer = Trainer(model, TrainConfig(), device=dev)
+    grads = {r: trainer.loss_and_grads(master, _train_batch(
+        cfg.vocab_size, 1, SHARD_CHECK_SEQ, dev, step=r))[2] for r in range(COMPRESS_RANKS)}
+    del master
+    mesh = Mesh((COMPRESS_RANKS,), ("data",), device=dev)
+    _collectives.reset_stats()
+    true_mean = mesh.run(lambda g: [_collectives.psum(x, "data") / COMPRESS_RANKS for x in g],
+                         {r: (grads[r],) for r in grads})[0]
+    fp32_bytes = _collectives.stats["psum"]["bytes"]
+    res = {r: [torch.zeros_like(x) for x in grads[r]] for r in grads}
+    acc_q = [torch.zeros_like(x) for x in true_mean]
+    rounds = []
+    for i in range(COMPRESS_ROUNDS):
+        _collectives.reset_stats()
+        outs = mesh.run(lambda g, rs: compress.compress_tree_psum(g, "data", rs),
+                        {r: (grads[r], res[r]) for r in grads})
+        if i == 0:
+            int8_bytes = _collectives.stats["psum"]["bytes"]
+        res = {r: outs[r][1] for r in outs}
+        for a, x in zip(acc_q, outs[0][0]):
+            a.add_(x)
+        n = i + 1   # acc_q against n x the true mean, over every leaf
+        err = sum(((a.double() - n * t.double()).norm() ** 2).item()
+                  for a, t in zip(acc_q, true_mean))
+        ref = sum(((n * t.double()).norm() ** 2).item() for t in true_mean)
+        rounds.append(math.sqrt(err / ref))
+    # each rank's own stream: the reference test's loop on every leaf
+    drift_ratio = 0.0
+    for r in grads:
+        for g in grads[r]:
+            residual = torch.zeros_like(g)
+            acc_t = torch.zeros_like(g)
+            acc_d = torch.zeros_like(g)
+            for _ in range(COMPRESS_ROUNDS):
+                acc_t += g
+                x = g + residual
+                q, s = compress.quantize_int8(x)
+                deq = compress.dequantize_int8(q, s)
+                residual = x - deq
+                acc_d += deq
+            drift = (acc_d + residual - acc_t).abs().max().item()
+            bound = EF_BOUND * max(g.std().item(), 1e-30) / EF_SCALE
+            drift_ratio = max(drift_ratio, drift / bound)
+    mesh.close()
+    log(f"[{tag}] {len(true_mean)} gradient leaves ({sum(t.numel() for t in true_mean) / 1e6:.1f} M "
+        f"elements) over {COMPRESS_RANKS} rank threads: psum bytes counted, int8 codes (summed "
+        f"as int32, the reference's) {int8_bytes} vs fp32 {fp32_bytes} ({int8_bytes / fp32_bytes:.4f}x); "
+        f"the mean's relative L2 error after 1 round {rounds[0]:.3e}, accumulated over "
+        f"{COMPRESS_ROUNDS} rounds with error feedback {rounds[-1]:.3e} ({[f'{e:.2e}' for e in rounds]}); "
+        f"each rank's error-fed stream: worst drift / bound {drift_ratio:.3e} (must be <= 1; "
+        f"bound {EF_BOUND:g} at gradient std {EF_SCALE:g}, scaled); {time.perf_counter() - t0:.1f}s")
+    if not drift_ratio <= 1.0 or not all(map(math.isfinite, rounds)):
+        raise AssertionError(f"[{tag}] error feedback drifted: {drift_ratio}, rounds {rounds}")
+    del grads, res, acc_q, true_mean
+    torch.cuda.empty_cache()
+    return {"bytes": {"int8_codes_int32_psum": int8_bytes, "fp32_psum": fp32_bytes},
+            "mean_rel_l2_by_round": rounds, "ef_drift_over_bound": drift_ratio,
+            "seconds": time.perf_counter() - t0}
+
+
+def sharded_launches(st: dict) -> dict:
+    """K1's launches on phase 18's paths, for the kernels line."""
+    return {"sharded_train_2x2": st["path"]["launches"],
+            "sharded_train_check_fp32": sum(st["check"]["routes"].values())}
+
+
+def sharded_routes(st: dict) -> dict:
+    return {"sharded_train_2x2": st["path"]["routes"],
+            "sharded_train_check_fp32": st["check"]["routes"]}
+
+
+def sharded_rows(st: dict) -> dict:
+    """K1 on one step of phase 18's main path: every rank's block products."""
+    k1t = st["path"]["k1"]
+    routes = " and ".join(sorted(st["path"]["routes"]))
+    planned = sum(sum(v.values()) for v in st["path"]["planned_per_step"].values())
+    return {f"{routes}: Llama training step on 2x2, {SHARD_BATCH}x{SHARD_SEQ} tokens "
+            f"({k1t['products']} per-rank block products of {planned} planned)":
+            {key: k1t[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
+def phase_sharded_train(dev: torch.device) -> dict:
+    """Phase 18: (a) fp32 planned gradients vs mesh=None on the card; (b)
+    the launcher on the 2x2 mesh vs mesh=None; (c) an elastic restart;
+    (d) ``compressed_psum``."""
+    t0 = time.perf_counter()
+    out = {"check": sharded_grad_check(dev)}
+    out["path"] = sharded_main_path(dev)
+    out["elastic"] = sharded_elastic(dev)
+    out["compress"] = sharded_compress(dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[shard] phase 18 took {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3757,6 +4287,7 @@ def main() -> int:
     report["zoo_serve"] = phase_zoo_serve(dev)
     report["families"] = phase_families(dev, gen)
     report["zoo_train"] = phase_zoo_train(dev)
+    report["sharded_train"] = phase_sharded_train(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -3798,7 +4329,8 @@ def main() -> int:
                                                 z["serve"]["eager_runs"][0]["launches"]),
                                                ("check_fp32", z["model"]["launches"]))},
                              **family_launches(report["families"]),
-                             **zoo_train_launches(report["zoo_train"])},
+                             **zoo_train_launches(report["zoo_train"]),
+                             **sharded_launches(report["sharded_train"])},
         "routes": {"serve": report["serve"]["path"]["routes"],
                    "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
@@ -3824,7 +4356,8 @@ def main() -> int:
                                      *((f"serve_{step}_step", r) for step, r in
                                        z["serve"]["step_device_ms"]["routes"].items()))},
                    **family_routes(report["families"]),
-                   **zoo_train_routes(report["zoo_train"])},
+                   **zoo_train_routes(report["zoo_train"]),
+                   **sharded_routes(report["sharded_train"])},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            report["train"]["kernel"]["worst_abs_err"],
                            *(z["serve"]["measured"]["k1"]["check"]["worst_abs_err"]
@@ -3836,7 +4369,8 @@ def main() -> int:
                            *(r["check"]["max_abs_err"]
                              for r in report["flash_kernel"]["projections"]),
                            *(report["zoo_train"][a]["k1"]["worst_abs_err"]
-                             for a in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH))),
+                             for a in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)),
+                           report["sharded_train"]["path"]["k1"]["worst_abs_err"]),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "work": "one bf16 decode step at batch 4: 16 layers x 7 projections",
@@ -3856,7 +4390,8 @@ def main() -> int:
                for arch, z in report["zoo_serve"].items()
                for t in (z["serve"]["measured"]["k1"]["decode_step"],)},
             **family_k1_rows(report["families"]),
-            **zoo_train_rows(report["zoo_train"])},
+            **zoo_train_rows(report["zoo_train"]),
+            **sharded_rows(report["sharded_train"])},
     }, flash_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   device=torch.cuda.get_device_name(0))

@@ -12,9 +12,10 @@ joined by ``//``.  numpy has no bfloat16: a bf16 leaf is saved as its
 ``uint16`` bits, with the true type recorded in ``__dtypes__``.  The
 reference restores that through ``ml_dtypes``; here the bits come back
 through ``torch.from_numpy(u16.view(np.int16)).view(torch.bfloat16)``.
-``restore`` puts each leaf on its template leaf's device (the reference's
-``place`` re-shards onto a mesh; sharded restore waits for sharded
-training).
+``restore`` puts each leaf on its template leaf's device, and a leaf whose
+template is not a tensor (a ``runtime.sharding.Placed``) stays on the
+host: ``runtime.train.Trainer.restore`` places those on its mesh, as the
+reference's ``place`` re-shards.
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ and a restored run replays the same stream.
 
 ``device_put_batch`` moves a batch onto one device, both arrays as int64
 (the index type of ``torch.gather`` in the loss and of the embedding
-lookup).  A mesh of more than one rank raises: sharded batches wait for
-sharded training.
+lookup); given a mesh, it places each array along the batch axes
+(``runtime.sharding.place``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -64,11 +64,19 @@ def batch_iterator(cfg: DataConfig, start_step: int = 0) -> Iterator[Dict[str, n
 
 
 def device_put_batch(batch: Dict[str, np.ndarray], device: DeviceLike = None,
-                     mesh=None) -> Dict[str, torch.Tensor]:
-    """Each array as an int64 tensor on ``device`` (default ``cuda``)."""
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise NotImplementedError("sharded batches wait for sharded training "
-                                  "(ROADMAP queue 1): pass mesh=None")
+                     mesh=None) -> Dict:
+    """Each array as an int64 tensor on ``device`` (default ``cuda``); with
+    a mesh of more than one rank, placed on it along
+    ``resolve_axis("batch", mesh)`` and whole along every other dim (a
+    ``runtime.sharding.Placed`` per array).  A batch the batch axes do not
+    divide raises ``ValueError``."""
     device = resolve_device(device)
-    return {k: torch.from_numpy(np.asarray(v, dtype=np.int64)).to(device)
-            for k, v in batch.items()}
+    out = {k: torch.from_numpy(np.asarray(v, dtype=np.int64)).to(device)
+           for k, v in batch.items()}
+    if mesh is None or getattr(mesh, "size", 1) <= 1:
+        return out
+    from repro_torch.runtime.sharding import NamedSharding, place, resolve_axis
+
+    axes = resolve_axis("batch", mesh)
+    return {k: place(v, NamedSharding(mesh, (axes,) + (None,) * (v.ndim - 1)))
+            for k, v in out.items()}

@@ -329,13 +329,21 @@ def symmetric_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh=None,
     (``False``) lowering; the default lets the planner pick (see
     ``repro_torch.plan.build_plan``).  ``mesh`` is a
     ``repro_torch.dist.mesh.Mesh``: the product runs as one per-rank
-    program per rank of it."""
+    program per rank of it.
+
+    Under autograd (grad enabled and an operand that requires grad) the
+    product is differentiable (``_PlannedMatmul``): its backward plans
+    dA = dC B^T and dB = A^T dC as two more planned products on the same
+    mesh, with the same pinned strategy (or the cost model's pick for the
+    transposed shapes), tuning and overlap."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _PlannedMatmul.apply(a, b, (mesh, strategy, out_dtype, tuning, overlap))
+    return _planned(a, b, mesh, strategy, out_dtype, tuning, overlap)
+
+
+def _planned(a, b, mesh, strategy, out_dtype, tuning, overlap) -> torch.Tensor:
     from repro_torch.plan import build_plan, execute_plan
 
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        raise NotImplementedError(
-            "planned products have no backward yet (sharded training, ROADMAP "
-            "queue 1): run the product outside planned_matmuls or under torch.no_grad()")
     plan = build_plan(
         a.shape[-2], b.shape[-1], a.shape[-1], mesh=mesh, strategy=strategy,
         batch=tuple(a.shape[:-2]),
@@ -343,3 +351,42 @@ def symmetric_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh=None,
         tuning=tuning, overlap=overlap,
     )
     return execute_plan(plan, a, b)
+
+
+class _PlannedMatmul(torch.autograd.Function):
+    """A planned product with a planned backward.
+
+    The mesh, strategy, tuning and overlap travel in ``ctx``, never through
+    ``plan.context``'s ``ContextVar``: on CUDA autograd runs the backward
+    on a device thread of its own, where that variable is unset.  The
+    reference differentiates through ``shard_map``; planning the two
+    transposed products is the paper's view of the same backward and
+    differs from it only in the order of summation.  Operands of one type
+    with an ``out_dtype`` gradient of another run their backward in the
+    wider type, as K1's own backward does (``kernels.matmul.ops``)."""
+
+    @staticmethod
+    def forward(ctx, a, b, cfg):
+        mesh, strategy, out_dtype, tuning, overlap = cfg
+        ctx.save_for_backward(a, b)
+        ctx.cfg = (mesh, strategy, tuning, overlap)
+        return _planned(a, b, mesh, strategy, out_dtype, tuning, overlap)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        mesh, strategy, tuning, overlap = ctx.cfg
+        dt = torch.promote_types(dc.dtype, a.dtype)
+        g = dc.to(dt)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _planned(g, b.transpose(-2, -1).to(dt), mesh, strategy, a.dtype,
+                          tuning, overlap)
+        if ctx.needs_input_grad[1]:
+            if b.ndim == 2:   # the batch dims fold into the contraction
+                at = a.reshape(-1, a.shape[-1]).t()
+                g2 = g.reshape(-1, g.shape[-1])
+            else:
+                at, g2 = a.transpose(-2, -1), g
+            db = _planned(at.to(dt), g2, mesh, strategy, b.dtype, tuning, overlap)
+        return da, db, None

@@ -8,9 +8,15 @@ synthetic data (``data.pipeline``, seeded by ``--seed`` too), AdamW with a
 warmup-cosine schedule, asynchronous checkpoints and restore from
 ``--ckpt``.  Runs on ``cuda`` unless ``--device cpu`` is given (then every
 product takes the kernel's plain version); ``--smoke`` selects the reduced
-config.  One device builds no mesh: ``--tp`` is accepted, as the
-reference's launcher takes it, and ignored with a note (sharded training is
-ROADMAP queue 1, item 8).
+config.  ``--ranks N`` runs N rank threads on the device as a
+(``data``, ``model``) mesh of (N // tp, tp) (``build_mesh``, the
+reference's), and the trainer trains sharded on it: placed state, every
+projection and its gradients planned products.  ``--ranks`` defaults to 1,
+which builds no mesh, as the reference's launcher on one device: ``--tp``
+alone is accepted and ignored with a note.  On the CPU, for example,
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 4 --tp 2 --ranks 4
 
 ``--arch`` takes every config name: each family trains with its config's
 remat policy (``"dots"`` for all but Llama and xLSTM), e.g.
@@ -27,16 +33,28 @@ through ``runtime.train.Trainer`` on batches that carry a seeded
 from __future__ import annotations
 
 import argparse
+import importlib
 import sys
+from typing import Optional
 
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, batch_iterator
-from repro_torch.device import resolve_device
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.mesh import Mesh
 from repro_torch.kernels.matmul import kernel as k1
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.train import TrainConfig, Trainer
+
+
+def build_mesh(tp: int, ranks: int, device: DeviceLike = None) -> Optional[Mesh]:
+    """(dp, tp) rank threads over ("data", "model"), dp = ranks // tp; one
+    rank builds no mesh."""
+    if ranks <= 1:
+        return None
+    tp = min(tp, ranks)
+    return Mesh((ranks // tp, tp), ("data", "model"), device=device)
 
 
 def main(argv=None) -> int:
@@ -48,7 +66,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--tp", type=int, default=None,
-                    help="ignored: one device trains without a mesh")
+                    help="the model axis of the mesh (ignored without --ranks)")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="rank threads sharing the device as a (data, model) mesh")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -60,10 +80,11 @@ def main(argv=None) -> int:
         ap.error(f"{cfg.name} needs source frames the synthetic data does not have: "
                  f"train it through Trainer with a src_embed in each batch")
     model = build_model(cfg)
-    if args.tp is not None:
+    mesh = build_mesh(args.tp or 1, args.ranks, device)
+    if mesh is None and args.tp is not None:
         print(f"[launch] --tp {args.tp} ignored: one device, no mesh")
     print(f"[launch] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"device={device} mesh=1 device")
+          f"device={device} mesh={'1 device' if mesh is None else dict(mesh.shape)}")
 
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.batch, seed=args.seed)
@@ -72,11 +93,19 @@ def main(argv=None) -> int:
                      ckpt_dir=args.ckpt, ckpt_every=max(args.steps // 4, 10),
                      log_every=max(args.steps // 20, 1))
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    out = Trainer(model, tc, device=device).fit(gen, batch_iterator(dc))
+    try:
+        out = Trainer(model, tc, mesh=mesh, device=device).fit(gen, batch_iterator(dc))
+    finally:
+        if mesh is not None:
+            mesh.close()
     h = out["history"]
     print(f"[launch] done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} "
           f"({out['restarts']} restarts); zorder_matmul launches: {k1.launches} "
           f"{ {r: n for r, n in k1.launches_by_route.items() if n} }")
+    if mesh is not None:
+        # the module, not the function ``repro_torch.plan.lower_dist`` of its name
+        lower_dist = importlib.import_module("repro_torch.plan.lower_dist")
+        print(f"[launch] planned products: {lower_dist.executions_snapshot()}")
     return 0
 
 

@@ -7,7 +7,9 @@ projection reaches the kernel; inside ``repro_torch.plan.planned_matmuls``
 on a mesh of more than one rank, the product dispatches through the plan
 engine (cost-model-ranked strategy, cached ``SchedulePlan``, leading dims
 folded before planning) and runs as per-rank programs whose block products
-are ``local_matmul`` again.
+are ``local_matmul`` again.  Under autograd the planned product has a
+planned backward (``dist.api.symmetric_matmul``): dA and dB are two more
+planned products on the same mesh.
 """
 from __future__ import annotations
 

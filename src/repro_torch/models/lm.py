@@ -31,18 +31,23 @@ family wraps the blocks the reference wraps):
   (which the reference saves) are recomputed with the attention scores,
   the SSD and mLSTM scans and the expert products.  What is saved
   changes memory and time, never values; the backward re-runs no K1
-  product.
+  product.  Inside ``planned_matmuls`` a projection is a planned product
+  (``dist.api._PlannedMatmul``, whose per-rank K1 calls run in the rank
+  threads, out of the policy's sight), so ``"dots"`` recomputes it as
+  ``"full"`` does, planned again: the recompute runs in the plan scope the
+  block was wrapped in (``remat``), on whichever thread autograd runs it.
 
 Without gradients every policy runs the block as is.
 """
 from __future__ import annotations
 
+from contextlib import ExitStack, contextmanager
 from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.device import DeviceLike, resolve_device
 import repro_torch.kernels.matmul.ops  # noqa: F401  (registers the op ``_SAVED`` names)
@@ -51,6 +56,7 @@ from repro_torch.layers.blocks import block_apply, block_params
 from repro_torch.layers.embed import embed, embed_params, unembed
 from repro_torch.layers.norms import rms_norm, rms_norm_params
 from repro_torch.models.config import ModelConfig
+from repro_torch.plan.context import current_scope, restore_scope
 
 Params = Dict
 Cache = Dict
@@ -91,10 +97,25 @@ def remat(fn, cfg: ModelConfig):
         raise ValueError(f"unknown remat policy {policy!r}")
     if policy == "none" or not torch.is_grad_enabled():
         return fn
-    if policy == "dots":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=partial(
-            create_selective_checkpoint_contexts, _dots_policy))
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    contexts = (partial(create_selective_checkpoint_contexts, _dots_policy)
+                if policy == "dots" else noop_context_fn)
+    scope = current_scope()
+
+    def context_fn():
+        # the recompute runs in the backward, on autograd's device thread
+        # on CUDA: it takes the plan scope the block was wrapped in
+        forward, recompute = contexts()
+        return forward, _within(restore_scope(scope), recompute)
+
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+@contextmanager
+def _within(*contexts):
+    with ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
 
 
 class DecoderLM:

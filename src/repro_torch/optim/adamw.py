@@ -9,6 +9,13 @@ parameter of master, m and v) and returns the same dict; each leaf's
 update is the reference's ``upd``, op for op, in fp32.  The step counter,
 the learning rate and the bias corrections stay 0-d tensors on the
 state's device, so a step never waits for the card.
+
+A placed state (``runtime.sharding.Placed`` leaves, the trainer's on a
+mesh) steps block by block: each distinct block of a leaf once (replicas
+share one tensor on one controller), with the matching block of its
+gradient, the reference's arithmetic element by element.  Its global norm
+sums each distinct block's squares once; in a process group each process
+sums the blocks it owns (replica 0 of each) and the sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
+from repro_torch.runtime.sharding import Placed, place, unplace
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -45,9 +53,33 @@ def init(params: Any) -> Dict[str, Any]:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
-    sq = [g.detach().float().square().sum() for g in tree_leaves(tree)]
-    return torch.stack(sq).sum().sqrt()
+    """sqrt of the sum of every leaf's squares, in fp32; a placed leaf's
+    distinct blocks counted once each (module docstring)."""
+    leaves = tree_leaves(tree)
+    if not any(isinstance(g, Placed) for g in leaves):
+        sq = [g.detach().float().square().sum() for g in leaves]
+        return torch.stack(sq).sum().sqrt()
+    sq, mesh = [], None
+    for g in leaves:
+        mesh = g.sharding.mesh
+        sq += [g[r].detach().float().square().sum() for r in g.owned_ranks()]
+    total = torch.stack(sq).sum() if sq else torch.zeros((), device=mesh.device)
+    if mesh.rank is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(total)
+    return total.sqrt()
+
+
+def _blocks(state: Dict[str, Any], grads: list):
+    """(g, m, v, w) per distinct block of every leaf, in leaf order."""
+    for g, m, v, w in zip(grads, tree_leaves(state["m"]), tree_leaves(state["v"]),
+                          tree_leaves(state["master"])):
+        if isinstance(w, Placed):
+            for r in w.distinct_ranks():
+                yield g[r], m[r], v[r], w[r]
+        else:
+            yield g, m, v, w
 
 
 @torch.no_grad()
@@ -62,18 +94,27 @@ def step(state: Dict[str, Any], grads: Any, lr: torch.Tensor, cfg: AdamWConfig
         raise ValueError(f"{len(flat_g)} gradients for {len(flat_w)} master leaves")
     gnorm = global_norm(flat_g)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    t = state["step"] + 1
+    t = step_count(state) + 1
     b1c = 1.0 - cfg.b1 ** t.float()
     b2c = 1.0 - cfg.b2 ** t.float()
-    for g, m, v, w in zip(flat_g, tree_leaves(state["m"]), tree_leaves(state["v"]), flat_w):
+    for g, m, v, w in _blocks(state, flat_g):
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         mhat = m / b1c
         vhat = v / b2c
         w.sub_(lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * w))
-    state["step"] = t
+    if isinstance(state["step"], Placed):
+        state["step"] = place(t, state["step"].sharding)
+    else:
+        state["step"] = t
     return state, {"grad_norm": gnorm, "lr": lr}
+
+
+def step_count(state: Dict[str, Any]) -> torch.Tensor:
+    """The state's step, a 0-d int32 tensor (placed or not)."""
+    s = state["step"]
+    return unplace(s) if isinstance(s, Placed) else s
 
 
 def params_from_state(state: Dict[str, Any], like: Any) -> Any:

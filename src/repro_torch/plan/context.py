@@ -44,6 +44,24 @@ def planned_tuning():
     return None if scope is None else scope[2]
 
 
+def current_scope():
+    """The enclosing ``planned_matmuls`` scope as one value (None outside
+    any), for ``restore_scope`` to carry into another thread: autograd's
+    device thread, where a recompute under ``torch.utils.checkpoint``
+    runs, does not see this thread's ``ContextVar``."""
+    return _PLAN_SCOPE.get()
+
+
+@contextlib.contextmanager
+def restore_scope(scope):
+    """Make ``scope`` (a ``current_scope()`` value) the plan scope within."""
+    token = _PLAN_SCOPE.set(scope)
+    try:
+        yield
+    finally:
+        _PLAN_SCOPE.reset(token)
+
+
 @contextlib.contextmanager
 def planned_matmuls(mesh, strategy: Optional[str] = None, tuning=None):
     """Route layer matmuls through ``repro_torch.plan`` on ``mesh`` within
@@ -51,8 +69,5 @@ def planned_matmuls(mesh, strategy: Optional[str] = None, tuning=None):
     ranking (validated per shape by ``build_plan`` at dispatch time);
     ``tuning`` (a ``repro_torch.tune`` table or live ``Tuner``) prices the
     compute side of in-scope plans with measured kernel seconds."""
-    token = _PLAN_SCOPE.set((mesh, strategy, tuning))
-    try:
+    with restore_scope((mesh, strategy, tuning)):
         yield mesh
-    finally:
-        _PLAN_SCOPE.reset(token)

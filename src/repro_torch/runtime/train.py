@@ -1,6 +1,6 @@
 """Training runtime: the train step and the fault-tolerant outer loop.
 
-Counterpart of ``repro.runtime.train``, on one device:
+Counterpart of ``repro.runtime.train``, on one device or a mesh:
 
   * the state is fp32 masters and AdamW moments (``optim.adamw``); each
     step casts every master to the type ``model.init`` gave that leaf (the
@@ -22,9 +22,24 @@ Counterpart of ``repro.runtime.train``, on one device:
     latest complete checkpoint, at most ``max_restarts`` times;
   * a step-time watchdog prints stragglers.
 
-A mesh of more than one rank raises: sharded training (parameter and
-optimizer shards, the planned products' backward) is ROADMAP queue 1,
-item 8.
+On a mesh of more than one rank (``mesh=``, a ``dist.mesh.Mesh``) the
+state is placed (``runtime.sharding.place``): ``step`` replicated, the
+masters and both moments by ``models.sharding_rules.param_shardings``, as
+the reference's ``init_state`` places them.  A step unplaces the masters
+and the batch (placed along the batch axes by ``device_put_batch``), runs
+the loss and its gradients under ``use_mesh(mesh)`` and
+``planned_matmuls(mesh)`` -- every projection and both of its gradients a
+planned product (``dist.api.symmetric_matmul``), each rank's block
+product K1 -- then takes each rank's block of every gradient and runs
+AdamW on the blocks.  Norms, attention, scans and the loss run on the
+gathered tensors, as without a mesh, so the step is the reference's
+sharded step up to the order of summation.  Checkpoints hold full arrays
+(the unplaced state), so a checkpoint written on a mesh restores into a
+trainer without a mesh and, through ``checkpoint.convert``, into the
+reference's ``store.restore``, and back; a restore places the arrays on
+the trainer's mesh.  In a process group
+(``Mesh(..., rank=r)``) every process runs the step on the same global
+tensors and holds its own rank's blocks; rank 0 writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -40,6 +55,9 @@ from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import device_put_batch
 from repro_torch.device import DeviceLike, maybe_sync, resolve_device
 from repro_torch.optim import adamw
+from repro_torch.plan.context import planned_matmuls
+from repro_torch.runtime.elastic import replace_state
+from repro_torch.runtime.sharding import Placed, place, unplace, unplace_tree, use_mesh
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -58,13 +76,15 @@ class TrainConfig:
 
 class Trainer:
     def __init__(self, model, train_cfg: TrainConfig, mesh=None, device: DeviceLike = None):
-        if mesh is not None and getattr(mesh, "size", 1) > 1:
-            raise NotImplementedError(
-                "sharded training is not ported yet (ROADMAP queue 1, item 8): "
-                "train on one device with mesh=None")
         self.model = model
         self.cfg = train_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and device is None:
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
+        if self.mesh is not None and self.mesh.device != self.device:
+            raise ValueError(f"mesh on {self.mesh.device}, trainer on {self.device}")
         self.opt_cfg = adamw.AdamWConfig()
         self.sched = adamw.warmup_cosine(train_cfg.lr, train_cfg.warmup, train_cfg.steps)
         self._dtypes = None
@@ -75,7 +95,15 @@ class Trainer:
         leaf's type is recorded as its compute type."""
         params = self.model.init(generator, self.device)
         self._dtypes = tree_map(lambda p: p.dtype, params)
-        return adamw.init(params)
+        state = adamw.init(params)
+        del params
+        return state if self.mesh is None else replace_state(state, self.mesh)
+
+    def restore(self, ckpt_dir: str, state: Dict[str, Any]) -> Tuple[int, Dict[str, Any]]:
+        """The latest checkpoint under ``ckpt_dir`` in ``state``'s structure,
+        placed on the trainer's mesh if it has one."""
+        step, state = store.restore(ckpt_dir, state)
+        return step, state if self.mesh is None else replace_state(state, self.mesh)
 
     def compute_dtypes(self) -> Any:
         """The tree of types the masters are cast to for a step: those
@@ -106,12 +134,29 @@ class Trainer:
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
     def make_train_step(self) -> Callable:
+        mesh = self.mesh
+
         def train_step(state, batch):
-            lr = self.sched(state["step"])
-            loss, metrics, grads = self.loss_and_grads(state["master"], batch)
+            lr = self.sched(adamw.step_count(state))
+            if mesh is None:
+                loss, metrics, grads = self.loss_and_grads(state["master"], batch)
+            else:
+                master = tree_map(unplace, state["master"])
+                batch = {k: unplace(v) if isinstance(v, Placed) else v
+                         for k, v in batch.items()}
+                with use_mesh(mesh), planned_matmuls(mesh):
+                    loss, metrics, grads = self.loss_and_grads(master, batch)
+                del master
+                for i, w in enumerate(tree_leaves(state["master"])):
+                    grads[i] = place(grads[i], w.sharding)   # frees the full gradient
             state, opt_metrics = adamw.step(state, grads, lr, self.opt_cfg)
             return state, {"loss": loss, **metrics, **opt_metrics}
         return train_step
+
+    def _save(self, writer: "store.AsyncWriter", step: int, state: Dict[str, Any]) -> None:
+        full = unplace_tree(state)   # collective in a process group
+        if self.mesh is None or self.mesh.rank in (None, 0):
+            writer.save(self.cfg.ckpt_dir, step, full)
 
     # -- loop -----------------------------------------------------------------
     def fit(self, generator: Optional[torch.Generator],
@@ -122,17 +167,22 @@ class Trainer:
         start_step = 0
         if state is None:
             state = self.init_state(generator)
+        elif self.mesh is not None and not all(
+                isinstance(x, Placed) and x.sharding.mesh is self.mesh
+                for x in tree_leaves(state)):
+            state = replace_state(state, self.mesh)
         if cfg.ckpt_dir and store.latest_step(cfg.ckpt_dir) is not None:
-            start_step, state = store.restore(cfg.ckpt_dir, state)
+            start_step, state = self.restore(cfg.ckpt_dir, state)
         train_step = self.make_train_step()
         writer = store.AsyncWriter()
         history = []
         step_times = []
         step = start_step
         injected = False
+        saved = None
 
         while step < cfg.steps:
-            batch = device_put_batch(next(data_iter), self.device)
+            batch = device_put_batch(next(data_iter), self.device, self.mesh)
             t0 = time.perf_counter()
             try:
                 if cfg.fail_at_step == step and not injected:
@@ -148,7 +198,7 @@ class Trainer:
                 latest = store.latest_step(cfg.ckpt_dir)
                 print(f"[trainer] step {step} failed ({e}); "
                       f"restoring step {latest} and continuing")
-                step, state = store.restore(cfg.ckpt_dir, state)
+                step, state = self.restore(cfg.ckpt_dir, state)
                 continue
             dt = time.perf_counter() - t0
             step_times.append(dt)
@@ -162,10 +212,11 @@ class Trainer:
                 history.append({"step": step, "loss": loss, "sec_per_step": dt})
                 print(f"[trainer] step {step:5d} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
             if cfg.ckpt_dir and step % cfg.ckpt_every == 0:
-                writer.save(cfg.ckpt_dir, step, state)
-        writer.wait()
+                self._save(writer, step, state)
+                saved = step
         # the reference saves again here; the state an async save of this
         # same step wrote is the one it would write
-        if cfg.ckpt_dir and writer.last_step != step:
-            store.save(cfg.ckpt_dir, step, state)
+        if cfg.ckpt_dir and saved != step:
+            self._save(writer, step, state)
+        writer.wait()
         return {"state": state, "history": history, "restarts": restarts}

@@ -886,3 +886,94 @@ def test_k2_at_the_new_families_shapes(cuda_device, shape):
     assert torch.equal(out, again)
     ref = k2.attention_ref(_heads(q), _heads(k), _heads(v), causal=causal, window=window)
     assert _row_rel(_heads(out), ref) < ROW_TOL_BF16
+
+
+# -- sharded training on the card ---------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strategy", ["summa", "ring_rs", "cannon"])
+def test_planned_gradients_on_the_card_match_mesh_none(cuda_device, strategy, dtype):
+    """One planned product's dA and dB on a 2x2 mesh of rank threads on the
+    card against K1's own backward without a mesh (fp32 1e-4, bf16 1e-2 per
+    row); the backward's products launch K1 in the rank threads."""
+    from repro_torch.dist import Mesh, symmetric_matmul
+
+    rng = np.random.default_rng(2)
+    a0 = torch.from_numpy(rng.standard_normal((2, 96, 256), dtype=np.float32))
+    b0 = torch.from_numpy(rng.standard_normal((256, 192), dtype=np.float32) / 16)
+    r = torch.from_numpy(rng.standard_normal((2, 96, 192), dtype=np.float32)).to(
+        cuda_device, dtype)
+    mesh = Mesh((2, 2), ("x", "y"), device=cuda_device)
+    out = {}
+    for planned in (False, True):
+        a = a0.to(cuda_device, dtype).requires_grad_(True)
+        b = b0.to(cuda_device, dtype).requires_grad_(True)
+        c = symmetric_matmul(a, b, mesh=mesh, strategy=strategy) if planned else \
+            matmul(a.reshape(-1, 256), b).reshape(2, 96, 192)
+        kernel.reset_launches()
+        out[planned] = torch.autograd.grad(c, (a, b), r)
+        torch.cuda.synchronize()
+        out[planned, "launches"] = kernel.launches
+    assert out[False, "launches"] == 2 and out[True, "launches"] > 2 * 4 - 1
+    tol = ROW_TOL_BF16 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(out[True], out[False]):
+        assert got.dtype == dtype and got.device.type == "cuda"
+        assert _row_rel(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])) < tol
+    mesh.close()
+
+
+@pytest.mark.cuda
+def test_a_planned_backward_on_autograds_device_thread_still_plans(cuda_device):
+    """On the card autograd runs the backward on a device thread of its own,
+    where the plan scope's ``ContextVar`` is unset: the planned products'
+    backward and a ``remat="dots"`` recompute still plan there (zamba2's
+    smoke model on 2x2: forward + recompute of the Mamba projections + dA +
+    dB), and no K1 product runs outside the rank threads."""
+    import importlib
+    import threading
+
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.dist import Mesh
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.plan import planned_matmuls
+    from repro_torch.tree import tree_leaves, tree_map
+
+    lower_dist = importlib.import_module("repro_torch.plan.lower_dist")
+    cfg = dataclasses.replace(get_smoke_config("zamba2-2.7b"), dtype="float32", remat="dots")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cuda_device)
+    leaves = tree_leaves(params)
+    for w in leaves:
+        w.requires_grad_(True)
+    nb = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2), 0)
+    batch = {k: torch.from_numpy(v).long().to(cuda_device) for k, v in nb.items()}
+    mesh = Mesh((2, 2), ("data", "model"), device=cuda_device)
+    threads = {"backward": set(), "k1_outside_ranks": 0}
+    real = ops._run
+
+    def run(*args):
+        if not threading.current_thread().name.startswith("mesh-rank"):
+            threads["k1_outside_ranks"] += 1
+        return real(*args)
+
+    ops._run = run
+    try:
+        lower_dist.reset_executions()
+        with planned_matmuls(mesh):
+            loss, _ = model.loss(params, batch)
+        forward = sum(lower_dist.executions.values())
+        loss.register_hook(lambda g: threads["backward"].add(threading.current_thread()))
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    finally:
+        ops._run = real
+    total = sum(lower_dist.executions.values())
+    assert threads["backward"] and threading.main_thread() not in threads["backward"]
+    assert total == 3 * forward + 2 * cfg.num_layers, (forward, total)
+    assert threads["k1_outside_ranks"] == 0
+    want = torch.autograd.grad(model.loss(tree_map(lambda t: t, params), batch)[0], leaves)
+    for g, w in zip(grads, want):
+        assert ((g - w).norm() / (w.norm() + 1e-30)).item() < 1e-4
+    mesh.close()

@@ -6,7 +6,10 @@ Each test spawns one world of processes, one mesh rank each
 subgroup), rendezvousing through a ``FileStore`` under the test's own
 temporary directory, so parallel test workers never share a port.  Every
 rank's output must equal the single-controller mesh's (ranks as threads of
-this process) within fp32 2e-5.  Each world has its own time limit: a hung
+this process) within fp32 2e-5.  A world of 4 also trains the smoke Llama
+for two steps on a (data 2, model 2) mesh, one rank a process: each
+process's losses equal the single controller's, and each holds only its
+own rank's blocks of the state.  Each world has its own time limit: a hung
 rank fails the test instead of holding the suite.
 """
 import os
@@ -73,9 +76,9 @@ def _operands():
     return out
 
 
-def _run_world(world, cases, tmp):
+def _run_world(world, cases, tmp, worker=_WORKER):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), str(world), str(tmp),
+    procs = [subprocess.Popen([sys.executable, "-c", worker, str(r), str(world), str(tmp),
                                repr(cases), repr(SHAPES)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                               env=env)
@@ -115,3 +118,55 @@ def test_gloo_ranks_match_single_controller(tmp_path, world):
                 g = got[f"{i}-{si}"]
                 assert g.shape == want.shape
                 assert np.max(np.abs(g - want)) < TOL, (strategy, overlap, sizes, si, r)
+
+
+_TRAIN_WORKER = r"""
+import dataclasses, sys
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.pipeline import DataConfig, batch_iterator
+from repro_torch.dist import Mesh
+from repro_torch.models.registry import build_model
+from repro_torch.runtime.train import TrainConfig, Trainer
+from repro_torch.tree import tree_leaves
+
+rank, world, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", world), rank=rank,
+                        world_size=world, timeout=timedelta(seconds=120))
+cfg = dataclasses.replace(get_smoke_config("llama3_2_1b"), dtype="float32")
+mesh = Mesh((2, 2), ("data", "model"), device="cpu", rank=rank)
+dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)
+out = Trainer(build_model(cfg), TrainConfig(steps=2, lr=1e-3, warmup=1, log_every=1),
+              mesh=mesh).fit(torch.Generator().manual_seed(0), batch_iterator(dc))
+own = all(sorted(x.blocks) == [rank] for x in tree_leaves(out["state"]))
+np.savez(f"{tmp}/out{rank}.npz", losses=np.array([h["loss"] for h in out["history"]]),
+         own=np.array(own))
+dist.destroy_process_group()
+print("RANK_OK", rank)
+"""
+
+
+@pytest.mark.timeout(WORLD_TIMEOUT_S + 60)
+def test_gloo_ranks_train_as_the_single_controller(tmp_path):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, batch_iterator
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.train import TrainConfig, Trainer
+
+    outs = _run_world(4, [], tmp_path, worker=_TRAIN_WORKER)
+    cfg = dataclasses.replace(get_smoke_config("llama3_2_1b"), dtype="float32")
+    mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)
+    want = [h["loss"] for h in Trainer(
+        build_model(cfg), TrainConfig(steps=2, lr=1e-3, warmup=1, log_every=1),
+        mesh=mesh).fit(torch.Generator().manual_seed(0), batch_iterator(dc))["history"]]
+    mesh.close()
+    for r, got in enumerate(outs):
+        assert bool(got["own"]), f"rank {r} holds blocks of other ranks"
+        assert got["losses"].shape == (2,)
+        assert np.max(np.abs(got["losses"] - want)) < TOL, (r, got["losses"], want)

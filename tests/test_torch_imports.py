@@ -58,7 +58,10 @@ NEW_MODULES = ["repro_torch.obs.runtime", "repro_torch.obs.metrics", "repro_torc
                "repro_torch.layers.xlstm", "repro_torch.layers.ring_blocks",
                "repro_torch.models.hybrid", "repro_torch.models.xlstm_model",
                "repro_torch.models.encdec", "repro_torch.configs.zamba2_2_7b",
-               "repro_torch.configs.xlstm_350m", "repro_torch.configs.seamless_m4t_medium"]
+               "repro_torch.configs.xlstm_350m", "repro_torch.configs.seamless_m4t_medium",
+               "repro_torch.runtime.sharding", "repro_torch.models.sharding_rules",
+               "repro_torch.runtime.elastic", "repro_torch.optim.compress",
+               "repro_torch.launch.mesh"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
@@ -66,7 +69,7 @@ def test_the_hygiene_walk_covers_the_measurement_loop(name):
     """The subprocess walk above imports every module of the package; the
     measurement loop's, the training path's and the layer zoo's modules
     (the recurrent and encoder-decoder families and the ring-TP block
-    too) are among them."""
+    too) and the sharded trainer's are among them."""
     import pkgutil
 
     import repro_torch

@@ -43,6 +43,7 @@ from repro_torch.layers.linear import linear
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
 from repro_torch.plan import planned_matmuls
+from repro_torch.runtime.sharding import unplace
 from repro_torch.runtime.train import TrainConfig, Trainer
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
@@ -194,16 +195,23 @@ def test_remat_dots_serves_as_before(fp32_pair, monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["symmetric_matmul", "planned_linear"])
-def test_a_planned_product_raises_under_grad(what):
+def test_a_planned_product_has_a_planned_backward(what):
+    """Under grad a planned product is differentiable, its dA and dB two
+    more planned products (``tests/test_torch_sharding.py`` holds every
+    strategy to ``jax.grad``); without grad it is the plain product."""
     mesh = Mesh((2,), ("t",), device="cpu")
-    x = torch.randn(8, 16)
+    x = torch.randn(8, 16, requires_grad=True)
     w = torch.randn(16, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="planned products have no backward"):
-        if what == "symmetric_matmul":
-            symmetric_matmul(x, w, mesh=mesh)
-        else:
-            with planned_matmuls(mesh):
-                linear(x, w)
+    if what == "symmetric_matmul":
+        y = symmetric_matmul(x, w, mesh=mesh)
+    else:
+        with planned_matmuls(mesh):
+            y = linear(x, w)
+    assert type(y.grad_fn).__name__ == "_PlannedMatmulBackward"
+    dx, dw = torch.autograd.grad(y.sum(), (x, w))
+    ones = torch.ones(8, 8)
+    torch.testing.assert_close(dx, ones @ w.detach().t(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dw, x.detach().t() @ ones, rtol=1e-5, atol=1e-5)
     with torch.no_grad(), planned_matmuls(mesh):
         torch.testing.assert_close(linear(x, w), x @ w, rtol=1e-5, atol=1e-5)
     mesh.close()
@@ -291,12 +299,18 @@ def test_synth_batch_is_the_references_bit_for_bit(seed, step, signal):
     np.testing.assert_array_equal(next(it)["tokens"], ref["tokens"])
 
 
-def test_device_put_batch_gives_int64_and_refuses_a_mesh():
+def test_device_put_batch_gives_int64_and_places_on_a_mesh():
     b = device_put_batch(_batch(100, 8), "cpu")
     assert b["tokens"].dtype == b["labels"].dtype == torch.int64
-    mesh = Mesh((2,), ("t",), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        device_put_batch(_batch(100, 8), "cpu", mesh=mesh)
+    mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+    placed = device_put_batch(_batch(100, 8), "cpu", mesh=mesh)
+    for key, p in placed.items():
+        assert p.sharding.spec == (("data",), None) and p.dtype == torch.int64
+        half = b[key].shape[0] // 2
+        assert torch.equal(p[0], b[key][:half]) and torch.equal(p[2], b[key][half:])
+        assert p[0] is p[1] and torch.equal(unplace(p), b[key])
+    with pytest.raises(ValueError, match="does not split"):
+        device_put_batch({"tokens": np.zeros((3, 8), np.int32)}, "cpu", mesh=mesh)
     mesh.close()
 
 
@@ -443,10 +457,17 @@ def test_too_many_failures_raise(tmp_path):
             torch.Generator().manual_seed(0), batch_iterator(dc))
 
 
-def test_a_trainer_on_a_mesh_raises():
-    mesh = Mesh((2, 2), ("x", "y"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        Trainer(build_model(get_smoke_config(ARCH)), TrainConfig(), mesh=mesh, device="cpu")
+def test_a_trainer_on_a_mesh_places_its_state():
+    mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+    trainer = Trainer(build_model(get_smoke_config(ARCH)), TrainConfig(), mesh=mesh)
+    assert trainer.mesh is mesh and trainer.device == torch.device("cpu")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    wq = state["master"]["layers"][0]["attn"]["wq"]
+    assert wq.sharding.spec == (None, "model") and tuple(wq[0].shape) == (64, 32)
+    assert wq[0] is wq[2] and wq[0] is not wq[1]
+    assert state["m"]["final_norm"].sharding.spec == () and len(state["m"]["final_norm"]) == 4
+    assert Trainer(build_model(get_smoke_config(ARCH)), TrainConfig(),
+                   mesh=Mesh((1,), ("t",), device="cpu"), device="cpu").mesh is None
     mesh.close()
 
 
