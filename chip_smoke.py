@@ -266,6 +266,23 @@ Phases, each fatal on failure (no result line, non-zero exit):
    counts against an fp32 psum's, the mean's error after 1 and 8 rounds
    (error feedback), each rank's error-fed stream within the reference
    test's bound scaled to the leaf's gradient scale.
+19. roofline -- the cost counter (``repro_torch.roofline``) against the
+   card, every leg fatal: (a) Llama-3.2-1B's decode step in the (4, 16)
+   bucket as phase 4 captures it, Llama-3.2-1B's 8 x 256 training step
+   (``lower_cell(mesh=None)``, the ``train_4k`` cell cut as phase 14 cuts
+   it) and h2o-danube-3-4b's 32768-token ``flash`` forward, each counted on
+   fake CUDA tensors (K1's and K2's launch counters unmoved) and run once
+   for real with every K1 and K2 launch's shape logged: the counted K1
+   FLOPs equal Σ 2mnk of the launched shapes and K2's equal
+   ``flash_bound``'s count, exactly, and each step's counted bound over the
+   device time phases 4, 14 and 6 measured is at most
+   ``ROOF_FRACTION_MAX``; (b) the dry run's argument bytes within
+   ``ARG_BYTES_TOL`` of the allocator's once the real state is built, its
+   peak over one real step's ``max_memory_allocated`` within
+   ``PEAK_BAND``; (c) ``python -m repro_torch.launch.perf_probe --arch
+   xlstm-350m --shape decode_32k --mesh single`` in a subprocess (the
+   (16, 16) production mesh on fake CUDA tensors), its JSON read; (d)
+   ``check(plan, hlo=True)`` over phase 10's catalog on card rank threads.
 
 On one card the collectives are device copies and "overlap" is only the
 order in which the rank threads issue work: no number of phases 7-9 or 11
@@ -346,15 +363,22 @@ from repro_torch.models.sharding_rules import param_shardings  # noqa: E402
 from repro_torch.optim import compress  # noqa: E402
 from repro_torch.plan.lower_dist import block_slices  # noqa: E402
 from repro_torch.runtime import elastic, sharding  # noqa: E402
+from repro_torch.configs import ShapeCell  # noqa: E402
+from repro_torch.launch.dryrun import lower_cell  # noqa: E402
+from repro_torch.launch.specs import abstract_params  # noqa: E402
+from repro_torch.roofline import analysis as roof_analysis, hlo_stats  # noqa: E402
+from repro_torch.roofline.hlo_stats import attention_pairs  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 # the module, not the function ``repro_torch.plan.lower_dist`` of its name
 lower_dist_mod = importlib.import_module("repro_torch.plan.lower_dist")
 plan_ir = importlib.import_module("repro_torch.plan.ir")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): memory 3.35 TB/s,
-# bf16 tensor cores 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s.
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published peaks (NVIDIA data sheet, dense), from their one home
+# in the port: memory 3.35 TB/s, bf16 tensor cores 989 TFLOP/s, fp32 outside
+# the tensor cores 67 TFLOP/s.
+PEAK_BYTES_S = roof_analysis.HBM_BW
+PEAK_FLOPS = roof_analysis.PEAK_FLOPS
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Per-row checks (``row_err``): the worst output row's relative L2 error.
 # bf16: each side rounds its output to bf16 (2^-9 relative at most), and K2
@@ -462,13 +486,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _bound(cost, dtype: torch.dtype):
+    t_bytes = cost.bytes / PEAK_BYTES_S
+    t_ops = cost.flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(m: int, k: int, n: int, dtype: torch.dtype):
     """(ms, "bytes" | "operations"): each input read once, the output
-    written once, at the memory rate; or the FLOPs at the type's peak."""
-    esize = torch.finfo(dtype).bits // 8
-    t_bytes = (m * k + k * n + m * n) * esize / PEAK_BYTES_S
-    t_ops = 2.0 * m * n * k / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    written once, at the memory rate; or the FLOPs at the type's peak
+    (K1's count, ``hlo_stats.matmul_cost``)."""
+    return _bound(hlo_stats.matmul_cost(m, k, n, dtype), dtype)
 
 
 def row_err(out: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -971,22 +999,11 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """Unmasked (query, key) pairs of one head: query i and key j both
-    counted from 0, j <= i when causal, j > i - window when window > 0."""
-    i = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(skv, i + 1) if causal else np.full(sq, skv, dtype=np.int64)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq, dtype=np.int64)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def flash_bound(b, sq, skv, hq, hkv, d, window, dtype=torch.bfloat16, causal=True):
     """(ms, "bytes" | "operations"): Q, K, V and O moved once at the memory
-    rate, or 4 D flops per unmasked pair and query head at the type's peak."""
-    esize = torch.finfo(dtype).bits // 8
-    t_bytes = 2 * b * d * (sq * hq + skv * hkv) * esize / PEAK_BYTES_S
-    t_ops = 4.0 * d * b * hq * attention_pairs(sq, skv, causal, window) / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    rate, or 4 D flops per unmasked pair and query head at the type's peak
+    (K2's count, ``hlo_stats.flash_cost``)."""
+    return _bound(hlo_stats.flash_cost(b, sq, skv, hq, hkv, d, causal, window, dtype), dtype)
 
 
 def max_sm_clock_hz() -> float:
@@ -2801,12 +2818,14 @@ def flash_row(report: dict) -> dict:
                              "planned_prefill": sum(report["planned_prefill"]["k2_routes"].values()),
                              "family_seamless_encode": fam[ENCDEC_ARCH]["path"]["k2_launches"],
                              "family_zamba2_prefill":
-                                 sum(fam["hybrid_prefill"]["launches"]["K2"].values())},
+                                 sum(fam["hybrid_prefill"]["launches"]["K2"].values()),
+                             "roofline": report["roofline"]["launches"]["K2"]},
         "routes": {"long_prefill": report["long_prefill"]["k2_routes"],
                    "planned_prefill": report["planned_prefill"]["k2_routes"],
                    "long_prefill_fp32_check": {"fma": report["long_prefill"]["fp32"]["launches"]},
                    "family_seamless_encode": fam[ENCDEC_ARCH]["path"]["k2_routes"],
-                   "family_zamba2_prefill": fam["hybrid_prefill"]["launches"]["K2"]},
+                   "family_zamba2_prefill": fam["hybrid_prefill"]["launches"]["K2"],
+                   "roofline": report["roofline"]["launches"]["K2_routes"]},
         "max_abs_err": max(report["flash_kernel"]["worst_bf16_abs_err"],
                            *(fam[key]["k2"]["check"]["max_abs_err"]
                              for key in (ENCDEC_ARCH, "hybrid_prefill"))),
@@ -4258,6 +4277,226 @@ def phase_sharded_train(dev: torch.device) -> dict:
     return out
 
 
+# -- the roofline and the dry run (phase 19) ---------------------------------------------
+
+ROOF_FRACTION_MAX = 1.05     # measured device time may not beat the counted bound by more
+ARG_BYTES_TOL = 0.01         # (b): predicted argument bytes vs the allocator's
+# (b): predicted peak / the allocator's peak, the band PERF.md wrote before the first run
+PEAK_BAND = (0.85, 1.15)
+ROOF_TRAIN_CELL = ShapeCell("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")   # phase 14's cut
+PROBE_ARGV = ["--arch", "xlstm-350m", "--shape", "decode_32k", "--mesh", "single"]
+
+
+def _fake_count(setup, step) -> hlo_stats.Counter:
+    """``step(*setup())`` under a fresh fake mode, the step alone under the
+    cost counter; K1's and K2's launch counters may not move."""
+    before = (k1.launches, k2.launches)
+    with FakeTensorMode():
+        args = setup()
+        with hlo_stats.counting() as counter, torch.no_grad():
+            step(*args)
+    if (k1.launches, k2.launches) != before:
+        raise AssertionError(f"a fake trace moved the launch counters: {before} -> "
+                             f"{(k1.launches, k2.launches)}")
+    return counter
+
+
+def _held_to_launches(tag: str, counter, k1_calls, k2_calls, measured_ms: float,
+                      model_flops: float) -> dict:
+    """The counted K1 and K2 FLOPs against the launched shapes' (exact), and
+    the counted program's roofline beside a measured device time."""
+    k1_launched = sum(2.0 * m * n * k for (m, n, k, _) in k1_calls)
+    k2_launched = sum(hlo_stats.flash_cost(b, sq, skv, hq, hkv, d, causal, window,
+                                           torch.bfloat16).flops
+                      for (b, sq, skv, hq, hkv, d, causal, window, _) in k2_calls)
+    k1_counted = counter.by_op.get(hlo_stats.K1_OP, hlo_stats.Cost()).flops
+    k2_counted = counter.by_op.get(hlo_stats.K2_OP, hlo_stats.Cost()).flops
+    roof = roof_analysis.from_cost(counter.program(), chips=1, model_flops=model_flops)
+    summary = roof.summary()
+    fraction = roof.step_s / (measured_ms / 1e3)
+    log(f"[roofline] {tag}: K1 counted {k1_counted:.6e} FLOPs, launched {k1_launched:.6e} "
+        f"({len(k1_calls)} launches); K2 counted {k2_counted:.6e}, launched {k2_launched:.6e} "
+        f"({len(k2_calls)}); bound {roof.step_s * 1e3:.3f}ms ({summary['dominant']}: compute "
+        f"{roof.compute_s * 1e3:.3f}, memory {roof.memory_s * 1e3:.3f}ms; "
+        f"{counter.program().flops:.4e} FLOPs, {counter.program().bytes:.4e} bytes), measured "
+        f"{measured_ms:.3f}ms: roofline fraction {fraction:.3f} (limit {ROOF_FRACTION_MAX})")
+    if k1_counted != k1_launched or k2_counted != k2_launched:
+        raise AssertionError(f"{tag}: counted K1 {k1_counted} / K2 {k2_counted} FLOPs, "
+                             f"launched {k1_launched} / {k2_launched}")
+    if not 0 < fraction <= ROOF_FRACTION_MAX:
+        raise AssertionError(f"{tag}: roofline fraction {fraction} outside (0, "
+                             f"{ROOF_FRACTION_MAX}]: the count left out work")
+    return {"summary": summary, "measured_ms": measured_ms, "fraction": fraction,
+            "k1_flops": k1_counted, "k2_flops": k2_counted, "k1_launches": len(k1_calls),
+            "k2_launches": len(k2_calls),
+            "by_op": {name: {"flops": c.flops, "bytes": c.bytes, "calls": counter.calls[name]}
+                      for name, c in sorted(counter.by_op.items(), key=lambda kv: -kv[1].bytes)[:12]}}
+
+
+def roofline_decode(dev: torch.device, report: dict) -> dict:
+    """(a) Llama-3.2-1B's decode step in the (4, 16) bucket, as phase 4
+    captures it (``step_device_ms``): counted on fake CUDA tensors, then
+    run once eagerly with K1's launches logged; phase 4's graph-replay
+    time."""
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    batch, seq = SERVE_BUCKETS[0]
+
+    def setup():
+        return (abstract_params(cfg, dev)[1], model.init_cache(batch, 64, dev),
+                torch.empty((batch, 1), dtype=torch.int64, device=dev),
+                torch.zeros(batch, dtype=torch.int64, device=dev))
+
+    counter = _fake_count(setup, lambda p, c, t, o: serve_step(model, p, c, t, seq, o))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    cache = model.init_cache(batch, 64, dev)
+    tokens = torch.ones((batch, 1), dtype=torch.int64, device=dev)
+    offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
+    with torch.no_grad(), k1.trace_launches() as c1, k2.trace_launches() as c2:
+        serve_step(model, params, cache, tokens, seq, offsets)
+        torch.cuda.synchronize()
+    out = _held_to_launches("Llama-3.2-1B decode step, bucket 4x16", counter, c1, c2,
+                            report["serve"]["step_device_ms"]["decode"],
+                            roof_analysis.infer_model_flops(cfg.active_param_count(), batch))
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def roofline_train(dev: torch.device, report: dict) -> dict:
+    """(a) + (b): the Llama training cell cut as phase 14 cuts it, counted
+    by ``lower_cell(mesh=None)`` on fake CUDA tensors; the real state's
+    bytes and one real step's peak beside the prediction, the step's K1
+    launches logged; phase 14's step time."""
+    cfg = get_config(TRAIN_ARCH)
+    counter = hlo_stats.Counter()
+    before = (k1.launches, k2.launches)
+    rec = lower_cell(TRAIN_ARCH, ROOF_TRAIN_CELL, None, device=dev, counter=counter)
+    if (k1.launches, k2.launches) != before:
+        raise AssertionError("the dry run moved the launch counters")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    trainer = Trainer(build_model(cfg), TrainConfig(), device=dev)
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+    args = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    with k1.trace_launches() as c1, k2.trace_launches() as c2:
+        trainer.make_train_step()(state, batch)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    mem = rec["memory"]
+    arg_rel = abs(mem["argument_bytes"] - args) / args
+    peak_ratio = mem["peak_bytes"] / peak
+    log(f"[roofline] Llama-3.2-1B train {TRAIN_BATCH}x{TRAIN_SEQ}, lower_cell(mesh=None): "
+        f"argument bytes predicted {mem['argument_bytes']} vs allocated {args} (rel "
+        f"{arg_rel:.2e}, limit {ARG_BYTES_TOL}); peak predicted {mem['peak_bytes'] / 2**30:.3f} "
+        f"GiB vs max_memory_allocated {peak / 2**30:.3f} GiB (ratio {peak_ratio:.3f}, band "
+        f"{PEAK_BAND}); lower {rec['lower_s']}s, count {rec['compile_s']}s")
+    if arg_rel > ARG_BYTES_TOL:
+        raise AssertionError(f"argument bytes {mem['argument_bytes']} vs {args}")
+    if not PEAK_BAND[0] <= peak_ratio <= PEAK_BAND[1]:
+        raise AssertionError(f"peak ratio {peak_ratio} outside {PEAK_BAND}")
+    out = _held_to_launches(f"Llama-3.2-1B train step {TRAIN_BATCH}x{TRAIN_SEQ}", counter, c1,
+                            c2, report["train"]["timing"]["device_ms"],
+                            rec["roofline"]["model_flops"])
+    out.update(memory=mem, allocated_argument_bytes=args, allocated_peak_bytes=peak,
+               argument_rel=arg_rel, peak_ratio=peak_ratio, lower_s=rec["lower_s"],
+               count_s=rec["compile_s"])
+    del state, batch, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def roofline_prefill(dev: torch.device, report: dict) -> dict:
+    """(a) h2o-danube-3-4b's 32768-token ``flash`` forward: counted on fake
+    CUDA tensors, run once with K1's and K2's launches logged; phase 6's
+    forward time."""
+    cfg = dataclasses.replace(get_config(PREFILL_ARCH), attn_impl="flash")
+    model = build_model(cfg)
+
+    def setup():
+        return (abstract_params(cfg, dev)[1],
+                torch.empty((1, PREFILL_S), dtype=torch.int64, device=dev))
+
+    counter = _fake_count(setup, model.forward)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, PREFILL_S))).to(dev)
+    with torch.no_grad(), k1.trace_launches() as c1, k2.trace_launches() as c2:
+        logits, _ = model.forward(params, tokens)
+        torch.cuda.synchronize()
+    del logits, params
+    torch.cuda.empty_cache()
+    return _held_to_launches(f"{PREFILL_ARCH} flash forward S={PREFILL_S}", counter, c1, c2,
+                             report["long_prefill"]["forward_ms"],
+                             roof_analysis.infer_model_flops(cfg.active_param_count(),
+                                                             PREFILL_S))
+
+
+def roofline_probe() -> dict:
+    """(c) ``python -m repro_torch.launch.perf_probe --arch xlstm-350m
+    --shape decode_32k --mesh single`` in a subprocess (fake CUDA tensors on
+    the (16, 16) production mesh); its JSON."""
+    out_path = os.path.join(OUT_DIR, "perf_iterations.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.perf_probe", *PROBE_ARGV,
+                          "--out", out_path], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"perf_probe --arch: rc {res.returncode}\n{res.stderr[-3000:]}")
+    probe = json.loads(res.stdout)
+    want = {"tag", "arch", "shape", "dominant", "compute_s", "memory_s", "collective_s",
+            "step_bound_s", "roofline_fraction", "coll_by_kind", "peak_GiB"}
+    with open(out_path) as f:
+        rec = json.load(f)[-1]
+    log(f"[roofline] perf_probe {' '.join(PROBE_ARGV)}: {secs:.1f}s, {json.dumps(probe)}; "
+        f"analyzer {rec['analyzer']}, mesh {rec['mesh']}")
+    if set(probe) != want or rec["mesh"] != "16x16" or probe["memory_s"] <= 0:
+        raise AssertionError(f"perf_probe printed {sorted(probe)}, mesh {rec['mesh']}")
+    return {"probe": probe, "seconds": secs, "counted": rec["counted"]}
+
+
+def roofline_hlo(dev: torch.device) -> dict:
+    """(d) ``check(plan, hlo=True)`` over phase 10's catalog (``run_matrix``:
+    every cell up to 16 ranks, square, ragged and batched, fp32 and bf16,
+    staged and overlapped) on meshes of rank threads on the card: the
+    counted collective bytes of fake runs present exactly where the trace
+    has words."""
+    t0 = time.perf_counter()
+    rows = run_matrix(measure=False, hlo=True, device=dev)
+    secs = time.perf_counter() - t0
+    failed = [r for r in rows if not r["ok"]]
+    log(f"[roofline] check(plan, hlo=True) over the catalog on the card: {len(rows) - len(failed)}"
+        f"/{len(rows)} plans pass in {secs:.1f}s")
+    if failed:
+        raise AssertionError(f"HLO leg failed on {len(failed)} plans: {failed[:3]}")
+    return {"plans": len(rows), "seconds": secs}
+
+
+def phase_roofline(dev: torch.device, report: dict) -> dict:
+    """Phase 19: the roofline and the dry run against the kernels (module
+    docstring)."""
+    t0 = time.perf_counter()
+    k1.reset_launches()
+    k2.reset_launches()
+    out = {"decode": roofline_decode(dev, report), "train": roofline_train(dev, report),
+           "prefill": roofline_prefill(dev, report)}
+    out["launches"] = {"K1": k1.launches, "K2": k2.launches,
+                       "K1_routes": _nonzero(k1.launches_by_route),
+                       "K2_routes": _nonzero(k2.launches_by_route)}
+    out["probe"] = roofline_probe()
+    out["hlo"] = roofline_hlo(dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[roofline] phase 19 took {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4288,6 +4527,7 @@ def main() -> int:
     report["families"] = phase_families(dev, gen)
     report["zoo_train"] = phase_zoo_train(dev)
     report["sharded_train"] = phase_sharded_train(dev)
+    report["roofline"] = phase_roofline(dev, report)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -4330,7 +4570,8 @@ def main() -> int:
                                                ("check_fp32", z["model"]["launches"]))},
                              **family_launches(report["families"]),
                              **zoo_train_launches(report["zoo_train"]),
-                             **sharded_launches(report["sharded_train"])},
+                             **sharded_launches(report["sharded_train"]),
+                             "roofline": report["roofline"]["launches"]["K1"]},
         "routes": {"serve": report["serve"]["path"]["routes"],
                    "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
@@ -4357,7 +4598,8 @@ def main() -> int:
                                        z["serve"]["step_device_ms"]["routes"].items()))},
                    **family_routes(report["families"]),
                    **zoo_train_routes(report["zoo_train"]),
-                   **sharded_routes(report["sharded_train"])},
+                   **sharded_routes(report["sharded_train"]),
+                   "roofline": report["roofline"]["launches"]["K1_routes"]},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            report["train"]["kernel"]["worst_abs_err"],
                            *(z["serve"]["measured"]["k1"]["check"]["worst_abs_err"]

@@ -10,6 +10,7 @@ import threading
 from typing import Optional, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -50,3 +51,25 @@ def bind_thread(device: torch.device) -> None:
         torch.cuda.set_device(device)
         _bound.device = device
 
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (``FakeTensorMode``: a shape, a type
+    and a device, no memory)."""
+    return isinstance(t, FakeTensor)
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t``'s base is 16-byte aligned.  A fake tensor has no
+    address: its base is taken where the card's allocator would put it, a
+    fresh buffer (aligned far beyond 16 bytes) plus its storage offset, so
+    a fake run picks the route the card would."""
+    if is_fake(t):
+        return t.storage_offset() * t.element_size() % 16 == 0
+    return t.data_ptr() % 16 == 0
+
+
+def dispatch_mode_active() -> bool:
+    """Whether a ``TorchDispatchMode`` (a fake mode, a counter) is active in
+    the calling thread, or in the thread autograd took its state from."""
+    return torch._C._len_torch_dispatch_stack() > 0

@@ -29,7 +29,10 @@ in group order, or concatenates them along ``axis`` when ``tiled``;
 
 ``stats`` counts, per kind, the calls and the bytes each rank received
 from another rank (a rank's own block moves nothing): the measured side of
-the plan's ``cost.comm_bytes``.
+the plan's ``cost.comm_bytes``.  Under the cost counter
+(``repro_torch.roofline.hlo_stats``) each call is also counted, in the
+reference's kinds and output-shape bytes, and the communicator's own
+copies are not counted as ops.
 
 When ``repro_torch.obs`` tracing is enabled, each call also records one
 ``CollectiveEvent`` (kind, group size, shard words, canonical perm, the
@@ -50,6 +53,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.roofline import hlo_stats
 
 from .mesh import as_axes
 
@@ -114,21 +118,24 @@ def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
     comm, axes = _comm(), as_axes(axis_name)
     if obs.enabled():
         _observe(comm, "ppermute", x, axes, perm)
-    return comm.ppermute(x, axes, perm)
+    with hlo_stats.collective("ppermute", x, x.numel()):
+        return comm.ppermute(x, axes, perm)
 
 
 def all_gather(x: torch.Tensor, axis_name, *, axis: int, tiled: bool) -> torch.Tensor:
     comm, axes = _comm(), as_axes(axis_name)
     if obs.enabled():
         _observe(comm, "all_gather", x, axes)
-    return comm.all_gather(x, axes, axis=axis, tiled=tiled)
+    with hlo_stats.collective("all_gather", x, x.numel() * comm.mesh.axis_size(axes)):
+        return comm.all_gather(x, axes, axis=axis, tiled=tiled)
 
 
 def psum(x: torch.Tensor, axis_name) -> torch.Tensor:
     comm, axes = _comm(), as_axes(axis_name)
     if obs.enabled():
         _observe(comm, "psum", x, axes)
-    return comm.psum(x, axes)
+    with hlo_stats.collective("psum", x, x.numel()):
+        return comm.psum(x, axes)
 
 
 def axis_index(axis_name) -> int:
@@ -199,7 +206,7 @@ class Rendezvous:
                 self.error = f"a collective waited {self.timeout_s:g}s for its ranks"
 
     def exchange(self, rank: int, value) -> list:
-        with self.cond:
+        with _turn_released(), self.cond:
             if self.error is not None:
                 raise RankAborted(self.error)
             slots = self.slots[self.generation % 2]
@@ -221,15 +228,56 @@ class Rendezvous:
             self.cond.notify_all()
 
 
-def run_rank(comm: "ThreadCommunicator", stream, fn, args, tags=None):
+# A fake mode is not thread-safe: while it runs an op it answers every
+# fake tensor's ``.device`` with ``meta``, in every thread.  Rank threads
+# that share the caller's fake mode therefore take turns: a rank holds the
+# turn while it runs, and hands it on only while it waits at a collective.
+_FAKE_TURN = threading.Lock()
+_turn = threading.local()
+
+
+@contextlib.contextmanager
+def _fake_turn():
+    with _FAKE_TURN:
+        _turn.held = True
+        try:
+            yield
+        finally:
+            _turn.held = False
+
+
+@contextlib.contextmanager
+def _turn_released():
+    """Hand the fake turn on while this rank waits (no-op without one)."""
+    if not getattr(_turn, "held", False):
+        yield
+        return
+    _turn.held = False
+    _FAKE_TURN.release()
+    try:
+        yield
+    finally:
+        _FAKE_TURN.acquire()
+        _turn.held = True
+
+
+def run_rank(comm: "ThreadCommunicator", stream, fn, args, tags=None, fake=None,
+             counter=None):
     """One rank's thread: its device and the caller's stream current, its
     communicator current, the caller's obs tags inherited (``tags``, when
-    tracing), ``fn(*args)``; a failure releases the others."""
+    tracing), the caller's fake mode (``fake``: the ranks take turns, see
+    ``_FAKE_TURN``) and cost counter (``counter``: counted as this rank's
+    program), ``fn(*args)``; a failure releases the others."""
     try:
         with contextlib.ExitStack() as stack:
             if stream is not None:
                 stack.enter_context(torch.cuda.device(comm.device))
                 stack.enter_context(torch.cuda.stream(stream))
+            if fake is not None:
+                stack.enter_context(_fake_turn())
+                stack.enter_context(fake)
+            if counter is not None:
+                stack.enter_context(hlo_stats.rank_scope(counter, comm.rank))
             stack.enter_context(current(comm))
             if tags is not None:
                 stack.enter_context(obs.inherited(tags))
@@ -286,6 +334,34 @@ class ThreadCommunicator:
             acc = part.clone() if acc is None else acc + part
         _count("psum", (len(group) - 1) * x.numel() * x.element_size())
         return acc
+
+
+class SoloCommunicator:
+    """One rank of a mesh run alone, to count its program (the cost
+    counter's ``one_rank`` pricing): each collective returns an
+    uninitialised tensor of its output's shape, and nothing moves.  Every
+    rank of a planned product runs the same program on blocks of one
+    shape, so one rank's ops are each rank's."""
+
+    def __init__(self, mesh, rank: int = 0):
+        self.mesh = mesh
+        self.rank = rank
+        self.device = mesh.device
+
+    def ppermute(self, x, axes, perm):
+        return torch.empty_like(x)
+
+    def all_gather(self, x, axes, *, axis, tiled):
+        g = self.mesh.axis_size(axes)
+        shape = list(x.shape)
+        if tiled:
+            shape[axis] *= g
+        else:
+            shape.insert(axis, g)
+        return x.new_empty(shape)
+
+    def psum(self, x, axes):
+        return torch.empty_like(x)
 
 
 # -- process group: one rank per process ------------------------------------------

@@ -161,12 +161,17 @@ class Mesh:
 
     def run(self, fn: Callable, args: Dict[int, tuple]) -> Dict[int, object]:
         """``fn(*args[r])`` on every local rank ``r``, each with its rank's
-        communicator current (``dist._collectives``) and, under obs
-        tracing, the caller's span tags; returns ``{r: out}``.
+        communicator current (``dist._collectives``), under obs
+        tracing the caller's span tags, and the caller's fake mode and
+        cost counter (``roofline.hlo_stats``) when it has them; returns
+        ``{r: out}``.
         On a single controller the ranks run at once, one thread each; if
         one raises, the others are released from their collectives and the
         first error is raised here."""
+        from torch._guards import detect_fake_mode
+
         from repro_torch import obs
+        from repro_torch.roofline import hlo_stats
 
         from . import _collectives
 
@@ -183,10 +188,12 @@ class Mesh:
             stream = (torch.cuda.current_stream(self.device)
                       if self.device.type == "cuda" else None)
             tags = obs.current_tags() if obs.enabled() else None
+            fake = detect_fake_mode([t for a in args.values() for t in a])
+            counter = hlo_stats.current_counter()
             futures = {
                 r: self._pool.submit(_collectives.run_rank,
                                      _collectives.ThreadCommunicator(self, r, rendezvous),
-                                     stream, fn, args[r], tags)
+                                     stream, fn, args[r], tags, fake, counter)
                 for r in range(self.size)}
             outs, errors = {}, []
             for r, fut in futures.items():

@@ -26,10 +26,11 @@ its design does about it.  Every kernel reads the tensors through their
 ``flash_attention_bshd`` the model's (B, S, H, D) one, both in place.
 ``launches`` counts accepted launches and ``launches_by_route`` the same per
 route; ``reset_launches`` zeroes both, so a run can show which kernel its
-attention went through.
+attention went through; ``trace_launches`` also lists each launch's shape.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from pathlib import Path
@@ -66,6 +67,7 @@ KERNEL = _build.Kernel(
 
 launches = 0
 launches_by_route: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+_trace: Optional[List[Tuple]] = None
 
 
 def reset_launches() -> None:
@@ -73,6 +75,19 @@ def reset_launches() -> None:
     launches = 0
     for r in ROUTES:
         launches_by_route[r] = 0
+
+
+@contextlib.contextmanager
+def trace_launches():
+    """Within the scope, list every launch as (B, S_q, S_kv, H_q, H_kv, D,
+    causal, window, route)."""
+    global _trace
+    prev, _trace = _trace, []
+    out = _trace
+    try:
+        yield out
+    finally:
+        _trace = prev
 
 
 def build() -> Path:
@@ -238,6 +253,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
                            f"{lib.flash_attention_error_string(rc).decode()} ({rc})")
     launches += 1
     launches_by_route[r] += 1
+    if _trace is not None:
+        _trace.append((b, sq, skv, hq, hkv, d, bool(causal), int(window), r))
     return out
 
 

@@ -9,6 +9,15 @@ itself and reads (B, S, H, D) through strides, so the reference's four
 transposing copies are gone on the card.  The reference's refusal of
 non-causal attention over padded keys is kept under the reference's own
 condition, so both packages accept the same calls.
+
+Past ``mha``'s checks the product is the registered op
+``torch.ops.repro_torch.flash_attention`` (``torch.library.custom_op``, as
+K1's ``repro_torch::zorder_matmul``): the CPU implementation is the plain
+version, the CUDA one launches the kernel, and a fake implementation gives
+the output's shape and type without touching memory.  Being an op of the
+dispatcher, it is what a dispatch mode sees as one call (the cost counter,
+``repro_torch.roofline.hlo_stats``) and what a fake tensor runs through (the
+dry run).  It has no autograd formula: ``mha`` refuses gradients first.
 """
 from __future__ import annotations
 
@@ -51,11 +60,28 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError("flash attention has no backward kernel yet: "
                                   "call it under torch.no_grad(), or train with "
                                   "attn_impl='xla'")
+    return flash_attention_op(q, k, v, causal, window, scale)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       window: int, scale: Optional[float]) -> torch.Tensor:
+    """``mha``'s product as an op of the dispatcher (module docstring):
+    the kernel on CUDA tensors, the plain version on CPU tensors; a new
+    contiguous (B, S_q, H_q, D) in q's type.  ``mha`` checks the arguments."""
     if q.device.type == "cpu":
+        b, sq, hq, d = q.shape
+
         def to_heads(x):  # (B, S, H, D) -> (B*H, S, D)
             return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
 
         o = attention_ref(to_heads(q), to_heads(k), to_heads(v), causal=causal,
                           window=window, scale=scale)
-        return o.reshape(b, hq, sq, d).transpose(1, 2)
+        return o.reshape(b, hq, sq, d).transpose(1, 2).contiguous()
     return kernel.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, scale):
+    return q.new_empty(q.shape)

@@ -21,7 +21,12 @@ backward computes dA = dC B^T and dB = A^T dC through ``matmul`` again, on
 fresh transposed copies, so all three products run on the kernel.  Being
 an op of the dispatcher, it is what a selective-checkpoint policy sees and
 keeps (``models.lm.remat``, ``"dots"``).  Without grad, ``matmul`` calls
-the kernel directly: no dispatcher hop in eager or captured serving.
+the kernel directly: no dispatcher hop in eager or captured serving.  A
+fake tensor, or a dispatch mode active in the thread (the cost counter,
+``repro_torch.roofline.hlo_stats``, or ``FakeTensorMode``), also takes the
+op, so a mode sees K1 as one call and a fake run never reaches the kernel;
+a fake operand's alignment is where the card's allocator would put it
+(``device.aligned16``), so the blocks and the route are the card's.
 """
 from __future__ import annotations
 
@@ -31,15 +36,13 @@ from typing import List, Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.device import aligned16, dispatch_mode_active, is_fake
+from repro_torch.roofline.analysis import PEAK_FLOPS
 
 from . import kernel
 from .ref import matmul_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-# H100 SXM published dense peaks (NVIDIA data sheet, 700 W): bf16 tensor
-# cores, fp32 outside the tensor cores.  Only the roofline-fraction metric
-# reads them.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def accepts(k: int, n: int, dtype: torch.dtype, blocks, aligned: bool = True) -> bool:
@@ -90,7 +93,7 @@ def matmul(
         raise ValueError(f"unknown order {order!r}")
     m, k = a.shape
     n = b.shape[1]
-    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    aligned = aligned16(a) and aligned16(b)
     bm, bn, bk = kernel.default_blocks(m, n, k, a.dtype, aligned)
     blocks = (block_m or bm, block_n or bn, block_k or bk)
     if blocks not in kernel.BLOCKS[a.dtype]:
@@ -100,7 +103,8 @@ def matmul(
         raise ValueError(f"the {kernel.ROUTE_OF[a.dtype, blocks]} route's blocks {blocks} "
                          f"take k and n multiples of 8 (k > 0) and 16-byte aligned bases; "
                          f"got k={k}, n={n}")
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+    if (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)) \
+            or is_fake(a) or dispatch_mode_active():
         return zorder_matmul_op(a, b, list(blocks), order, out_dtype)
     return _launch(a, b, blocks, order, out_dtype)
 
@@ -117,7 +121,7 @@ def _fresh(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``t`` in ``dtype``, contiguous, with a 16-byte aligned base (what the
     wide and thin routes read)."""
     t = t.to(dtype).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if aligned16(t) else t.clone()
 
 
 @torch.library.custom_op("repro_torch::zorder_matmul", mutates_args=(),

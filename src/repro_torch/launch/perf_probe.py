@@ -21,17 +21,30 @@ profile (and, with ``--tune-out``, writes it as its own artifact), keyed by
 the card's name.  ``--tune-dtype`` defaults to bfloat16, the serving
 dtype (the reference's default, float32, runs K1's fma route only).
 
-The reference's legacy perf-iteration mode (``--arch``: lower one arch x
-shape cell and print its roofline terms) needs the dry-run launcher and
-the roofline tooling, which the port does not have yet (``ROADMAP.md``,
-queue 1, item 9); it raises ``NotImplementedError``.
+The reference's legacy perf-iteration mode is selected by ``--arch``: count
+ONE arch x shape cell with config overrides on a production mesh through
+the dry run (``launch.dryrun.lower_cell``, fake tensors) and print its
+roofline terms:
+
+    PYTHONPATH=src python -m repro_torch.launch.perf_probe \
+        --arch granite-20b --shape train_4k \
+        --set remat=none attn_probs_dtype=bf16 --no-zero --tag it3
+
+Overrides apply ``dataclasses.replace`` on the arch config.  The port has
+one analyzer, the reference's naive count (``roofline.hlo_stats``: the
+VMEM-residency rule is a TPU's), so every record says
+``"analyzer": "naive"``; ``--naive-analyzer`` is accepted for the
+reference's command lines.  Appends a JSON record to ``--out``
+(``perf_iterations.json``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
+import time
 
 from repro_torch.obs.calibrate import probe_links
 from repro_torch.obs.profile import MachineProfile, save_profile  # noqa: F401
@@ -80,6 +93,56 @@ def calibrate_main(args) -> MachineProfile:
     return profile
 
 
+def parse_override(kv: str):
+    k, v = kv.split("=", 1)
+    for cast in (int, float):
+        try:
+            return k, cast(v)
+        except ValueError:
+            pass
+    if v in ("True", "False"):
+        return k, v == "True"
+    return k, v
+
+
+def cell_probe_main(args) -> dict:
+    """The ``--arch`` mode: one cell's roofline terms (module docstring)."""
+    from repro_torch.configs import canonical, get_config
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_production_mesh
+
+    overrides = dict(parse_override(kv) for kv in args.set)
+    arch = canonical(args.arch)
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    mesh = make_production_mesh(multi_pod=(args.mesh == "multi"), device=args.device)
+    t0 = time.perf_counter()
+    rec = lower_cell(arch, args.shape, mesh, remat=args.remat, zero=not args.no_zero,
+                     device=args.device, cfg=cfg)
+    rec.update(tag=args.tag, overrides=overrides, zero=not args.no_zero,
+               remat=args.remat, analyzer="naive",
+               wall_s=round(time.perf_counter() - t0, 1))
+    r = rec["roofline"]
+    print(json.dumps({
+        "tag": args.tag, "arch": rec["arch"], "shape": rec["shape"],
+        "dominant": r["dominant"],
+        "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+        "collective_s": r["collective_s"], "step_bound_s": r["step_s_bound"],
+        "roofline_fraction": r["roofline_fraction"],
+        "coll_by_kind": r["coll_by_kind"],
+        "peak_GiB": round((rec["memory"]["peak_bytes"] or 0) / 2**30, 2),
+    }, indent=1))
+    hist = []
+    if os.path.exists(args.out):
+        with open(args.out) as f:
+            hist = json.load(f)
+    hist.append(rec)
+    with open(args.out, "w") as f:
+        json.dump(hist, f, indent=1)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -103,16 +166,27 @@ def main(argv=None) -> int:
     ap.add_argument("--tune-dtype", default="bfloat16")
     ap.add_argument("--tune-out", default="",
                     help="also write the TuningTable as its own JSON")
-    # the reference's legacy cell-probe mode (selected by --arch)
+    # the reference's legacy cell-probe mode (selected by --arch); --device
+    # is the fake tensors' device there
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
+    ap.add_argument("--set", nargs="*", default=[], metavar="key=val")
+    ap.add_argument("--remat", default="config")
+    ap.add_argument("--no-zero", action="store_true")
+    ap.add_argument("--naive-analyzer", action="store_true",
+                    help="the reference's pessimistic count; the port's only analyzer "
+                         "(no VMEM-residency rule on the card), so every record says "
+                         "analyzer=naive with or without it")
+    ap.add_argument("--tag", default="probe")
+    ap.add_argument("--out", default="perf_iterations.json")
     args = ap.parse_args(argv)
 
     if args.arch is not None:
-        raise NotImplementedError(
-            "the --arch cell probe lowers a dry-run cell and reads its roofline terms; "
-            "the port's dry-run launcher and roofline tooling are still to come "
-            "(ROADMAP.md, queue 1, item 9)")
+        if args.shape is None:
+            ap.error("--arch requires --shape")
+        cell_probe_main(args)
+        return 0
     calibrate_main(args)
     return 0
 

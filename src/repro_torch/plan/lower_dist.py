@@ -24,6 +24,14 @@ shard_map reshards an unsharded input on every call.
 ``execute_plan`` adds the batching layer: leading batch dims of the left
 operand fold into the rows (the same global matmul with m' = prod(batch)
 * m); a batched right operand runs the 2-D program per batch element.
+
+Under the cost counter (``repro_torch.roofline.hlo_stats``) the scatter
+and the gather are the single controller's layout and are not counted;
+each rank's program is counted as that rank's.  A counter with
+``one_rank`` set prices the program by running rank 0's alone on blocks of
+its shape with a communicator that moves nothing
+(``dist._collectives.SoloCommunicator``): the ops of one rank, without a
+thread per rank.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch import obs
+from repro_torch.dist import _collectives
 from repro_torch.dist._util import pad_to
 from repro_torch.dist.cannon import torus_program_body, torus_program_body_overlapped
 from repro_torch.dist.fattree import fattree_body
@@ -44,6 +53,7 @@ from repro_torch.dist.pod25d import (cannon25d_body, pod25d_slab_body, pod25d_su
                                      pod25d_summa_overlapped_body)
 from repro_torch.dist.ring import ring_ag_matmul, ring_rs_matmul
 from repro_torch.dist.summa import summa_body, summa_overlapped_body
+from repro_torch.roofline import hlo_stats
 
 from .ir import SchedulePlan
 from .lower_local import lower_local
@@ -137,8 +147,7 @@ def gather(outs: Dict[int, torch.Tensor], spec: tuple, mesh) -> torch.Tensor:
     ranks at coordinate 0 on those axes) supplies each block."""
     used = {a for entry in spec for a in _dim_axes(entry)}
     first = outs[0]
-    shape = [n * mesh.axis_size(_dim_axes(e)) if _dim_axes(e) else n
-             for n, e in zip(first.shape, spec)]
+    shape = _gathered_shape(first.shape, spec, mesh)
     full = torch.empty(shape, dtype=first.dtype, device=first.device)
     for r, blk in outs.items():
         coords = dict(zip(mesh.axis_names, mesh.coords(r)))
@@ -155,11 +164,44 @@ def spmd(body, mesh, in_specs: Sequence[tuple], out_spec: tuple):
     by ``out_spec``."""
 
     def run(*operands):
-        blocks = [scatter(x, spec, mesh) for x, spec in zip(operands, in_specs)]
+        counter = hlo_stats.current_counter()
+        if counter is not None and counter.one_rank and mesh.rank is None:
+            return _one_rank(body, mesh, operands, in_specs, out_spec, counter)
+        with hlo_stats.paused():
+            blocks = [scatter(x, spec, mesh) for x, spec in zip(operands, in_specs)]
         args = {r: tuple(b[r] for b in blocks) for r in mesh.local_ranks()}
-        return gather(mesh.collect(mesh.run(body, args)), out_spec, mesh)
+        outs = mesh.collect(mesh.run(body, args))
+        with hlo_stats.paused():
+            return gather(outs, out_spec, mesh)
 
     return run
+
+
+def _gathered_shape(shape, spec: tuple, mesh) -> list:
+    return [n * mesh.axis_size(_dim_axes(e)) if _dim_axes(e) else n
+            for n, e in zip(shape, spec)]
+
+
+def _one_rank(body, mesh, operands, in_specs, out_spec, counter) -> torch.Tensor:
+    """``spmd``'s run priced by rank 0's program alone (module docstring):
+    uninitialised blocks of rank 0's shapes in, an uninitialised global
+    output of the gathered shape out.  The program of one body on operands
+    of one shape is run once per counter and its count repeated."""
+
+    def rank0():
+        with hlo_stats.as_rank(0):
+            with hlo_stats.paused():
+                blocks = [x.new_empty([n // mesh.axis_size(_dim_axes(e)) if _dim_axes(e)
+                                       else n for n, e in zip(x.shape, spec)])
+                          for x, spec in zip(operands, in_specs)]
+            with _collectives.current(_collectives.SoloCommunicator(mesh, 0)):
+                out = body(*blocks)
+        return tuple(out.shape), out.dtype
+
+    key = (body, tuple((tuple(x.shape), x.dtype, x.device) for x in operands))
+    shape, dtype = counter.memoised(key, rank0)
+    with hlo_stats.paused():
+        return operands[0].new_empty(_gathered_shape(shape, out_spec, mesh), dtype=dtype)
 
 
 # -- the lowering rules -------------------------------------------------------------

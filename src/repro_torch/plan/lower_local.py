@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import aligned16
 from repro_torch.dist.local import local_matmul
 from repro_torch.kernels.matmul.ops import matmul
 
@@ -50,7 +51,7 @@ def lower_tiling(tiling: TilingPlan):
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x``, or a copy of it in a fresh (aligned) buffer when its base is
     not 16-byte aligned."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+    return x if aligned16(x) else x.clone()
 
 
 def lower_local(plan: SchedulePlan):

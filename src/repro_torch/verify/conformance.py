@@ -28,11 +28,14 @@ dtype on single-controller meshes (rank threads on the card, or on the CPU
 when asked) -- the pytest ``conformance`` suite and ``chip_smoke.py``'s
 conformance phase drive it.
 
-Port of ``repro.verify.conformance``.  The reference's HLO leg,
-the collective bytes of a compiled XLA program (``hlo_collective_bytes``,
-``check(..., hlo=True)``), has no compiled program to read here: it raises
-``NotImplementedError`` until the port's roofline tooling (``ROADMAP.md``,
-queue 1, item 9) counts a program's collectives another way.
+Port of ``repro.verify.conformance``.  The reference's third modality,
+the HLO leg (``hlo_collective_bytes``, ``check(..., hlo=True)``), reads the
+collective bytes of the plan's compiled XLA program.  The port compiles no
+program: ``hlo_collective_bytes`` runs the plan's per-rank programs on
+fake tensors under the cost counter (``repro_torch.roofline.hlo_stats``),
+which counts each rank's collectives at the seam in the reference's kinds
+and output-shape bytes, and the leg applies the reference's rule: bytes
+are present if and only if the trace has words.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.core.cost import bandwidth_lower_bound, torus_schedule_cost
 from repro_torch.core.fattree import FatTreeSchedule
@@ -48,8 +52,9 @@ from repro_torch.core.schedule import (movement_equations_hold, perm_is_bijectio
                                        perm_translation)
 from repro_torch.dist.api import STRATEGIES, estimate
 from repro_torch.dist.mesh import Mesh
-from repro_torch.plan import build_plan
+from repro_torch.plan import build_plan, lower_dist
 from repro_torch.plan.ir import TorusProgram
+from repro_torch.roofline import hlo_stats
 
 from .interceptor import measure_plan
 from .trace import (CollectiveRecord, Trace, canonical_perm, padded_dims,
@@ -351,23 +356,28 @@ def _check_fattree_levels(plan, trace: Trace) -> None:
 
 
 def hlo_collective_bytes(plan, dtype=None) -> float:
-    """The reference's third measurement modality: the collective bytes of
-    the plan's compiled XLA program.  The port's per-rank programs are not
-    compiled into one program whose collectives a tool could read, so this
-    waits for the port's roofline tooling (``ROADMAP.md``, queue 1,
-    item 9) and raises."""
-    raise NotImplementedError(
-        "hlo_collective_bytes needs a compiled program's collective count; it waits "
-        "for the port's roofline tooling (ROADMAP.md, queue 1, item 9)")
+    """Third measurement modality: run the plan's lowering on fake (B, K)
+    and (K, N) operands of ``dtype`` (default the plan's output type, as the
+    reference compiles it) on its mesh, every rank's thread under the cost
+    counter, and return one rank's collective bytes (the per-device
+    program's, as the reference reads them from the compiled HLO)."""
+    dtype = dtype if dtype is not None else plan.out_dtype
+    flat_m = plan.m * math.prod(plan.batch) if plan.batch else plan.m
+    device = plan.mesh.device if plan.mesh is not None else torch.device("cpu")
+    with FakeTensorMode():
+        a = torch.empty((flat_m, plan.k), dtype=dtype, device=device)
+        b = torch.empty((plan.k, plan.n), dtype=dtype, device=device)
+        with hlo_stats.counting() as counter:
+            lower_dist(plan)(a, b)
+    ranks = counter.ranks
+    return counter.cost(ranks[0]).coll_bytes if ranks else 0.0
 
 
 def check(plan, *, measure: bool = False, hlo: bool = False) -> ConformanceReport:
     """Full conformance of ``plan``: structure, cost model, and (optionally)
-    the executed collectives.  Raises ``ConformanceError`` on the first
-    broken leg; returns the report otherwise.  ``hlo=True`` raises
-    ``NotImplementedError`` (``hlo_collective_bytes``)."""
-    if hlo:
-        hlo_collective_bytes(plan)
+    the executed collectives and the counted program's collective bytes.
+    Raises ``ConformanceError`` on the first broken leg; returns the report
+    otherwise."""
     trace = trace_plan(plan)
     _check_structure(plan, trace)
     words_node, link_words, itt = _check_cost(plan, trace)
@@ -380,11 +390,19 @@ def check(plan, *, measure: bool = False, hlo: bool = False) -> ConformanceRepor
             _fail("interceptor", "lowering hook did not see the plan")
         compare_records(trace.records, cap.records)
 
+    hlo_bytes = None
+    if hlo:
+        hlo_bytes = hlo_collective_bytes(plan)
+        if (hlo_bytes > 0) != (trace.words_total() > 0):
+            _fail("hlo",
+                  f"counted collective bytes {hlo_bytes} inconsistent "
+                  f"with trace words {trace.words_total()}")
+
     return ConformanceReport(
         strategy=plan.strategy, mesh_size=trace.mesh_size, grid=trace.grid,
         padded=trace.padded, words_per_node=words_node,
         link_words=link_words, peak_node_words=trace.peak_node_words,
-        itt_bound=itt, measured=measure,
+        itt_bound=itt, measured=measure, hlo_collective_bytes=hlo_bytes,
     )
 
 
@@ -460,14 +478,16 @@ def _overlap_modes(strategy: str, shape: Tuple[int, ...]):
     return (None,)
 
 
-def run_matrix(*, measure: bool = True, cases: Optional[Sequence[str]] = None,
+def run_matrix(*, measure: bool = True, hlo: bool = False,
+               cases: Optional[Sequence[str]] = None,
                dtypes: Optional[Sequence] = None, num_devices: int = 16,
                device=None) -> List[Dict]:
     """Run the conformance matrix on single-controller meshes of up to
     ``num_devices`` ranks on ``device`` (the card unless the caller asks
     for the CPU); one result row per (strategy, mesh shape, case, dtype,
-    overlap) cell.  Never raises -- failures are rows with ``ok=False`` so
-    a sweep reports every broken cell."""
+    overlap) cell, each ``check(plan, measure=measure, hlo=hlo)``.  Never
+    raises -- failures are rows with ``ok=False`` so a sweep reports every
+    broken cell."""
     cases = tuple(cases) if cases is not None else tuple(CASES)
     dtypes = tuple(dtypes) if dtypes is not None else (torch.float32, torch.bfloat16)
     rows: List[Dict] = []
@@ -493,7 +513,7 @@ def run_matrix(*, measure: bool = True, cases: Optional[Sequence[str]] = None,
                                 b_dtype=dtype, overlap=mode,
                             )
                             row["overlap"] = bool(plan.overlap)
-                            rep = check(plan, measure=measure)
+                            rep = check(plan, measure=measure, hlo=hlo)
                             row["words_per_node"] = rep.words_per_node
                         except Exception as e:  # noqa: BLE001 -- reports all
                             row["ok"] = False

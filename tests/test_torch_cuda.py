@@ -977,3 +977,105 @@ def test_a_planned_backward_on_autograds_device_thread_still_plans(cuda_device):
     for g, w in zip(grads, want):
         assert ((g - w).norm() / (w.norm() + 1e-30)).item() < 1e-4
     mesh.close()
+
+
+# -- K2 as a dispatcher op; the cost counter on fake CUDA tensors --------------------------
+
+
+def _k2_raw(q, k, v, causal, window):
+    """K2's launch as it was before it became an op: the wrapper alone."""
+    return k2.flash_attention_bshd(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 300, 300, 8, 4, 64, True, 0), (1, 512, 512, 4, 2, 120, True, 128),
+                                  (2, 256, 256, 4, 4, 64, False, 0), (1, 200, 200, 2, 1, 80, True, 0)])
+def test_k2_op_is_bitwise_the_wrappers_launch_eager_and_captured(cuda_device, case):
+    b, sq, skv, hq, hkv, d, causal, window = case
+    rng = np.random.default_rng(1)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            cuda_device, torch.bfloat16)
+
+    q, kk, v = t(b, sq, hq, d), t(b, skv, hkv, d), t(b, skv, hkv, d)
+    with torch.no_grad():
+        want = _k2_raw(q, kk, v, causal, window)
+        k2.kernel.reset_launches()
+        got = k2.mha(q, kk, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert k2.kernel.launches == 1
+        assert torch.equal(got, want)
+        graph = torch.cuda.CUDAGraph()
+        static = k2.mha(q, kk, v, causal=causal, window=window)   # warm outside capture
+        with torch.cuda.graph(graph):
+            static = k2.mha(q, kk, v, causal=causal, window=window)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(static, want)
+
+
+def _smoke_decode_cost(device, arch="llama3.2-1b"):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.roofline import hlo_stats
+    from repro_torch.runtime.serve import decode_step
+
+    cfg = get_smoke_config(arch)
+    with FakeTensorMode():
+        model, params = abstract_params(cfg, device)
+        cache = model.init_cache(2, 16, device)
+        tokens = torch.empty((2, 1), dtype=torch.int64, device=device)
+        with hlo_stats.counting() as c, torch.no_grad():
+            decode_step(model, params, cache, tokens, 3)
+    return c
+
+
+def _smoke_train_cost(device, arch="llama3.2-1b", mesh=None):
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.roofline import hlo_stats
+
+    counter = hlo_stats.Counter()
+    rec = lower_cell(arch, ShapeCell("train_4k", 32, 4, "train"), mesh,
+                     cfg=get_smoke_config(arch), device=device, counter=counter)
+    return counter, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b"])
+def test_fake_cuda_and_fake_cpu_count_the_same_cost(cuda_device, arch):
+    from repro_torch.dist.mesh import Mesh
+
+    for count in (_smoke_decode_cost, _smoke_train_cost):
+        got = count(cuda_device, arch)
+        want = count(torch.device("cpu"), arch)
+        if isinstance(got, tuple):
+            (got, rec_gpu), (want, rec_cpu) = got, want
+            assert rec_gpu["memory"] == rec_cpu["memory"]
+        assert got.costs == want.costs and got.by_op == want.by_op
+    # the backward on autograd's device thread and the rank threads count as on the CPU
+    got = _smoke_train_cost(cuda_device, arch, Mesh((2, 2), ("data", "model"), device=cuda_device))
+    want = _smoke_train_cost(torch.device("cpu"), arch, Mesh((2, 2), ("data", "model"), device="cpu"))
+    assert got[1]["counted"] == want[1]["counted"] and got[1]["roofline"] == want[1]["roofline"]
+
+
+@pytest.mark.cuda
+def test_a_fake_trace_leaves_the_launch_counters_unchanged(cuda_device):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.specs import abstract_params
+
+    kernel.reset_launches()
+    k2.kernel.reset_launches()
+    before = (dict(kernel.launches_by_route), dict(k2.kernel.launches_by_route))
+    counter = _smoke_decode_cost(cuda_device)
+    _smoke_train_cost(cuda_device)
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"), attn_impl="flash")
+    with FakeTensorMode(), torch.no_grad():
+        model, params = abstract_params(cfg, cuda_device)
+        model.forward(params, torch.empty((1, 64), dtype=torch.int64, device=cuda_device))
+    assert counter.calls["repro_torch::zorder_matmul"] > 0
+    assert (kernel.launches, k2.kernel.launches) == (0, 0)
+    assert (dict(kernel.launches_by_route), dict(k2.kernel.launches_by_route)) == before

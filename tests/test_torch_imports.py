@@ -61,7 +61,10 @@ NEW_MODULES = ["repro_torch.obs.runtime", "repro_torch.obs.metrics", "repro_torc
                "repro_torch.configs.xlstm_350m", "repro_torch.configs.seamless_m4t_medium",
                "repro_torch.runtime.sharding", "repro_torch.models.sharding_rules",
                "repro_torch.runtime.elastic", "repro_torch.optim.compress",
-               "repro_torch.launch.mesh"]
+               "repro_torch.launch.mesh", "repro_torch.roofline",
+               "repro_torch.roofline.hlo_stats", "repro_torch.roofline.analysis",
+               "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+               "repro_torch.launch.report"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
@@ -69,7 +72,8 @@ def test_the_hygiene_walk_covers_the_measurement_loop(name):
     """The subprocess walk above imports every module of the package; the
     measurement loop's, the training path's and the layer zoo's modules
     (the recurrent and encoder-decoder families and the ring-TP block
-    too) and the sharded trainer's are among them."""
+    too), the sharded trainer's, and the roofline and dry run's are among
+    them."""
     import pkgutil
 
     import repro_torch
@@ -77,6 +81,7 @@ def test_the_hygiene_walk_covers_the_measurement_loop(name):
     walked = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
     assert name in walked
     assert any(path.replace("/", ".").endswith(name.split(".", 1)[1] + ".py")
+               or path.replace("/", ".").endswith(name.split(".", 1)[1] + ".__init__.py")
                for path in _port_sources())
 
 

@@ -186,12 +186,20 @@ def test_single_copy_invariant_matches_reference(q):
 
 
 def test_hlo_leg_waits_for_the_roofline_tooling():
-    plan = port_plan.build_plan(24, 24, 24, mesh=fake_mesh((2, 2), ("x", "y")),
-                                strategy="cannon")
-    for call in (lambda: conformance.hlo_collective_bytes(plan),
-                 lambda: check(plan, hlo=True)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            call()
+    """The HLO leg that waited for the roofline tooling now runs on it: the
+    plan's per-rank programs counted on fake tensors, one rank's collective
+    bytes present where the trace has words (the reference's rule)."""
+    from repro_torch.dist.mesh import Mesh
+
+    mesh = Mesh((2, 2), ("x", "y"), device="cpu")
+    try:
+        plan = port_plan.build_plan(24, 24, 24, mesh=mesh, strategy="cannon")
+        got = conformance.hlo_collective_bytes(plan)
+        rep = check(plan, hlo=True)
+    finally:
+        mesh.close()
+    # cannon on 2x2: the skew and one step move A's and B's 12x12 fp32 blocks
+    assert got == 4 * (2 * 12 * 12) * 2 and rep.hlo_collective_bytes == got
 
 
 # -- 2. measured on CPU thread meshes -----------------------------------------------------
