@@ -283,6 +283,34 @@ Phases, each fatal on failure (no result line, non-zero exit):
    xlstm-350m --shape decode_32k --mesh single`` in a subprocess (the
    (16, 16) production mesh on fake CUDA tensors), its JSON read; (d)
    ``check(plan, hlo=True)`` over phase 10's catalog on card rank threads.
+20. big -- the configs that fill one card, every leg fatal, each model
+   freed before the next, after ``memory_allocated()`` is back under
+   ``BIG_BASE_MAX``: for granite-20b (52 layers, MQA 48/1), chameleon-34b
+   (48 layers, d_model 8192) and qwen3-moe-30b-a3b (48 layers of 128
+   experts top-8, no shared experts: 4 K1 products a layer), (a) the
+   batch-4 decode step counted on fake CUDA tensors before anything is
+   allocated: its predicted peak (arguments + the counter's live peak)
+   must fit in what ``mem_get_info`` says is free, and one real eager
+   step's peak lands within ``PEAK_BAND`` of it; (b) phase 15's check, two
+   full-width fp32 layers card vs CPU; (c) the full model in bf16 behind
+   ``Server``, only bucket (4,16) warmed and captured, run and measured as
+   phase 15 runs the zoo (tokens bitwise equal across graph replays, the
+   eager path and a request served alone; K1 ``k1_per_step`` x forwards,
+   all thin; every distinct K1 call vs the plain version, the decode
+   step's K1 timed beside ``torch.matmul`` and its bound, the weight-read
+   bound, qwen3's 128 experts' products alone, a profiled step); (d)
+   granite-20b's ``flash`` forward over 32768 tokens, its peak predicted
+   and held as in (a): K2 52 times on the wgmma route (a group of 48
+   query heads over one K/V head) and K1 364 times on the wide route,
+   logits finite and within ``PREFILL_LOGITS_TOL`` per row of the ``xla``
+   route (compared from each forward's final hidden states, unembedded
+   2048 rows at a time: one full logits tensor is 6 GiB), while the same
+   forward with K2 run non-causally lands outside; the forward's time,
+   tokens/s, a profiled forward split into K1, K2 and the rest, and K1
+   alone at the layer's 7 products at M = 32768 beside ``torch.matmul``;
+   (e) K2 alone at the three head layouts (48/1, 64/8, 32/4, D 128, causal,
+   S = 8192), held row by row to its plain version, timed beside SDPA and
+   the plain version.
 
 On one card the collectives are device copies and "overlap" is only the
 order in which the rank threads issue work: no number of phases 7-9 or 11
@@ -334,8 +362,11 @@ from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
+from repro_torch.layers import attention as attention_layer  # noqa: E402
 from repro_torch.layers import mamba2 as mamba2_layer  # noqa: E402
+from repro_torch.layers.embed import unembed  # noqa: E402
 from repro_torch.layers import moe as moe_layer  # noqa: E402
+from repro_torch.models import lm as decoder_lm  # noqa: E402
 from repro_torch.models.lm import cross_entropy  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.launch import perf_probe  # noqa: E402
@@ -401,6 +432,7 @@ CROSSOVER_MS = (64, 128, 192, 256)
 CROSSOVER_BLOCKS = {"thin": (64, 64, 64), "wide": (128, 256, 64), "wide128": (128, 128, 64)}
 L2_BYTES = 50 * 2 ** 20
 SERVE_NEW = 16
+SERVE_MAX_SEQ = 64    # the serving caches' slots
 SERVE_BUCKETS = [(4, 16), (8, 32)]
 # K2 checks, (B, S_q, S_kv, H_q, H_kv, D, window, layout), all causal:
 # Llama; danube with the window active; the reference's unaligned case;
@@ -684,7 +716,8 @@ def _to(tree, device):
 def phase_model(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "model") -> dict:
     """A full-width, 2-layer fp32 ``arch``: prefill + one decode step on the
     card through K1 and on the CPU through the plain version, the same
-    weights; logits within ``MODEL_TOL``, 7 K1 launches a layer a step."""
+    weights; logits within ``MODEL_TOL``, ``k1_per_step`` K1 launches a
+    step, all on the fma route."""
     cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(1), dev)
@@ -701,7 +734,8 @@ def phase_model(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "model"
             pre, cache = model.prefill(p, cache, tokens.to(d), offsets.to(d))
             nxt = pre.argmax(-1) if name == "card" else out["card"][2]
             dec, _ = model.decode_step(p, cache, nxt.to(d)[:, None], 16, offsets.to(d))
-        out[name] = (pre.cpu(), dec.cpu(), nxt.cpu(), k1.launches)
+        out[name] = (pre.cpu(), dec.cpu(), nxt.cpu(), k1.launches,
+                     _nonzero(k1.launches_by_route))
     v = cfg.vocab_size
     errs = {}
     for i, what in ((0, "prefill"), (1, "decode")):
@@ -713,10 +747,9 @@ def phase_model(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "model"
     log(f"[{tag}] {cfg.name} 2-layer full-width fp32: prefill rel_err={errs['prefill']:.3e} "
         f"decode rel_err={errs['decode']:.3e} K1 launches on card={launches} "
         f"(plain version on the cpu: {out['cpu'][3]} launches)")
-    if launches != 2 * 7 * cfg.num_layers or out["cpu"][3] != 0:
-        raise AssertionError(f"expected {2 * 7 * cfg.num_layers} K1 launches on the card, "
-                             f"0 on the cpu; "
-                             f"got {launches}, {out['cpu'][3]}")
+    if out["card"][4] != {"fma": 2 * k1_per_step(cfg)} or out["cpu"][3] != 0:
+        raise AssertionError(f"expected {2 * k1_per_step(cfg)} K1 launches on the card, all "
+                             f"fma, 0 on the cpu; got {out['card'][4]}, {out['cpu'][3]}")
     if max(errs.values()) >= MODEL_TOL:
         raise AssertionError(f"card and cpu logits disagree: {errs}")
     del params, cpu_params
@@ -827,14 +860,24 @@ def eager_runs(model, params, sc, prompts, reps: int, tag: str, *, mesh=None, tu
     return runs
 
 
+def _decoder_products(cfg, attention: int) -> int:
+    """K1 products of one decoder forward with ``attention`` products an
+    attention layer: 3 more a dense MLP or shared experts (none for routed
+    experts alone, which run as einsums)."""
+    dense = cfg.first_dense_layers if cfg.num_experts else cfg.num_layers
+    shared = 3 if cfg.num_shared_experts else 0
+    return attention * cfg.num_layers + 3 * dense + shared * (cfg.num_layers - dense)
+
+
 def k1_per_step(cfg) -> int:
     """K1 launches of one forward step (a one-pass prefill or a decode
-    step): 7 a decoder layer (4 attention products, MLA's included, and 3
-    of a dense MLP or the shared experts); zamba2 2 a Mamba layer (in_proj,
-    out_proj) and 8 a shared block (shared_in, q, k, v, o, gate, up, down);
-    xLSTM 4 an mLSTM block, 1 an sLSTM block; the encoder-decoder's decode
-    step 9 a decoder layer (self q, k, v, o; cross q and o over the cached
-    K/V; the MLP's 3)."""
+    step): a decoder layer 4 attention products (q, k, v, o; MLA's cached
+    wq_a, wq_b, wkv_a, wo) and 3 more for a dense MLP or shared experts
+    (deepseek-moe 7 a layer, qwen3-moe 4); zamba2 2 a Mamba layer
+    (in_proj, out_proj) and 8 a shared block (shared_in, q, k, v, o, gate,
+    up, down); xLSTM 4 an mLSTM block, 1 an sLSTM block; the
+    encoder-decoder's decode step 9 a decoder layer (self q, k, v, o; cross
+    q and o over the cached K/V; the MLP's 3)."""
     if cfg.family == "hybrid":
         return 2 * cfg.num_layers + 8 * (cfg.num_layers // cfg.shared_attn_every)
     if cfg.family == "ssm":
@@ -843,23 +886,20 @@ def k1_per_step(cfg) -> int:
         return groups * (4 * n_m + len(cfg.block_pattern) - n_m)
     if cfg.family == "audio":
         return 9 * cfg.dec_layers
-    return 7 * cfg.num_layers
+    return _decoder_products(cfg, 4)
 
 
 def train_products(cfg) -> int:
-    """K1 products of one training forward (each has a dA and a dB too):
-    4 attention products a decoder layer (MLA 5: ``wkv_b`` too), 3 a dense
-    MLP or shared experts (none for routed experts alone); the recurrent
-    families as ``k1_per_step``; the encoder-decoder 7 an encoder layer, 11
-    a decoder layer (cross q, k, v and o over the encoder output)."""
+    """K1 products of one uncached forward, a training step's forward (each
+    has a dA and a dB too): a decoder as ``k1_per_step`` but MLA 5
+    attention products a layer (``wkv_b`` too); the recurrent families as
+    ``k1_per_step``; the encoder-decoder 7 an encoder layer, 11 a decoder
+    layer (cross q, k, v and o over the encoder output)."""
     if cfg.family == "audio":
         return 7 * cfg.enc_layers + 11 * cfg.dec_layers
     if cfg.family in ("hybrid", "ssm"):
         return k1_per_step(cfg)
-    dense = cfg.first_dense_layers if cfg.num_experts else cfg.num_layers
-    shared = 3 if cfg.num_shared_experts else 0
-    return ((5 if cfg.attn_type == "mla" else 4) * cfg.num_layers + 3 * dense
-            + shared * (cfg.num_layers - dense))
+    return _decoder_products(cfg, 5 if cfg.attn_type == "mla" else 4)
 
 
 def prefill_steps(model, seq: int) -> int:
@@ -881,12 +921,14 @@ def path_counts(path: dict, runs: list) -> None:
 
 
 def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve",
-                measure=None) -> dict:
-    """Phase 4 (Llama-3.2-1B; phase 15 the zoo's models): ``arch`` at full
-    width and depth behind ``Server``, each bucket's steps captured as CUDA
-    graphs at warmup and replayed, against the eager path on the same
-    bucket-padded batch: identical tokens.  ``measure(model, params)`` runs
-    before the model is freed; its result is kept as ``"measured"``."""
+                measure=None, warm=None, fit=None) -> dict:
+    """Phase 4 (Llama-3.2-1B; phases 15 and 20 the zoo's models): ``arch`` at
+    full width and depth behind ``Server``, each warmed bucket's steps
+    (``warm``, default all) captured as CUDA graphs and replayed, against
+    the eager path on the same bucket-padded batch: identical tokens.
+    ``fit(model, params)`` runs right after the init, before the server
+    is built, and ``measure(model, params)`` before the model is freed;
+    their results are kept as ``"fit"`` and ``"measured"``."""
     cfg = get_config(arch)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -895,7 +937,9 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    fitted = None if fit is None else fit(model, params)
+    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=SERVE_MAX_SEQ)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in (5, 9, 12, 16)]
@@ -907,7 +951,7 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
     # the main path: counts from 0 before the server is built, read after its runs
     k1.reset_launches()
     server = Server(model, params, sc, buckets=SERVE_BUCKETS)
-    warm = server.warmup()
+    warm = server.warmup(warm)
     path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route)}
     log(f"[{tag}] {cfg.name}: {n_params / 1e9:.3f}B params bf16 in {init_s:.1f}s; warmup "
         + ", ".join(f"{k} {v['warm_s']:.2f}s + {v['graphs']} graphs captured in "
@@ -951,7 +995,7 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
         if r != {"thin": n}:
             raise AssertionError(f"one {step} step launched K1 {r}, want {n} thin")
     measured = None if measure is None else measure(model, params)
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    peak = max(init_peak, torch.cuda.max_memory_allocated(dev)) / 2 ** 30
     log(f"[{tag}] peak memory allocated {peak:.2f} GiB")
     del server, params
     torch.cuda.empty_cache()
@@ -959,7 +1003,7 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
             "eager_runs": eager, "summary": summary, "path": path,
             "launches_per_generate": want, "forwards_per_generate": forwards,
             "step_device_ms": device_ms,
-            "peak_gib": peak, "measured": measured}
+            "peak_gib": peak, "fit": fitted, "measured": measured}
 
 
 def step_device_ms(model, params, dev: torch.device, bucket) -> dict:
@@ -1201,17 +1245,19 @@ def _check_rows(phase: str, what: str, out: torch.Tensor, ref: torch.Tensor,
     return e
 
 
-def projection_times(dev: torch.device, gen: torch.Generator) -> list:
+def projection_times(dev: torch.device, gen: torch.Generator, arch: str = PREFILL_ARCH,
+                     m: int = PREFILL_S) -> list:
     """K1, ``torch.matmul`` and K1's plain version at the 7 projections of
-    one danube layer at M = 32768 (bf16), each beside its bound; K1's
-    output held against its plain version's per row."""
-    cfg = get_config(PREFILL_ARCH)
+    one layer of ``arch`` (danube's by default) at M = ``m`` rows (bf16),
+    each beside its bound; K1's output held against its plain version's
+    per row."""
+    cfg = get_config(arch)
     d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
     kn = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd), (d, cfg.num_kv_heads * hd),
           (cfg.num_heads * hd, d), (d, ff), (d, ff), (ff, d)]
     rows = []
     for (k, n) in kn:
-        a = torch.randn(PREFILL_S, k, generator=gen, device=dev).to(torch.bfloat16)
+        a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
         b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
         kept = {}
 
@@ -1228,22 +1274,22 @@ def projection_times(dev: torch.device, gen: torch.Generator) -> list:
         before = dict(k1.launches_by_route)
         kern()
         if routes_moved(before) != {"wide": 1}:
-            raise AssertionError(f"{PREFILL_S}x{k}x{n} took {routes_moved(before)}, not wide")
+            raise AssertionError(f"{m}x{k}x{n} took {routes_moved(before)}, not wide")
         for key in ("ms", "wide128_ms", "library_ms", "plain_ms", "library_ms", "wide128_ms",
                     "ms"):
             fn = {"ms": kern, "wide128_ms": wide128, "library_ms": lambda: torch.matmul(a, b),
                   "plain_ms": plain}[key]
             t.setdefault(key, []).append(event_ms(fn, 3))
-        e = _check_rows("k1-prefill", f"K1 bfloat16 {PREFILL_S}x{k}x{n}", kept["out"],
+        e = _check_rows("k1-prefill", f"K1 bfloat16 {m}x{k}x{n}", kept["out"],
                         kept["ref"], ROW_TOL[torch.bfloat16])
         e["tiles_bitwise_equal"] = bool(torch.equal(kept["out"], kept["w128"]))
         del kept
-        bms, by = bound(PREFILL_S, k, n, torch.bfloat16)
-        row = {"shape": [PREFILL_S, k, n], **{key: min(v) for key, v in t.items()},
+        bms, by = bound(m, k, n, torch.bfloat16)
+        row = {"shape": [m, k, n], **{key: min(v) for key, v in t.items()},
                "bound_ms": bms, "bound_by": by, "check": e}
         rows.append(row)
-        log(f"[k1-prefill] {PREFILL_S}x{k}x{n} K1 wide {row['ms']:.3f}ms "
-            f"({2.0 * PREFILL_S * k * n / row['ms'] / 1e9:.0f} TFLOP/s; 128x128 tile "
+        log(f"[k1-prefill] {m}x{k}x{n} K1 wide {row['ms']:.3f}ms "
+            f"({2.0 * m * k * n / row['ms'] / 1e9:.0f} TFLOP/s; 128x128 tile "
             f"{row['wide128_ms']:.3f}ms, bitwise equal {e['tiles_bitwise_equal']}) "
             f"torch.matmul {row['library_ms']:.3f}ms "
             f"plain {row['plain_ms']:.3f}ms bound {bms:.3f}ms ({by})")
@@ -1260,7 +1306,7 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, PREFILL_S))).to(dev)
     labels = torch.cat([tokens[:, 1:], torch.full((1, 1), -100, device=dev)], dim=1)
-    want = {"K2": cfg.num_layers, "K1": 7 * cfg.num_layers}
+    want = {"K2": cfg.num_layers, "K1": train_products(cfg)}
     with torch.no_grad():
         k1.reset_launches()
         k2.reset_launches()
@@ -1580,7 +1626,7 @@ def phase_planned_serve(dev: torch.device) -> dict:
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     mesh = Mesh(*PLANNED_MESH, device=dev)
-    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
+    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=SERVE_MAX_SEQ)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in (5, 9, 12, 16)]
     local = Server(model, params, sc, buckets=SERVE_BUCKETS)
@@ -2079,7 +2125,7 @@ def tuned_planned_serve(dev: torch.device, mesh, table) -> dict:
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
+    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=SERVE_MAX_SEQ)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in (5, 9, 12, 16)]
     tuner = Tuner(table=table, reps=TUNE_REPS, device=dev)
@@ -2195,7 +2241,7 @@ def phase_obs_drift(dev: torch.device, profile_path: str) -> dict:
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=64)
+    sc = ServeConfig(max_new_tokens=SERVE_NEW, max_seq=SERVE_MAX_SEQ)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in (5, 9, 12, 16)]
     m, k, n = OBS_PRODUCT
@@ -2807,6 +2853,7 @@ def flash_row(report: dict) -> dict:
     layers = get_config(PREFILL_ARCH).num_layers
     timings = report["flash_kernel"]["timings"]
     fam = report["families"]
+    big = report["big"]
     t = timings["danube"]
     return {
         "name": "flash_attention",
@@ -2819,16 +2866,21 @@ def flash_row(report: dict) -> dict:
                              "family_seamless_encode": fam[ENCDEC_ARCH]["path"]["k2_launches"],
                              "family_zamba2_prefill":
                                  sum(fam["hybrid_prefill"]["launches"]["K2"].values()),
-                             "roofline": report["roofline"]["launches"]["K2"]},
+                             "roofline": report["roofline"]["launches"]["K2"],
+                             f"big_{BIG_PREFILL_ARCH}_prefill": big["prefill"]["launches"]["K2"]},
         "routes": {"long_prefill": report["long_prefill"]["k2_routes"],
                    "planned_prefill": report["planned_prefill"]["k2_routes"],
                    "long_prefill_fp32_check": {"fma": report["long_prefill"]["fp32"]["launches"]},
                    "family_seamless_encode": fam[ENCDEC_ARCH]["path"]["k2_routes"],
                    "family_zamba2_prefill": fam["hybrid_prefill"]["launches"]["K2"],
-                   "roofline": report["roofline"]["launches"]["K2_routes"]},
+                   "roofline": report["roofline"]["launches"]["K2_routes"],
+                   f"big_{BIG_PREFILL_ARCH}_prefill": big["prefill"]["k2_routes"],
+                   f"big_{BIG_PREFILL_ARCH}_prefill_non_causal_control":
+                       big["prefill"]["control_k2_routes"]},
         "max_abs_err": max(report["flash_kernel"]["worst_bf16_abs_err"],
                            *(fam[key]["k2"]["check"]["max_abs_err"]
-                             for key in (ENCDEC_ARCH, "hybrid_prefill"))),
+                             for key in (ENCDEC_ARCH, "hybrid_prefill")),
+                           *(r["check"]["max_abs_err"] for r in big["k2"].values())),
         **{key: layers * t[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": t["bound_by"],
         "work": f"one bf16 long-prefill forward of {PREFILL_ARCH}: {layers} launches at "
@@ -2842,7 +2894,12 @@ def flash_row(report: dict) -> dict:
                 "sdpa_backend", "tflops")}
                for name, r in (("seamless encoder (non-causal)", fam[ENCDEC_ARCH]["k2"]),
                                ("zamba2 shared block (causal, D 80)",
-                                fam["hybrid_prefill"]["k2"]))}},
+                                fam["hybrid_prefill"]["k2"]), *big["k2"].items())}},
+        "per_forward": {f"{BIG_PREFILL_ARCH} forward, S = {big['prefill']['seq']} "
+                        f"({big['prefill']['launches']['K2']} launches), profiled":
+                            {"ms": big["prefill"]["profile"]["k2_ms"],
+                             "bound_ms": big["prefill"]["k2_bound_ms"],
+                             "bound_by": big["prefill"]["k2_bound_by"]}},
         "sources": {"wgmma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
                     "mma, fma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"},
     }
@@ -3129,7 +3186,7 @@ def family_check(dev: torch.device, arch: str) -> dict:
 
 
 def k2_case(dev: torch.device, gen: torch.Generator, name: str, shape: tuple,
-            causal: bool) -> dict:
+            causal: bool, tag: str = "families") -> dict:
     """K2 through ``mha`` at one of phase 16's shapes (B, S_q, S_kv, H_q,
     H_kv, D, window): on the wgmma route, held row by row to its plain
     version (head by head), and timed in turns beside
@@ -3158,7 +3215,7 @@ def k2_case(dev: torch.device, gen: torch.Generator, name: str, shape: tuple,
     for key in ("ms", "library_ms", "plain_ms", "library_ms", "ms"):
         fn = {"ms": kern, "library_ms": sdpa, "plain_ms": plain}[key]
         t.setdefault(key, []).append(event_ms(fn, 1 if key == "plain_ms" else 5))
-    e = _check_rows("families", f"K2 bfloat16 wgmma {name} {list(shape)} causal={causal}",
+    e = _check_rows(tag, f"K2 bfloat16 wgmma {name} {list(shape)} causal={causal}",
                     _heads(kept["out"]), torch.cat(kept["ref"]), ROW_TOL[torch.bfloat16])
     bms, by = flash_bound(b, sq, skv, hq, hkv, d, window, causal=causal)
     pairs = attention_pairs(sq, skv, causal, window)
@@ -3169,7 +3226,7 @@ def k2_case(dev: torch.device, gen: torch.Generator, name: str, shape: tuple,
            "pairs_per_head": pairs}
     row["bound_share"] = bms / row["ms"]
     row["tflops"] = 4.0 * d * b * hq * pairs / row["ms"] / 1e9
-    log(f"[families] K2 {name} {list(shape)} causal={causal}: wgmma {row['ms']:.3f}ms "
+    log(f"[{tag}] K2 {name} {list(shape)} causal={causal}: wgmma {row['ms']:.3f}ms "
         f"({row['tflops']:.0f} TFLOP/s) bound {bms:.3f}ms ({by}, {row['bound_share']:.1%}) "
         f"sdpa[{backend}] {row['library_ms']:.3f}ms plain (head by head) "
         f"{row['plain_ms']:.3f}ms")
@@ -4497,6 +4554,352 @@ def phase_roofline(dev: torch.device, report: dict) -> dict:
     return out
 
 
+# -- the largest configs on one card (phase 20) ------------------------------------------
+
+BIG_ARCHS = ("granite-20b", "chameleon-34b", "qwen3-moe-30b-a3b")
+# what the earlier phases may leave allocated when phase 20 starts
+BIG_BASE_MAX = 2 ** 30
+# granite's long prefill: the reference's prefill_32k cell cut to one
+# sequence of its 32768 tokens, as phase 6 cuts danube's
+BIG_PREFILL_ARCH = "granite-20b"
+BIG_PREFILL_S = 32768
+# K2 alone at the three models' head layouts, causal: (B, S_q, S_kv, H_q,
+# H_kv, D, window)
+BIG_K2 = {"granite-20b MQA 48/1": (1, 8192, 8192, 48, 1, 128, 0),
+          "chameleon-34b GQA 64/8": (1, 8192, 8192, 64, 8, 128, 0),
+          "qwen3-moe-30b-a3b GQA 32/4": (1, 8192, 8192, 32, 4, 128, 0)}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree) if torch.is_tensor(t))
+
+
+def card_budget(dev: torch.device) -> int:
+    """Bytes this process can still allocate on the card: what the driver
+    reports free (``mem_get_info``) plus what the caching allocator holds
+    unused."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(dev)
+    return free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+
+
+def predict_peak(tag: str, dev: torch.device, setup, step) -> dict:
+    """``step(*setup())`` counted on fake CUDA tensors (``_fake_count``):
+    the predicted peak is its arguments' bytes plus the counter's
+    live-bytes peak over the step (the dry run's rule); raises, with the
+    numbers, unless that fits in what the card has free."""
+    sized = {}
+
+    def sized_setup():
+        args = setup()
+        sized["bytes"] = _nbytes(list(args))
+        return args
+
+    counter = _fake_count(sized_setup, step)
+    budget = card_budget(dev)
+    out = {"argument_bytes": sized["bytes"], "live_peak_bytes": counter.peak_bytes(None),
+           "budget_bytes": budget}
+    out["peak_bytes"] = out["argument_bytes"] + out["live_peak_bytes"]
+    log(f"[big] {tag}: predicted peak {out['peak_bytes'] / 2 ** 30:.3f} GiB (arguments "
+        f"{out['argument_bytes'] / 2 ** 30:.3f} + live {out['live_peak_bytes'] / 2 ** 30:.3f}) "
+        f"against {budget / 2 ** 30:.3f} GiB the card has free")
+    if out["peak_bytes"] > budget:
+        raise AssertionError(f"{tag} does not fit: predicted peak {out['peak_bytes']} bytes, "
+                             f"the card has {budget} free")
+    return out
+
+
+def held_peak(tag: str, dev: torch.device, predicted: dict, arg_bytes: int, fn):
+    """Run ``fn()`` and hold its peak (``arg_bytes`` plus what the
+    allocator's peak rose over what was allocated before) to the
+    prediction within ``PEAK_BAND``: (``fn()``'s result, the record)."""
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    result = fn()
+    torch.cuda.synchronize(dev)
+    peak = arg_bytes + torch.cuda.max_memory_allocated(dev) - before
+    ratio = predicted["peak_bytes"] / peak
+    log(f"[big] {tag}: allocated peak {peak / 2 ** 30:.3f} GiB (arguments {arg_bytes / 2 ** 30:.3f}"
+        f"), predicted / allocated {ratio:.4f} (band {PEAK_BAND})")
+    if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+        raise AssertionError(f"{tag}: predicted peak {predicted['peak_bytes']} vs allocated "
+                             f"{peak}: ratio {ratio} outside {PEAK_BAND}")
+    return result, {**predicted, "allocated_peak_bytes": peak, "argument_bytes_allocated":
+                    arg_bytes, "ratio": ratio}
+
+
+def big_decode_fit(dev: torch.device, arch: str, tag: str):
+    """(a) for one served model: its batch-4 decode step (bucket 4x16, the
+    cache ``phase_serve`` allocates) predicted on fake CUDA tensors before
+    anything is allocated, then ``fit(model, params)`` for ``phase_serve``:
+    one real eager decode step after a prefill, its peak held to the
+    prediction."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    batch, seq = SERVE_BUCKETS[0]
+
+    def setup():
+        return (abstract_params(cfg, dev)[1], model.init_cache(batch, SERVE_MAX_SEQ, dev),
+                torch.empty((batch, 1), dtype=torch.int64, device=dev),
+                torch.zeros(batch, dtype=torch.int64, device=dev))
+
+    predicted = predict_peak(f"{tag} decode step {batch}x{seq}", dev, setup,
+                             lambda p, c, t, o: serve_step(model, p, c, t, seq, o))
+
+    def fit(model, params) -> dict:
+        cache = model.init_cache(batch, SERVE_MAX_SEQ, dev)
+        tokens = torch.from_numpy(np.random.default_rng(2).integers(
+            1, cfg.vocab_size, size=(batch, seq))).to(dev)
+        offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            serve_prefill(model, params, cache, tokens, offsets)
+            cur = tokens[:, -1:].clone()
+            args = _nbytes([params, cache, cur, offsets])
+            _, rec = held_peak(f"{tag} decode step {batch}x{seq}", dev, predicted, args,
+                               lambda: serve_step(model, params, cache, cur, seq, offsets))
+        rec["param_bytes"] = _nbytes(params)
+        del cache
+        return rec
+    return fit
+
+
+def hidden_recorder(into: dict, name: str):
+    """Within the scope, ``DecoderLM``'s unembedding keeps its input (the
+    final normed hidden states) as ``into[name]``, so two forwards can be
+    compared row by row without holding two full logits tensors."""
+    def keeping(p, x, vocab):
+        into[name] = x
+        return unembed(p, x, vocab)
+    return mock.patch.object(decoder_lm, "unembed", keeping)
+
+
+def chunked_logits_err(params, got: torch.Tensor, ref: torch.Tensor, vocab: int,
+                       rows: int = 2048) -> dict:
+    """``row_err`` of the logits two forwards' hidden states give, the
+    unembedding applied ``rows`` rows at a time (a full 32768-row fp32
+    logits tensor of a 49152 vocabulary is 6 GiB)."""
+    g, r = got.reshape(-1, got.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    rels, means, absmax, finite = [], [], [], True
+    for i in range(0, g.shape[0], rows):
+        e = row_err(unembed_rows(params, g[i:i + rows], vocab),
+                    unembed_rows(params, r[i:i + rows], vocab))
+        rels.append(e["row_rel"])
+        means.append(e["row_rel_mean"])
+        absmax.append(e["max_abs_err"])
+        finite = finite and e["finite"]
+    return {"row_rel": max(rels), "row_rel_mean": float(np.mean(means)),
+            "max_abs_err": max(absmax), "finite": finite}
+
+
+def unembed_rows(params, x: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The unembedding over the real vocabulary (padded columns dropped)."""
+    return unembed(params["embed"], x, vocab)[..., :vocab]
+
+
+def big_prefill(dev: torch.device, gen: torch.Generator) -> dict:
+    """(d) granite-20b's ``flash`` forward over one sequence of
+    ``BIG_PREFILL_S`` tokens at full width and depth: its peak predicted
+    and held (a); K2 on the wgmma route and K1 on the wide route once a
+    layer and ``train_products`` times; logits finite, of their shape, and
+    within ``PREFILL_LOGITS_TOL`` per row of the ``xla`` route (chunked
+    fp32 attention), while the same forward with K2 run non-causally must
+    land outside; the forward's time (CUDA events), tokens/s, one
+    profiled forward split into K1, K2 and the rest; then K1 alone at the
+    layer's 7 products at that M beside ``torch.matmul``, its plain version
+    and its bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(get_config(BIG_PREFILL_ARCH), attn_impl="flash")
+    model = build_model(cfg)
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    s = BIG_PREFILL_S
+    tag = f"{cfg.name} flash forward S={s}"
+
+    def setup():
+        return (abstract_params(cfg, dev)[1],
+                torch.empty((1, s), dtype=torch.int64, device=dev))
+
+    predicted = predict_peak(tag, dev, setup, model.forward)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, s))).to(dev)
+    labels = torch.cat([tokens[:, 1:], torch.full((1, 1), -100, device=dev)], dim=1)
+    want = {"K2": cfg.num_layers, "K1": train_products(cfg)}
+    seen = {}
+
+    def non_causal(q, k, v, *, causal=True, window=0, scale=None):
+        return mha(q, k, v, causal=False, window=window, scale=scale)
+
+    with torch.no_grad():
+        k1.reset_launches()
+        k2.reset_launches()
+        with hidden_recorder(seen, "flash"):
+            (logits, _), fit = held_peak(tag, dev, predicted, _nbytes([params, tokens]),
+                                         lambda: model.forward(params, tokens))
+        got = {"K2": k2.launches, "K1": k1.launches}
+        k1_routes, k2_routes = _nonzero(k1.launches_by_route), _nonzero(k2.launches_by_route)
+        log(f"[big] {tag}: K2 {got['K2']}x {k2_routes}, K1 {got['K1']}x {k1_routes} (want "
+            f"{want}, K2 all wgmma, K1 all wide)")
+        if got != want or k1_routes != {"wide": want["K1"]} or \
+                k2_routes != {"wgmma": want["K2"]}:
+            raise AssertionError(f"{tag}: launches {got} (K2 {k2_routes}, K1 {k1_routes}), "
+                                 f"want {want}")
+        # chunked: isfinite of a whole 6 GiB fp32 tensor takes 9 GiB more
+        if tuple(logits.shape) != (1, s, cfg.vocab_size) or not all(
+                bool(torch.isfinite(c).all()) for c in logits.split(2048, dim=1)):
+            raise AssertionError(f"{tag}: logits malformed: {tuple(logits.shape)}")
+        loss = cross_entropy(logits, labels).item()
+        # the chunked re-unembedding gives the forward's own logits
+        head = row_err(unembed_rows(params, seen["flash"][0, :2048], cfg.vocab_size),
+                       logits[0, :2048, :cfg.vocab_size])
+        if head["row_rel"] > 1e-5:
+            raise AssertionError(f"the chunked logits differ from the forward's: {head}")
+        del logits
+        fwd_ms = event_ms(lambda: model.forward(params, tokens), 1)
+        with hidden_recorder(seen, "xla"):
+            xlogits, _ = xla.forward(params, tokens)
+        xloss = cross_entropy(xlogits, labels).item()
+        del xlogits
+        k2.reset_launches()
+        with hidden_recorder(seen, "K2 non-causal"), \
+                mock.patch.object(attention_layer, "mha", non_causal):
+            clogits, _ = model.forward(params, tokens)
+        closs = cross_entropy(clogits, labels).item()
+        del clogits
+        control_k2 = _nonzero(k2.launches_by_route)
+        if control_k2 != {"wgmma": want["K2"]}:
+            raise AssertionError(f"the non-causal control launched K2 {control_k2}")
+        routes = {"flash": {**chunked_logits_err(params, seen["flash"], seen["xla"],
+                                                 cfg.vocab_size), "loss": loss},
+                  "K2 non-causal": {**chunked_logits_err(params, seen["K2 non-causal"],
+                                                         seen["xla"], cfg.vocab_size),
+                                    "loss": closs}}
+        seen.clear()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.forward(params, tokens)
+            torch.cuda.synchronize()
+    split = profile_split(prof)
+    del prof
+    for what, e in routes.items():
+        log(f"[big] {what} vs xla: logits worst row rel {e['row_rel']:.3e} (mean "
+            f"{e['row_rel_mean']:.3e}), loss {e['loss']:.6f} against {xloss:.6f}; limit "
+            f"{PREFILL_LOGITS_TOL:g}")
+    if not routes["flash"]["finite"] or routes["flash"]["row_rel"] >= PREFILL_LOGITS_TOL:
+        raise AssertionError(f"{tag}: flash and xla routes disagree: {routes['flash']}")
+    if routes["K2 non-causal"]["row_rel"] < PREFILL_LOGITS_TOL:
+        raise AssertionError(f"the limit {PREFILL_LOGITS_TOL} cannot tell the xla route from "
+                             f"K2 run non-causally: {routes['K2 non-causal']}")
+    if not (split["k1_ms"] > 0 and split["k2_ms"] > 0):
+        raise AssertionError(f"torch.profiler saw no device time for K1 or K2: {split}")
+    tok_s = s / (fwd_ms / 1e3)
+    k2_bound, k2_by = flash_bound(1, s, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                  cfg.window)
+    k2_bound *= cfg.num_layers
+    log(f"[big] {tag}: forward {fwd_ms:.1f}ms ({tok_s:.0f} prefill tokens/s, init "
+        f"{init_s:.1f}s); profiled: device {split['device_ms']:.1f}ms = K1 {split['k1_ms']:.1f} "
+        f"({split['k1_launches']} launches) + K2 {split['k2_ms']:.1f} (bound "
+        f"{k2_bound:.1f}ms) + rest "
+        f"{split['rest_ms']:.1f}: " + "; ".join(f"{r['kernel'][:60]} {r['ms']:.1f}ms"
+                                               for r in split["rest_top_kernels"][:4]))
+    del params, tokens, labels
+    torch.cuda.empty_cache()
+    projections = projection_times(dev, gen, BIG_PREFILL_ARCH, s)
+    k1_fwd = {key: cfg.num_layers * sum(r[key] for r in projections)
+              for key in ("ms", "wide128_ms", "library_ms", "plain_ms", "bound_ms")}
+    t_bytes = cfg.num_layers * sum(sum(r["shape"][i] * r["shape"][j] for i, j in
+                                       ((0, 1), (1, 2), (0, 2))) * 2 for r in projections)
+    t_ops = cfg.num_layers * sum(2.0 * math.prod(r["shape"]) for r in projections)
+    k1_fwd["bound_by"] = ("bytes" if t_bytes / PEAK_BYTES_S >= t_ops / PEAK_FLOPS[torch.bfloat16]
+                          else "operations")
+    log(f"[big] {tag}: K1's {want['K1']} products alone {k1_fwd['ms']:.1f}ms, torch.matmul "
+        f"{k1_fwd['library_ms']:.1f}ms, plain {k1_fwd['plain_ms']:.1f}ms, bound "
+        f"{k1_fwd['bound_ms']:.1f}ms ({k1_fwd['bound_by']})")
+    return {"seq": s, "init_s": init_s, "launches": want, "k1_routes": k1_routes,
+            "k2_routes": k2_routes, "control_k2_routes": control_k2, "fit": fit,
+            "loss": loss, "xla_loss": xloss, "routes": routes, "chunked_vs_forward": head,
+            "forward_ms": fwd_ms, "tokens_per_s": tok_s, "profile": split,
+            "k2_bound_ms": k2_bound, "k2_bound_by": k2_by,
+            "projections": projections, "k1_per_forward": k1_fwd}
+
+
+def big_launches(big: dict) -> dict:
+    """K1's launches on phase 20's paths, for the kernels line."""
+    out = {}
+    for arch in BIG_ARCHS:
+        sv = big[arch]["serve"]
+        out.update({f"big_{arch}_serve": sv["path"]["launches"],
+                    f"big_{arch}_serve_graph_replays_per_generate": sv["runs"][0]["launches"],
+                    f"big_{arch}_serve_eager_per_generate": sv["eager_runs"][0]["launches"],
+                    f"big_{arch}_check_fp32": big[arch]["model"]["launches"]})
+    out[f"big_{BIG_PREFILL_ARCH}_prefill"] = big["prefill"]["launches"]["K1"]
+    return out
+
+
+def big_routes(big: dict) -> dict:
+    """K1's launches by route on phase 20's paths, for the kernels line."""
+    out = {}
+    for arch in BIG_ARCHS:
+        sv = big[arch]["serve"]
+        out.update({f"big_{arch}_serve": sv["path"]["routes"],
+                    f"big_{arch}_serve_graph_replays": sv["runs"][0]["routes"],
+                    **{f"big_{arch}_serve_{step}_step": r
+                       for step, r in sv["step_device_ms"]["routes"].items()}})
+    out[f"big_{BIG_PREFILL_ARCH}_prefill"] = big["prefill"]["k1_routes"]
+    return out
+
+
+def big_k1_rows(big: dict) -> dict:
+    """K1's time beside its bound, the plain version's and the library's
+    on phase 20's paths, for the kernels line's ``per_route``."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    rows = {}
+    for arch in BIG_ARCHS:
+        m = big[arch]["serve"]["measured"]
+        t = m["k1"]["decode_step"]
+        rows[f"thin: {arch} decode step, M = 4 ({t['products']} products)"] = {
+            **{key: t[key] for key in keys},
+            "profiled_in_the_step_ms": m["profile"]["k1_ms"]}
+    pf = big["prefill"]
+    rows[f"wide: {BIG_PREFILL_ARCH} forward, M = {pf['seq']} ({pf['launches']['K1']} "
+         f"products)"] = {**{key: pf["k1_per_forward"][key] for key in keys},
+                          "profiled_in_the_forward_ms": pf["profile"]["k1_ms"]}
+    return rows
+
+
+def phase_big(dev: torch.device, gen: torch.Generator) -> dict:
+    """Phase 20: granite-20b, chameleon-34b and qwen3-moe-30b-a3b, every leg
+    fatal, each model freed before the next (module docstring)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    log(f"[big] memory allocated before phase 20: {base} bytes (limit {BIG_BASE_MAX})")
+    if base > BIG_BASE_MAX:
+        raise AssertionError(f"earlier phases left {base} bytes allocated on the card")
+    out = {"base_bytes": base}
+    for arch in BIG_ARCHS:
+        tag = f"big-{arch}"
+        t1 = time.perf_counter()
+        fit = big_decode_fit(dev, arch, tag)
+        out[arch] = {"model": phase_model(dev, arch, tag),
+                     "serve": phase_serve(dev, arch, tag, measure=zoo_measure(dev, tag),
+                                          warm=SERVE_BUCKETS[:1], fit=fit)}
+        out[arch]["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    out["prefill"] = big_prefill(dev, gen)
+    out["k2"] = {name: k2_case(dev, gen, name, shape, True, "big")
+                 for name, shape in BIG_K2.items()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[big] phase 20 took {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4508,26 +4911,35 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
-    report = {"build": phase_build()}
+    report, seconds = {}, {}
+
+    def run(key, phase, *args):
+        t0 = time.perf_counter()
+        report[key] = phase(*args)
+        seconds[key] = time.perf_counter() - t0
+        log(f"[time] {key} took {seconds[key]:.1f}s")
+
+    run("build", phase_build)
     gen = torch.Generator(device=dev).manual_seed(0)
-    report["kernel"] = phase_kernel(dev, gen)
-    report["model"] = phase_model(dev)
-    report["serve"] = phase_serve(dev)
-    report["flash_kernel"] = phase_flash_kernel(dev, gen)
-    report["long_prefill"] = phase_long_prefill(dev, report["flash_kernel"])
-    report["plan_sweep"] = phase_plan_sweep(dev, gen)
-    report["planned_serve"] = phase_planned_serve(dev)
-    report["planned_prefill"] = phase_planned_prefill(dev)
-    report["conformance"] = phase_conformance(dev)
-    report["calibrate"] = phase_calibrate(dev)
-    report["obs_drift"] = phase_obs_drift(dev, report["calibrate"]["profile_path"])
-    report["profiler"] = phase_profiler(dev)
-    report["train"] = phase_train(dev, gen)
-    report["zoo_serve"] = phase_zoo_serve(dev)
-    report["families"] = phase_families(dev, gen)
-    report["zoo_train"] = phase_zoo_train(dev)
-    report["sharded_train"] = phase_sharded_train(dev)
-    report["roofline"] = phase_roofline(dev, report)
+    run("kernel", phase_kernel, dev, gen)
+    run("model", phase_model, dev)
+    run("serve", phase_serve, dev)
+    run("flash_kernel", phase_flash_kernel, dev, gen)
+    run("long_prefill", phase_long_prefill, dev, report["flash_kernel"])
+    run("plan_sweep", phase_plan_sweep, dev, gen)
+    run("planned_serve", phase_planned_serve, dev)
+    run("planned_prefill", phase_planned_prefill, dev)
+    run("conformance", phase_conformance, dev)
+    run("calibrate", phase_calibrate, dev)
+    run("obs_drift", phase_obs_drift, dev, report["calibrate"]["profile_path"])
+    run("profiler", phase_profiler, dev)
+    run("train", phase_train, dev, gen)
+    run("zoo_serve", phase_zoo_serve, dev)
+    run("families", phase_families, dev, gen)
+    run("zoo_train", phase_zoo_train, dev)
+    run("sharded_train", phase_sharded_train, dev)
+    run("roofline", phase_roofline, dev, report)
+    run("big", phase_big, dev, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -4571,7 +4983,8 @@ def main() -> int:
                              **family_launches(report["families"]),
                              **zoo_train_launches(report["zoo_train"]),
                              **sharded_launches(report["sharded_train"]),
-                             "roofline": report["roofline"]["launches"]["K1"]},
+                             "roofline": report["roofline"]["launches"]["K1"],
+                             **big_launches(report["big"])},
         "routes": {"serve": report["serve"]["path"]["routes"],
                    "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
@@ -4599,7 +5012,8 @@ def main() -> int:
                    **family_routes(report["families"]),
                    **zoo_train_routes(report["zoo_train"]),
                    **sharded_routes(report["sharded_train"]),
-                   "roofline": report["roofline"]["launches"]["K1_routes"]},
+                   "roofline": report["roofline"]["launches"]["K1_routes"],
+                   **big_routes(report["big"])},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            report["train"]["kernel"]["worst_abs_err"],
                            *(z["serve"]["measured"]["k1"]["check"]["worst_abs_err"]
@@ -4612,7 +5026,10 @@ def main() -> int:
                              for r in report["flash_kernel"]["projections"]),
                            *(report["zoo_train"][a]["k1"]["worst_abs_err"]
                              for a in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)),
-                           report["sharded_train"]["path"]["k1"]["worst_abs_err"]),
+                           report["sharded_train"]["path"]["k1"]["worst_abs_err"],
+                           *(report["big"][a]["serve"]["measured"]["k1"]["check"]["worst_abs_err"]
+                             for a in BIG_ARCHS),
+                           *(r["check"]["max_abs_err"] for r in report["big"]["prefill"]["projections"])),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "work": "one bf16 decode step at batch 4: 16 layers x 7 projections",
@@ -4633,10 +5050,11 @@ def main() -> int:
                for t in (z["serve"]["measured"]["k1"]["decode_step"],)},
             **family_k1_rows(report["families"]),
             **zoo_train_rows(report["zoo_train"]),
-            **sharded_rows(report["sharded_train"])},
+            **sharded_rows(report["sharded_train"]),
+            **big_k1_rows(report["big"])},
     }, flash_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
-                  device=torch.cuda.get_device_name(0))
+                  phase_seconds=seconds, device=torch.cuda.get_device_name(0))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -4,12 +4,12 @@ latency accounting.
 Counterpart of ``repro.serve.server``, which compiles one prefill and one
 decode program per bucket at warmup and replays them.  Here:
 
-  * ``warmup()`` runs each declared (batch, seq) bucket eagerly once -- a
-    prefill and up to three decode steps -- so the kernel library is
-    built, the kernels' tile tables are on the device, each bucket's KV
-    cache is allocated and, with a ``mesh``, each bucket's plans are in
-    the plan cache and a live ``tuning=`` tuner has searched each
-    bucket's per-rank kernel shapes.  Then, on CUDA, it captures the
+  * ``warmup(buckets=None)`` runs each given (batch, seq) bucket, or
+    every declared one, eagerly once -- a prefill and up to three decode
+    steps -- so the kernel library is built, the kernels' tile tables
+    are on the device, each bucket's KV cache is allocated and, with a
+    ``mesh``, each bucket's plans are in the plan cache and a live
+    ``tuning=`` tuner has searched each bucket's per-rank kernel shapes.  Then, on CUDA, it captures the
     bucket's prefill and its decode step as ``torch.cuda.CUDAGraph``s,
     planned or not (a model without ``prefill`` has its teacher-forced
     prompt loop captured whole: S decode steps in one graph): static token,
@@ -21,10 +21,14 @@ decode program per bucket at warmup and replays them.  Here:
     batch with dummy rows), copies it into the bucket's static buffers and
     replays the graphs, sampling between replays on the device.  Tokens
     equal the eager path's bitwise: ``runtime.serve.generate`` on the same
-    bucket-padded batch (``batch_requests(prompts + dummies,
-    pad_to=bucket.seq)``).  A CPU model is served eagerly; so is a request
-    no bucket fits (cold), which is counted.  TTFT and per-token latency
-    are measured around synchronised device work.
+    bucket-padded batch (``batch_requests(prompts + dummies, pad_id,
+    pad_to=bucket.seq)``, the dummy rows ``[dummy_token]``).  A CPU model
+    is served eagerly; so is a request no bucket fits (cold), which is
+    counted, and one routed to a declared bucket that was not warmed: it
+    is padded to that bucket and decoded eagerly in the bucket's cache,
+    the same tokens a captured bucket gives (``ServeResult.graphs`` is
+    False), where the reference compiles the bucket on first use.  TTFT
+    and per-token latency are measured around synchronised device work.
 
 Replays launch nothing from Python, so the kernel launch counters, the
 plan engine's execution counts and the interceptor see nothing of them:
@@ -67,6 +71,7 @@ from repro_torch.tree import tree_leaves
 from .buckets import Bucket, as_bucket, route
 
 DEFAULT_BUCKETS = ((4, 16), (4, 32), (8, 16), (8, 32))
+# the reference's defaults of ``Server(pad_id=, dummy_token=)``
 PAD_ID = 0        # left-padding token (masked out through the offsets)
 DUMMY_TOKEN = 1   # fills the dummy rows that pad a batch to its bucket
 
@@ -155,7 +160,8 @@ class Server:
 
     def __init__(self, model, params, cfg: ServeConfig, *, mesh=None,
                  strategy: Optional[str] = None, tuning=None,
-                 buckets: Sequence = DEFAULT_BUCKETS):
+                 buckets: Sequence = DEFAULT_BUCKETS,
+                 pad_id: int = PAD_ID, dummy_token: int = DUMMY_TOKEN):
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -165,6 +171,8 @@ class Server:
             raise ValueError(f"strategy={strategy!r} needs a mesh")
         self.strategy = strategy
         self.tuning = tuning
+        self.pad_id = pad_id
+        self.dummy_token = dummy_token
         self.graphs = self.device.type == "cuda"     # buckets captured at warmup
         self._plans: Dict[str, int] = collections.Counter()
         self._warm_plans: Dict[str, int] = {}
@@ -186,20 +194,23 @@ class Server:
 
     # -- warmup --------------------------------------------------------------
 
-    def warmup(self) -> Dict:
-        """Run a dummy prefill + up to three decode steps per bucket, then
-        (on CUDA) capture the bucket's prefill and decode step.
-        Returns ``{label: {"warm_s", "plans", "capture_s", "graphs"}}``."""
+    def warmup(self, buckets: Optional[Sequence] = None) -> Dict:
+        """Run a dummy prefill + up to three decode steps for each of
+        ``buckets`` (default: every declared bucket), then (on CUDA)
+        capture the bucket's prefill and decode step; only warmed buckets
+        are captured.  Returns ``{label: {"warm_s", "plans", "capture_s",
+        "graphs"}}``."""
+        buckets = self.buckets if buckets is None else tuple(as_bucket(b) for b in buckets)
         report: Dict[str, Dict] = {}
         before = executions_snapshot()
         with torch.no_grad(), self._scope():
-            for bucket in self.buckets:
+            for bucket in buckets:
                 t0 = time.perf_counter()
                 keys_before = set(plan_cache.keys())
                 tune_before = set(self._tune_keys())
                 with obs.span("serve.warmup", bucket=bucket.label):
                     cache = self._cache(bucket)
-                    toks = torch.full((bucket.batch, bucket.seq), DUMMY_TOKEN,
+                    toks = torch.full((bucket.batch, bucket.seq), self.dummy_token,
                                       dtype=torch.int64, device=self.device)
                     offsets = torch.zeros(bucket.batch, dtype=torch.int64, device=self.device)
                     steps = min(3, self.cfg.max_new_tokens)
@@ -222,7 +233,7 @@ class Server:
                     rec["graphs"] = len(self._captured[bucket].steps)
                 report[bucket.label] = rec
         if obs.enabled():
-            obs.counter("serve.warmup.buckets").inc(len(self.buckets))
+            obs.counter("serve.warmup.buckets").inc(len(buckets))
         self._warm_launches = zorder_kernel.launches
         self._warm_plans = _moved(before, executions_snapshot())
         self._warm_cache_info = cache_info()
@@ -249,10 +260,10 @@ class Server:
         dev = self.device
         cache = self._cache(bucket)
         g = _BucketGraphs(
-            tokens=torch.full((bucket.batch, bucket.seq), DUMMY_TOKEN, dtype=torch.int64,
+            tokens=torch.full((bucket.batch, bucket.seq), self.dummy_token, dtype=torch.int64,
                               device=dev),
             offsets=torch.zeros(bucket.batch, dtype=torch.int64, device=dev),
-            cur=torch.full((bucket.batch, 1), DUMMY_TOKEN, dtype=torch.int64, device=dev),
+            cur=torch.full((bucket.batch, 1), self.dummy_token, dtype=torch.int64, device=dev),
             pos=torch.full((), bucket.seq, dtype=torch.int64, device=dev),
             cache=cache)
         if self._pool is None:
@@ -296,11 +307,11 @@ class Server:
         if bucket is None:
             if obs.enabled():
                 obs.counter("serve.cold_bucket").inc()
-            batch, lens = batch_requests(prompt_list, PAD_ID)
+            batch, lens = batch_requests(prompt_list, self.pad_id)
         else:
-            dummies = [[DUMMY_TOKEN]] * (bucket.batch - n)
+            dummies = [[self.dummy_token]] * (bucket.batch - n)
             batch, lens = batch_requests(
-                list(prompt_list) + dummies, PAD_ID, pad_to=bucket.seq)
+                list(prompt_list) + dummies, self.pad_id, pad_to=bucket.seq)
         self.cfg.validate_prompt_len(batch.shape[1])
         sp = batch.shape[1]
 

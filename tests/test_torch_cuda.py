@@ -225,12 +225,16 @@ def test_danube_smoke_flash_forward_on_card_matches_cpu(cuda_device):
 # 64, 80, 120 and 128; GQA groups 1 and 4; ragged S_q and S_kv; windows 200
 # and 4032; S_q > S_kv with a window, so that the last rows see no key and
 # output 0; non-causal with and without a window; a 255-key window, which
-# puts tiles' first keys exactly one window before their last rows.
+# puts tiles' first keys exactly one window before their last rows; then the
+# head layouts of granite-20b (48 query heads over one K/V head),
+# chameleon-34b (64/8) and qwen3-moe-30b-a3b (32/4), D 128, causal.
 WGMMA_SHAPES = [(1, 256, 256, 4, 1, 64, True, 0), (2, 300, 300, 4, 4, 80, True, 0),
                 (1, 520, 700, 8, 2, 120, True, 200), (1, 4500, 4500, 4, 1, 128, True, 4032),
                 (1, 700, 300, 4, 1, 120, True, 64), (2, 200, 333, 2, 2, 64, False, 0),
                 (1, 1000, 1024, 4, 4, 120, False, 100), (1, 4200, 4200, 4, 1, 120, True, 4032),
-                (1, 1000, 1000, 4, 1, 120, True, 255)]
+                (1, 1000, 1000, 4, 1, 120, True, 255),
+                (1, 384, 384, 48, 1, 128, True, 0), (1, 384, 384, 64, 8, 128, True, 0),
+                (1, 384, 384, 32, 4, 128, True, 0)]
 ROW_TOL_BF16 = 1e-2   # worst output row's relative L2 error (chip_smoke.py's ROW_TOL)
 # the autograd node of the registered op ``repro_torch::zorder_matmul``
 K1_NODE = "GeneratedBackwardFor_repro_torch_zorder_matmul_defaultBackward"

@@ -50,7 +50,9 @@ def _max_abs(port, ref):
 
 # (B, S_q, S_kv, H_q, H_kv, D, causal, window, dtype): the reference's cases
 # in tests/test_kernels.py, then head dims 120 (danube), 80 (zamba2) and 128
-# at S = 256 and 384.
+# at S = 256 and 384; then the head layouts of granite-20b (MQA, 48 query
+# heads over one K/V head), chameleon-34b (64/8) and qwen3-moe-30b-a3b
+# (32/4), D 128, in fp32 and bf16.
 MHA_CASES = [
     *[(2, 256, 256, hq, hkv, 32, True, 0, dt)
       for (hq, hkv) in ((4, 4), (4, 2), (8, 1)) for dt in ("float32", "bfloat16")],
@@ -64,6 +66,9 @@ MHA_CASES = [
     (1, 384, 384, 4, 1, 80, True, 200, "bfloat16"),
     (1, 256, 256, 2, 2, 128, True, 0, "float32"),
     (1, 384, 384, 4, 1, 128, True, 200, "bfloat16"),
+    *[(1, sq, sq, hq, hkv, 128, True, 0, dt)
+      for (sq, hq, hkv) in ((256, 48, 1), (256, 64, 8), (384, 32, 4))
+      for dt in ("float32", "bfloat16")],
 ]
 
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.layers import attention as jattn
 from repro.layers import embed as jembed
@@ -21,7 +22,7 @@ from repro.layers.norms import rms_norm as jax_rms_norm
 from repro.layers.rope import apply_rope as jax_apply_rope
 from repro.models.registry import build_model as jax_build_model
 from repro_torch.checkpoint import params_from_jax, tensor_from_numpy
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.layers import attention, embed
 from repro_torch.models.registry import build_model
 from repro_torch.layers.mlp import mlp
@@ -365,3 +366,56 @@ def test_block_kinds_not_yet_ported_raise():
         block_params(torch.Generator().manual_seed(0), cfg, "enc_attn_mlp", torch.float32, CPU)
     with pytest.raises(NotImplementedError, match="attention 'none'"):
         build_model(dataclasses.replace(cfg, attn_type="none"))
+
+
+# -- the three configs that fill one card, at their published attention widths ---------
+
+
+def _row_rel(port, ref) -> float:
+    """Worst row's relative L2 error, rows along the last dim."""
+    p = port.detach().float().numpy().reshape(-1, port.shape[-1])
+    r = np.asarray(ref, np.float32).reshape(-1, p.shape[-1])
+    return float(np.max(np.linalg.norm(p - r, axis=1)
+                        / np.maximum(np.linalg.norm(r, axis=1), 1e-30)))
+
+
+@pytest.mark.parametrize("arch, over", [
+    ("granite-20b", dict(num_layers=2, d_ff=256, vocab_size=512)),
+    ("chameleon-34b", dict(num_layers=1, d_ff=256, vocab_size=512)),
+    ("qwen3-moe-30b-a3b", dict(num_layers=2, d_ff=64, moe_d_ff=64, vocab_size=512))])
+def test_published_widths_prefill_and_decode_match_reference(arch, over):
+    """granite-20b (d_model 6144, MQA 48/1), chameleon-34b (8192, GQA 64/8)
+    and qwen3-moe-30b-a3b (2048, GQA 32/4, 128 experts top-8) at their
+    published d_model, heads, K/V heads and head dim, fp32, with depth, the
+    MLP widths and the vocabulary narrowed (under 1 GB a side): the weights
+    carried over by ``params_from_jax``, a prefill of a left-padded batch
+    and 3 decode steps at tensor slots, last-token logits per row within
+    1e-5 of the reference's."""
+    jcfg = dataclasses.replace(jax_get_config(arch), dtype="float32", **over)
+    tcfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
+    assert (tcfg.d_model, tcfg.num_heads, tcfg.num_kv_heads, tcfg.head_dim,
+            tcfg.num_experts, tcfg.top_k) == {
+        "granite-20b": (6144, 48, 1, 128, 0, 0), "chameleon-34b": (8192, 64, 8, 128, 0, 0),
+        "qwen3-moe-30b-a3b": (2048, 32, 4, 128, 128, 8)}[arch]
+    jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    v = tcfg.vocab_size
+    batch = np.random.default_rng(40).integers(1, v, size=(2, 8))
+    off = np.array([0, 3])
+    batch[1, :3] = 0
+    jcache, tcache = jmodel.init_cache(2, 16), tmodel.init_cache(2, 16, CPU)
+    jo, to = jnp.asarray(off, jnp.int32), torch.from_numpy(off)
+    ref, jcache = jmodel.prefill(jparams, jcache, jnp.asarray(batch), jo)
+    with torch.no_grad():
+        out, tcache = tmodel.prefill(tparams, tcache, torch.from_numpy(batch), to)
+    assert _row_rel(out[:, :v], np.asarray(ref)[:, :v]) < TOL
+    cur = np.argmax(np.asarray(ref)[:, :v], axis=-1)
+    for t in range(8, 11):
+        ref, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(cur[:, None]),
+                                         jnp.int32(t), jo)
+        with torch.no_grad():
+            out, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(cur[:, None]),
+                                             torch.tensor(t), to)
+        assert _row_rel(out[:, :v], np.asarray(ref)[:, :v]) < TOL
+        cur = np.argmax(np.asarray(ref)[:, :v], axis=-1)

@@ -366,6 +366,47 @@ def test_server_tokens_are_generate_on_the_bucket_padded_batch(pair, prompts):
     assert res.sequences == [full[i, sp - int(lens[i]):].tolist() for i in range(len(prompts))]
 
 
+def test_server_pad_and_dummy_tokens_and_warmed_buckets_match_the_reference(monkeypatch):
+    """``Server(pad_id=, dummy_token=)`` with only one of two buckets warmed
+    (``warmup(buckets=)``) on the fp32 smoke qwen3-moe, whose routing groups
+    hold a row's padding beside its prompt (so the pad token moves the
+    tokens): requests routed to the warmed bucket and to the one not warmed
+    (served eagerly on the CPU, compiled on first use by the reference) give
+    the reference ``Server``'s tokens with the same arguments, and the
+    batch the port decodes is padded with ``pad_id`` and ``dummy_token``."""
+    from repro_torch.serve import server as server_mod
+
+    arch, kw = "qwen3-moe-30b-a3b", dict(buckets=[(2, 8), (4, 16)], pad_id=7, dummy_token=11)
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    scfg = dict(max_new_tokens=5, max_seq=32)
+    jsrv = JaxServer(jmodel, jparams, JaxServeConfig(**scfg), **kw)
+    tsrv = Server(build_model(tcfg), tparams, ServeConfig(**scfg), **kw)
+    assert set(jsrv.warmup(buckets=[(2, 8)])) == set(tsrv.warmup(buckets=[(2, 8)])) == {"2x8"}
+    decoded = []
+    real_loop = server_mod.decode_loop
+
+    def spy(model, params, cache, tokens, *args, **kwargs):
+        decoded.append(tokens.clone())
+        return real_loop(model, params, cache, tokens, *args, **kwargs)
+
+    monkeypatch.setattr(server_mod, "decode_loop", spy)
+    for prompts, bucket in ((PROMPTS[:2], "2x8"), (PROMPTS[:3], "4x16"),
+                            ([[3] * 12, [4, 5]], "4x16")):
+        jr, tr = jsrv.generate(prompts), tsrv.generate(prompts)
+        assert tr.bucket == jr.bucket == bucket
+        assert tr.sequences == jr.sequences
+        b, s = (int(x) for x in bucket.split("x"))
+        want, _ = batch_requests(list(prompts) + [[11]] * (b - len(prompts)), 7, pad_to=s)
+        assert decoded[-1].tolist() == want.tolist()
+    default = Server(build_model(tcfg), tparams, ServeConfig(**scfg), buckets=[(4, 16)])
+    assert default.generate(PROMPTS[:3]).sequences != tr.sequences or \
+        default.generate([[3] * 12, [4, 5]]).sequences != tsrv.generate([[3] * 12, [4, 5]]).sequences
+
+
 def test_generate_checks_each_slot_on_the_host(pair, monkeypatch):
     """The decode loop checks every slot on the host before the step that
     takes it as a device tensor."""
