@@ -20,7 +20,16 @@ Phases, each fatal on failure (no result line, non-zero exit):
    side at M = 64-256, the measurement that sets ``THIN_MAX_M``.  Times
    are CUDA-event times of CUDA-graph replays, cycling through enough
    copies of the weight matrix that it comes from device memory, not L2,
-   as in decoding.
+   as in decoding.  Last, K1 reading an operand stored transposed at the
+   shapes the paths give it (``LAYOUT_ROWS``): the unembedding of Llama's
+   tied head (Bᵀ, fp32 out) at a batch-4 decode step and the 8 x 256
+   training forward, the training backward's dA (Bᵀ) and dB (Aᵀ) at each
+   layer product at 2048 tokens: each within ``ROW_TOL`` of the plain
+   version on the same views, the same storage read as row-major landing
+   outside it, and timed beside its bound, the plain version and the
+   library call (``torch.mm(..., out_dtype=float32)`` for fp32 out, and for
+   the unembedding also the upcast and fp32 ``torch.matmul`` it replaced;
+   ``torch.matmul`` on the same views for bf16 out).
 3. model  -- a full-width, 2-layer Llama-3.2-1B in fp32: prefill + one
    decode step on the card through K1 and on the CPU through the plain
    version with the same weights; logits agree to 1e-3 relative.
@@ -29,8 +38,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    (8,32), each bucket run eagerly once and its prefill and decode step
    captured as CUDA graphs; then ``generate`` on 4 variable-length prompts
    with 16 new tokens, twice, by graph replays, with identical tokens,
-   each run replaying K1 exactly 112 x 16 times (7 projections x 16
-   layers per forward, 1 prefill + 15 decode steps; counted as replays x
+   each run replaying K1 exactly 113 x 16 times (7 projections x 16
+   layers and the unembedding per forward, 1 prefill + 15 decode steps;
+   counted as replays x
    each graph's launches at capture), all on the thin route; the eager
    path (``runtime.serve.decode_loop`` on the same bucket-padded batch)
    gives the same tokens bitwise.
@@ -60,14 +70,17 @@ Phases, each fatal on failure (no result line, non-zero exit):
    output row (the last dim) to a relative L2 error: ``ROW_TOL``.
 6. long-prefill -- full-width h2o-danube-3-4b (24 layers, bf16, random
    weights from a seeded generator) with ``attn_impl="flash"``: ``forward``
-   and ``loss`` on 32768 tokens, 24 K2 and 168 K1 launches per forward,
+   and ``loss`` on 32768 tokens, 24 K2 and 169 K1 launches per forward,
    every K2 launch on the wgmma route and every K1 launch on the wide route;
    logits of shape (1, 32768, 32000), finite, and within
    ``PREFILL_LOGITS_TOL`` of the same forward through the plain attention
    (``attn_impl="xla"``), while two wrong attention cores (the window
    ignored; the window one 64-key tile short) must land outside it; a
-   2-layer full-width fp32 danube at S = 8192 within 1e-4 of the xla route;
-   the forward's device time, K1's and K2's share and prefill tokens/s.
+   every distinct K1 call of the forward (the unembedding's, 32768 x 3840
+   x 32000 into fp32, among them) within ``ROW_TOL`` of the plain version
+   at its own shape, blocks and layouts; a 2-layer full-width fp32 danube
+   at S = 8192 within 1e-4 of the xla route; the forward's device time,
+   K1's and K2's share and prefill tokens/s.
 7. plan-sweep -- the plan engine (``repro_torch.plan``): every strategy
    pinned through ``symmetric_matmul``, staged and overlapped where the
    lowering has both, on single-controller meshes whose ranks are threads
@@ -144,30 +157,35 @@ Phases, each fatal on failure (no result line, non-zero exit):
 13. profiler -- one unplanned and one planned (2x2) danube forward at
    S = 32768 under ``torch.profiler`` (no timed window is profiled):
    device time by kernel name into K1, K2 and the rest, the rest named by
-   its top kernels and operators, and the planned forward's accumulate
-   chain (fp32 zero, fp32 add, cast) and device copies beside the
-   unplanned forward's; both traces saved gzipped to ``chiprun_out/``.
+   its top kernels and operators, the unembedding (one K1 launch, read
+   through a ``record_function`` range; no ``aten::mm``), and the planned
+   forward's accumulate chain (fp32 zero, fp32 add, cast) and device copies
+   beside the unplanned forward's; both traces saved gzipped to
+   ``chiprun_out/``; then the unembedding of 32768 hidden states alone
+   through K1 and as the upcast and fp32 ``torch.matmul`` it replaced.
 14. train -- the training path, every leg fatal: (a) K1's registered op
    (``torch.ops.repro_torch.zorder_matmul``, differentiable) at each of
    Llama's 7 projections at 2048 tokens,
    bf16: the forward, dA = dC B^T and dB = A^T dC held per row to the
    plain version on the same CUDA tensors (``ROW_TOL``), every launch on
-   the wide route, each product timed beside the plain version,
-   ``torch.matmul`` and its bound, and the backward's transposed copies;
+   the wide route, each product timed on the operands the path gives it
+   (the backward's Bᵀ and Aᵀ are views, read in place) beside the plain
+   version, ``torch.matmul`` and its bound;
    (b) one fp32 step of a 2-layer full-width Llama on the card and on the
    CPU, the same weights and batch: the loss and every master leaf's
    gradient within ``TRAIN_GRAD_TOL`` (relative L2), every projection's
    gradient non-zero, while a control whose products detach K1's output
    lands outside the limit and the trainer refuses it; (c) the main path:
-   ``python -m repro_torch.launch.train --arch llama3.2-1b --steps 30
+   ``python -m repro_torch.launch.train --arch llama3.2-1b --steps 10
    --batch 8 --seq 256 --ckpt <dir>`` (its ``main``), full width, bf16:
-   the logged loss falls, K1 launches 336 a step all wide (counts from 0
+   the logged loss falls, K1 launches 337 a step all wide (counts from 0
    just before), the peak memory and the checkpoints' size; then the same
    step timed (CUDA events: loss and gradients, optimizer; host clock;
-   tokens/s) and profiled (K1's device time beside its bound, the fp32
-   unembed's ``aten::mm``); (d) the reference's ``train_4k`` cell cut to
-   one sequence of 4096 tokens, ``remat="full"``: 2 steps, finite losses,
-   448 wide K1 launches a step (the forward recomputed), peak memory; (e)
+   tokens/s) and profiled (K1's device time beside its bound, the
+   unembedding's K1 launch and its backward's two fp32 ``aten::mm``, the
+   step's only ones); (d) the reference's ``train_4k`` cell cut to one
+   sequence of 4096 tokens, ``remat="full"``: 2 steps, finite losses, 449
+   wide K1 launches a step (the layers' forward recomputed), peak memory; (e)
    the smoke Llama with a failure injected: one restart, a falling loss,
    the restored state equal bit for bit to its checkpoint file.
 15. zoo-serve -- the MoE and MLA decoders, every leg fatal, each model
@@ -180,9 +198,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    minicpm3-4b (62 layers) behind ``Server``, run as phase 4 runs Llama:
    tokens identical across two runs, a request served alone as in the
    batch, bitwise the eager path's on the same bucket-padded batch, K1
-   replayed 7 x 28 = 196 and 7 x 62 = 434 times a forward (q, k, v, o or
-   MLA's wq_a, wq_b, wkv_a, wo; the dense MLP or the shared experts), all
-   thin; TTFT, p50 / p99, tokens/s, a step's device time by graph replay,
+   replayed 7 x 28 + 1 = 197 and 7 x 62 + 1 = 435 times a forward (q, k,
+   v, o or MLA's wq_a, wq_b, wkv_a, wo; the dense MLP or the shared
+   experts; the unembedding), all thin; TTFT, p50 / p99, tokens/s, a step's device time by graph replay,
    peak memory; every distinct K1 call (shape, blocks, order, types) of
    one eager prefill and decode step at each bucket (M = 4, 8, 64, 256;
    thin and wide) against the plain version on fresh seeded operands
@@ -191,7 +209,8 @@ Phases, each fatal on failure (no result line, non-zero exit):
    the decode step's weight-read bound, deepseek's expert
    products alone (``moe.expert_ffn`` over the 27 MoE layers' weights,
    CUDA events) beside their bound, and one eager decode step profiled
-   (K1 and the rest by kernel name).  The reference's dense dispatch runs
+   (K1 and the rest by kernel name, the unembedding's K1 launch; no
+   ``aten::mm``).  The reference's dense dispatch runs
    every expert on every step, and MLA's cached path multiplies ``wkv_b``
    in einsums, outside K1.
 16. families -- the recurrent and encoder-decoder families, every leg
@@ -203,7 +222,7 @@ Phases, each fatal on failure (no result line, non-zero exit):
    ``MODEL_TOL``, K1 all fma; (b) the full zamba2-2.7b (54 layers) and
    xlstm-350m (24) behind ``Server``, run as phase 4 runs Llama (the
    prefill is one decode step a prompt token, captured whole): tokens
-   bitwise equal across runs, alone and eager, K1 180 and 78 a step all
+   bitwise equal across runs, alone and eager, K1 181 and 79 a step all
    thin, and measured as phase 15 measures the zoo (every distinct K1 call
    vs the plain version, the decode step's K1 timed beside ``torch.matmul``
    and its bound, the weight and state bound, a profiled step); (c) the
@@ -212,7 +231,7 @@ Phases, each fatal on failure (no result line, non-zero exit):
    route fed the same tokens within ``PREFILL_LOGITS_TOL`` per row, another
    source changes the tokens, K2 at the encoder's shape and every distinct
    K1 call vs the plain version; (d) the full zamba2 forward at 8192 tokens
-   (``attn_impl="flash"``): K1 180 wide, K2 9 wgmma at head dim 80, within
+   (``attn_impl="flash"``): K1 181 wide, K2 9 wgmma at head dim 80, within
    ``PREFILL_LOGITS_TOL`` of the xla route, profiled into K1, K2 and the
    SSD chunk scan, K2 at that shape vs its plain version and SDPA.
 17. zoo-train -- every family trained, every leg fatal, each model freed
@@ -222,36 +241,40 @@ Phases, each fatal on failure (no result line, non-zero exit):
    MoE layer of all 64 experts), minicpm3-4b (2 MLA layers) and
    seamless-m4t-medium (1 + 1 layers, a seeded source), each under its
    config's remat policy; (b) one bf16 step of full-width zamba2 at 12
-   layers, 2 x 512 tokens, under "none", "full" and "dots": K1 120, 144
-   and 120 launches ("dots" recomputes no product), "dots" gradients
+   layers, 2 x 512 tokens, under "none", "full" and "dots": K1 121, 145
+   and 121 launches ("dots" recomputes no product; the unembedding's fp32
+   backward runs outside K1), "dots" gradients
    within ``ROW_TOL`` of "none"'s, each mode's peak memory ("dots" below
    "none"); (c) the main path of this phase: ``launch.train.main(["--arch",
-   "zamba2-2.7b", "--steps", "20", "--batch", "2", "--seq", "512"])``, full
+   "zamba2-2.7b", "--steps", "10", "--batch", "2", "--seq", "512"])``, full
    width and depth, bf16, ``remat="dots"``: every logged loss finite, the
-   last below the first, K1 540 a step all wide (counts from 0 just
+   last below the first, K1 541 a step all wide (counts from 0 just
    before), peak memory; then the step timed (host clock, CUDA events:
    loss and gradients vs optimizer, tokens/s), profiled (K1, the SSD
-   scan's forward, the fp32 unembed), and its K1 calls held against the
+   scan's forward, the unembedding's K1 launch and its backward's two fp32
+   ``aten::mm``), and its K1 calls held against the
    plain version and timed beside ``torch.matmul`` and their bound; (d)
-   the same for ``--arch xlstm-350m --steps 20 --batch 8 --seq 256`` (234
+   the same for ``--arch xlstm-350m --steps 10 --batch 8 --seq 256`` (235
    a step); (e) deepseek-moe-16b cut to 4 layers (its dense layer and 3
    MoE layers) through ``Trainer.fit``, 10 steps of 4 x 256, ``"dots"``,
-   measured as (c) (84 a step).
+   measured as (c) (85 a step).
 18. sharded-train -- training on a mesh of rank threads on the card, every
    leg fatal: (a) one fp32 step of a full-width, 2-layer Llama-3.2-1B on
    the (data 2, model 2) mesh (``Trainer(mesh=)``'s step: every projection
-   and both of its gradients a planned product, 3 x 14) against
+   and both of its gradients a planned product, 3 x 14; the unembedding
+   and its gradients K1 outside the plan engine) against
    ``mesh=None`` on the card, each master leaf's gradient within
    ``SHARD_GRAD_TOL`` (relative L2), while a planned backward that drops
    one product's dB lands outside it; (b) the main path of this phase:
    ``launch.train.main([..., "--tp", "2", "--ranks", "4"])``, the full
-   Llama-3.2-1B, bf16 with fp32 masters placed by ``param_shardings``, 5
-   steps of 8 x 256 (counts from 0 just before), and the same 5 steps
+   Llama-3.2-1B, bf16 with fp32 masters placed by ``param_shardings``, 3
+   steps of 8 x 256 (counts from 0 just before), and the same 3 steps
    through the launcher without a mesh: each step's loss within
    ``SHARD_LOSS_GAP``, 336 planned products a step (112 forward, 224 in the
    planned backward, which autograd runs on its device thread) by
-   strategy, no K1 product outside the rank threads (Llama's remat
-   "none" recomputes nothing), K1 launches a step by route, each rank's
+   strategy, no K1 product outside the rank threads but the
+   unembedding's, once a step (never planned; Llama's remat "none"
+   recomputes nothing), K1 launches a step by route, each rank's
    state bytes equal to what ``param_shardings`` predicts and the distinct
    blocks' to the unplaced state's, the step's host time, tokens/s and
    peak memory beside ``mesh=None``'s, and one step's per-rank K1 calls
@@ -276,7 +299,10 @@ Phases, each fatal on failure (no result line, non-zero exit):
    FLOPs equal Σ 2mnk of the launched shapes and K2's equal
    ``flash_bound``'s count, exactly, and each step's counted bound over the
    device time phases 4, 14 and 6 measured is at most
-   ``ROOF_FRACTION_MAX``; (b) the dry run's argument bytes within
+   ``ROOF_FRACTION_MAX``; no ``aten::mm`` in the decode step or the
+   forward and two in the training step (the unembedding's fp32
+   backward), and no copy of the LM head in the decode step or the
+   forward; (b) the dry run's argument bytes within
    ``ARG_BYTES_TOL`` of the allocator's once the real state is built, its
    peak over one real step's ``max_memory_allocated`` within
    ``PEAK_BAND``; (c) ``python -m repro_torch.launch.perf_probe --arch
@@ -301,12 +327,15 @@ Phases, each fatal on failure (no result line, non-zero exit):
    bound, qwen3's 128 experts' products alone, a profiled step); (d)
    granite-20b's ``flash`` forward over 32768 tokens, its peak predicted
    and held as in (a): K2 52 times on the wgmma route (a group of 48
-   query heads over one K/V head) and K1 364 times on the wide route,
+   query heads over one K/V head) and K1 365 times on the wide route,
    logits finite and within ``PREFILL_LOGITS_TOL`` per row of the ``xla``
    route (compared from each forward's final hidden states, unembedded
    2048 rows at a time: one full logits tensor is 6 GiB), while the same
-   forward with K2 run non-causally lands outside; the forward's time,
-   tokens/s, a profiled forward split into K1, K2 and the rest, and K1
+   forward with K2 run non-causally lands outside; every distinct K1 call
+   of the forward, the unembedding's among them, within ``ROW_TOL`` of the
+   plain version at its own shape, blocks and layouts; the forward's time,
+   tokens/s, a profiled forward split into K1 (the unembedding's launch
+   apart; no ``aten::mm``), K2 and the rest, and K1
    alone at the layer's 7 products at M = 32768 beside ``torch.matmul``;
    (e) K2 alone at the three head layouts (48/1, 64/8, 32/4, D 128, causal,
    S = 8192), held row by row to its plain version, timed beside SDPA and
@@ -364,7 +393,7 @@ from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_ref  # noqa: E402
 from repro_torch.layers import attention as attention_layer  # noqa: E402
 from repro_torch.layers import mamba2 as mamba2_layer  # noqa: E402
-from repro_torch.layers.embed import unembed  # noqa: E402
+from repro_torch.layers.embed import padded_vocab, unembed  # noqa: E402
 from repro_torch.layers import moe as moe_layer  # noqa: E402
 from repro_torch.models import lm as decoder_lm  # noqa: E402
 from repro_torch.models.lm import cross_entropy  # noqa: E402
@@ -423,6 +452,21 @@ MS = (4, 8, 64, 256)
 LAYER_KN = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
             (2048, 8192), (2048, 8192), (8192, 2048)]
 MAIN_SHAPES = [(m, k, n) for m in MS for (k, n) in sorted(set(LAYER_KN))]
+# K1 on operands stored transposed, at the paths' shapes (phase 2's layout
+# rows; what, (M, K, N), A stored transposed, B stored transposed, output
+# type, the layer product's (K, N)): the unembedding of Llama-3.2-1B's tied
+# head (B the .t() of the (vocab, d_model) table, fp32 logits) at a batch-4
+# decode step and at the 8 x 256-token training forward; that training
+# step's backward, dA = dC Bᵀ (B stored transposed) and dB = Aᵀ dC (A
+# stored transposed), at each distinct layer product, 2048 tokens, bf16.
+LLAMA_VOCAB = 128256
+LAYOUT_ROWS = ([("unembed decode", (4, 2048, LLAMA_VOCAB), False, True, torch.float32, None),
+                ("unembed train forward", (2048, 2048, LLAMA_VOCAB), False, True, torch.float32,
+                 None)]
+               + [("dA", (2048, n, k), False, True, torch.bfloat16, (k, n))
+                  for (k, n) in sorted(set(LAYER_KN))]
+               + [("dB", (k, 2048, n), True, False, torch.bfloat16, (k, n))
+                  for (k, n) in sorted(set(LAYER_KN))])
 RAGGED = [(200, 300, 260), (8, 16, 8), (17, 300, 70), (1, 7, 3)]
 # Both sides of each bf16 route threshold, and danube's n = 960 and K = 10240
 THRESHOLD_SHAPES = [(16, 2048, 512), (17, 2048, 512), (k1.THIN_MAX_M, 2048, 512),
@@ -524,11 +568,11 @@ def _bound(cost, dtype: torch.dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound(m: int, k: int, n: int, dtype: torch.dtype):
+def bound(m: int, k: int, n: int, dtype: torch.dtype, out_dtype: torch.dtype = None):
     """(ms, "bytes" | "operations"): each input read once, the output
     written once, at the memory rate; or the FLOPs at the type's peak
     (K1's count, ``hlo_stats.matmul_cost``)."""
-    return _bound(hlo_stats.matmul_cost(m, k, n, dtype), dtype)
+    return _bound(hlo_stats.matmul_cost(m, k, n, dtype, out_dtype), dtype)
 
 
 def row_err(out: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -662,18 +706,134 @@ def phase_kernel(dev: torch.device, gen: torch.Generator) -> dict:
             f"torch.matmul {row['library_ms'] * 1e3:8.2f}us plain {row['plain_ms'] * 1e3:8.2f}us")
         del a, calls
     crossover = crossover_times(dev, gen)
+    layouts = layout_rows(dev, gen)
     torch.cuda.empty_cache()
-    return {"checks": checks, "timings": timings, "crossover": crossover,
-            "worst_main_abs_err": worst_main_abs}
+    return {"checks": checks, "timings": timings, "crossover": crossover, "layouts": layouts,
+            "worst_main_abs_err": max(worst_main_abs, layouts["worst_abs_err"])}
 
 
-def _decode_operands(dev, gen, m, k, n):
-    """A (m, k) activation and enough (k, n) weight copies that cycling
-    through them reads the weights from device memory, not L2."""
+def _stored_operand(gen, dev, rows: int, cols: int, transposed: bool, scale: float = 1.0,
+                    dtype: torch.dtype = torch.bfloat16):
+    """A (rows, cols) operand from a seeded generator: row-major, or the
+    ``.t()`` of a row-major (cols, rows) tensor."""
+    shape = (cols, rows) if transposed else (rows, cols)
+    t = (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+    return t.t() if transposed else t
+
+
+def layout_rows(dev: torch.device, gen: torch.Generator) -> dict:
+    """K1 reading an operand stored transposed (``LAYOUT_ROWS``), at the
+    shapes the paths launch: per row the route meant for it (one launch),
+    the output within ``ROW_TOL`` of the plain version on the same views,
+    a control that reads the same storage as row-major operands (the same
+    route and blocks) and must land outside it, and the time of K1, the plain
+    version and the library call (``_library_mm``; for the unembedding also
+    the upcast and fp32 ``torch.matmul`` the port ran before), beside the
+    bound (CUDA-graph replays, cycling through enough copies of the
+    transposed operand that it comes from device memory)."""
+    rows, worst_abs = [], 0.0
+    for what, (m, k, n), a_t, b_t, od, layer_kn in LAYOUT_ROWS:
+        copies = max(1, math.ceil(3 * L2_BYTES / ((m if a_t else n) * k * 2)))
+        if a_t:   # the transposed operand is A: cycle through copies of it
+            b = _stored_operand(gen, dev, k, n, b_t, 1 / math.sqrt(k))
+            calls = [(_stored_operand(gen, dev, m, k, True), b) for _ in range(copies)]
+        else:
+            a = _stored_operand(gen, dev, m, k, False)
+            calls = [(a, _stored_operand(gen, dev, k, n, b_t, 1 / math.sqrt(k)))
+                     for _ in range(copies)]
+        x, y = calls[0]
+        want = meant_route(m, k, n, torch.bfloat16)
+        before = dict(k1.launches_by_route)
+        out = matmul(x, y, out_dtype=od)
+        moved = routes_moved(before)
+        ref = matmul_ref(x, y, od)
+        blocks = k1.default_blocks(m, n, k, torch.bfloat16, True, a_t, b_t)
+        before = dict(k1.launches_by_route)
+        # the same storage viewed as row-major operands of the same shapes
+        wrong = matmul(x.t().view(m, k) if a_t else x, y.t().view(k, n) if b_t else y,
+                       block_m=blocks[0], block_n=blocks[1], block_k=blocks[2], out_dtype=od)
+        control_moved = routes_moved(before)
+        torch.cuda.synchronize()
+        if moved != {want: 1} or control_moved != {want: 1}:
+            raise AssertionError(f"{what} {(m, k, n)} launched {moved}, its control "
+                                 f"{control_moved}, both meant for {want}")
+        e, control = row_err(out, ref), row_err(wrong, ref)
+        del out, ref, wrong
+        tol = ROW_TOL[od]
+        label = f"{what} {m}x{k}x{n} A{'ᵀ' if a_t else ''} B{'ᵀ' if b_t else ''} -> {str(od)[6:]}"
+        log(f"[kernel-layout] {label} {want}: worst row rel {e['row_rel']:.3e}, read as "
+            f"row-major {control['row_rel']:.3e} (limit {tol:g})")
+        if not e["finite"] or not e["row_rel"] < tol:
+            raise AssertionError(f"K1 {label} disagrees with its plain version: {e}")
+        _check_control("kernel-layout", f"{label} read as row-major", control, tol)
+        worst_abs = max(worst_abs, e["max_abs_err"])
+        fns = {"ms": lambda p, q: matmul(p, q, out_dtype=od),
+               "plain_ms": lambda p, q: matmul_ref(p, q, od)}
+        lib = _library_mm(od)
+        if lib is not None:
+            fns["library_ms"] = lib
+        if what.startswith("unembed"):
+            fns["upcast_ms"] = _upcast_mm
+        others = list(fns)[1:]
+        t = {}
+        for name in ("ms", *others, *reversed(others), "ms"):   # in turns
+            t.setdefault(name, []).append(graph_ms(fns[name], calls))
+        bms, by = bound(m, k, n, torch.bfloat16, od)
+        row = {"what": what, "shape": [m, k, n], "a_t": a_t, "b_t": b_t,
+               "out_dtype": str(od)[6:], "layer_kn": layer_kn, "route": want,
+               "copies": copies, "library_ms": None, **{key: min(v) for key, v in t.items()},
+               "runs": t, "bound_ms": bms, "bound_by": by, "row_rel": e["row_rel"],
+               "max_abs_err": e["max_abs_err"], "control_row_rel": control["row_rel"]}
+        row["bound_share"] = bms / row["ms"]
+        rows.append(row)
+        log(f"[kernel-layout-time] {label} K1 ({want}) {row['ms'] * 1e3:.2f}us, bound "
+            f"{bms * 1e3:.2f}us ({by}, {row['bound_share']:.1%}), library "
+            + ("not measured" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f}us")
+            + f", plain {row['plain_ms'] * 1e3:.2f}us"
+            + (f", upcast + fp32 torch.matmul {row['upcast_ms'] * 1e3:.2f}us"
+               if "upcast_ms" in row else ""))
+        del calls, x, y
+    torch.cuda.empty_cache()
+    # one layer of a training step's backward at 2048 tokens: its 7
+    # products' dA and dB (the shapes repeat: q / o, k / v, gate / up)
+    per_layer = {what: {key: sum(next(r[key] for r in rows
+                                      if r["what"] == what and r["layer_kn"] == kn)
+                                 for kn in LAYER_KN)
+                        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                 for what in ("dA", "dB")}
+    return {"rows": rows, "backward_per_layer": per_layer, "worst_abs_err": worst_abs}
+
+
+def _library_mm(out_dtype: torch.dtype, dtype: torch.dtype = torch.bfloat16):
+    """The one PyTorch call computing K1's function on the same operands:
+    ``torch.matmul`` where the output keeps the operands' type,
+    ``torch.mm(..., out_dtype=float32)`` for bf16 operands into fp32 (None
+    where this PyTorch lacks it)."""
+    if out_dtype == dtype:
+        return torch.matmul
+    try:
+        probe = torch.ones(8, 8, dtype=torch.bfloat16, device="cuda")
+        torch.mm(probe, probe, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as err:
+        log(f"[kernel-layout] torch.mm(..., out_dtype=float32) unavailable: {err}")
+        return None
+    return lambda p, q: torch.mm(p, q, out_dtype=torch.float32)
+
+
+def _upcast_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 operands into fp32 logits the way the port's unembedding once
+    computed them: both cast up, one fp32 ``torch.matmul``."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _decode_operands(dev, gen, m, k, n, b_t: bool = False):
+    """A (m, k) activation and enough (k, n) weight copies (each stored
+    transposed where ``b_t``) that cycling through them reads the weights
+    from device memory, not L2: one where a weight alone is three times
+    L2 (an LM head)."""
     a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-    copies = max(3, math.ceil(3 * L2_BYTES / (k * n * 2)))
-    bs = [(torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
-          for _ in range(copies)]
+    copies = max(1, math.ceil(3 * L2_BYTES / (k * n * 2)))
+    bs = [_stored_operand(gen, dev, k, n, b_t, 1 / math.sqrt(k)) for _ in range(copies)]
     return a, [(a, b) for b in bs]
 
 
@@ -869,15 +1029,23 @@ def _decoder_products(cfg, attention: int) -> int:
     return attention * cfg.num_layers + 3 * dense + shared * (cfg.num_layers - dense)
 
 
-def k1_per_step(cfg) -> int:
-    """K1 launches of one forward step (a one-pass prefill or a decode
-    step): a decoder layer 4 attention products (q, k, v, o; MLA's cached
-    wq_a, wq_b, wkv_a, wo) and 3 more for a dense MLP or shared experts
-    (deepseek-moe 7 a layer, qwen3-moe 4); zamba2 2 a Mamba layer
-    (in_proj, out_proj) and 8 a shared block (shared_in, q, k, v, o, gate,
-    up, down); xLSTM 4 an mLSTM block, 1 an sLSTM block; the
-    encoder-decoder's decode step 9 a decoder layer (self q, k, v, o; cross
-    q and o over the cached K/V; the MLP's 3)."""
+# K1 launches of the unembedding a forward: one product, never planned
+UNEMBED_LAUNCHES = 1
+
+
+def layer_products(cfg, cached: bool = True) -> int:
+    """K1 products of one forward's layers, the unembedding's apart.
+    ``cached``, a one-pass prefill or a decode step: a decoder layer 4
+    attention products (q, k, v, o; MLA's cached wq_a, wq_b, wkv_a, wo)
+    and 3 more for a dense MLP or shared experts (deepseek-moe 7 a layer,
+    qwen3-moe 4); zamba2 2 a Mamba layer (in_proj, out_proj) and 8 a shared
+    block (shared_in, q, k, v, o, gate, up, down); xLSTM 4 an mLSTM block,
+    1 an sLSTM block; the encoder-decoder's decode step 9 a decoder layer
+    (self q, k, v, o; cross q and o over the cached K/V; the MLP's 3).
+    Uncached, a training step's forward: MLA 5 attention products a layer
+    (``wkv_b`` too); the recurrent families as cached; the encoder-decoder
+    7 an encoder layer, 11 a decoder layer (cross q, k, v and o over the
+    encoder output)."""
     if cfg.family == "hybrid":
         return 2 * cfg.num_layers + 8 * (cfg.num_layers // cfg.shared_attn_every)
     if cfg.family == "ssm":
@@ -885,21 +1053,30 @@ def k1_per_step(cfg) -> int:
         groups = cfg.num_layers // len(cfg.block_pattern)
         return groups * (4 * n_m + len(cfg.block_pattern) - n_m)
     if cfg.family == "audio":
-        return 9 * cfg.dec_layers
-    return _decoder_products(cfg, 4)
+        return 9 * cfg.dec_layers if cached else 7 * cfg.enc_layers + 11 * cfg.dec_layers
+    return _decoder_products(cfg, 5 if cfg.attn_type == "mla" and not cached else 4)
+
+
+def k1_per_step(cfg) -> int:
+    """K1 launches of one forward step (a one-pass prefill or a decode
+    step): its layers' (``layer_products``) and the unembedding's."""
+    return layer_products(cfg) + UNEMBED_LAUNCHES
 
 
 def train_products(cfg) -> int:
-    """K1 products of one uncached forward, a training step's forward (each
-    has a dA and a dB too): a decoder as ``k1_per_step`` but MLA 5
-    attention products a layer (``wkv_b`` too); the recurrent families as
-    ``k1_per_step``; the encoder-decoder 7 an encoder layer, 11 a decoder
-    layer (cross q, k, v and o over the encoder output)."""
-    if cfg.family == "audio":
-        return 7 * cfg.enc_layers + 11 * cfg.dec_layers
-    if cfg.family in ("hybrid", "ssm"):
-        return k1_per_step(cfg)
-    return _decoder_products(cfg, 5 if cfg.attn_type == "mla" else 4)
+    """K1 products of one uncached forward, a training step's forward: its
+    layers' (``layer_products(cached=False)``) and the unembedding's.
+    Every product has a dA and a dB through K1 too, but for the
+    unembedding's in a bf16 model (``train_step_launches``)."""
+    return layer_products(cfg, cached=False) + UNEMBED_LAUNCHES
+
+
+def train_step_launches(cfg, dtype: torch.dtype = torch.bfloat16) -> int:
+    """K1 launches of one training step without recompute: each forward
+    product's, its dA's and its dB's; in a bf16 model the unembedding's
+    backward (its fp32 cotangent, ``ops._backward``) launches none."""
+    unembed = UNEMBED_LAUNCHES * (1 if dtype == torch.bfloat16 else 3)
+    return 3 * layer_products(cfg, cached=False) + unembed
 
 
 def prefill_steps(model, seq: int) -> int:
@@ -970,7 +1147,7 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
     if alone.new_tokens[0] != runs[0]["tokens"][2]:
         raise AssertionError("a request served alone decodes differently from "
                              "the same request in a batch")
-    eager = eager_runs(model, params, sc, prompts, 2, tag)
+    eager = eager_runs(model, params, sc, prompts, 1, tag)
     for r in eager:
         if r["graphs"] or r["routes"] != {"thin": want} or r["counted"] != r["routes"]:
             raise AssertionError(f"an eager run launched {r['routes']}, want {want} thin")
@@ -1311,7 +1488,8 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
         k1.reset_launches()
         k2.reset_launches()
         t0 = time.perf_counter()
-        logits, _ = model.forward(params, tokens)
+        with k1_calls() as calls:
+            logits, _ = model.forward(params, tokens)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         got = {"K2": k2.launches, "K1": k1.launches}
@@ -1373,8 +1551,13 @@ def phase_long_prefill(dev: torch.device, flash: dict) -> dict:
         f"bound {k1_fwd['bound_ms']:.1f}ms")
     del params
     torch.cuda.empty_cache()
+    checked = check_k1_calls(calls, dev, head_n=padded_vocab(cfg.vocab_size))
+    log(f"[long-prefill] K1's {checked['calls']} calls ({len(checked['distinct'])} distinct, "
+        f"the unembedding's among them) each within ROW_TOL of the plain version at its own "
+        f"shape, blocks and layouts (worst row rel {checked['worst_row_rel']:.3e})")
     fp32 = fp32_check(dev)
     return {"launches": want, "k1_routes": by_route, "k2_routes": k2_routes,
+            "k1_check": checked,
             "first_forward_s": first_s, "loss": loss, "xla_loss": xloss,
             "ce": parts["ce"].item(), "logits_rel_err": rel, "routes": routes,
             "forward_ms": fwd_ms,
@@ -1770,8 +1953,8 @@ def phase_planned_prefill(dev: torch.device) -> dict:
         first_s = time.perf_counter() - t0
         plans = lower_dist_mod.executions_snapshot()
         k1_routes, k2_routes = _nonzero(k1.launches_by_route), _nonzero(k2.launches_by_route)
-        want_k1 = sum(v * LAUNCHES_PER_PRODUCT_2X2.get(s, LAUNCHES_PER_PRODUCT_2X2.get(
-            s.split("+")[0], 0)) for s, v in plans.items())
+        want_k1 = UNEMBED_LAUNCHES + sum(v * LAUNCHES_PER_PRODUCT_2X2.get(
+            s, LAUNCHES_PER_PRODUCT_2X2.get(s.split("+")[0], 0)) for s, v in plans.items())
         log(f"[planned-prefill] {cfg.name} bf16 S={PREFILL_S} on mesh {dict(mesh.shape)}: "
             f"products {plans}; K1 {k1.launches}x {k1_routes} (want {want_k1}), K2 "
             f"{k2.launches}x {k2_routes}; first call {first_s:.2f}s")
@@ -2057,36 +2240,43 @@ def phase_calibrate(dev: torch.device) -> dict:
 @contextlib.contextmanager
 def k1_calls():
     """Within the scope, list each K1 call ``ops.matmul`` makes (from every
-    rank thread) as (m, n, k, blocks, order, dtype, out dtype)."""
+    rank thread) as (m, n, k, blocks, order, dtype, out dtype, A stored
+    transposed, B stored transposed)."""
     ops = importlib.import_module("repro_torch.kernels.matmul.ops")
     real = ops._run
     calls = []
 
     def recording(a, b, blocks, order, out_dtype):
         calls.append((a.shape[0], b.shape[1], a.shape[1], tuple(blocks), order, a.dtype,
-                      out_dtype))
+                      out_dtype, ops.layout(a), ops.layout(b)))
         return real(a, b, blocks, order, out_dtype)
 
     with mock.patch.object(ops, "_run", recording):
         yield calls
 
 
-def check_k1_calls(calls: list, dev: torch.device, tuned_plans=None) -> dict:
+def check_k1_calls(calls: list, dev: torch.device, tuned_plans=None, head_n=None) -> dict:
     """Every distinct K1 call of a run (as ``k1_calls`` lists them): K1
-    with the call's own shape, blocks, order and types must agree with its
-    plain version within ``ROW_TOL`` on fresh seeded operands.  With
-    ``tuned_plans``, its blocks and order must also be a tuned plan's."""
+    with the call's own shape, blocks, order, types and layouts must agree
+    with its plain version within ``ROW_TOL`` on fresh seeded operands.
+    With ``tuned_plans``, its blocks and order must also be a tuned plan's,
+    but for the unembedding's (``head_n`` columns, fp32 out: never
+    planned, its default blocks)."""
     tilings = None if tuned_plans is None else {
         ((p.tiling.block_m, p.tiling.block_n, p.tiling.block_k), p.tiling.order)
         for p in tuned_plans}
     gen = torch.Generator(device=dev).manual_seed(5)
     worst, worst_abs, rows = 0.0, 0.0, []
-    for (m, n, k, blocks, order, dt, out_dtype), count in sorted(Counter(calls).items(), key=str):
-        if tilings is not None and (blocks, order) not in tilings:
+    for (m, n, k, blocks, order, dt, out_dtype, a_t, b_t), count in sorted(
+            Counter(calls).items(), key=str):
+        unembed = n == head_n and out_dtype == torch.float32
+        if unembed and blocks != k1.default_blocks(m, n, k, dt, True, a_t, b_t):
+            raise AssertionError(f"the unembedding called K1 at {m}x{n}x{k} with {blocks}")
+        if tilings is not None and not unembed and (blocks, order) not in tilings:
             raise AssertionError(f"a tuned run called K1 at {m}x{n}x{k} with {blocks}/{order}, "
                                  f"which no tuned plan names ({sorted(tilings)})")
-        a = torch.randn((m, k), generator=gen, device=dev).to(dt)
-        b = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(dt)
+        a = _stored_operand(gen, dev, m, k, a_t, dtype=dt)
+        b = _stored_operand(gen, dev, k, n, b_t, 1 / math.sqrt(k), dtype=dt)
         got = matmul(a, b, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
                      order=order, out_dtype=out_dtype)
         e = row_err(got, matmul_ref(a, b, out_dtype))
@@ -2095,6 +2285,7 @@ def check_k1_calls(calls: list, dev: torch.device, tuned_plans=None) -> dict:
                                  f"its plain version: {e}")
         worst, worst_abs = max(worst, e["row_rel"]), max(worst_abs, e["max_abs_err"])
         rows.append({"shape": [m, n, k], "blocks": list(blocks), "order": order,
+                     "a_t": a_t, "b_t": b_t,
                      "route": k1.ROUTE_OF[dt, blocks], "dtype": str(dt).replace("torch.", ""),
                      "out_dtype": str(out_dtype).replace("torch.", ""), "calls": count,
                      "row_rel": e["row_rel"], "max_abs_err": e["max_abs_err"]})
@@ -2144,7 +2335,7 @@ def tuned_planned_serve(dev: torch.device, mesh, table) -> dict:
     if eager[0]["tokens"] != runs[0]["tokens"]:
         raise AssertionError("the captured tuned planned steps' tokens differ from the eager "
                              "tuned planned path's")
-    checked = check_k1_calls(calls, dev, tuned_plans)
+    checked = check_k1_calls(calls, dev, tuned_plans, padded_vocab(cfg.vocab_size))
     log(f"[tuned-serve] tokens bitwise equal across the two captured runs and the eager tuned "
         f"run; its {checked['calls']} K1 calls, {len(checked['distinct'])} distinct (shape, "
         f"blocks, order, out type), each a tuned plan's and within ROW_TOL of the plain "
@@ -2294,6 +2485,12 @@ def phase_obs_drift(dev: torch.device, profile_path: str) -> dict:
 # -- torch.profiler (phase 13) -----------------------------------------------------------
 
 K1_KERNELS = ("zorder_matmul",)
+# K1's instances with an fp32 output (the kernel's name ends ``..., float>(...)``):
+# in an unplanned bf16 run only the unembedding's launch has one
+K1_FP32_OUT = re.compile(r",\s*float>\(")
+# the model modules whose forward and steps call ``layers.embed.unembed``
+UNEMBED_MODULES = ("repro_torch.models.lm", "repro_torch.models.hybrid",
+                   "repro_torch.models.xlstm_model", "repro_torch.models.encdec")
 K2_KERNELS = ("flash_wgmma_kernel", "flash_bf16_kernel", "flash_f32_kernel")
 # the planned forward's accumulate chain, by kernel name: Cannon's fp32
 # accumulator zeroed, K1's fp32 outputs added (ring_rs's partial sums too),
@@ -2314,7 +2511,7 @@ def profile_split(prof) -> dict:
     rest named by its top kernels and top operators, and the accumulate
     chain's kernels (``CHAIN_KERNELS``)."""
     kernels, ops = Counter(), Counter()
-    counts = Counter()
+    counts, op_calls = Counter(), Counter()
     ranges = {}
     for e in prof.key_averages():
         if getattr(e, "is_user_annotation", False):
@@ -2330,6 +2527,7 @@ def profile_split(prof) -> dict:
         if str(getattr(e, "device_type", "")).endswith("CPU"):
             if "::" in e.key:   # operators, not runtime events
                 ops[e.key] += us
+                op_calls[e.key] += e.count
         else:
             kernels[e.key] += us
             counts[e.key] += e.count
@@ -2347,15 +2545,54 @@ def profile_split(prof) -> dict:
             "rest_top_kernels": [{"kernel": key[:160], "ms": v / 1e3, "launches": counts[key]}
                                  for key, v in rest.most_common(8)],
             "top_operators": [{"op": key, "ms": v / 1e3} for key, v in ops.most_common(8)],
-            "mm_ms": ops["aten::mm"] / 1e3,
+            "mm_ms": ops["aten::mm"] / 1e3, "mm_calls": op_calls["aten::mm"],
+            "unembed_ms": ranges.get("unembed", {}).get("device", {}).get("ms", 0.0),
+            "unembed_calls": ranges.get("unembed", {}).get("cpu", {}).get("count", 0),
+            "k1_fp32_out_ms": sum(v for key, v in kernels.items() if k1_fp32_out(key)) / 1e3,
+            "k1_fp32_out_launches": sum(c for key, c in counts.items() if k1_fp32_out(key)),
             "chain": chain, "ranges": ranges}
+
+
+def k1_fp32_out(kernel_name: str) -> bool:
+    return any(s in kernel_name for s in K1_KERNELS) and bool(K1_FP32_OUT.search(kernel_name))
+
+
+def unembed_seen(split: dict, mm_calls: int = 0) -> bool:
+    """Whether an unplanned bf16 run's profile shows one unembedding, its
+    one K1 launch with an fp32 output (with device time) and ``mm_calls``
+    ``aten::mm`` (none in a forward or a serving step, the backward's two
+    in a training step)."""
+    return (split["unembed_calls"] == 1 and split["k1_fp32_out_launches"] == 1
+            and split["k1_fp32_out_ms"] > 0 and split["mm_calls"] == mm_calls)
+
+
+@contextlib.contextmanager
+def unembed_ranges():
+    """Within the scope every model's unembedding runs inside a
+    ``record_function("unembed")`` range, so a profile (``profile_split``)
+    counts its calls and reads the device span of its kernels (its K1
+    launch, the padded columns' fill)."""
+    from torch.profiler import record_function
+
+    with contextlib.ExitStack() as stack:
+        for name in UNEMBED_MODULES:
+            mod = importlib.import_module(name)
+
+            def ranged(p, x, vocab, real=mod.unembed):
+                with record_function("unembed"):
+                    return real(p, x, vocab)
+            stack.enter_context(mock.patch.object(mod, "unembed", ranged))
+        yield
 
 
 def phase_profiler(dev: torch.device) -> dict:
     """Phase 13: one unplanned and one planned danube forward at S = 32768
     under ``torch.profiler`` (no timed window is profiled): device time by
-    kernel name into K1, K2 and the rest, and the planned forward's
-    accumulate chain; both traces saved (gzip) to ``chiprun_out/``."""
+    kernel name into K1, K2 and the rest, the unembedding's (one K1
+    launch, no ``aten::mm``), and the planned forward's accumulate chain;
+    both traces saved (gzip) to ``chiprun_out/``.  Then the unembedding of
+    32768 hidden states by CUDA events, through K1 and as the upcast and
+    fp32 ``torch.matmul`` it replaced, in turns."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = dataclasses.replace(get_config(PREFILL_ARCH), attn_impl="flash")
@@ -2376,7 +2613,8 @@ def phase_profiler(dev: torch.device) -> dict:
             fn()
         torch.cuda.synchronize()
         for name, fn in fns.items():
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with unembed_ranges(), profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
             split = profile_split(prof)
@@ -2394,12 +2632,33 @@ def phase_profiler(dev: torch.device) -> dict:
                                                   f"{r['launches']}"
                                                   for r in split['rest_top_kernels'][:5])
                 + "; top operators " + ", ".join(f"{r['op']} {r['ms']:.1f}ms"
-                                                 for r in split["top_operators"][:5]))
+                                                 for r in split["top_operators"][:5])
+                + f"; the unembedding {split['unembed_ms']:.1f}ms ({split['unembed_calls']} "
+                  f"call, K1), aten::mm x{split['mm_calls']}")
+        hidden = torch.randn((PREFILL_S, cfg.d_model), generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev).to(torch.bfloat16)
+        head = params["embed"].get("lm_head", params["embed"]["embedding"].t())
+        t = {}
+        for key in ("k1_ms", "upcast_ms", "upcast_ms", "k1_ms"):
+            fn = ((lambda: unembed(params["embed"], hidden, cfg.vocab_size)) if key == "k1_ms"
+                  else (lambda: _upcast_mm(hidden, head)))
+            t.setdefault(key, []).append(event_ms(fn, 1))
+        out["unembed_alone"] = {key: min(v) for key, v in t.items()} | {"runs": t}
+        log(f"[profiler] the unembedding of {PREFILL_S} x {cfg.d_model} hidden states alone "
+            f"(CUDA events, in turns): K1 {out['unembed_alone']['k1_ms']:.1f}ms, upcast + fp32 "
+            f"torch.matmul {out['unembed_alone']['upcast_ms']:.1f}ms; runs {t}")
+        del hidden, head
     mesh.close()
     del params
     torch.cuda.empty_cache()
-    if not all(v["device_ms"] > 0 and v["k1_ms"] > 0 and v["k2_ms"] > 0 for v in out.values()):
+    if not all(v["device_ms"] > 0 and v["k1_ms"] > 0 and v["k2_ms"] > 0
+               for key, v in out.items() if key in fns):
         raise AssertionError(f"torch.profiler saw no device time for K1 or K2: {out}")
+    # the planned forward's products also write fp32 (its accumulate chain)
+    if not unembed_seen(out["unplanned"]) or out["planned"]["mm_calls"] \
+            or out["planned"]["unembed_calls"] != 1:
+        raise AssertionError(f"a profiled forward ran aten::mm or did not show the "
+                             f"unembedding's K1 launch: {out}")
     extra = {cat: out["planned"]["chain"][cat]["ms"] - out["unplanned"]["chain"][cat]["ms"]
              for cat in CHAIN_KERNELS}
     log(f"[profiler] planned minus unplanned: device {out['planned']['device_ms'] - out['unplanned']['device_ms']:.1f}ms"
@@ -2411,8 +2670,9 @@ def phase_profiler(dev: torch.device) -> dict:
 # -- training (phase 14) -------------------------------------------------------------
 
 TRAIN_ARCH = "llama3.2-1b"
-# the main path: the launcher at its default batch and sequence, 30 steps
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 30
+# the main path: the launcher at its default batch and sequence, 10 steps
+# (one checkpoint; the repeats are cut to keep the script within 900 s)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 10
 TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
               "--seq", str(TRAIN_SEQ)]
 TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
@@ -2455,11 +2715,12 @@ def train_kernel_check(dev: torch.device, gen: torch.Generator) -> dict:
     """(a) K1's autograd node at each of Llama's 7 projections at 2048
     tokens, bf16: the forward and both backward products held per row to
     the plain version on the same CUDA tensors, each launch on the wide
-    route; then each product timed beside the plain version,
-    ``torch.matmul`` and its bound, and the backward's transposed copies
-    (CUDA-graph replays, so no host launch time is in them)."""
+    route; then each product timed on the operands the path gives it (the
+    backward's Bᵀ and Aᵀ are views of the saved operands, read in place)
+    beside the plain version, ``torch.matmul`` on the same operands and its
+    bound (CUDA-graph replays, so no host launch time is in them)."""
     t = TRAIN_TOKENS
-    rows, copies, worst_abs = [], [], 0.0
+    rows, worst_abs = [], 0.0
     for (k, n) in LAYER_KN:
         a = torch.randn(t, k, generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
         b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(
@@ -2476,7 +2737,7 @@ def train_kernel_check(dev: torch.device, gen: torch.Generator) -> dict:
             raise AssertionError(f"({t}, {k}, {n}): forward {fwd_routes}, backward {bwd_routes}, "
                                  f"want every product on the wide route")
         ad, bd = a.detach(), b.detach()
-        bt, at = bd.t().contiguous(), ad.t().contiguous()
+        bt, at = bd.t(), ad.t()
         errs = {"forward": row_err(out, matmul_ref(ad, bd)),
                 "dA": row_err(a.grad, matmul_ref(dc, bt)),
                 "dB": row_err(b.grad, matmul_ref(at, dc))}
@@ -2501,9 +2762,6 @@ def train_kernel_check(dev: torch.device, gen: torch.Generator) -> dict:
             bms, by = bound(m_, k_, n_, torch.bfloat16)
             rows.append({"product": p, "shape": [m_, k_, n_], "route": "wide", **tm,
                          "bound_ms": bms, "bound_by": by, "row_rel": errs[p]["row_rel"]})
-        copies.append({"shape": [t, k, n], **{
-            name: graph_ms(lambda x: x.t().contiguous(), [(x,)] * TRAIN_GRAPH_CALLS)
-            for name, x in (("B^T", bd), ("A^T", ad))}})
         del a, b, dc, out, ad, bd, bt, at
     layers = get_config(TRAIN_ARCH).num_layers
     per_step = {key: layers * sum(r[key] for r in rows)
@@ -2513,15 +2771,13 @@ def train_kernel_check(dev: torch.device, gen: torch.Generator) -> dict:
     t_bytes = layers * sum(((r["shape"][0] + r["shape"][2]) * r["shape"][1]
                             + r["shape"][0] * r["shape"][2]) * 2 for r in rows) / PEAK_BYTES_S
     per_step["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    per_step["copies_ms"] = layers * sum(c["B^T"] + c["A^T"] for c in copies)
     per_step["tflop"] = flops / 1e12
-    log(f"[train-kernel] K1 per training step ({3 * 7 * layers} products, each alone): "
-        f"{per_step['ms']:.2f}ms, bound {per_step['bound_ms']:.2f}ms ({per_step['bound_by']}, "
-        f"{per_step['tflop']:.2f} TFLOP), torch.matmul {per_step['library_ms']:.2f}ms, plain "
-        f"{per_step['plain_ms']:.2f}ms; the backward's transposed copies "
-        f"{per_step['copies_ms']:.2f}ms")
+    log(f"[train-kernel] K1 per training step ({3 * 7 * layers} layer products, each alone; "
+        f"dA and dB on views, no transposed copy): {per_step['ms']:.2f}ms, bound "
+        f"{per_step['bound_ms']:.2f}ms ({per_step['bound_by']}, {per_step['tflop']:.2f} TFLOP), "
+        f"torch.matmul {per_step['library_ms']:.2f}ms, plain {per_step['plain_ms']:.2f}ms")
     torch.cuda.empty_cache()
-    return {"rows": rows, "copies": copies, "per_step": per_step, "worst_abs_err": worst_abs}
+    return {"rows": rows, "per_step": per_step, "worst_abs_err": worst_abs}
 
 
 def _train_batch(vocab: int, batch: int, seq: int, dev: torch.device, step: int = 0) -> dict:
@@ -2579,7 +2835,7 @@ def train_grad_check(dev: torch.device, arch: str = TRAIN_ARCH, depth: dict = No
         out[name] = (loss.item(), [g.to(dev) for g in grads], _nonzero(k1.launches_by_route))
         del m, grads
         secs[name] = time.perf_counter() - t0
-    want_launches = {"fma": 3 * train_products(cfg)}
+    want_launches = {"fma": train_step_launches(cfg, torch.float32)}
     if out["card"][2] != want_launches or out["cpu"][2]:
         raise AssertionError(f"[{tag}] K1 launches: card {out['card'][2]}, cpu {out['cpu'][2]}; "
                              f"want {want_launches} on the card, none on the cpu")
@@ -2666,10 +2922,10 @@ def _profiled_step(host_side: bool = True):
     ``mamba2._ssd_chunk_scan`` (the SSD scan's forward, and its recompute
     under ``"dots"``; its backward kernels are not in it); yields a dict
     that holds, after the scope, the device time of K1 and of the rest by
-    kernel name, and from the host side the unembed's (``aten::mm``: its
-    forward and two backward products are a step's only ``mm``), the
-    scan's and the operators'.  The host side costs about 10 s of trace
-    processing per 10^5 operators."""
+    kernel name, and from the host side the unembedding's forward (its K1
+    launch, an ``unembed_ranges`` range), its backward's two fp32 products
+    (``aten::mm``: a step's only ones), the scan's and the operators'.  The
+    host side costs about 10 s of trace processing per 10^5 operators."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     real_scan = mamba2_layer._ssd_chunk_scan
@@ -2680,17 +2936,30 @@ def _profiled_step(host_side: bool = True):
 
     out = {}
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_side else [])
-    with mock.patch.object(mamba2_layer, "_ssd_chunk_scan", ranged_scan), profile(
-            activities=activities) as prof:
+    with mock.patch.object(mamba2_layer, "_ssd_chunk_scan", ranged_scan), unembed_ranges(), \
+            profile(activities=activities) as prof:
         yield out
         torch.cuda.synchronize()
     split = profile_split(prof)
     ssd = split["ranges"].get("ssd_chunk_scan", {}).get("cpu", {})
     out.update({"device_ms": split["device_ms"], "k1_ms": split["k1_ms"],
-                "k1_launches": split["k1_launches"], "unembed_ms": split["mm_ms"],
+                "k1_launches": split["k1_launches"], "unembed_ms": split["unembed_ms"],
+                "unembed_calls": split["unembed_calls"], "mm_ms": split["mm_ms"],
+                "mm_calls": split["mm_calls"], "k1_fp32_out_ms": split["k1_fp32_out_ms"],
+                "k1_fp32_out_launches": split["k1_fp32_out_launches"],
                 "ssd_scan_forward_ms": ssd.get("ms", 0.0), "ssd_scan_calls": ssd.get("count", 0),
                 "top_operators": split["top_operators"],
                 "rest_top_kernels": split["rest_top_kernels"]})
+
+
+def check_unembed_profile(tag: str, prof: dict) -> None:
+    """A profiled bf16 training step: the unembedding's one forward call,
+    its one K1 launch with an fp32 output, and exactly two ``aten::mm``,
+    its backward's fp32 products."""
+    if not unembed_seen(prof, mm_calls=2):
+        raise AssertionError(f"[{tag}] profiled step: unembedding {prof['unembed_calls']} calls, "
+                             f"fp32-out K1 x{prof['k1_fp32_out_launches']}, aten::mm "
+                             f"x{prof['mm_calls']} (want 1, 1, 2)")
 
 
 def _profile_step(trainer, state, batch) -> dict:
@@ -2724,7 +2993,7 @@ def phase_train(dev: torch.device, gen: torch.Generator) -> dict:
     ckpt_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt)
                   for f in fs) / 1e9
     shutil.rmtree(ckpt)
-    want = {"wide": 3 * 7 * cfg.num_layers * TRAIN_STEPS}
+    want = {"wide": train_step_launches(cfg) * TRAIN_STEPS}
     log(f"[train] launcher: rc {rc}, {len(logged)} steps logged in {wall:.1f}s (the steps "
         f"{sum(int(ms) for _, _, ms in logged) / 1e3:.1f}s of it), loss "
         f"{losses[0] if losses else None} -> {losses[-1] if losses else None}; K1 on the main "
@@ -2754,8 +3023,10 @@ def phase_train(dev: torch.device, gen: torch.Generator) -> dict:
         f"{times['device_ms']:.1f}ms (loss and gradients {times['grads_ms']:.1f}, optimizer "
         f"{times['optimizer_ms']:.1f}), {times['tokens_per_s']:.0f} tokens/s; profiled: device "
         f"{prof['device_ms']:.1f}ms (busy {times['busy_share']:.0%} of the step), K1 {prof['k1_ms']:.1f}ms ({prof['k1_launches']} launches; "
-        f"bound {k['bound_ms']:.2f}ms), unembed (fp32 aten::mm x3) {prof['unembed_ms']:.1f}ms; "
+        f"bound {k['bound_ms']:.2f}ms), the unembedding's forward (K1) {prof['unembed_ms']:.1f}ms, "
+        f"its backward's fp32 aten::mm x{prof['mm_calls']} {prof['mm_ms']:.1f}ms; "
         f"top operators " + ", ".join(f"{r['op']} {r['ms']:.1f}ms" for r in prof["top_operators"][:6]))
+    check_unembed_profile("train", prof)
     out["timing"] = {**times, "profile": prof}
     del state, batch, trainer
     torch.cuda.empty_cache()
@@ -2772,7 +3043,8 @@ def phase_train(dev: torch.device, gen: torch.Generator) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     l4k = [h["loss"] for h in fit["history"]]
     r4k = _nonzero(k1.launches_by_route)
-    want4k = {"wide": 4 * 7 * cfg.num_layers * TRAIN_4K_STEPS}   # forward recomputed once
+    # the layers' forward recomputed once (the unembedding is outside them)
+    want4k = {"wide": (train_step_launches(cfg) + 7 * cfg.num_layers) * TRAIN_4K_STEPS}
     log(f"[train-4k] 1x{TRAIN_4K_SEQ}, remat='full': losses {l4k}, steps "
         f"{[round(h['sec_per_step'] * 1e3, 1) for h in fit['history']]} ms, {wall:.1f}s in all; "
         f"peak memory {peak / 2 ** 30:.2f} GiB; K1 {r4k} (want {want4k})")
@@ -2829,6 +3101,23 @@ def train_restart(dev: torch.device) -> dict:
         raise AssertionError(f"restored leaves differ from the checkpoint: {differ}")
     return {"restarts": fit["restarts"], "restored_step": step, "losses": losses,
             "leaves": len(leaves), "routes": routes}
+
+
+def layout_k1_rows(layouts: dict) -> dict:
+    """Phase 2's layout rows for the kernels line's ``per_route``: K1 on a
+    transposed operand, beside its bound, the plain version's time and
+    the library call's."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    out = {}
+    for r in layouts["rows"]:
+        m, k, n = r["shape"]
+        label = (f"{r['route']}: {r['what']}, {m}x{k}x{n}"
+                 f"{', A stored transposed' if r['a_t'] else ''}"
+                 f"{', B stored transposed' if r['b_t'] else ''}, {r['out_dtype']} out")
+        out[label] = {key: r[key] for key in keys}
+        if "upcast_ms" in r:
+            out[label]["upcast_and_fp32_torch_matmul_ms"] = r["upcast_ms"]
+    return out
 
 
 def decode_step_row(timings: list, m: int = 4) -> dict:
@@ -2955,7 +3244,8 @@ def profile_decode_step(model, params, dev: torch.device, bucket) -> dict:
     """One eager decode step at a bucket's shape under ``torch.profiler``
     (untimed; the step's device time comes from graph replays): device
     time by kernel name into K1 and the rest, the rest by top kernels and
-    operators; and K1's bound for the step, summed over the products it
+    operators, the unembedding's (one call through K1; no ``aten::mm`` in
+    the step); and K1's bound for the step, summed over the products it
     ran."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2969,12 +3259,15 @@ def profile_decode_step(model, params, dev: torch.device, bucket) -> dict:
         step = lambda: serve_step(model, params, cache, tokens[:, -1:], seq, offsets)  # noqa: E731
         step()
         torch.cuda.synchronize()
-        with k1_calls() as calls, profile(
+        with k1_calls() as calls, unembed_ranges(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step()
             torch.cuda.synchronize()
     out = profile_split(prof)
-    out["k1_bound_ms"] = sum(bound(m, k, n, dtype)[0] for m, n, k, _, _, dtype, _ in calls)
+    if not unembed_seen(out):
+        raise AssertionError(f"a profiled {model.cfg.name} decode step ran aten::mm "
+                             f"x{out['mm_calls']} or no unembedding through K1: {out}")
+    out["k1_bound_ms"] = sum(bound(m, k, n, dt, od)[0] for m, n, k, _, _, dt, od, *_ in calls)
     return out
 
 
@@ -3004,22 +3297,28 @@ def k1_step_times(calls: list, dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     tot = {"ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     t_bytes = t_ops = 0.0
-    for (m, n, k, blocks, order, dt, out_dtype), count in sorted(Counter(calls).items(), key=str):
-        if out_dtype != dt or dt != torch.bfloat16:
-            raise AssertionError(f"a serving step called K1 at {m}x{n}x{k} {dt} -> {out_dtype}")
-        _, wcalls = _decode_operands(dev, gen, m, k, n)
+    for (m, n, k, blocks, order, dt, out_dtype, a_t, b_t), count in sorted(
+            Counter(calls).items(), key=str):
+        if dt != torch.bfloat16 or a_t:
+            raise AssertionError(f"a serving step called K1 at {m}x{n}x{k} {dt} -> {out_dtype}"
+                                 f" (A transposed {a_t})")
+        _, wcalls = _decode_operands(dev, gen, m, k, n, b_t)
 
-        def kernel(a, b, blocks=blocks, order=order):
+        def kernel(a, b, blocks=blocks, order=order, out_dtype=out_dtype):
             return matmul(a, b, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
-                          order=order)
+                          order=order, out_dtype=out_dtype)
+
+        def plain(a, b, out_dtype=out_dtype):
+            return matmul_ref(a, b, out_dtype)
+        fns = {"ms": kernel, "library_ms": _library_mm(out_dtype, dt) or _upcast_mm,
+               "plain_ms": plain}
         t = {}
         for name in ("ms", "library_ms", "plain_ms", "plain_ms", "library_ms", "ms"):
-            fn = {"ms": kernel, "library_ms": torch.matmul, "plain_ms": matmul_ref}[name]
-            t.setdefault(name, []).append(graph_ms(fn, wcalls))
+            t.setdefault(name, []).append(graph_ms(fns[name], wcalls))
         for name, v in t.items():
             tot[name] += count * min(v)
-        tot["bound_ms"] += count * bound(m, k, n, dt)[0]
-        t_bytes += count * (m * k + k * n + m * n) * 2 / PEAK_BYTES_S
+        tot["bound_ms"] += count * bound(m, k, n, dt, out_dtype)[0]
+        t_bytes += count * ((m * k + k * n) * 2 + m * n * out_dtype.itemsize) / PEAK_BYTES_S
         t_ops += count * 2.0 * m * k * n / PEAK_FLOPS[dt]
         del wcalls
     tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -3081,8 +3380,8 @@ def zoo_measure(dev: torch.device, tag: str):
             f"{sbytes / 1e9:.3f} GB, {out['step_bound_ms']:.3f}ms); profiled eager step: "
             f"device {prof['device_ms']:.3f}ms, "
             f"K1 {prof['k1_ms']:.3f}ms ({prof['k1_launches']} launches, bound "
-            f"{prof['k1_bound_ms']:.3f}ms), rest "
-            f"{prof['rest_ms']:.3f}ms: " + ", ".join(
+            f"{prof['k1_bound_ms']:.3f}ms; the unembedding's {prof['unembed_ms']:.3f}ms, no "
+            f"aten::mm), rest {prof['rest_ms']:.3f}ms: " + ", ".join(
                 f"{k['kernel'][:60]} {k['ms']:.3f}ms x{k['launches']}"
                 for k in prof["rest_top_kernels"][:5]))
         return out
@@ -3142,9 +3441,9 @@ def family_check(dev: torch.device, arch: str) -> dict:
         src = torch.from_numpy(rng.standard_normal((2, FAMILY_CHECK_SRC, cfg.d_model),
                                                    dtype=np.float32))
         # the encoder twice (forward, then for the cross cache): 7 a layer;
-        # forward's decoder 11 a layer (cross k and v too); prefill_cross 2
-        # a decoder layer; then the steps
-        want = 14 * cfg.enc_layers + 13 * cfg.dec_layers + per_step * (sp + 1)
+        # forward's decoder 11 a layer (cross k and v too) and its
+        # unembedding; prefill_cross 2 a decoder layer; then the steps
+        want = 14 * cfg.enc_layers + 13 * cfg.dec_layers + 1 + per_step * (sp + 1)
     out = {}
     for name, p, d in (("card", params, dev), ("cpu", cpu_params, cpu)):
         k1.reset_launches()
@@ -3392,7 +3691,7 @@ def phase_encdec(dev: torch.device, gen: torch.Generator) -> dict:
 def phase_hybrid_prefill(dev: torch.device, gen: torch.Generator) -> dict:
     """Phase 16d: one uncached forward of full-depth bf16 zamba2-2.7b at
     8192 tokens with ``attn_impl="flash"``: K2 9 launches (the shared
-    block, causal, head dim 80) all wgmma, K1 180 all wide; logits finite
+    block, causal, head dim 80) all wgmma, K1 181 all wide; logits finite
     and within ``PREFILL_LOGITS_TOL`` per row of the xla route; the
     forward's device time (CUDA events) and, under ``torch.profiler``, its
     split into K1, K2, the SSD chunk scan (a ``record_function`` range
@@ -3436,8 +3735,9 @@ def phase_hybrid_prefill(dev: torch.device, gen: torch.Generator) -> dict:
         e = row_err(logits, xlogits)
         del logits, xlogits
         torch.cuda.empty_cache()
-        with mock.patch.object(mamba2_layer, "_ssd_chunk_scan", ranged_scan), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with mock.patch.object(mamba2_layer, "_ssd_chunk_scan", ranged_scan), \
+                unembed_ranges(), profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             model.forward(params, tokens)
             torch.cuda.synchronize()
     split = profile_split(prof)
@@ -3452,13 +3752,17 @@ def phase_hybrid_prefill(dev: torch.device, gen: torch.Generator) -> dict:
         f"{split['k2_ms']:.1f}ms + rest {split['rest_ms']:.1f}ms; of the rest, the SSD chunk "
         f"scan {ssd_ms:.1f}ms (its kernels; device span "
         f"{ssd.get('device', {}).get('ms', 0.0):.1f}ms, {ssd.get('cpu', {}).get('count', 0)} "
-        f"calls); top kernels: " + ", ".join(
+        f"calls); the unembedding {split['unembed_ms']:.1f}ms ({split['unembed_calls']} call, "
+        f"K1), aten::mm x{split['mm_calls']}; top kernels: " + ", ".join(
             f"{k['kernel'][:50]} {k['ms']:.1f}ms x{k['launches']}"
             for k in split["rest_top_kernels"][:5]))
     if not e["finite"] or e["row_rel"] >= PREFILL_LOGITS_TOL:
         raise AssertionError(f"[{tag}] flash and xla routes disagree: {e}")
     if not ssd_ms > 0:
         raise AssertionError(f"[{tag}] the profile shows no SSD scan time: {ssd}")
+    if not unembed_seen(split):
+        raise AssertionError(f"[{tag}] the profiled forward ran aten::mm x{split['mm_calls']} "
+                             f"or no unembedding through K1: {split['unembed_calls']} calls")
     checked = check_k1_calls(calls, dev)
     times = k1_step_times(calls, dev)
     log(f"[{tag}] K1's {checked['calls']} calls ({len(checked['distinct'])} distinct) within "
@@ -3563,7 +3867,9 @@ REMAT_LAYERS, REMAT_BATCH, REMAT_SEQ = 12, 2, 512
 # (c, d): the launcher at full width and depth; (e): deepseek-moe-16b cut to
 # its dense layer and 3 MoE layers (the whole model's AdamW state, ~260 GB,
 # does not fit one card), driven through Trainer
-ZOO_TRAIN_RUNS = {"zamba2-2.7b": (2, 512, 20), "xlstm-350m": (8, 256, 20)}
+# (batch, seq, steps): 10 steps each keeps the whole script within 900 s
+# (repeats cut, not widths, depths or checks)
+ZOO_TRAIN_RUNS = {"zamba2-2.7b": (2, 512, 10), "xlstm-350m": (8, 256, 10)}
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_RUN = "deepseek-moe-16b", 4, (4, 256, 10)
 
 
@@ -3577,26 +3883,32 @@ def k1_train_times(calls: list, dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(8)
     tot = {"ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     t_bytes = t_ops = worst = worst_abs = 0.0
-    for (m, n, k, blocks, order, dt, out_dtype), count in sorted(Counter(calls).items(), key=str):
-        a = torch.randn(m, k, generator=gen, device=dev).to(dt)
-        b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(dt)
+    for (m, n, k, blocks, order, dt, out_dtype, a_t, b_t), count in sorted(
+            Counter(calls).items(), key=str):
+        a = _stored_operand(gen, dev, m, k, a_t, dtype=dt)
+        b = _stored_operand(gen, dev, k, n, b_t, 1 / math.sqrt(k), dtype=dt)
 
         def kernel(x, y, blocks=blocks, order=order, out_dtype=out_dtype):
             return matmul(x, y, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
                           order=order, out_dtype=out_dtype)
-        e = row_err(kernel(a, b), matmul_ref(a, b, out_dtype))
-        if not e["finite"] or not e["row_rel"] < ROW_TOL[dt]:
-            raise AssertionError(f"K1 at {m}x{n}x{k} {dt} disagrees with its plain version: {e}")
+
+        def plain(x, y, out_dtype=out_dtype):
+            return matmul_ref(x, y, out_dtype)
+        e = row_err(kernel(a, b), plain(a, b))
+        if not e["finite"] or not e["row_rel"] < min(ROW_TOL[dt], ROW_TOL[out_dtype]):
+            raise AssertionError(f"K1 at {m}x{n}x{k} {dt} -> {out_dtype} disagrees with its "
+                                 f"plain version: {e}")
         worst, worst_abs = max(worst, e["row_rel"]), max(worst_abs, e["max_abs_err"])
+        fns = {"ms": kernel, "library_ms": _library_mm(out_dtype, dt) or _upcast_mm,
+               "plain_ms": plain}
         t = {}
         for name in ("ms", "library_ms", "plain_ms", "ms"):
-            fn = {"ms": kernel, "library_ms": torch.matmul, "plain_ms": matmul_ref}[name]
-            t.setdefault(name, []).append(graph_ms(fn, [(a, b)] * TRAIN_GRAPH_CALLS))
+            t.setdefault(name, []).append(graph_ms(fns[name], [(a, b)] * TRAIN_GRAPH_CALLS))
         for name, v in t.items():
             tot[name] += count * min(v)
-        tot["bound_ms"] += count * bound(m, k, n, dt)[0]
-        esize = torch.finfo(dt).bits // 8
-        t_bytes += count * (m * k + k * n + m * n) * esize / PEAK_BYTES_S
+        tot["bound_ms"] += count * bound(m, k, n, dt, out_dtype)[0]
+        esize = dt.itemsize
+        t_bytes += count * ((m * k + k * n) * esize + m * n * out_dtype.itemsize) / PEAK_BYTES_S
         t_ops += count * 2.0 * m * k * n / PEAK_FLOPS[dt]
         del a, b
     tot.update(bound_by="bytes" if t_bytes >= t_ops else "operations", products=len(calls),
@@ -3618,8 +3930,8 @@ def remat_compare(dev: torch.device) -> dict:
     master = tree_map(lambda t: t.float(), build_model(cfg).init(
         torch.Generator(device=dev).manual_seed(4), dev))
     batch = _train_batch(cfg.vocab_size, REMAT_BATCH, REMAT_SEQ, dev)
-    fwd = train_products(cfg)
-    want = {"none": 3 * fwd, "dots": 3 * fwd, "full": 3 * fwd + 2 * cfg.num_layers}
+    step = train_step_launches(cfg)
+    want = {"none": step, "dots": step, "full": step + 2 * cfg.num_layers}
     out, ref = {}, None
     for mode in ("none", "full", "dots"):
         trainer = Trainer(build_model(dataclasses.replace(cfg, remat=mode)), TrainConfig(),
@@ -3701,8 +4013,9 @@ def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) 
     ..., "--seq", ...])`` at full width and depth (``launcher``), or (e)
     ``Trainer.fit`` on ``cfg`` with the launcher's schedule, bf16, the
     config's remat policy: every logged loss finite and the last below the
-    first, K1 3 x the forward's products a step, all wide (counts from 0
-    just before), the peak memory.  Its own steps are measured
+    first, K1 3 x the forward's products a step but the unembedding's dA
+    and dB (``train_step_launches``), all wide (counts from 0 just before),
+    the peak memory.  Its own steps are measured
     (``metered_steps``): the medians over the steps after the first, the
     profiled one left out, of the host step time, tokens/s and the
     CUDA-event split (loss and gradients, optimizer); the next-to-last step
@@ -3735,7 +4048,7 @@ def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) 
     wall = time.perf_counter() - t0
     routes = _nonzero(k1.launches_by_route)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    per_step = 3 * train_products(cfg)
+    per_step = train_step_launches(cfg)
     want = {"wide": per_step * steps}
     log(f"[{tag}] {'launcher' if launcher else 'Trainer.fit'}: {cfg.name} "
         f"({cfg.num_layers} layers, remat={cfg.remat!r}), {batch}x{seq} tokens, rc {rc}, "
@@ -3752,6 +4065,8 @@ def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) 
     if len(calls) != per_step:
         raise AssertionError(f"[{tag}] the profiled step called K1 {len(calls)} times, "
                              f"want {per_step}")
+    if cfg.family == "hybrid":   # the one leg profiled from the host side too
+        check_unembed_profile(tag, prof)
     steady = [(host, ev) for i, (host, ev) in enumerate(meter["rows"])
               if i and i != steps - 2]
     times = {"host_ms": float(np.median([h * 1e3 for h, _ in steady])),
@@ -3770,8 +4085,9 @@ def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) 
         f"{times['tokens_per_s']:.0f} tokens/s, the first {times['first_step_ms']:.0f}ms; step "
         f"{steps - 1} profiled: device {prof['device_ms']:.1f}ms (busy {times['busy_share']:.0%}), "
         f"K1 {prof['k1_ms']:.1f}ms ({prof['k1_launches']} launches), the SSD scan's forward "
-        f"{prof['ssd_scan_forward_ms']:.1f}ms ({prof['ssd_scan_calls']} calls), unembed "
-        f"(fp32 aten::mm) {prof['unembed_ms']:.1f}ms; top operators " + ", ".join(
+        f"{prof['ssd_scan_forward_ms']:.1f}ms ({prof['ssd_scan_calls']} calls), the "
+        f"unembedding's forward (K1) {prof['unembed_ms']:.1f}ms, its backward's fp32 aten::mm "
+        f"x{prof['mm_calls']} {prof['mm_ms']:.1f}ms; top operators " + ", ".join(
             f"{r['op']} {r['ms']:.1f}ms" for r in prof["top_operators"][:6])
         + "; top kernels besides K1 " + ", ".join(
             f"{k['kernel'][:50]} {k['ms']:.1f}ms x{k['launches']}"
@@ -3849,10 +4165,10 @@ SHARD_MESH = ((2, 2), ("data", "model"))
 SHARD_CHECK_LAYERS, SHARD_CHECK_BATCH, SHARD_CHECK_SEQ = 2, 2, 64
 SHARD_GRAD_TOL = 1e-4
 # (b) the launcher on the mesh: full width and depth, bf16, 8 x 256 tokens
-# a step, 5 steps, and the same 5 steps without a mesh from the same seed.
+# a step, 3 steps, and the same 3 steps without a mesh from the same seed.
 # bf16 products rounded in other orders move a step's loss by ~1e-3; the
 # gap allowed is 2e-2 absolute at every step.
-SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 8, 256, 5
+SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 8, 256, 3
 SHARD_LOSS_GAP = 2e-2
 SHARD_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(SHARD_STEPS), "--batch", str(SHARD_BATCH),
               "--seq", str(SHARD_SEQ)]
@@ -3923,7 +4239,7 @@ def sharded_grad_check(dev: torch.device) -> dict:
         _, _, ctrl = planned()
     ctrl_errs = _grad_rels(ctrl, want, keys)
     caught = max(ctrl_errs.values())
-    products = 3 * train_products(cfg)
+    products = 3 * layer_products(cfg, cached=False)
     log(f"[{tag}] {cfg.name} full width, {SHARD_CHECK_LAYERS} layers, fp32, "
         f"{SHARD_CHECK_BATCH}x{SHARD_CHECK_SEQ} tokens on {dict(mesh.shape)} vs mesh=None: loss "
         f"rel {loss_rel:.2e}, worst gradient rel L2 {errs[worst]:.3e} ({worst}) of {len(errs)} "
@@ -3977,7 +4293,7 @@ def sharded_meter():
         if not threading.current_thread().name.startswith("mesh-rank"):
             meter["outside_ranks"] += 1
         meter["calls"].append((a.shape[0], b.shape[1], a.shape[1], tuple(blocks), order,
-                               a.dtype, out_dtype))
+                               a.dtype, out_dtype, ops.layout(a), ops.layout(b)))
         return real_run(a, b, blocks, order, out_dtype)
 
     def kept_fit(self, *args, **kw):
@@ -4096,8 +4412,8 @@ def _state_bytes(state, mesh) -> dict:
 
 def sharded_main_path(dev: torch.device) -> dict:
     """(b) The launcher on the 2x2 mesh (``--tp 2 --ranks 4``), full-width
-    Llama-3.2-1B, 5 steps of 8 x 256 tokens, bf16, fp32 masters, then the
-    same 5 steps without a mesh from the same seed (module docstring)."""
+    Llama-3.2-1B, 3 steps of 8 x 256 tokens, bf16, fp32 masters, then the
+    same 3 steps without a mesh from the same seed (module docstring)."""
     tag = "shard-train"
     t0 = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
@@ -4115,7 +4431,10 @@ def sharded_main_path(dev: torch.device) -> dict:
     per_step = {side: {s: n // SHARD_STEPS for (sd, s), n in sorted(meter["planned"].items())
                        if sd == side} for side in ("forward", "backward")}
     planned = {side: sum(v.values()) for side, v in per_step.items()}
-    want_planned = {"forward": train_products(cfg), "backward": 2 * train_products(cfg)}
+    # every product but the unembedding's, which runs K1 outside the rank
+    # threads once a step (its bf16 backward none)
+    layers = layer_products(cfg, cached=False)
+    want_planned = {"forward": layers, "backward": 2 * layers}
     gaps = [abs(a - b) for a, b in zip(run["losses"], plain["losses"])]
     steady = [h["sec_per_step"] * 1e3 for h in history[1:]]
     step_ms = float(np.median(steady))
@@ -4141,9 +4460,10 @@ def sharded_main_path(dev: torch.device) -> dict:
         raise AssertionError(f"[{tag}] runs: {run}, {plain}")
     if max(gaps) > SHARD_LOSS_GAP:
         raise AssertionError(f"[{tag}] loss gaps {gaps} over {SHARD_LOSS_GAP}")
-    if planned != want_planned or meter["outside_ranks"]:
+    if planned != want_planned or meter["outside_ranks"] != SHARD_STEPS:
         raise AssertionError(f"[{tag}] planned a step {planned}, want {want_planned}; "
-                             f"{meter['outside_ranks']} K1 calls ran locally")
+                             f"{meter['outside_ranks']} K1 calls ran locally, want "
+                             f"{SHARD_STEPS} (the unembedding's)")
     if nbytes["per_rank"] != nbytes["predicted_per_rank"] \
             or nbytes["distinct"] != nbytes["unplaced"]:
         raise AssertionError(f"[{tag}] state bytes {nbytes}")
@@ -4358,10 +4678,22 @@ def _fake_count(setup, step) -> hlo_stats.Counter:
     return counter
 
 
+def _head_copies(counter, head) -> list:
+    """The counted ops that copy or cast a tensor of the LM head's shape
+    (``head``: (vocab, d_model)) or of its transpose."""
+    shapes = (f"[{head[0]}, {head[1]}]", f"[{head[1]}, {head[0]}]")
+    return sorted(key for key in counter.shapes
+                  if key.split(" ")[0] in ("aten::_to_copy", "aten::clone", "aten::copy_")
+                  and key.endswith(shapes))
+
+
 def _held_to_launches(tag: str, counter, k1_calls, k2_calls, measured_ms: float,
-                      model_flops: float) -> dict:
+                      model_flops: float, mm_calls: int = 0, head=None) -> dict:
     """The counted K1 and K2 FLOPs against the launched shapes' (exact), and
-    the counted program's roofline beside a measured device time."""
+    the counted program's roofline beside a measured device time; the
+    program's ``aten::mm`` calls (``mm_calls``: none but a training step's
+    two, the unembedding's fp32 backward products) and, for ``head`` (a
+    step that only serves or prefills), no copy of the LM head."""
     k1_launched = sum(2.0 * m * n * k for (m, n, k, _) in k1_calls)
     k2_launched = sum(hlo_stats.flash_cost(b, sq, skv, hq, hkv, d, causal, window,
                                            torch.bfloat16).flops
@@ -4376,7 +4708,13 @@ def _held_to_launches(tag: str, counter, k1_calls, k2_calls, measured_ms: float,
         f"({len(k2_calls)}); bound {roof.step_s * 1e3:.3f}ms ({summary['dominant']}: compute "
         f"{roof.compute_s * 1e3:.3f}, memory {roof.memory_s * 1e3:.3f}ms; "
         f"{counter.program().flops:.4e} FLOPs, {counter.program().bytes:.4e} bytes), measured "
-        f"{measured_ms:.3f}ms: roofline fraction {fraction:.3f} (limit {ROOF_FRACTION_MAX})")
+        f"{measured_ms:.3f}ms: roofline fraction {fraction:.3f} (limit {ROOF_FRACTION_MAX}); "
+        f"aten::mm x{counter.calls.get('aten::mm', 0)} (want {mm_calls})"
+        + ("" if head is None else f", copies of the head {_head_copies(counter, head)}"))
+    if counter.calls.get("aten::mm", 0) != mm_calls or (
+            head is not None and _head_copies(counter, head)):
+        raise AssertionError(f"{tag}: aten::mm x{counter.calls.get('aten::mm', 0)} (want "
+                             f"{mm_calls}) or a copy of the LM head")
     if k1_counted != k1_launched or k2_counted != k2_launched:
         raise AssertionError(f"{tag}: counted K1 {k1_counted} / K2 {k2_counted} FLOPs, "
                              f"launched {k1_launched} / {k2_launched}")
@@ -4414,7 +4752,8 @@ def roofline_decode(dev: torch.device, report: dict) -> dict:
         torch.cuda.synchronize()
     out = _held_to_launches("Llama-3.2-1B decode step, bucket 4x16", counter, c1, c2,
                             report["serve"]["step_device_ms"]["decode"],
-                            roof_analysis.infer_model_flops(cfg.active_param_count(), batch))
+                            roof_analysis.infer_model_flops(cfg.active_param_count(), batch),
+                            head=(padded_vocab(cfg.vocab_size), cfg.d_model))
     del params, cache
     torch.cuda.empty_cache()
     return out
@@ -4457,7 +4796,7 @@ def roofline_train(dev: torch.device, report: dict) -> dict:
         raise AssertionError(f"peak ratio {peak_ratio} outside {PEAK_BAND}")
     out = _held_to_launches(f"Llama-3.2-1B train step {TRAIN_BATCH}x{TRAIN_SEQ}", counter, c1,
                             c2, report["train"]["timing"]["device_ms"],
-                            rec["roofline"]["model_flops"])
+                            rec["roofline"]["model_flops"], mm_calls=2)
     out.update(memory=mem, allocated_argument_bytes=args, allocated_peak_bytes=peak,
                argument_rel=arg_rel, peak_ratio=peak_ratio, lower_s=rec["lower_s"],
                count_s=rec["compile_s"])
@@ -4489,7 +4828,8 @@ def roofline_prefill(dev: torch.device, report: dict) -> dict:
     return _held_to_launches(f"{PREFILL_ARCH} flash forward S={PREFILL_S}", counter, c1, c2,
                              report["long_prefill"]["forward_ms"],
                              roof_analysis.infer_model_flops(cfg.active_param_count(),
-                                                             PREFILL_S))
+                                                             PREFILL_S),
+                             head=(padded_vocab(cfg.vocab_size), cfg.d_model))
 
 
 def roofline_probe() -> dict:
@@ -4738,7 +5078,7 @@ def big_prefill(dev: torch.device, gen: torch.Generator) -> dict:
     with torch.no_grad():
         k1.reset_launches()
         k2.reset_launches()
-        with hidden_recorder(seen, "flash"):
+        with hidden_recorder(seen, "flash"), k1_calls() as calls:
             (logits, _), fit = held_peak(tag, dev, predicted, _nbytes([params, tokens]),
                                          lambda: model.forward(params, tokens))
         got = {"K2": k2.launches, "K1": k1.launches}
@@ -4781,7 +5121,8 @@ def big_prefill(dev: torch.device, gen: torch.Generator) -> dict:
                                     "loss": closs}}
         seen.clear()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with unembed_ranges(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             model.forward(params, tokens)
             torch.cuda.synchronize()
     split = profile_split(prof)
@@ -4797,17 +5138,25 @@ def big_prefill(dev: torch.device, gen: torch.Generator) -> dict:
                              f"K2 run non-causally: {routes['K2 non-causal']}")
     if not (split["k1_ms"] > 0 and split["k2_ms"] > 0):
         raise AssertionError(f"torch.profiler saw no device time for K1 or K2: {split}")
+    if not unembed_seen(split):
+        raise AssertionError(f"{tag}: the profiled forward ran aten::mm x{split['mm_calls']} "
+                             f"or no unembedding through K1: {split['unembed_calls']} calls")
     tok_s = s / (fwd_ms / 1e3)
     k2_bound, k2_by = flash_bound(1, s, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                                   cfg.window)
     k2_bound *= cfg.num_layers
     log(f"[big] {tag}: forward {fwd_ms:.1f}ms ({tok_s:.0f} prefill tokens/s, init "
         f"{init_s:.1f}s); profiled: device {split['device_ms']:.1f}ms = K1 {split['k1_ms']:.1f} "
-        f"({split['k1_launches']} launches) + K2 {split['k2_ms']:.1f} (bound "
-        f"{k2_bound:.1f}ms) + rest "
+        f"({split['k1_launches']} launches; the unembedding's {split['unembed_ms']:.1f}) + K2 "
+        f"{split['k2_ms']:.1f} (bound {k2_bound:.1f}ms) + rest "
         f"{split['rest_ms']:.1f}: " + "; ".join(f"{r['kernel'][:60]} {r['ms']:.1f}ms"
                                                for r in split["rest_top_kernels"][:4]))
     del params, tokens, labels
+    torch.cuda.empty_cache()
+    checked = check_k1_calls(calls, dev, head_n=padded_vocab(cfg.vocab_size))
+    log(f"[big] {tag}: K1's {checked['calls']} calls ({len(checked['distinct'])} distinct, the "
+        f"unembedding's among them) each within ROW_TOL of the plain version at its own "
+        f"shape, blocks and layouts (worst row rel {checked['worst_row_rel']:.3e})")
     torch.cuda.empty_cache()
     projections = projection_times(dev, gen, BIG_PREFILL_ARCH, s)
     k1_fwd = {key: cfg.num_layers * sum(r[key] for r in projections)
@@ -4824,7 +5173,7 @@ def big_prefill(dev: torch.device, gen: torch.Generator) -> dict:
             "k2_routes": k2_routes, "control_k2_routes": control_k2, "fit": fit,
             "loss": loss, "xla_loss": xloss, "routes": routes, "chunked_vs_forward": head,
             "forward_ms": fwd_ms, "tokens_per_s": tok_s, "profile": split,
-            "k2_bound_ms": k2_bound, "k2_bound_by": k2_by,
+            "k1_check": checked, "k2_bound_ms": k2_bound, "k2_bound_by": k2_by,
             "projections": projections, "k1_per_forward": k1_fwd}
 
 
@@ -4866,9 +5215,11 @@ def big_k1_rows(big: dict) -> dict:
             **{key: t[key] for key in keys},
             "profiled_in_the_step_ms": m["profile"]["k1_ms"]}
     pf = big["prefill"]
-    rows[f"wide: {BIG_PREFILL_ARCH} forward, M = {pf['seq']} ({pf['launches']['K1']} "
-         f"products)"] = {**{key: pf["k1_per_forward"][key] for key in keys},
-                          "profiled_in_the_forward_ms": pf["profile"]["k1_ms"]}
+    rows[f"wide: {BIG_PREFILL_ARCH} forward, M = {pf['seq']} "
+         f"({pf['launches']['K1'] - UNEMBED_LAUNCHES} layer products; the unembedding "
+         f"apart)"] = {**{key: pf["k1_per_forward"][key] for key in keys},
+                       "profiled_in_the_forward_ms": pf["profile"]["k1_ms"],
+                       "unembedding_profiled_ms": pf["profile"]["unembed_ms"]}
     return rows
 
 
@@ -4944,6 +5295,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     step = decode_step_row(report["kernel"]["timings"])
+    unembed_ms = {r["what"]: r["ms"] for r in report["kernel"]["layouts"]["rows"]
+                  if r["what"].startswith("unembed")}
     kernels = [{
         "name": "zorder_matmul",
         "route": "cuda",
@@ -5029,19 +5382,26 @@ def main() -> int:
                            report["sharded_train"]["path"]["k1"]["worst_abs_err"],
                            *(report["big"][a]["serve"]["measured"]["k1"]["check"]["worst_abs_err"]
                              for a in BIG_ARCHS),
-                           *(r["check"]["max_abs_err"] for r in report["big"]["prefill"]["projections"])),
+                           *(r["check"]["max_abs_err"] for r in report["big"]["prefill"]["projections"]),
+                           report["long_prefill"]["k1_check"]["worst_abs_err"],
+                           report["big"]["prefill"]["k1_check"]["worst_abs_err"]),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "work": "one bf16 decode step at batch 4: 16 layers x 7 projections",
         "per_route": {
-            "thin: decode step, M = 4 (112 products)": step,
-            "thin: serving prefill, M = 64 (112 products)":
+            "thin: decode step, M = 4 (112 layer products; the unembedding apart)":
+                {**step, "unembedding_ms": unembed_ms["unembed decode"]},
+            "thin: serving prefill, M = 64 (112 layer products)":
                 decode_step_row(report["kernel"]["timings"], 64),
-            "wide: danube forward, M = 32768 (168 products)":
-                report["long_prefill"]["k1_per_forward"],
-            f"wide: Llama training step, {TRAIN_TOKENS} tokens (336 products: forward, dA, dB)":
-                {key: report["train"]["kernel"]["per_step"][key]
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            **layout_k1_rows(report["kernel"]["layouts"]),
+            "wide: danube forward, M = 32768 (168 layer products; the unembedding apart)":
+                {**report["long_prefill"]["k1_per_forward"],
+                 "unembedding_ms": report["profiler"]["unembed_alone"]["k1_ms"]},
+            f"wide: Llama training step, {TRAIN_TOKENS} tokens (336 layer products: forward, "
+            f"dA, dB; the unembedding apart)":
+                {**{key: report["train"]["kernel"]["per_step"][key]
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                 "unembedding_ms": unembed_ms["unembed train forward"]},
             **{f"thin: {arch} decode step, M = 4 ({t['products']} products)":
                {**{key: t[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                            "bound_by")},

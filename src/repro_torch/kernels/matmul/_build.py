@@ -16,8 +16,9 @@ KERNEL = _build.Kernel(
     name="zorder_matmul",
     signatures={
         "zorder_matmul_launch": ([P, P, P, P, I, I, I, I, I, I, I, I, I, P], I),
-        "zorder_matmul_thin_launch": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P], I),
-        "zorder_matmul_wide_launch": ([P, P, P, P, I, I, I, I, I, I, I, I, I, P], I),
+        "zorder_matmul_thin_launch": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P],
+                                      I),
+        "zorder_matmul_wide_launch": ([P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P], I),
         "zorder_matmul_error_string": ([I], ctypes.c_char_p),
     },
 )

@@ -30,11 +30,17 @@
 //   run, whichever CTA is last.
 // * The tile order is the Morton table (blockIdx.x), split index
 //   blockIdx.y; both orders give bitwise-equal outputs.
+// * Either operand may be stored transposed (the .t() of a row-major
+//   tensor: a tied embedding as the LM head, the backward's B^T and A^T),
+//   and is read in place: chunks are copied along each operand's rows as
+//   stored, and ldmatrix takes its fragments with or without .trans, so
+//   no transposed copy is ever made.
 //
 // The entry point allocates nothing and does not synchronise, so a CUDA
-// graph captures it.  Operands that 16-byte copies cannot take (k or n not
-// a multiple of 8, a base not 16-byte aligned) go to zorder_matmul.cu's
-// wmma kernel; this entry point refuses them.
+// graph captures it.  Operands that 16-byte copies cannot take (a stored
+// row or n not a multiple of 8 long, a base not 16-byte aligned) go to
+// zorder_matmul.cu's wmma kernel, as row-major copies; this entry point
+// refuses them.
 #include <stddef.h>
 
 #include "zorder_common.cuh"
@@ -47,18 +53,23 @@ using namespace zorder;
 // CTA of a tile keeps one load per split in flight.
 constexpr int kMaxSplits = 16;
 
-template <int BM_, int BN_, int BK_, int STAGES_>
+// AT: A stored transposed, as (k, m) row-major; BT: B stored as (n, k).
+template <int BM_, int BN_, int BK_, int STAGES_, bool AT_ = false, bool BT_ = false>
 struct ThinTile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
+  static constexpr bool AT = AT_, BT = BT_;
   static constexpr int MT = BM / 16;        // m16 row tiles
   static constexpr int kThreads = 128;      // 4 warps, BN / 4 columns each
   static constexpr int WN = BN / 4, NT = WN / 8;  // a warp's columns, its n8 tiles
-  // +8 bf16 (16 bytes) per row spreads ldmatrix rows over the banks and
-  // keeps every row 16-byte aligned.
-  static constexpr int LDA = BK + 8, LDB = BN + 8;
-  static constexpr int kStageA = BM * LDA, kStageB = BK * LDB;  // elements
+  // Each stage holds the blocks as stored: A (BM x BK), or (BK x BM) when
+  // AT; B (BK x BN), or (BN x BK) when BT.  +8 bf16 (16 bytes) per row
+  // spreads ldmatrix rows over the banks and keeps every row 16-byte
+  // aligned.
+  static constexpr int LDA = (AT ? BM : BK) + 8, LDB = (BT ? BK : BN) + 8;
+  static constexpr int kStageA = (AT ? BK : BM) * LDA, kStageB = (BT ? BN : BK) * LDB;
   static constexpr size_t kSmemBytes = (size_t)STAGES * (kStageA + kStageB) * sizeof(bf16);
   static_assert(BM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0, "m16n8k16 tiles, x4 ldmatrix");
+  template <bool A2, bool B2> using Layout = ThinTile<BM_, BN_, BK_, STAGES_, A2, B2>;
 };
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
@@ -81,23 +92,47 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One 64-deep block: A rows row0.., B columns col0.., k from k0.  k and n
-// are multiples of 8, so every 16-byte chunk is wholly in or out of the
-// matrix; chunks outside are zero-filled.
+// One 64-deep block: A rows row0.., B columns col0.., k from k0, each
+// copied as stored.  The stored rows are multiples of 8 long (k or m for A,
+// n or k for B), so every 16-byte chunk is wholly in or out of the matrix;
+// chunks outside are zero-filled.
 template <typename Tile>
 __device__ __forceinline__ void load_block(bf16* As, bf16* Bs, const bf16* __restrict__ A,
                                            const bf16* __restrict__ B, int M, int N, int K,
                                            int row0, int col0, int k0) {
-  constexpr int CA = Tile::BK / 8, CB = Tile::BN / 8;  // 16-byte chunks in a row
-  for (int idx = threadIdx.x; idx < Tile::BM * CA; idx += Tile::kThreads) {
-    const int r = idx / CA, c = (idx % CA) * 8;
-    const bool in = row0 + r < M && k0 + c < K;
-    cp_async16(As + r * Tile::LDA + c, in ? A + (size_t)(row0 + r) * K + k0 + c : A, in ? 16 : 0);
+  if constexpr (Tile::AT) {  // BK rows of k, BM columns of m
+    constexpr int C = Tile::BM / 8;  // 16-byte chunks in a row
+    for (int idx = threadIdx.x; idx < Tile::BK * C; idx += Tile::kThreads) {
+      const int r = idx / C, c = (idx % C) * 8;
+      const bool in = k0 + r < K && row0 + c < M;
+      cp_async16(As + r * Tile::LDA + c, in ? A + (size_t)(k0 + r) * M + row0 + c : A,
+                 in ? 16 : 0);
+    }
+  } else {  // BM rows of m, BK columns of k
+    constexpr int C = Tile::BK / 8;
+    for (int idx = threadIdx.x; idx < Tile::BM * C; idx += Tile::kThreads) {
+      const int r = idx / C, c = (idx % C) * 8;
+      const bool in = row0 + r < M && k0 + c < K;
+      cp_async16(As + r * Tile::LDA + c, in ? A + (size_t)(row0 + r) * K + k0 + c : A,
+                 in ? 16 : 0);
+    }
   }
-  for (int idx = threadIdx.x; idx < Tile::BK * CB; idx += Tile::kThreads) {
-    const int r = idx / CB, c = (idx % CB) * 8;
-    const bool in = k0 + r < K && col0 + c < N;
-    cp_async16(Bs + r * Tile::LDB + c, in ? B + (size_t)(k0 + r) * N + col0 + c : B, in ? 16 : 0);
+  if constexpr (Tile::BT) {  // BN rows of n, BK columns of k
+    constexpr int C = Tile::BK / 8;
+    for (int idx = threadIdx.x; idx < Tile::BN * C; idx += Tile::kThreads) {
+      const int r = idx / C, c = (idx % C) * 8;
+      const bool in = col0 + r < N && k0 + c < K;
+      cp_async16(Bs + r * Tile::LDB + c, in ? B + (size_t)(col0 + r) * K + k0 + c : B,
+                 in ? 16 : 0);
+    }
+  } else {  // BK rows of k, BN columns of n
+    constexpr int C = Tile::BN / 8;
+    for (int idx = threadIdx.x; idx < Tile::BK * C; idx += Tile::kThreads) {
+      const int r = idx / C, c = (idx % C) * 8;
+      const bool in = k0 + r < K && col0 + c < N;
+      cp_async16(Bs + r * Tile::LDB + c, in ? B + (size_t)(k0 + r) * N + col0 + c : B,
+                 in ? 16 : 0);
+    }
   }
 }
 
@@ -150,18 +185,29 @@ __global__ void __launch_bounds__(Tile::kThreads)
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       // B, per pair of n8 tiles: matrices (k 0-7, n 0-7), (k 8-15, n 0-7),
-      // (k 0-7, n 8-15), (k 8-15, n 8-15), transposed on load.
+      // (k 0-7, n 8-15), (k 8-15, n 8-15); stored (k, n) they are
+      // transposed on load, stored (n, k) they are the mma's layout already.
       uint32_t b[NT / 2][4];
       const int j = lane / 8;
 #pragma unroll
-      for (int p = 0; p < NT / 2; ++p)
-        ldmatrix_x4_trans(b[p], b_st + (kk + (j % 2) * 8 + lane % 8) * Tile::LDB + warp * WN +
-                                    p * 16 + (j / 2) * 8);
+      for (int p = 0; p < NT / 2; ++p) {
+        const int n = warp * WN + p * 16 + (j / 2) * 8, k = kk + (j % 2) * 8;
+        if constexpr (Tile::BT)
+          ldmatrix_x4(b[p], b_st + (n + lane % 8) * Tile::LDB + k);
+        else
+          ldmatrix_x4_trans(b[p], b_st + (k + lane % 8) * Tile::LDB + n);
+      }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         if (row0 + mt * 16 < M) {  // uniform over the CTA
+          // A: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+          // (m 8-15, k 8-15); stored (k, m) they are transposed on load.
           uint32_t a[4];
-          ldmatrix_x4(a, a_st + (mt * 16 + lane % 16) * Tile::LDA + kk + (lane / 16) * 8);
+          const int m = mt * 16 + (j % 2) * 8, k = kk + (j / 2) * 8;
+          if constexpr (Tile::AT)
+            ldmatrix_x4_trans(a, a_st + (k + lane % 8) * Tile::LDA + m);
+          else
+            ldmatrix_x4(a, a_st + (m + lane % 8) * Tile::LDA + k);
 #pragma unroll
           for (int p = 0; p < NT / 2; ++p) {
             mma_16816(acc[mt][2 * p], a, b[p][0], b[p][1]);
@@ -263,9 +309,9 @@ cudaError_t launch_thin(const void* a, const void* b, void* c, float* ws, int* c
 }
 
 template <typename Tile>
-cudaError_t dispatch_thin(int out_dtype, const void* a, const void* b, void* c, float* ws,
-                          int* counters, const int* tiles, int ntiles, int m, int n, int k,
-                          int splits, int kb_per, cudaStream_t stream) {
+cudaError_t dispatch_out(int out_dtype, const void* a, const void* b, void* c, float* ws,
+                         int* counters, const int* tiles, int ntiles, int m, int n, int k,
+                         int splits, int kb_per, cudaStream_t stream) {
   if (out_dtype == kBF16)
     return launch_thin<Tile, bf16>(a, b, c, ws, counters, tiles, ntiles, m, n, k, splits, kb_per,
                                    stream);
@@ -275,34 +321,54 @@ cudaError_t dispatch_thin(int out_dtype, const void* a, const void* b, void* c, 
   return cudaErrorInvalidValue;
 }
 
+// The tile in the operands' stored layouts.
+template <typename Tile>
+cudaError_t dispatch_thin(int a_t, int b_t, int out_dtype, const void* a, const void* b, void* c,
+                          float* ws, int* counters, const int* tiles, int ntiles, int m, int n,
+                          int k, int splits, int kb_per, cudaStream_t stream) {
+  using NN = typename Tile::template Layout<false, false>;
+  using NT = typename Tile::template Layout<false, true>;
+  using TN = typename Tile::template Layout<true, false>;
+  using TT = typename Tile::template Layout<true, true>;
+  auto go = [&](auto tile) {
+    return dispatch_out<decltype(tile)>(out_dtype, a, b, c, ws, counters, tiles, ntiles, m, n, k,
+                                        splits, kb_per, stream);
+  };
+  return a_t ? (b_t ? go(TT{}) : go(TN{})) : (b_t ? go(NT{}) : go(NN{}));
+}
+
 }  // namespace
 
 extern "C" {
 
-// C = A @ B for row-major contiguous bf16 A (m, k), B (k, n) and C (m, n) of
-// type out_dtype, each output tile's k range cut into `splits` slices of
-// `kb_per` 64-deep blocks.  With splits > 1, ws holds splits * m * n fp32
-// and counters one zeroed int32 per tile (left zeroed); both unused with
-// splits = 1.  tiles holds 2 * ntiles int32 on the device.  Refuses
-// (cudaErrorInvalidValue) k or n not a multiple of 8 and bases not 16-byte
-// aligned.  Launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
+// C = A @ B for bf16 A (m, k), B (k, n) and a row-major C (m, n) of type
+// out_dtype, each output tile's k range cut into `splits` slices of
+// `kb_per` 64-deep blocks.  A is row-major (a_t = 0) or stored transposed
+// as a row-major (k, m) (a_t = 1); B row-major or stored as (n, k) (b_t =
+// 1).  With splits > 1, ws holds splits * m * n fp32 and counters one
+// zeroed int32 per tile (left zeroed); both unused with splits = 1.  tiles
+// holds 2 * ntiles int32 on the device.  Refuses (cudaErrorInvalidValue)
+// stored rows that are not a multiple of 8 long (n, and k or m for A, k
+// for a transposed B) and bases not 16-byte aligned.  Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
 int zorder_matmul_thin_launch(const void* a, const void* b, void* c, void* ws, void* counters,
-                              const int* tiles, int ntiles, int m, int n, int k, int out_dtype,
-                              int bm, int bn, int bk, int splits, int kb_per, void* stream) {
+                              const int* tiles, int ntiles, int m, int n, int k, int a_t, int b_t,
+                              int out_dtype, int bm, int bn, int bk, int splits, int kb_per,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ntiles <= 0 || m <= 0 || n <= 0 || k <= 0 || k % 8 || n % 8 || splits <= 0 ||
-      kb_per <= 0 || splits > kMaxSplits || reinterpret_cast<uintptr_t>(a) % 16 ||
-      reinterpret_cast<uintptr_t>(b) % 16 || (splits > 1 && (ws == nullptr || counters == nullptr)))
+  if (ntiles <= 0 || m <= 0 || n <= 0 || k <= 0 || n % 8 || (a_t ? m % 8 : k % 8) ||
+      (b_t && k % 8) || splits <= 0 || kb_per <= 0 || splits > kMaxSplits ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16 ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (bm == Thin16::BM && bn == Thin16::BN && bk == Thin16::BK)
-    return (int)dispatch_thin<Thin16>(out_dtype, a, b, c, w, cnt, tiles, ntiles, m, n, k, splits,
-                                      kb_per, st);
+    return (int)dispatch_thin<Thin16>(a_t, b_t, out_dtype, a, b, c, w, cnt, tiles, ntiles, m, n, k,
+                                      splits, kb_per, st);
   if (bm == Thin64::BM && bn == Thin64::BN && bk == Thin64::BK)
-    return (int)dispatch_thin<Thin64>(out_dtype, a, b, c, w, cnt, tiles, ntiles, m, n, k, splits,
-                                      kb_per, st);
+    return (int)dispatch_thin<Thin64>(a_t, b_t, out_dtype, a, b, c, w, cnt, tiles, ntiles, m, n, k,
+                                      splits, kb_per, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,6 +23,13 @@
 //   MN-major, so B is read with wgmma's transpose flag, in 64-column boxes.
 //   TMA zero-fills boxes past the matrix, which covers ragged m, n and k
 //   (danube's n = 960 is 7.5 tiles of 128); stores are masked.
+// * Transposed operands in place.  An operand stored transposed (the .t()
+//   of a row-major tensor: a tied embedding as the LM head, the backward's
+//   B^T and A^T) is read as stored: B stored (n, k) is K-major, loaded in
+//   one (BN x 64) box and read without the transpose flag; A stored (k, m)
+//   is MN-major, loaded in two (64 x 64) boxes, one per consumer, and read
+//   with wgmma's A-transpose flag (bf16 operands in shared memory allow
+//   it).  No transposed copy is made.
 // * setmaxnreg moves registers from the producer warpgroup (40) to the
 //   consumers (232), which hold the accumulators.
 // * Persistent CTAs.  One CTA per SM walks the output tiles of the Morton
@@ -32,11 +39,12 @@
 //   while the consumers store the last one.  Every tile runs the same k
 //   loop, so both orders give bitwise-equal outputs.
 //
-// Operands TMA cannot take (k or n not a multiple of 8, a base not 16-byte
-// aligned) go to the cp.async + wmma kernel in zorder_matmul.cu; this entry
-// point refuses them.  The tensor maps are encoded on the host at every
-// call through cuTensorMapEncodeTiled, reached by cudaGetDriverEntryPoint-
-// ByVersion so that the library links nothing beyond the CUDA runtime.
+// Operands TMA cannot take (a stored row or n not a multiple of 8 long, a
+// base not 16-byte aligned) go to the cp.async + wmma kernel in
+// zorder_matmul.cu, as row-major copies; this entry point refuses them.
+// The tensor maps are encoded on the host at every call through
+// cuTensorMapEncodeTiled, reached by cudaGetDriverEntryPointByVersion so
+// that the library links nothing beyond the CUDA runtime.
 #include <stddef.h>
 
 #include "hopper.cuh"  // kernels/common: mbarriers, TMA, wgmma, the tensor-map encoder
@@ -47,14 +55,16 @@ namespace {
 using namespace hopper;
 using namespace zorder;
 
-template <int BN_, int STAGES_>
+// AT: A stored transposed, as (k, m) row-major; BT: B stored as (n, k).
+template <int BN_, int STAGES_, bool AT_ = false, bool BT_ = false>
 struct WideTile {
   static constexpr int BM = 128, BN = BN_, BK = 64, STAGES = STAGES_;
+  static constexpr bool AT = AT_, BT = BT_;
   static constexpr int kConsumers = 2;  // warpgroups, 64 rows each
   static constexpr int kThreads = 128 * (1 + kConsumers);
   static constexpr int kAccum = BN / 2;  // fp32 accumulators a consumer thread holds
-  static constexpr int kABytes = BM * BK * 2;                   // one TMA box (64 x 128)
-  static constexpr int kBBoxBytes = BK * 64 * 2;                // one 64-column box of B
+  static constexpr int kABytes = BM * BK * 2;  // one TMA box (64 x 128), or two (64 x 64) when AT
+  static constexpr int kBoxBytes = BK * 64 * 2;                 // a 64 x 64 box
   static constexpr int kBBytes = BK * BN * 2;
   static constexpr int kStageBytes = kABytes + kBBytes;
   // the ring, a full and an empty barrier per stage, and slack to align
@@ -62,18 +72,20 @@ struct WideTile {
   static constexpr size_t kSmemBytes = (size_t)STAGES * kStageBytes + 2 * STAGES * 8 + 1024;
   static_assert(BN % 64 == 0 && BN <= 256, "B is loaded in 64-column boxes, wgmma N <= 256");
   static_assert(kSmemBytes <= 232448, "a block may use 227 KB of shared memory");
+  template <bool A2, bool B2> using Layout = WideTile<BN_, STAGES_, A2, B2>;
 };
 
-template <int N> struct Wgmma;
-// D += A @ B with B MN-major (the transpose flag), N = BN.
-template <> struct Wgmma<128> {
+template <int N, bool AT, bool BT> struct Wgmma;
+// D += A @ B, N = BN: A MN-major (the A-transpose flag) when stored (k, m),
+// B MN-major (the B-transpose flag) when stored (k, n).
+template <bool AT, bool BT> struct Wgmma<128, AT, BT> {
   static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db) {
-    wgmma_m64n128k16_ss<1>(d, da, db, 1);
+    wgmma_m64n128k16_ss<BT ? 0 : 1, AT ? 1 : 0>(d, da, db, 1);
   }
 };
-template <> struct Wgmma<256> {
+template <bool AT, bool BT> struct Wgmma<256, AT, BT> {
   static __device__ __forceinline__ void run(float (&d)[128], uint64_t da, uint64_t db) {
-    wgmma_m64n256k16_ss<1>(d, da, db, 1);
+    wgmma_m64n256k16_ss<BT ? 0 : 1, AT ? 1 : 0>(d, da, db, 1);
   }
 };
 
@@ -110,11 +122,20 @@ __global__ void __launch_bounds__(Tile::kThreads, 1)
           mbar_wait(&empty[stage], phase ^ 1);       // the first round passes at once
           unsigned char* st = ring + stage * Tile::kStageBytes;
           mbar_expect_tx(&full[stage], Tile::kStageBytes);
-          tma_load_2d(st, &tma_a, kb * BK, row0, &full[stage]);
+          if constexpr (Tile::AT) {  // rows 64 g.. of the tile: box g
+            tma_load_2d(st, &tma_a, row0, kb * BK, &full[stage]);
+            tma_load_2d(st + Tile::kBoxBytes, &tma_a, row0 + 64, kb * BK, &full[stage]);
+          } else {
+            tma_load_2d(st, &tma_a, kb * BK, row0, &full[stage]);
+          }
+          if constexpr (Tile::BT) {
+            tma_load_2d(st + Tile::kABytes, &tma_b, kb * BK, col0, &full[stage]);
+          } else {
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c)
-            tma_load_2d(st + Tile::kABytes + c * Tile::kBBoxBytes, &tma_b, col0 + 64 * c, kb * BK,
-                        &full[stage]);
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_2d(st + Tile::kABytes + c * Tile::kBoxBytes, &tma_b, col0 + 64 * c,
+                          kb * BK, &full[stage]);
+          }
           if (++stage == STAGES) stage = 0, phase ^= 1;
         }
       }
@@ -136,10 +157,15 @@ __global__ void __launch_bounds__(Tile::kThreads, 1)
         const uint32_t b = smem_addr(ring + stage * Tile::kStageBytes + Tile::kABytes);
         fence_accum(acc);
         wgmma_fence();
+        // 16 k: 32 bytes of each K-major row, or 16 rows of 128 bytes MN-major
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)   // 16 k = 32 bytes of an A row, 16 rows of B
-          Wgmma<BN>::run(acc, smem_desc(a + kk * 32, 16, 1024),
-                         smem_desc(b + kk * 16 * 128, Tile::kBBoxBytes, 1024));
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<BN, Tile::AT, Tile::BT>::run(
+              acc,
+              Tile::AT ? smem_desc(a + kk * 16 * 128, Tile::kBoxBytes, 1024)
+                       : smem_desc(a + kk * 32, 16, 1024),
+              Tile::BT ? smem_desc(b + kk * 32, 16, 1024)
+                       : smem_desc(b + kk * 16 * 128, Tile::kBoxBytes, 1024));
         wgmma_commit();
         wgmma_wait<1>();                       // the previous k block's products are done
         fence_accum(acc);
@@ -190,9 +216,13 @@ bool encode_rowmajor(CUtensorMap* map, const void* base, int rows, int cols, int
 template <typename Tile, typename TOut>
 cudaError_t launch_wide(const void* a, const void* b, void* c, const int* tiles, int ntiles,
                         int m, int n, int k, int grid, cudaStream_t stream) {
+  // each operand's map as it is stored
   CUtensorMap ma, mb;
-  if (!encode_rowmajor(&ma, a, m, k, Tile::BM) || !encode_rowmajor(&mb, b, k, n, Tile::BK))
-    return cudaErrorInvalidValue;
+  const bool ok_a = Tile::AT ? encode_rowmajor(&ma, a, k, m, Tile::BK)
+                             : encode_rowmajor(&ma, a, m, k, Tile::BM);
+  const bool ok_b = Tile::BT ? encode_rowmajor(&mb, b, n, k, Tile::BN)
+                             : encode_rowmajor(&mb, b, k, n, Tile::BK);
+  if (!ok_a || !ok_b) return cudaErrorInvalidValue;
   auto kern = zorder_matmul_wide_kernel<Tile, TOut>;
   static bool opted_in[64] = {};
   cudaError_t e = opt_in_smem(kern, Tile::kSmemBytes, opted_in);
@@ -203,8 +233,8 @@ cudaError_t launch_wide(const void* a, const void* b, void* c, const int* tiles,
 }
 
 template <typename Tile>
-cudaError_t dispatch_wide(int out_dtype, const void* a, const void* b, void* c, const int* tiles,
-                          int ntiles, int m, int n, int k, int grid, cudaStream_t stream) {
+cudaError_t dispatch_out(int out_dtype, const void* a, const void* b, void* c, const int* tiles,
+                         int ntiles, int m, int n, int k, int grid, cudaStream_t stream) {
   if (out_dtype == kBF16)
     return launch_wide<Tile, bf16>(a, b, c, tiles, ntiles, m, n, k, grid, stream);
   if (out_dtype == kF32)
@@ -212,27 +242,48 @@ cudaError_t dispatch_wide(int out_dtype, const void* a, const void* b, void* c, 
   return cudaErrorInvalidValue;
 }
 
+// The tile in the operands' stored layouts.
+template <typename Tile>
+cudaError_t dispatch_wide(int a_t, int b_t, int out_dtype, const void* a, const void* b, void* c,
+                          const int* tiles, int ntiles, int m, int n, int k, int grid,
+                          cudaStream_t stream) {
+  using NN = typename Tile::template Layout<false, false>;
+  using NT = typename Tile::template Layout<false, true>;
+  using TN = typename Tile::template Layout<true, false>;
+  using TT = typename Tile::template Layout<true, true>;
+  auto go = [&](auto tile) {
+    return dispatch_out<decltype(tile)>(out_dtype, a, b, c, tiles, ntiles, m, n, k, grid, stream);
+  };
+  return a_t ? (b_t ? go(TT{}) : go(TN{})) : (b_t ? go(NT{}) : go(NN{}));
+}
+
 }  // namespace
 
 extern "C" {
 
-// C = A @ B for row-major contiguous bf16 A (m, k), B (k, n) and C (m, n) of
-// type out_dtype.  tiles holds 2 * ntiles int32 on the device (tile rows,
-// then tile columns, in the Z-order or row-major visit order); `grid`
-// persistent CTAs walk it.  Refuses (cudaErrorInvalidValue) what TMA cannot
-// take: k or n not a multiple of 8, or a base not 16-byte aligned.  Launches
-// on `stream`, does not synchronise, returns cudaGetLastError().
+// C = A @ B for bf16 A (m, k), B (k, n) and a row-major C (m, n) of type
+// out_dtype.  A is row-major (a_t = 0) or stored transposed as a row-major
+// (k, m) (a_t = 1); B row-major or stored as (n, k) (b_t = 1).  tiles holds
+// 2 * ntiles int32 on the device (tile rows, then tile columns, in the
+// Z-order or row-major visit order); `grid` persistent CTAs walk it.
+// Refuses (cudaErrorInvalidValue) what TMA cannot take: stored rows that
+// are not a multiple of 8 long (n, and k or m for A, k for a transposed B),
+// or a base not 16-byte aligned.  Launches on `stream`, does not
+// synchronise, returns cudaGetLastError().
 int zorder_matmul_wide_launch(const void* a, const void* b, void* c, const int* tiles, int ntiles,
-                              int m, int n, int k, int out_dtype, int bm, int bn, int bk, int grid,
-                              void* stream) {
+                              int m, int n, int k, int a_t, int b_t, int out_dtype, int bm, int bn,
+                              int bk, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ntiles <= 0 || grid <= 0 || m <= 0 || n <= 0 || k <= 0 || k % 8 || n % 8 ||
-      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
+  if (ntiles <= 0 || grid <= 0 || m <= 0 || n <= 0 || k <= 0 || n % 8 ||
+      (a_t ? m % 8 : k % 8) || (b_t && k % 8) || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16)
     return (int)cudaErrorInvalidValue;
   if (bm == Wide128::BM && bn == Wide128::BN && bk == Wide128::BK)
-    return (int)dispatch_wide<Wide128>(out_dtype, a, b, c, tiles, ntiles, m, n, k, grid, st);
+    return (int)dispatch_wide<Wide128>(a_t, b_t, out_dtype, a, b, c, tiles, ntiles, m, n, k, grid,
+                                       st);
   if (bm == Wide256::BM && bn == Wide256::BN && bk == Wide256::BK)
-    return (int)dispatch_wide<Wide256>(out_dtype, a, b, c, tiles, ntiles, m, n, k, grid, st);
+    return (int)dispatch_wide<Wide256>(a_t, b_t, out_dtype, a, b, c, tiles, ntiles, m, n, k, grid,
+                                       st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -25,6 +25,13 @@ chosen route refuses raises, it never moves to another route:
   aligned).
 * ``fma`` (``zorder_matmul.cu``): fp32, plain FMA.
 
+The wide and thin routes read each operand as it is stored: row-major, or
+the ``.t()`` of a row-major tensor (a tied embedding as the LM head, the
+backward's B^T and A^T): ``layout`` reads it from the strides, and the
+flags ``a_t`` / ``b_t`` of their C entry points pass it on.
+The wmma and fma routes read row-major operands only (``ops.matmul``
+copies a transposed one for them).
+
 ``launches`` counts accepted launches, one per product, and
 ``launches_by_route`` the same per route; ``reset_launches`` zeroes both,
 so a run can show which kernels its products went through;
@@ -124,44 +131,64 @@ def trace_launches():
             _trace = prev
 
 
-def smem_bytes(block_m: int, block_n: int, block_k: int, dtype: torch.dtype) -> int:
-    """Shared memory one CTA of the compiled kernel claims (mirrors the
-    ``kSmemBytes`` of the tile structs in the .cu files)."""
+def smem_bytes(block_m: int, block_n: int, block_k: int, dtype: torch.dtype,
+               a_t: bool = False, b_t: bool = False) -> int:
+    """Shared memory one CTA of the compiled kernel claims with the
+    operands stored as ``a_t`` / ``b_t`` say (mirrors the ``kSmemBytes`` of
+    the tile structs in the .cu files)."""
     blocks = (block_m, block_n, block_k)
     route = ROUTE_OF[dtype, blocks]
     if route == "wide":   # TMA ring, full + empty mbarrier a stage, 1024-byte alignment
         return STAGES[blocks] * (block_m + block_n) * block_k * 2 + 2 * STAGES[blocks] * 8 + 1024
-    if route == "thin":   # cp.async ring, rows padded by 8 elements
-        return STAGES[blocks] * (block_m * (block_k + 8) + block_k * (block_n + 8)) * 2
+    if route == "thin":   # cp.async ring of the blocks as stored, rows padded by 8 elements
+        a = block_k * (block_m + 8) if a_t else block_m * (block_k + 8)
+        b = block_n * (block_k + 8) if b_t else block_k * (block_n + 8)
+        return STAGES[blocks] * (a + b) * 2
     if route == "wmma":
         pipe = STAGES[blocks] * (block_m * (block_k + 8) + block_k * (block_n + 8)) * 2
         return max(pipe, block_m * (block_n + 4) * 4)
     return block_k * ((block_m + 1) + (block_n + 1)) * 4
 
 
-def vectorizable(k: int, n: int, *ptrs: int) -> bool:
-    """Whether 16-byte copies and TMA boxes take the bf16 operands: rows of
-    a whole number of 16-byte chunks and 16-byte aligned bases."""
-    return k > 0 and k % 8 == 0 and n % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+def layout(t: torch.Tensor) -> Optional[bool]:
+    """How a 2-D operand is stored: False row-major contiguous, True the
+    ``.t()`` of a row-major contiguous tensor (strides (1, rows)), None
+    anything else (a strided slice, an expanded tensor)."""
+    if t.is_contiguous():
+        return False
+    if t.stride() == (1, t.shape[0]):
+        return True
+    return None
 
 
-def route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True) -> str:
+def vectorizable(k: int, n: int, m: int = 0, a_t: bool = False, b_t: bool = False) -> bool:
+    """Whether 16-byte copies and TMA boxes take the bf16 operands as
+    stored: k > 0 and every stored row a whole number of 16-byte chunks
+    (the output's n; A's k, or m where A is stored transposed; k where B
+    is stored transposed)."""
+    return (k > 0 and n % 8 == 0 and (m % 8 == 0 if a_t else k % 8 == 0)
+            and (not b_t or k % 8 == 0))
+
+
+def route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
+          a_t: bool = False, b_t: bool = False) -> str:
     """The route of an (m, k) x (k, n) product; ``aligned`` says whether
-    both bases are 16-byte aligned."""
+    both bases are 16-byte aligned, ``a_t`` / ``b_t`` whether A / B is
+    stored transposed."""
     if dtype == torch.float32:
         return "fma"
-    if not (aligned and vectorizable(k, n)):
+    if not (aligned and vectorizable(k, n, m, a_t, b_t)):
         return "wmma"
     return "thin" if m <= THIN_MAX_M else "wide"
 
 
 def default_blocks(m: int, n: int, k: int, dtype: torch.dtype,
-                   aligned: bool = True) -> Blocks:
+                   aligned: bool = True, a_t: bool = False, b_t: bool = False) -> Blocks:
     """The compiled block shape for an (m, k) x (k, n) product on its
     route: the 16-row tile for m <= 16 (thin, wmma, fma), the wide route's
     128 x 256 tile from ``WIDE_256_MIN_TILES`` such tiles up, 128 x 128
     below."""
-    r = route(m, n, k, dtype, aligned)
+    r = route(m, n, k, dtype, aligned, a_t, b_t)
     shapes = ROUTE_BLOCKS[dtype, r]
     if r == "thin":
         return shapes[0] if m <= SMALL_M else shapes[1]
@@ -237,9 +264,9 @@ def split_counters(device: torch.device, ntiles: int) -> torch.Tensor:
 def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: int,
                   block_k: int, out_dtype: torch.dtype, order: str = "zorder") -> torch.Tensor:
     """Launch the route of ``(block_m, block_n, block_k)`` on CUDA tensors
-    ``a`` (m, k) and ``b`` (k, n).
+    ``a`` (m, k) and ``b`` (k, n), each read as ``layout`` finds it stored.
 
-    The caller (``ops.matmul``) has checked device, type, shape, contiguity
+    The caller (``ops.matmul``) has checked device, type, shape, alignment
     and blocks.  Launches on the current stream without synchronising;
     raises if the launch is refused (each C entry point also refuses block
     shapes and operands it was not compiled for)."""
@@ -254,6 +281,12 @@ def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: in
     if m == 0 or n == 0:
         return out
     r = ROUTE_OF[a.dtype, (block_m, block_n, block_k)]
+    a_t, b_t = layout(a), layout(b)
+    if a_t is None or b_t is None:
+        raise ValueError("operands must be row-major contiguous or the .t() of a "
+                         "row-major contiguous tensor")
+    if (a_t or b_t) and r not in ("wide", "thin"):
+        raise ValueError(f"the {r} route reads row-major operands only")
     gm, gn = -(-m // block_m), -(-n // block_n)
     ntiles = gm * gn
     tiles = tile_table(gm, gn, order, a.device)
@@ -263,7 +296,7 @@ def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: in
         grid = min(sm_count(a.device), ntiles)
         rc = lib.zorder_matmul_wide_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), tiles.data_ptr(), ntiles, m, n, k,
-            _DTYPE_CODE[out_dtype], block_m, block_n, block_k, grid, stream)
+            int(a_t), int(b_t), _DTYPE_CODE[out_dtype], block_m, block_n, block_k, grid, stream)
     elif r == "thin":
         splits, per = split_plan(k, n, sm_count(a.device), block_n, block_k)
         ws = cnt = None
@@ -274,7 +307,8 @@ def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: in
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None,
             cnt.data_ptr() if cnt is not None else None, tiles.data_ptr(), ntiles, m, n, k,
-            _DTYPE_CODE[out_dtype], block_m, block_n, block_k, splits, per, stream)
+            int(a_t), int(b_t), _DTYPE_CODE[out_dtype], block_m, block_n, block_k, splits, per,
+            stream)
     else:
         rc = lib.zorder_matmul_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), tiles.data_ptr(), ntiles,

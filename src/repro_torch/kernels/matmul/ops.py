@@ -15,10 +15,23 @@ FLOPs in ``kernel.matmul.flops`` and, on the card, its share of the
 published peak in ``kernel.matmul.roofline_fraction``.  Disabled mode adds
 one flag read and nothing else.
 
+Each operand is row-major contiguous or the ``.t()`` of a row-major
+contiguous tensor with a 16-byte aligned base (a tied embedding read as the
+LM head, the backward's B^T and A^T); any other layout raises.  The wide
+and thin routes read a transposed operand in place; for the wmma and fma
+routes, which read row-major operands only, ``matmul`` hands over a
+row-major copy (``_fresh``, visible in a trace) and keeps the route.  The
+route and the copies follow from the dtype, the shape and the layouts,
+never from the device.  On the CPU the plain version multiplies row-major
+copies, so a result does not depend on its operands' layout.
+
 Under autograd (grad enabled and an operand that requires grad) the
 product is the registered op ``torch.ops.repro_torch.zorder_matmul``: its
 backward computes dA = dC B^T and dB = A^T dC through ``matmul`` again, on
-fresh transposed copies, so all three products run on the kernel.  Being
+the operands' transposed views (no copy on the wide and thin routes), so
+all three products run on the kernel; the one exception is a bf16 product
+with an fp32 output (the unembedding's), whose fp32 cotangent is
+multiplied as the reference does (``_backward``).  Being
 an op of the dispatcher, it is what a selective-checkpoint policy sees and
 keeps (``models.lm.remat``, ``"dots"``).  Without grad, ``matmul`` calls
 the kernel directly: no dispatcher hop in eager or captured serving.  A
@@ -40,21 +53,24 @@ from repro_torch.device import aligned16, dispatch_mode_active, is_fake
 from repro_torch.roofline.analysis import PEAK_FLOPS
 
 from . import kernel
+from .kernel import layout
 from .ref import matmul_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def accepts(k: int, n: int, dtype: torch.dtype, blocks, aligned: bool = True) -> bool:
-    """Whether ``matmul`` takes ``blocks`` for a ``dtype`` product with
-    contraction ``k`` and ``n`` columns (``aligned``: both bases 16-byte
-    aligned): a compiled shape of the type, and for the wide and thin
-    routes operands their 16-byte copies can read."""
+def accepts(k: int, n: int, dtype: torch.dtype, blocks, aligned: bool = True, *,
+            m: int = 0, a_t: bool = False, b_t: bool = False) -> bool:
+    """Whether ``matmul`` takes ``blocks`` for a ``dtype`` (m, k) x (k, n)
+    product (``aligned``: both bases 16-byte aligned; ``a_t`` / ``b_t``: A /
+    B stored transposed): a compiled shape of the type, and for the wide
+    and thin routes operands their 16-byte copies can read as stored."""
     blocks = tuple(blocks)
     if blocks not in kernel.BLOCKS.get(dtype, ()):
         return False
     route = kernel.ROUTE_OF[dtype, blocks]
-    return route not in ("wide", "thin") or (aligned and kernel.vectorizable(k, n))
+    return route not in ("wide", "thin") or (aligned
+                                             and kernel.vectorizable(k, n, m, a_t, b_t))
 
 
 def matmul(
@@ -68,10 +84,12 @@ def matmul(
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """C = A @ B, fp32 accumulation, rounded once to ``out_dtype``
-    (default ``a.dtype``).  ``a`` (m, k) and ``b`` (k, n) are contiguous,
-    of one type (fp32 or bf16) and on one device.  Blocks default to
-    ``kernel.default_blocks``; explicit blocks must be a compiled shape.
-    ``order`` is "zorder" (the paper's Sec. 4.3 schedule) or "rowmajor"."""
+    (default ``a.dtype``).  ``a`` (m, k) and ``b`` (k, n) are each
+    row-major or the ``.t()`` of a row-major tensor with an aligned base
+    (module docstring), of one type (fp32 or bf16) and on one device.
+    Blocks default to ``kernel.default_blocks``; explicit blocks must be a
+    compiled shape.  ``order`` is "zorder" (the paper's Sec. 4.3 schedule)
+    or "rowmajor"."""
     if a.device != b.device:
         raise ValueError(f"operands on different devices: {a.device}, {b.device}")
     if a.device.type not in ("cpu", "cuda"):
@@ -87,22 +105,31 @@ def matmul(
                          f"{tuple(b.shape)}")
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"contraction mismatch {a.shape[1]} vs {b.shape[0]}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("operands must be contiguous (row-major)")
+    a_t, b_t = layout(a), layout(b)
+    if a_t is None or b_t is None:
+        raise ValueError("operands must be row-major contiguous or the .t() of a "
+                         "row-major contiguous tensor")
+    if (a_t and not aligned16(a)) or (b_t and not aligned16(b)):
+        raise ValueError("a transposed operand needs a 16-byte aligned base")
     if order not in ("zorder", "rowmajor"):
         raise ValueError(f"unknown order {order!r}")
     m, k = a.shape
     n = b.shape[1]
     aligned = aligned16(a) and aligned16(b)
-    bm, bn, bk = kernel.default_blocks(m, n, k, a.dtype, aligned)
+    bm, bn, bk = kernel.default_blocks(m, n, k, a.dtype, aligned, a_t, b_t)
     blocks = (block_m or bm, block_n or bn, block_k or bk)
     if blocks not in kernel.BLOCKS[a.dtype]:
         raise ValueError(f"blocks {blocks} are not compiled for {a.dtype}; "
                          f"choose from {kernel.BLOCKS[a.dtype]}")
-    if not accepts(k, n, a.dtype, blocks, aligned):
+    if not accepts(k, n, a.dtype, blocks, aligned, m=m, a_t=a_t, b_t=b_t):
         raise ValueError(f"the {kernel.ROUTE_OF[a.dtype, blocks]} route's blocks {blocks} "
-                         f"take k and n multiples of 8 (k > 0) and 16-byte aligned bases; "
-                         f"got k={k}, n={n}")
+                         f"take stored rows of multiples of 8 (n; k, or m for a transposed "
+                         f"A; k for a transposed B; k > 0) and 16-byte aligned bases; "
+                         f"got m={m}, k={k}, n={n}, transposed A {a_t}, B {b_t}")
+    if kernel.ROUTE_OF[a.dtype, blocks] not in ("wide", "thin"):
+        # the wmma and fma routes read row-major operands: copy, keep the route
+        a = _fresh(a, a.dtype) if a_t else a
+        b = _fresh(b, b.dtype) if b_t else b
     if (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)) \
             or is_fake(a) or dispatch_mode_active():
         return zorder_matmul_op(a, b, list(blocks), order, out_dtype)
@@ -146,27 +173,48 @@ def _save_operands(ctx, inputs, output):
 
 
 def _backward(ctx, dc):
-    """dA = dC B^T, dB = A^T dC through ``matmul``.  Operands of one type
-    with an ``out_dtype`` gradient of another (a bf16 product with fp32
-    output) run their backward products in the wider type: the bf16 values
-    are exact there."""
+    """dA = dC B^T, dB = A^T dC through ``matmul``, on the saved operands'
+    transposed views: the wide and thin routes read them in place, the
+    fp32 route gets its row-major copies from ``matmul``.  A cotangent in a
+    narrower type than the operands (an fp32 product rounded to bf16) is
+    cast up to theirs first.
+
+    A bf16 product with fp32 output (the unembedding's) gets an fp32
+    cotangent.  The reference differentiates its ``jnp.matmul(x, w,
+    preferred_element_type=f32)`` into ``dot_general(f32 ct, bf16 w,
+    preferred_element_type=f32)`` and a convert to bf16: XLA products
+    outside its Pallas kernel.  Here too: one fp32 ``torch.matmul`` per
+    gradient on the upcast operands (bf16 values are exact in fp32), one
+    rounding to the operand's type, and no K1 launch; K1's fp32 route
+    would be slower than those products."""
     a, b = ctx.saved_tensors
-    dt = torch.promote_types(dc.dtype, a.dtype)
-    g = _fresh(dc, dt)
     da = db = None
+    if a.dtype == torch.bfloat16 and dc.dtype == torch.float32:
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(dc, b.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.matmul(a.float().t(), dc).to(b.dtype)
+        return da, db, None, None, None
+    g = _fresh(dc, a.dtype)
     if ctx.needs_input_grad[0]:
-        da = matmul(g, _fresh(b.t(), dt), order=ctx.order, out_dtype=a.dtype)
+        da = matmul(g, _transposed(b), order=ctx.order, out_dtype=a.dtype)
     if ctx.needs_input_grad[1]:
-        db = matmul(_fresh(a.t(), dt), g, order=ctx.order, out_dtype=b.dtype)
+        db = matmul(_transposed(a), g, order=ctx.order, out_dtype=b.dtype)
     return da, db, None, None, None
+
+
+def _transposed(t: torch.Tensor) -> torch.Tensor:
+    """``t.t()`` as ``matmul`` takes it: the view, or where ``t``'s base is
+    not 16-byte aligned (a transposed view needs one) a row-major copy."""
+    return t.t() if aligned16(t) else _fresh(t.t(), t.dtype)
 
 
 zorder_matmul_op.register_autograd(_backward, setup_context=_save_operands)
 
 
 def _run(a, b, blocks, order, out_dtype):
-    if a.device.type == "cpu":
-        return matmul_ref(a, b, out_dtype)
+    if a.device.type == "cpu":   # row-major copies: the same bits whatever the layout
+        return matmul_ref(a.contiguous(), b.contiguous(), out_dtype)
     return kernel.zorder_matmul(a, b, block_m=blocks[0], block_n=blocks[1],
                                 block_k=blocks[2], out_dtype=out_dtype, order=order)
 

@@ -9,6 +9,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.matmul.ops import matmul
+
 Params = Dict[str, torch.Tensor]
 
 VOCAB_ALIGN = 256
@@ -41,13 +43,20 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p: Params, x: torch.Tensor, vocab: int) -> torch.Tensor:
     """fp32 logits over the padded vocab, padded columns at -1e30.
 
-    A plain ``torch.matmul`` on fp32 operands (the reference leaves this
-    product to XLA, outside the Pallas kernel); bf16 weights are exact in
-    fp32, so this is the reference's fp32-accumulating product."""
+    The reference's ``jnp.matmul(x, w, preferred_element_type=f32)``: the
+    operands in their own type (bf16 in a bf16 model), fp32 accumulation
+    and output.  Here one K1 launch on the folded rows, never through the
+    plan engine (the reference leaves it to XLA); a tied table is read in
+    place through its ``.t()`` view, so no copy of the head is made.
+    Operands of two types meet in the wider one, as ``jnp.matmul``
+    promotes them."""
     w = p.get("lm_head")
     if w is None:
         w = p["embedding"].t()
-    logits = torch.matmul(x.float(), w.float())
+    dt = torch.promote_types(x.dtype, w.dtype)
+    rows = x.reshape(-1, x.shape[-1]).to(dt).contiguous()
+    logits = matmul(rows, w.to(dt), out_dtype=torch.float32)
+    logits = logits.reshape(*x.shape[:-1], w.shape[1])
     vp = logits.shape[-1]
     if vp != vocab:
         logits[..., vocab:] = _NEG

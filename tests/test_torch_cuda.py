@@ -90,6 +90,49 @@ def test_each_route_runs_its_shapes_bitwise_repeatably(cuda_device, shape, out_d
     assert _rel_err(z, matmul_ref(a, b, out_dtype)) < TOL[torch.bfloat16]
 
 
+# (m, k, n) that the thin and wide routes take in every layout (m, k and
+# n multiples of 8): decode's rows, a serving prefill, danube's n = 960
+# (ragged tiles), one short k block, split-K with a ragged last block
+LAYOUT_SHAPES = [(8, 2048, 1000), (64, 512, 264), (304, 3840, 960), (1000, 72, 136),
+                 (48, 1000, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("which", ["a", "b", "both"])
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES)
+def test_transposed_operands_are_read_in_place(cuda_device, shape, which, out_dtype):
+    """A ``.t()`` view of A, B or both on the route ``kernel.route`` names
+    for the layouts: the same bits as the row-major operands (the same
+    tiles, k blocks and products), both tile orders agree, the plain
+    version holds it, and the same storage read as row-major operands (on
+    the same route, with the same blocks) does not."""
+    m, k, n = shape
+    a, b = _bf16_operands(cuda_device, m, k, n)
+    a_t, b_t = which in ("a", "both"), which in ("b", "both")
+    va = a.t().contiguous().t() if a_t else a
+    vb = b.t().contiguous().t() if b_t else b
+    want = kernel.route(m, n, k, torch.bfloat16, True, a_t, b_t)
+    assert want == kernel.route(m, n, k, torch.bfloat16) and want in ("thin", "wide")
+    out, got = _route_launches(lambda: matmul(va, vb, out_dtype=out_dtype))
+    r = matmul(va, vb, out_dtype=out_dtype, order="rowmajor")
+    rowmajor = matmul(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got == {want: 1}
+    assert torch.equal(out, r) and torch.equal(out, rowmajor)
+    ref = matmul_ref(va, vb, out_dtype)
+    assert _row_rel(out, ref) < ROW_TOL_BF16
+    blocks = kernel.default_blocks(m, n, k, torch.bfloat16, True, a_t, b_t)
+    # the same storage viewed as row-major operands of the same shapes
+    wa = va.t().view(m, k) if a_t else va
+    wb = vb.t().view(k, n) if b_t else vb
+    wrong, moved = _route_launches(lambda: matmul(wa, wb, block_m=blocks[0], block_n=blocks[1],
+                                                  block_k=blocks[2], out_dtype=out_dtype))
+    torch.cuda.synchronize()
+    assert moved == {want: 1}
+    assert _row_rel(wrong, ref) > 10 * ROW_TOL_BF16
+
+
 @pytest.mark.cuda
 def test_unaligned_base_takes_the_wmma_route(cuda_device):
     m, k, n = 64, 2048, 512
@@ -148,7 +191,7 @@ def test_smoke_model_on_card_matches_cpu(cuda_device):
         before = kernel.launches
         logits, _ = model.prefill(p, cache, tokens.to(dev), offsets.to(dev))
         out[dev.type] = (logits.cpu(), kernel.launches - before)
-    assert out["cuda"][1] == 7 * cfg.num_layers and out["cpu"][1] == 0
+    assert out["cuda"][1] == 7 * cfg.num_layers + 1 and out["cpu"][1] == 0   # + the unembedding
     assert _rel_err(out["cuda"][0][:, :256], out["cpu"][0][:, :256]) < 1e-4
 
 
@@ -203,7 +246,8 @@ def test_flash_kernel_refuses_what_it_cannot_do(cuda_device):
 @pytest.mark.cuda
 def test_danube_smoke_flash_forward_on_card_matches_cpu(cuda_device):
     """The long-prefill slice at smoke size: S = 64 is four windows; the
-    card runs K2 once per layer and K1 seven times, the CPU neither."""
+    card runs K2 once per layer and K1 seven times and once more for the
+    unembedding, the CPU neither."""
     cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"), dtype="float32",
                               attn_impl="flash")
     model = build_model(cfg)
@@ -216,7 +260,7 @@ def test_danube_smoke_flash_forward_on_card_matches_cpu(cuda_device):
             logits, _ = model.forward(params, tokens.to(dev))
         out[dev.type] = (logits.cpu(), k2.kernel.launches - before[0],
                          kernel.launches - before[1])
-    assert out["cuda"][1:] == (cfg.num_layers, 7 * cfg.num_layers)
+    assert out["cuda"][1:] == (cfg.num_layers, 7 * cfg.num_layers + 1)
     assert out["cpu"][1:] == (0, 0)
     assert _rel_err(out["cuda"][0], out["cpu"][0]) < 1e-4
 
@@ -528,7 +572,7 @@ def test_captured_buckets_serve_the_eager_tokens_bitwise(cuda_device, mesh):
     rep = graphs.cache_report()
     replays = sum(s["replays"] for g in rep["graphs"].values() for s in g.values())
     if mesh is None:
-        per_forward = 7 * model.cfg.num_layers
+        per_forward = 7 * model.cfg.num_layers + 1        # + the unembedding
         assert rep["kernels"]["zorder_matmul"]["replayed"] == replays * per_forward
     else:
         assert graphs.plan_report()["strategies"] == dict(eager_products)
@@ -665,7 +709,8 @@ def test_k1_op_under_dots_checkpointing_matches_plain_version(cuda_device, dtype
 def test_smoke_train_step_on_card_matches_cpu(cuda_device):
     """One fp32 step of the smoke Llama: the loss and every master leaf's
     gradient on the card within 1e-4 relative L2 of the CPU's, every
-    projection's gradient non-zero, 3 x 7 K1 launches a layer."""
+    projection's gradient non-zero, 3 x 7 K1 launches a layer and 3 for
+    the unembedding (fp32: its dA and dB through K1 too)."""
     from repro_torch.data.pipeline import DataConfig, device_put_batch, synth_batch
     from repro_torch.runtime.train import TrainConfig, Trainer
     from repro_torch.tree import tree_map
@@ -682,7 +727,7 @@ def test_smoke_train_step_on_card_matches_cpu(cuda_device):
             master, device_put_batch(batch, dev))
         torch.cuda.synchronize()
         out[dev.type] = (loss.cpu(), [g.cpu() for g in grads], kernel.launches)
-    assert out["cuda"][2] == 3 * 7 * cfg.num_layers and out["cpu"][2] == 0
+    assert out["cuda"][2] == 3 * (7 * cfg.num_layers + 1) and out["cpu"][2] == 0
     assert _rel_err(out["cuda"][0], out["cpu"][0]) < 1e-4
     for g, c in zip(out["cuda"][1], out["cpu"][1]):
         assert c.norm() > 0
@@ -716,7 +761,8 @@ def test_zoo_smoke_model_on_card_matches_cpu(cuda_device, arch):
     decode step through K1 on the card, the plain version on the CPU;
     logits within 1e-4.  K1 takes 4 attention products a layer (q, k, v, o;
     MLA's cached wq_a, wq_b, wkv_a, wo) and 3 more for a dense MLP or
-    shared experts: qwen3's MoE layers have none."""
+    shared experts (qwen3's MoE layers have none), and the unembedding's
+    one a forward."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = build_model(cfg)
     cpu_params = model.init(torch.Generator().manual_seed(0), "cpu")
@@ -734,7 +780,7 @@ def test_zoo_smoke_model_on_card_matches_cpu(cuda_device, arch):
         out[dev.type] = (pre.cpu(), dec.cpu(), kernel.launches - before)
     per_layer = 4 + 3 * bool(cfg.num_shared_experts or not cfg.num_experts)
     nd = cfg.first_dense_layers
-    per_forward = 7 * nd + per_layer * (cfg.num_layers - nd)
+    per_forward = 7 * nd + per_layer * (cfg.num_layers - nd) + 1
     assert out["cuda"][2] == 2 * per_forward and out["cpu"][2] == 0
     for i in (0, 1):
         assert _rel_err(out["cuda"][i][:, :256], out["cpu"][i][:, :256]) < 1e-4
@@ -772,7 +818,8 @@ def test_captured_moe_and_mla_steps_serve_the_eager_tokens_bitwise(cuda_device, 
         assert got.new_tokens == _eager_tokens(server, prompts)[0]
     rep = server.cache_report()
     replays = sum(s["replays"] for g in rep["graphs"].values() for s in g.values())
-    assert rep["kernels"]["zorder_matmul"]["replayed"] == replays * 7 * model.cfg.num_layers
+    assert rep["kernels"]["zorder_matmul"]["replayed"] == replays * (7 * model.cfg.num_layers
+                                                                     + 1)
     # one decode step: captured against eager, on copies of the same cache
     g = server._captured[next(iter(server._captured))]
     cache = _to_device(g.cache, cuda_device)         # a copy of the bucket's cache
@@ -796,14 +843,14 @@ def _k1_per_step(cfg) -> int:
     layer (in_proj, out_proj) and 8 a shared block (shared_in, q, k, v, o,
     gate, up, down); xlstm 4 an mLSTM block, 1 an sLSTM block; seamless 9
     a decoder layer (self q, k, v, o; cross q, o over the cached K/V; the
-    MLP's 3)."""
+    MLP's 3); the unembedding's one in each."""
     if cfg.family == "hybrid":
-        return 2 * cfg.num_layers + 8 * (cfg.num_layers // cfg.shared_attn_every)
+        return 2 * cfg.num_layers + 8 * (cfg.num_layers // cfg.shared_attn_every) + 1
     if cfg.family == "ssm":
         n_m = sum(1 for b in cfg.block_pattern if b == "mlstm")
         groups = cfg.num_layers // len(cfg.block_pattern)
-        return groups * (4 * n_m + (len(cfg.block_pattern) - n_m))
-    return 9 * cfg.dec_layers
+        return groups * (4 * n_m + (len(cfg.block_pattern) - n_m)) + 1
+    return 9 * cfg.dec_layers + 1
 
 
 @pytest.mark.cuda
@@ -976,7 +1023,8 @@ def test_a_planned_backward_on_autograds_device_thread_still_plans(cuda_device):
     total = sum(lower_dist.executions.values())
     assert threads["backward"] and threading.main_thread() not in threads["backward"]
     assert total == 3 * forward + 2 * cfg.num_layers, (forward, total)
-    assert threads["k1_outside_ranks"] == 0
+    # the unembedding's product, dA and dB (fp32): never planned
+    assert threads["k1_outside_ranks"] == 3
     want = torch.autograd.grad(model.loss(tree_map(lambda t: t, params), batch)[0], leaves)
     for g, w in zip(grads, want):
         assert ((g - w).norm() / (w.norm() + 1e-30)).item() < 1e-4

@@ -9,6 +9,7 @@ oracle of the bytes a rank holds is the arithmetic of the reference's
 sharding specs, computed in a subprocess with 512 forced host devices.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -225,6 +226,20 @@ def test_the_dry_runs_per_rank_count_equals_the_threaded_fake_runs(arch, kind, m
     assert priced["memory"]["argument_bytes"] == oracle["memory"]["argument_bytes"]
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-20b"])    # tied, untied head
+def test_a_decode_peak_holds_no_fp32_copy_of_the_head(arch):
+    """The smoke model with a 32768-token vocabulary, so the bf16 head
+    (4 MiB) outweighs every other tensor of a decode step: the step's
+    predicted peak stays within the arguments plus less than the head's
+    fp32 size, which a cast of the head (8 MiB) would pass by itself."""
+    cfg = dataclasses.replace(get_smoke_config(arch), vocab_size=32768)
+    rec = dryrun.lower_cell(arch, ShapeCell("decode_32k", 32, 2, "decode"), None, cfg=cfg,
+                            device="cpu")
+    head_fp32 = 32768 * cfg.d_model * 4
+    extra = rec["memory"]["peak_bytes"] - rec["memory"]["argument_bytes"]
+    assert 0 < extra < head_fp32 // 4, (extra, head_fp32)
+
+
 def test_a_cell_on_one_device_counts_the_trainers_step_whole():
     from repro_torch.roofline import hlo_stats
 
@@ -233,8 +248,10 @@ def test_a_cell_on_one_device_counts_the_trainers_step_whole():
     rec = dryrun.lower_cell("llama3.2-1b", ShapeCell("train_4k", 32, 4, "train"), None,
                             cfg=cfg, device="cpu", counter=counter)
     assert counter.ranks == [] and rec["chips"] == 1 and rec["counted"]["ways"] == 1
-    # every projection's forward, dA and dB: 3 x 7 K1 products a layer
-    assert counter.calls[hlo_stats.K1_OP] == 3 * 7 * cfg.num_layers
+    # every projection's forward, dA and dB: 3 x 7 K1 products a layer; the
+    # unembedding's forward (its bf16 operands meet the fp32 cotangent in
+    # fp32 products outside K1, as the reference's XLA products)
+    assert counter.calls[hlo_stats.K1_OP] == 3 * 7 * cfg.num_layers + 1
     n = cfg.param_count()
     assert rec["memory"]["argument_bytes"] == 4 + 3 * 4 * n + 2 * 4 * 32 * 8
     assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"]

@@ -4,10 +4,12 @@ The chip run asserts that a served forward launches K1
 ``chip_smoke.k1_per_step(cfg)`` times a step and a training forward
 ``chip_smoke.train_products(cfg)`` times.  Here every config's smoke
 version runs one prefill, one decode step and one training forward on the
-CPU with ``local_matmul`` (every projection's product) wrapped to count
-its calls, and each count is held to those helpers: qwen3-moe's routed
-experts (einsums) add no product to its 4 attention products a layer,
-deepseek-moe's dense layer and shared experts add 3.  No JAX is involved.
+CPU with ``ops._run`` (where every K1 call launches: each projection's
+product and the unembedding's) wrapped to count its calls, and each count
+is held to those helpers: qwen3-moe's routed experts (einsums) add no
+product to its 4 attention products a layer, deepseek-moe's dense layer
+and shared experts add 3, and every forward adds the unembedding's one.
+No JAX is involved.
 """
 import dataclasses
 import os
@@ -23,7 +25,7 @@ if ROOT not in sys.path:
 
 import chip_smoke  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
-from repro_torch.layers import linear  # noqa: E402
+from repro_torch.kernels.matmul import ops  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.runtime.serve import decode_step, prefill  # noqa: E402
 
@@ -34,15 +36,15 @@ BATCH, SEQ = 2, 8
 
 @pytest.fixture
 def count_products(monkeypatch):
-    """A list that gains one entry per ``local_matmul`` call."""
+    """A list that gains one entry per K1 call (``ops._run``)."""
     calls = []
-    real = linear.local_matmul
+    real = ops._run
 
-    def counting(a, b, **kw):
+    def counting(a, b, *rest):
         calls.append((tuple(a.shape), tuple(b.shape)))
-        return real(a, b, **kw)
+        return real(a, b, *rest)
 
-    monkeypatch.setattr(linear, "local_matmul", counting)
+    monkeypatch.setattr(ops, "_run", counting)
     return calls
 
 
@@ -98,11 +100,12 @@ def test_a_training_forward_runs_train_products_products(arch, count_products):
 
 
 @pytest.mark.parametrize("arch, per_step, train", [
-    ("qwen3-moe-30b-a3b", 4 * 48, 4 * 48),            # routed experts only: attention
-    ("deepseek-moe-16b", 7 * 28, 7 * 28),             # a dense layer, then shared experts
-    ("minicpm3-4b", 7 * 62, 8 * 62),                  # MLA: wkv_b only uncached
-    ("granite-20b", 7 * 52, 7 * 52), ("chameleon-34b", 7 * 48, 7 * 48)])
+    ("qwen3-moe-30b-a3b", 4 * 48 + 1, 4 * 48 + 1),    # routed experts only: attention
+    ("deepseek-moe-16b", 7 * 28 + 1, 7 * 28 + 1),     # a dense layer, then shared experts
+    ("minicpm3-4b", 7 * 62 + 1, 8 * 62 + 1),          # MLA: wkv_b only uncached
+    ("granite-20b", 7 * 52 + 1, 7 * 52 + 1), ("chameleon-34b", 7 * 48 + 1, 7 * 48 + 1)])
 def test_the_published_configs_counts(arch, per_step, train):
-    """The counts phases 15 and 20 hold the full models to."""
+    """The counts phases 15 and 20 hold the full models to: the layers'
+    projections and the unembedding."""
     cfg = get_config(arch)
     assert (chip_smoke.k1_per_step(cfg), chip_smoke.train_products(cfg)) == (per_step, train)

@@ -73,20 +73,115 @@ def test_apply_rope_with_negative_positions(batched):
     _close(apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 500000.0), ref)
 
 
-@pytest.mark.parametrize("tie", [True, False])
-def test_embed_unembed_masks_padded_vocab(tie):
+def _embed_pair(tie, dtype, vocab=300, d=64):
+    """The reference's embedding params in ``dtype`` and the port's copy."""
+    jp = jembed.embed_params(jax.random.PRNGKey(3), vocab, d, tie, jnp.dtype(dtype))
+    return jp, {k: tensor_from_numpy(np.asarray(v), CPU) for k, v in jp.items()}
+
+
+def _activations(seed, dtype, *shape):
+    """The same values for both packages, rounded to ``dtype`` once."""
+    x = jnp.asarray(_np(seed, *shape), jnp.dtype(dtype))
+    return x, torch.from_numpy(np.array(x.astype(jnp.float32))).to(getattr(torch, dtype))
+
+
+# bf16: the reference's compute types, bf16 operands into fp32 logits (the
+# products are exact in fp32 on both sides; only the order of sums differs)
+@pytest.mark.parametrize("tie,dtype", [(True, "float32"), (False, "float32"),
+                                       (True, "bfloat16"), (False, "bfloat16")],
+                         ids=["True", "False", "True-bf16", "False-bf16"])
+def test_embed_unembed_masks_padded_vocab(tie, dtype):
     vocab, d = 300, 64                          # pads to 512 columns
-    jp = jembed.embed_params(jax.random.PRNGKey(3), vocab, d, tie, jnp.float32)
-    tp = {k: tensor_from_numpy(np.asarray(v), CPU) for k, v in jp.items()}
+    jp, tp = _embed_pair(tie, dtype, vocab, d)
     tokens = np.random.default_rng(4).integers(0, vocab, size=(2, 7))
     _close(embed.embed(tp, torch.from_numpy(tokens)),
-           jembed.embed(jp, jnp.asarray(tokens)))
-    x = _np(5, 2, 7, d)
-    ref = np.asarray(jembed.unembed(jp, jnp.asarray(x), vocab))
-    out = embed.unembed(tp, torch.from_numpy(x), vocab)
+           jembed.embed(jp, jnp.asarray(tokens)).astype(jnp.float32))
+    x, tx = _activations(5, dtype, 2, 7, d)
+    ref = np.asarray(jembed.unembed(jp, x, vocab))
+    out = embed.unembed(tp, tx, vocab)
     assert out.shape == (2, 7, 512) and out.dtype == torch.float32
     assert torch.all(out[..., vocab:] == -1e30) and np.all(ref[..., vocab:] == -1e30)
     _close(out[..., :vocab], ref[..., :vocab])
+
+
+class _OpNames(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the name of every operator dispatched in its scope."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("tie", [True, False])
+def test_unembed_reads_the_head_in_place_through_k1(tie, monkeypatch):
+    """One K1 call (``ops._run``, the kernel on the card) on the folded
+    rows and the head's own storage, the tied table through its ``.t()``
+    view, fp32 out; no cast of either operand and no other product."""
+    from repro_torch.kernels.matmul import ops
+
+    _, tp = _embed_pair(tie, "bfloat16")
+    _, tx = _activations(5, "bfloat16", 2, 7, 64)
+    seen = []
+    run = ops._run
+    monkeypatch.setattr(ops, "_run", lambda a, b, blocks, order, out_dtype: seen.append(
+        (a, b, out_dtype)) or run(a, b, blocks, order, out_dtype))
+    with _OpNames() as mode:
+        out = embed.unembed(tp, tx, 300)
+    (a, b, out_dtype), = seen
+    head = tp["embedding"] if tie else tp["lm_head"]
+    assert a.shape == (14, 64) and b.shape == (64, 512) and out_dtype == torch.float32
+    assert b.data_ptr() == head.data_ptr() and b.dtype == torch.bfloat16
+    assert b.is_contiguous() != tie
+    assert "repro_torch.zorder_matmul.default" in mode.names
+    assert not any(n.startswith(("aten._to_copy", "aten.mm", "aten.bmm", "aten.addmm",
+                                 "aten.clone")) for n in mode.names), mode.names
+    assert out.shape == (2, 7, 512)
+
+
+def _within_one_bf16_ulp(port: torch.Tensor, ref) -> None:
+    """|port - ref| is at most one bf16 ulp of the larger of the two, or of
+    2^-12 of the tensor's largest magnitude where both are smaller: an
+    fp32 sum taken in another order moves by about 2^-24 of its terms'
+    size, which for an element the terms nearly cancel in is more than its
+    own bf16 ulp."""
+    got = port.float().numpy().astype(np.float64)
+    want = np.asarray(ref.astype(jnp.float32), np.float64)
+    assert got.shape == want.shape
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), 2.0 ** -12 * np.abs(want).max())
+    ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+    assert np.all(np.abs(got - want) <= ulp), np.max(np.abs(got - want) - ulp)
+
+
+@pytest.mark.parametrize("tie", [True, False])
+def test_unembed_backward_in_bf16_matches_jax_grad_within_one_ulp(tie, monkeypatch):
+    """bf16 operands, fp32 logits and an fp32 cotangent: the reference's
+    XLA products (fp32 accumulation, one rounding to bf16); the port's
+    backward runs no K1 product (``ops._run`` is called by the forward
+    only)."""
+    from repro_torch.kernels.matmul import ops
+
+    vocab = 300
+    jp, tp = _embed_pair(tie, "bfloat16", vocab)
+    x, tx = _activations(5, "bfloat16", 2, 7, 64)
+    ct = _np(6, 2, 7, 512)
+    _, vjp = jax.vjp(lambda p, h: jembed.unembed(p, h, vocab), jp, x)
+    gp, gx = vjp(jnp.asarray(ct))
+    calls = []
+    run = ops._run
+    monkeypatch.setattr(ops, "_run", lambda *a: calls.append(1) or run(*a))
+    tp = {k: v.requires_grad_(True) for k, v in tp.items()}
+    tx.requires_grad_(True)
+    embed.unembed(tp, tx, vocab).backward(torch.from_numpy(ct))
+    assert len(calls) == 1
+    head = "embedding" if tie else "lm_head"
+    for got, want in ((tx.grad, gx), (tp[head].grad, gp[head])):
+        assert got.dtype == torch.bfloat16
+        _within_one_bf16_ulp(got, want)
+    assert tie or tp["embedding"].grad is None     # untied, the table is not read
 
 
 def test_mlp(model_pair):

@@ -197,8 +197,8 @@ def test_persistent_walk_visits_every_tile_once(gm, gn, grid):
 
 
 @pytest.mark.parametrize("case", [
-    "dtype_mismatch", "float16", "three_d", "k_mismatch", "non_contiguous",
-    "bad_order", "uncompiled_blocks", "other_device", "thin_blocks_ragged_n",
+    "dtype_mismatch", "float16", "three_d", "k_mismatch", "column_slice", "expanded",
+    "misaligned_transposed", "bad_order", "uncompiled_blocks", "other_device", "thin_blocks_ragged_n",
     "wide_blocks_ragged_k"])
 def test_matmul_rejects_what_the_kernel_does_not_take(case):
     a, b = torch.ones(8, 16), torch.ones(16, 8)
@@ -211,8 +211,12 @@ def test_matmul_rejects_what_the_kernel_does_not_take(case):
         a = a[None]
     elif case == "k_mismatch":
         b = torch.ones(12, 8)
-    elif case == "non_contiguous":
-        b = torch.ones(8, 16).t()
+    elif case == "column_slice":       # neither row-major nor the .t() of a row-major tensor
+        b = torch.ones(16, 16)[:, :8]
+    elif case == "expanded":
+        b = torch.ones(1, 8).expand(16, 8)
+    elif case == "misaligned_transposed":   # a .t() view, its base 4 bytes off
+        b = torch.ones(8 * 16 + 1)[1:].view(8, 16).t()
     elif case == "bad_order":
         kw["order"] = "hilbert"
     elif case == "uncompiled_blocks":
@@ -227,6 +231,71 @@ def test_matmul_rejects_what_the_kernel_does_not_take(case):
         kw.update(block_m=128, block_n=256, block_k=64)
     with pytest.raises(ValueError):
         matmul(a, b, **kw)
+
+
+T_ROUTE_CASES = [
+    # (m, k, n, a_t, b_t, route): each operand's stored rows decide
+    (4, 2048, 128256, False, True, "thin"),      # decode's tied LM head, read in place
+    (2048, 2048, 128256, False, True, "wide"),   # the training forward's
+    (2048, 8192, 2048, False, True, "wide"),     # dA = dC B^T
+    (2048, 2048, 8192, True, False, "wide"),     # dB = A^T dC, m = 2048 rows of A^T
+    (40, 16, 24, True, True, "thin"),
+    (4, 64, 48, True, False, "wmma"),            # A stored (64, 4): rows of 4
+    (48, 20, 64, True, False, "thin"),           # A stored (20, 48): rows of 48
+    (48, 20, 64, False, False, "wmma"),          # the same product row-major: rows of 20
+    (48, 20, 64, False, True, "wmma"),           # B stored (64, 20)
+    (4, 2048, 512, False, True, "thin"),
+]
+
+
+@pytest.mark.parametrize("m,k,n,a_t,b_t,want", T_ROUTE_CASES)
+def test_route_reads_each_operand_as_stored(m, k, n, a_t, b_t, want):
+    """16-byte copies and TMA boxes take a transposed operand where its
+    stored rows (m for A, k for B) are multiples of 8; the route is a
+    function of the layouts, never of the device."""
+    assert kernel.route(m, n, k, torch.bfloat16, True, a_t, b_t) == want
+    blocks = kernel.default_blocks(m, n, k, torch.bfloat16, True, a_t, b_t)
+    assert kernel.ROUTE_OF[torch.bfloat16, blocks] == want
+    assert ops.accepts(k, n, torch.bfloat16, blocks, m=m, a_t=a_t, b_t=b_t)
+    assert kernel.smem_bytes(*blocks, torch.bfloat16, a_t, b_t) <= kernel.SMEM_LIMIT
+    assert kernel.route(m, n, k, torch.float32, True, a_t, b_t) == "fma"
+
+
+# (m, k, n): ragged (wmma / fma), thin and wide in every layout, transposed
+# A of 4 rows (wmma: its stored rows are 4 long), a k that only A^T takes
+LAYOUT_SHAPES = [(37, 53, 29), (40, 24, 72), (200, 136, 264), (4, 64, 48), (48, 20, 64)]
+
+
+@pytest.mark.parametrize("which", ["a", "b", "both"])
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES)
+def test_transposed_views_match_the_plain_version_bitwise(shape, dtype_name, which,
+                                                          monkeypatch):
+    """``matmul`` takes the ``.t()`` of a row-major tensor for A, B or both:
+    the thin and wide routes get the views themselves (the same storage),
+    the wmma and fma routes row-major copies; the result is the plain
+    version's on contiguous copies, bit for bit."""
+    m, k, n = shape
+    tdt = DTYPES[dtype_name][1]
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(tdt)
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(tdt)
+    a_t, b_t = which in ("a", "both"), which in ("b", "both")
+    va = a.t().contiguous().t() if a_t else a
+    vb = b.t().contiguous().t() if b_t else b
+    assert va.is_contiguous() != a_t and vb.is_contiguous() != b_t
+    seen = []
+    run = ops._run
+    monkeypatch.setattr(ops, "_run", lambda x, y, *rest: seen.append((x, y)) or run(x, y, *rest))
+    out = matmul(va, vb)
+    assert out.dtype == tdt and torch.equal(out, ops.matmul_ref(a, b))
+    (x, y), = seen
+    if kernel.route(m, n, k, tdt, True, a_t, b_t) in ("wide", "thin"):   # read in place
+        assert (x.data_ptr(), y.data_ptr()) == (va.data_ptr(), vb.data_ptr())
+        assert (x.is_contiguous(), y.is_contiguous()) == (not a_t, not b_t)
+    else:                                                                   # row-major copies
+        assert x.is_contiguous() and y.is_contiguous()
+    assert torch.equal(matmul(va, vb, out_dtype=torch.float32), ops.matmul_ref(a, b, torch.float32))
 
 
 def test_local_matmul_folds_leading_dims():
@@ -374,29 +443,40 @@ def test_bf16_product_with_fp32_output_differentiates_in_fp32():
         assert _rel_err(port.float().numpy(), np.asarray(ref.astype(jnp.float32))) < 2e-2
 
 
-@pytest.mark.parametrize("needs", ["both", "a", "b"])
-def test_backward_runs_the_kernels_products(monkeypatch, needs):
+@pytest.mark.parametrize("needs,dtype_name", [
+    ("both", "float32"), ("a", "float32"), ("b", "float32"),
+    ("both", "bfloat16"), ("a", "bfloat16"), ("b", "bfloat16")],
+    ids=["both", "a", "b", "bf16-both", "bf16-a", "bf16-b"])
+def test_backward_runs_the_kernels_products(monkeypatch, needs, dtype_name):
     """The gradients come from the Function's own products through
     ``ops._run`` (the kernel on the card, the plain version here), not
     from autograd of the plain version: one call forward, one per operand
-    that requires grad backward, each at its transposed shape."""
+    that requires grad backward, each at its transposed shape.  In bf16
+    (the thin route) dA's B^T and dB's A^T reach the kernel as views of
+    the saved operands, no copy; fp32's fma route gets row-major copies."""
     calls = []
     run = ops._run
 
     def counted(a, b, blocks, order, out_dtype):
-        calls.append((tuple(a.shape), tuple(b.shape), a.is_contiguous(), b.is_contiguous()))
+        calls.append((tuple(a.shape), tuple(b.shape), a.is_contiguous(), b.is_contiguous(),
+                      a.data_ptr(), b.data_ptr()))
         return run(a, b, blocks, order, out_dtype)
 
     monkeypatch.setattr(ops, "_run", counted)
-    _, (ta, tb, tct) = _grad_case((40,), 24, 16, "float32")
+    _, (ta, tb, tct) = _grad_case((40,), 24, 16, dtype_name)
     ta.requires_grad_(needs in ("both", "a"))
     tb.requires_grad_(needs in ("both", "b"))
     matmul(ta, tb).backward(tct)
+    view = dtype_name == "bfloat16"
     want = [((40, 24), (24, 16), True, True)]
     if needs in ("both", "a"):
-        want.append(((40, 16), (16, 24), True, True))     # dA = dC @ B^T
+        want.append(((40, 16), (16, 24), True, not view))     # dA = dC @ B^T
     if needs in ("both", "b"):
-        want.append(((24, 40), (40, 16), True, True))     # dB = A^T @ dC
-    assert calls == want
+        want.append(((24, 40), (40, 16), not view, True))     # dB = A^T @ dC
+    assert [c[:4] for c in calls] == want
+    for (a_shape, *_), (*_, pa, pb) in zip(want[1:], calls[1:]):
+        # dA's B^T is the saved B, dB's A^T the saved A: the same storage in bf16
+        got, saved = (pb, tb) if a_shape == (40, 16) else (pa, ta)
+        assert (got == saved.data_ptr()) == view
     assert (ta.grad is not None) == (needs in ("both", "a"))
     assert (tb.grad is not None) == (needs in ("both", "b"))

@@ -282,6 +282,34 @@ def test_a_fake_run_counts_what_the_real_run_counts(arch):
     assert real.calls[hlo_stats.K1_OP] > 0
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-20b"])    # tied, untied head
+def test_the_unembed_counts_as_one_k1_op_with_no_cast_of_the_head(arch):
+    """A bf16 decode step has no ``aten::mm`` and no copy of the head (its
+    (vp, d) or (d, vp) shape, in any type); the unembedding alone is one
+    K1 op of 2 rows d vp FLOPs and nothing that casts or copies."""
+    from repro_torch.layers.embed import unembed
+    from repro_torch.models.registry import build_model
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    head = params["embed"].get("lm_head", params["embed"]["embedding"])
+    vp, d = max(head.shape), min(head.shape)
+    with hlo_stats.counting() as step, torch.no_grad():
+        cache = model.init_cache(2, 16, "cpu")
+        decode_step(model, params, cache, torch.ones((2, 1), dtype=torch.int64), 3)
+    copies = [key for key in step.shapes
+              if key.split(" ")[0] in ("aten::_to_copy", "aten::clone", "aten::copy_")]
+    assert "aten::mm" not in step.calls and step.calls[hlo_stats.K1_OP] > 0
+    assert not any(key.endswith((f"[{vp}, {d}]", f"[{d}, {vp}]")) for key in copies), copies
+    with hlo_stats.counting() as one, torch.no_grad():
+        unembed(params["embed"], torch.ones((2, 3, d), dtype=torch.bfloat16), cfg.vocab_size)
+    assert one.calls[hlo_stats.K1_OP] == 1
+    assert one.by_op[hlo_stats.K1_OP].flops == 2 * 6 * d * vp
+    assert not any(k.startswith(("aten::_to_copy", "aten::clone", "aten::mm"))
+                   for k in one.calls), one.calls
+
+
 def test_the_counter_follows_a_backward_run_on_another_thread():
     """On the card autograd runs the backward on a device thread of its
     own, which takes the dispatch-mode state (and nothing else) from the

@@ -118,12 +118,13 @@ def test_loss_and_every_gradient_match_jax_grad(fp32_pair):
 
 
 def test_every_projection_is_a_kernel_node(fp32_pair):
-    """The loss's graph holds one K1 op node per projection: the gradient
-    of every projection weight is the kernel's own backward."""
+    """The loss's graph holds one K1 op node per projection and one for the
+    unembedding: the gradient of every projection weight and of the head
+    is the kernel's own backward."""
     _, _, model, tparams = fp32_pair
     params = tree_map(lambda t: t.clone().requires_grad_(True), tparams)
     loss, _ = model.loss(params, device_put_batch(_batch(model.cfg.vocab_size, 16), "cpu"))
-    assert _k1_nodes(loss) == 7 * model.cfg.num_layers
+    assert _k1_nodes(loss) == 7 * model.cfg.num_layers + 1
     with torch.no_grad():
         assert model.loss(params, device_put_batch(_batch(256, 16), "cpu"))[0].grad_fn is None
 
@@ -166,21 +167,24 @@ def test_remat_dots_gives_the_gradients_of_none(fp32_pair, monkeypatch):
 
 def test_remat_dots_recomputes_no_product(fp32_pair, monkeypatch):
     """Plain-version products a step: the forward's, dA and dB under
-    "none" and "dots" (the products' outputs are saved), the forward's
-    once more under "full"."""
+    "none" and "dots" (the products' outputs are saved), the layers'
+    forward products once more under "full" (the unembedding, outside the
+    blocks, is not recomputed)."""
     _, _, model, tparams = fp32_pair
     batch = device_put_batch(_batch(model.cfg.vocab_size, 32), "cpu")
     calls = {remat: _grads_and_products(build_model(dataclasses.replace(model.cfg, remat=remat)),
                                         tparams, batch, monkeypatch)[2]
              for remat in ("none", "dots", "full")}
-    forward = 7 * model.cfg.num_layers
-    assert calls == {"none": 3 * forward, "dots": 3 * forward, "full": 4 * forward}
+    layers = 7 * model.cfg.num_layers
+    forward = layers + 1
+    assert calls == {"none": 3 * forward, "dots": 3 * forward, "full": 3 * forward + layers}
 
 
 def test_remat_dots_serves_as_before(fp32_pair, monkeypatch):
     """Without grad a "dots" config runs its blocks as is: the same logits
-    bit for bit, one plain-version product a projection, and the kernel
-    called directly, never through the registered op."""
+    bit for bit, one plain-version product a projection and one for the
+    unembedding, and the kernel called directly, never through the
+    registered op."""
     _, _, model, tparams = fp32_pair
     m = build_model(dataclasses.replace(model.cfg, remat="dots"))
     tokens = torch.from_numpy(_batch(256, 16)["tokens"]).long()
@@ -191,7 +195,7 @@ def test_remat_dots_serves_as_before(fp32_pair, monkeypatch):
         monkeypatch.setattr(ops, "matmul_ref", lambda *a, **k: calls.append(1) or real(*a, **k))
         monkeypatch.setattr(ops, "zorder_matmul_op", None)    # a call would raise
         torch.testing.assert_close(m.forward(tparams, tokens)[0], ref, rtol=0, atol=0)
-    assert len(calls) == 7 * model.cfg.num_layers
+    assert len(calls) == 7 * model.cfg.num_layers + 1
 
 
 @pytest.mark.parametrize("what", ["symmetric_matmul", "planned_linear"])

@@ -135,8 +135,11 @@ def test_two_steps_on_a_mesh_match_the_unsharded_trainer(mesh, arch, monkeypatch
         for (path, w0), w1 in zip(tree_paths(s0["master"]), tree_leaves(s1["master"])):
             assert _rel_l2(unplace(w1), w0) < TOL, (step, path)
     assert int(adamw.step_count(s1)) == 2
-    # every product of the sharded steps ran in the mesh's rank threads
-    assert counts["local"] == 0 and counts["rank"] > 0
+    # every product of the sharded steps ran in the mesh's rank threads but
+    # the unembedding's, which is never planned (the reference leaves it to
+    # XLA): its forward, dA and dB (fp32) in each of the 2 x 2 sharded
+    # loss-and-gradient passes
+    assert counts["local"] == 2 * 2 * 3 and counts["rank"] > 0
     assert sum(lower_dist.executions.values()) > 0
 
 
@@ -172,7 +175,7 @@ def test_a_recompute_plans_again_on_the_backward_thread(mesh, remat, monkeypatch
     # recomputed (the shared attention blocks are not wrapped)
     total = sum(lower_dist.executions.values())
     assert total == 3 * forward + 2 * model.cfg.num_layers, (forward, total)
-    assert counts["local"] == 0
+    assert counts["local"] == 3     # the unembedding's product, dA and dB, unplanned
     assert _rel_l2(loss, ref[0]) < TOL
     for (path, _), g, want in zip(tree_paths(master), out["g"], ref[2]):
         assert _rel_l2(g, want) < (A_LOG_TOL if path[-1] == "A_log" else TOL), path
