@@ -98,23 +98,38 @@ Phases, each fatal on failure (no result line, non-zero exit):
    the copied bytes must equal the trace's words times the element size
    each call carried, phase by phase (placement skew, movement, gather);
    psum is printed in both conventions (the copies into each rank, the
-   trace's ring all-reduce), with no limit.
+   trace's ring all-reduce), with no limit.  Each rank runs on its own
+   compute and copy streams.  Each cell is also captured in a CUDA graph
+   (the rank streams its branches) and replayed: the replay's bits equal
+   the eager run's, and its device time (the least of 3 replays) puts each
+   staged and overlapped twin side by side without the host's barriers.
+   Each cell whose body defers its ppermutes is bitwise the same body with
+   each done moved right after its start (patched here only) and, for
+   cannon and cannon25d, the staged body.  Those cells and the staged
+   cannon on 2x2 are profiled once, ``HIDE_PRODUCTS`` products queued
+   behind ``HIDE_SLEEP_S`` of device sleep so the host's barriers are off
+   the device's timeline: each cell's hidden share, the share of each rank's
+   prefetch-copy device time that lies under a K1 kernel of the same rank.
+   cannon+ov's must be above 0, and above a control whose dones follow
+   their starts at once.
 8. planned-serve -- phase 4's workload through ``Server(mesh=2x2)``, each
-   bucket's steps captured with the rank threads launching on the
-   capturing stream and replayed: identical tokens across two runs and
+   bucket's steps captured with the rank streams as the graphs' branches
+   and replayed: identical tokens across two runs and
    to the eager planned path on the same padded batch (bitwise), the planned
    prefill's last-token logits within ``PLANNED_LOGITS_TOL`` per row of
    ``mesh=None`` (a ring_rs reducing the wrong way round must land
    outside), token agreement with ``mesh=None`` printed, the strategies
    taken, K1 launches by route, TTFT, p50/p99, tokens/s for both, and one
    decode step's device time by CUDA events, planned and not, and as a
-   captured planned step.  A failed capture fails the run.
+   captured planned step, printed beside this script's earlier reading
+   with every rank on one stream.  A failed capture fails the run.
 9. planned-prefill -- phase 6's danube forward at S = 32768 on the 2x2
    mesh: all 168 products planned, the strategy counts, K1 launches all
    wide and K2's 24 all wgmma; logits within ``PREFILL_LOGITS_TOL`` per row
    of the unplanned forward, with Cannon without its B skew and the
    wrong-way ring_rs (each in every product of its strategy) outside;
-   device ms against the unplanned forward, in turns.
+   device ms against the unplanned forward and against the planned forward
+   with every rank on the caller's stream (patched here only), in turns.
 10. conformance -- the conformance checker (``repro_torch.verify``) over
    the executed schedules, every leg fatal: ``run_matrix`` on the card
    (every catalog cell up to 16 ranks, square, ragged and batched, fp32
@@ -267,8 +282,8 @@ Phases, each fatal on failure (no result line, non-zero exit):
    ``SHARD_GRAD_TOL`` (relative L2), while a planned backward that drops
    one product's dB lands outside it; (b) the main path of this phase:
    ``launch.train.main([..., "--tp", "2", "--ranks", "4"])``, the full
-   Llama-3.2-1B, bf16 with fp32 masters placed by ``param_shardings``, 3
-   steps of 8 x 256 (counts from 0 just before), and the same 3 steps
+   Llama-3.2-1B, bf16 with fp32 masters placed by ``param_shardings``, 2
+   steps of 8 x 256 (counts from 0 just before), and the same 2 steps
    through the launcher without a mesh: each step's loss within
    ``SHARD_LOSS_GAP``, 336 planned products a step (112 forward, 224 in the
    planned backward, which autograd runs on its device thread) by
@@ -341,9 +356,10 @@ Phases, each fatal on failure (no result line, non-zero exit):
    S = 8192), held row by row to its plain version, timed beside SDPA and
    the plain version.
 
-On one card the collectives are device copies and "overlap" is only the
-order in which the rank threads issue work: no number of phases 7-9 or 11
-is a link's.
+On one card the collectives are device copies between the ranks'
+streams (a ppermute's is a ``cudaMemcpyAsync`` on the receiver's copy
+stream), so an overlapped body's prefetch can run under its rank's K1; no
+number of phases 7-9 or 11 is a link's.
 
 Then a ``{"kernels": [...]}`` line (each kernel's entry with its launches
 per route on each path, graph replays counted apart), the card's name and
@@ -386,6 +402,7 @@ from repro_torch.data.pipeline import (DataConfig, batch_iterator, device_put_ba
                                        synth_batch)
 from repro_torch.device import param_device  # noqa: E402
 from repro_torch.dist import Mesh, _collectives, symmetric_matmul  # noqa: E402
+from repro_torch.dist import cannon as cannon_mod  # noqa: E402
 from repro_torch.dist.local import local_matmul  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
@@ -547,6 +564,18 @@ PLANNED_MESH = ((2, 2), ("x", "y"))
 # block products per rank)
 LAUNCHES_PER_PRODUCT_2X2 = {"cannon": 4 * 2, "summa": 4, "summa+ov": 4 * 2,
                             "ring_ag": 4 * 4, "ring_rs": 4}
+# Phase 7's hidden shares: each deferred cell (and the staged cannon, and
+# cannon+ov with each done moved right after its start) profiled once,
+# HIDE_PRODUCTS products queued behind this much device sleep (longer than
+# the host takes to queue them), so the host's barriers are off the
+# device's timeline (the work then runs as a graph replay runs it)
+HIDE_SLEEP_S = 0.25
+HIDE_PRODUCTS = 4     # products a profile queues behind the sleep, one after another
+# This script's readings on an NVIDIA H100 80GB HBM3 at 700 W when every
+# rank still launched on the caller's one stream; phases 8 and 11 print them
+# beside this run's
+ONE_STREAM = {"planned_step_replay_ms": 16.20, "planned_p50_ms": 19.21,
+              "probe_alpha_us": (790.0, 1250.0)}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # Calibration and tuning (phase 11): timed reps per probe and per candidate
 CALIBRATE_REPS = 5
@@ -594,6 +623,16 @@ def row_err(out: torch.Tensor, ref: torch.Tensor) -> dict:
             "finite": bool(torch.isfinite(out).all())}
 
 
+def capturing(graph) -> "torch.cuda.graph":
+    """``torch.cuda.graph(graph)`` with its capture stream given K1's
+    split-K counters first (``k1.prepare_capture_stream``), as the port's
+    own capture sites do."""
+    capture = torch.cuda.graph(graph)
+    k1.prepare_capture_stream(capture.capture_stream)
+    torch.cuda.synchronize()
+    return capture
+
+
 def graph_ms(fn, calls) -> float:
     """Mean device ms per call: capture ``calls`` (a list of argument
     tuples) in one CUDA graph, replay once to warm, time a second replay
@@ -602,7 +641,7 @@ def graph_ms(fn, calls) -> float:
         fn(*args)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capturing(graph):
         for args in calls:
             fn(*args)
     graph.replay()
@@ -1710,6 +1749,236 @@ def account_bytes(label: str, cap, copied: dict, ranks: int) -> dict:
     }
 
 
+@contextlib.contextmanager
+def done_at_start():
+    """Each deferred ppermute finished right after its start (patched here
+    only): the overlapped bodies' blocking twin, and the control of the
+    hidden share."""
+    start, done = _collectives.ppermute_start, _collectives.ppermute_done
+    with mock.patch.object(_collectives, "ppermute_start",
+                           lambda x, axis_name, perm: done(start(x, axis_name, perm))), \
+            mock.patch.object(_collectives, "ppermute_done", lambda finished: finished):
+        yield
+
+
+@contextlib.contextmanager
+def counted_dones():
+    """Within the scope, count the deferred ppermutes finished."""
+    done, count = _collectives.ppermute_done, [0]
+
+    def counting(started):
+        count[0] += 1
+        return done(started)
+
+    with mock.patch.object(_collectives, "ppermute_done", counting):
+        yield count
+
+
+@contextlib.contextmanager
+def copy_log(step_perms):
+    """Within the scope, every rank's ppermute copy (``RankStreams.copy_in``,
+    the only work of the copy streams) is logged in its copy stream's
+    order, keyed by the stream's handle, as a prefetch or not: a prefetch
+    is a deferred ppermute's copy, or one of the staged Cannon body's A/B
+    step permutes (``step_perms``), the copies its overlapped twin
+    defers."""
+    log_by_stream: dict = {}
+    flag = threading.local()
+    start, permute, copy_in = (_collectives.ppermute_start, cannon_mod._permute,
+                               _collectives.RankStreams.copy_in)
+
+    def flagged(fn, x, axes, perm):
+        flag.on = True
+        try:
+            return fn(x, axes, perm)
+        finally:
+            flag.on = False
+
+    def logged_copy_in(self, *args):
+        log_by_stream.setdefault(self.copy.cuda_stream, []).append(
+            bool(getattr(flag, "on", False)))
+        return copy_in(self, *args)
+
+    def step_permute(x, axes, perm):
+        if perm is not None and tuple(map(tuple, perm)) in step_perms:
+            return flagged(permute, x, axes, perm)
+        return permute(x, axes, perm)
+
+    with mock.patch.object(_collectives, "ppermute_start",
+                           lambda x, axes, perm: flagged(start, x, axes, perm)), \
+            mock.patch.object(cannon_mod, "_permute", step_permute), \
+            mock.patch.object(_collectives.RankStreams, "copy_in", logged_copy_in):
+        yield log_by_stream
+
+
+def _union(spans) -> list:
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(span, union) -> float:
+    a, b = span
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in union)
+
+
+def hidden_shares(events: list, log_by_stream: dict, ranks: int) -> dict:
+    """From a chrome trace's events: each rank's prefetch copies against
+    the K1 kernels of the same rank.  A rank is a (compute stream, copy
+    stream) pair: K1 runs on compute streams only, and a copy stream is
+    paired, by a vote of its memcpys, with the compute stream of the next K1
+    launch the copy's host thread made (a thread runs one rank a product,
+    and a rank launches K1 after each of its copies).  A copy
+    stream's memcpys, in stream order, are told apart by ``copy_log``'s
+    flags, whose key (a stream handle) the trace does not carry: they are
+    matched by their issue order.  ``hidden``: the share of the prefetch
+    copies' device time that lies under a K1 kernel of the same rank;
+    ``under_any_k1``: under any rank's."""
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "correlation" in e.get("args", {})}
+    k1, copies = [], []
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if corr not in runtime or "dur" not in e:
+            continue
+        host = runtime[corr]
+        row = (float(host["ts"]), host["tid"], e["args"].get("stream"),
+               (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        if e.get("cat") == "kernel" and any(x in e["name"] for x in K1_KERNELS):
+            k1.append(row)
+        elif e.get("cat") == "gpu_memcpy":
+            copies.append(row)
+    compute = {r[2] for r in k1}
+    if len(compute) != ranks:
+        raise AssertionError(f"the trace shows K1 on {len(compute)} streams, want one per "
+                             f"rank ({ranks})")
+    k1_by_tid: dict = {}
+    for r in k1:
+        k1_by_tid.setdefault(r[1], []).append(r)
+    votes: dict = {}
+    by_copy_stream: dict = {}
+    for r in copies:
+        if r[2] in compute or r[1] not in k1_by_tid:
+            continue     # a compute stream's memcpy, or not a rank thread's
+        later = [k for k in k1_by_tid[r[1]] if k[0] >= r[0]] or k1_by_tid[r[1]]
+        near = min(later, key=lambda k: abs(k[0] - r[0]))
+        votes.setdefault(r[2], Counter())[near[2]] += 1
+        by_copy_stream.setdefault(r[2], []).append(r[3])
+    patterns: dict = {}
+    for flags in log_by_stream.values():
+        patterns.setdefault(len(flags), set()).add(tuple(flags))
+    k1_union = {s: _union(r[3] for r in k1 if r[2] == s) for s in compute}
+    all_k1 = _union(r[3] for r in k1)
+    hidden = total = under_any = 0.0
+    counted = 0
+    for stream, spans in by_copy_stream.items():
+        pats = patterns.get(len(spans), set())
+        if len(pats) != 1:
+            raise AssertionError(f"copy stream {stream}'s {len(spans)} memcpys match no one "
+                                 f"logged issue order: {log_by_stream}")
+        own = k1_union[votes[stream].most_common(1)[0][0]]
+        for span, pre in zip(sorted(spans), next(iter(pats))):
+            if pre:
+                counted += 1
+                total += span[1] - span[0]
+                hidden += _covered(span, own)
+                under_any += _covered(span, all_k1)
+    if not counted:
+        raise AssertionError("the trace shows no prefetch copy")
+    return {"hidden": hidden / total, "under_any_k1": under_any / total,
+            "prefetch_copies": counted, "prefetch_copy_us": total, "hidden_us": hidden}
+
+
+def profile_hidden(planned, plan, label: str) -> dict:
+    """``HIDE_PRODUCTS`` products queued behind ``HIDE_SLEEP_S`` of device
+    sleep, under ``torch.profiler``: the hidden share of their prefetch
+    copies
+    (``hidden_shares``); the trace saved gzipped to ``chiprun_out/``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = set()
+    if plan.torus is not None:
+        steps = {tuple(map(tuple, p)) for p in (plan.torus.step_a, plan.torus.step_b) if p}
+    planned()
+    torch.cuda.synchronize()
+    with copy_log(steps) as logged, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(HIDE_SLEEP_S * max_sm_clock_hz()))
+        for _ in range(HIDE_PRODUCTS):
+            planned()
+        torch.cuda.synchronize()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    raw = os.path.join(OUT_DIR, f"profile_hidden_{re.sub(r'[^a-z0-9]+', '_', label)}.json")
+    prof.export_chrome_trace(raw)
+    with open(raw) as f:
+        events = json.load(f)["traceEvents"]
+    with open(raw, "rb") as f, gzip.open(raw + ".gz", "wb") as g:
+        shutil.copyfileobj(f, g)
+    os.remove(raw)
+    out = hidden_shares(events, logged, plan.mesh.size)
+    out["trace"] = os.path.relpath(raw + ".gz", ROOT)
+    return out
+
+
+def captured_product(planned, reps: int = 3) -> tuple:
+    """(output, device ms): ``planned()`` captured in a CUDA graph (its rank
+    streams the graph's branches), replayed once to warm, then ``reps``
+    replays each timed by CUDA events (the least); the output is the
+    graph's, after the replays."""
+    planned()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with capturing(graph):
+        out = planned()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    out = out.clone()
+    del graph
+    return out, best
+
+
+def bitwise_twins(label: str, planned, out: torch.Tensor, deferred: bool, staged) -> list:
+    """Hold an overlapped cell's output to its twins, bit for bit: the same
+    body with each done right after its start (where the body defers its
+    ppermutes) and, for a pure reorder (cannon, cannon25d), the staged
+    body's output (``staged``); the twins it equals."""
+    twins = []
+    if deferred:
+        with done_at_start():
+            twin = planned()
+        if not torch.equal(twin, out):
+            raise AssertionError(f"{label}: the deferred ppermutes changed the output's bits "
+                                 f"against the same body finishing each at once")
+        twins.append("the body with each done right after its start")
+        del twin
+    if staged is not None:
+        if not torch.equal(staged, out):
+            raise AssertionError(f"{label}: the output's bits differ from the staged twin's")
+        twins.append("the staged body")
+    return twins
+
+
+def check_hidden(label: str, row: dict) -> None:
+    """cannon+ov must hide part of its prefetch copies under its own
+    rank's K1, and the control (each done right after its start) less."""
+    got, control = row["hidden"]["hidden"], row["hidden_control"]["hidden"]
+    if not got > 0 or not control < got:
+        raise AssertionError(f"{label}: hidden share {got:.4f}, control {control:.4f}: the "
+                             f"prefetch copies do not run under the rank's K1")
+
+
 def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
     m, k, n = PLAN_SWEEP_SHAPE
     bf16 = torch.bfloat16
@@ -1719,7 +1988,7 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
     k1_ms = event_ms(lambda: matmul(a, b), 5)
     log(f"[plan-sweep] {m}x{k}x{n} bf16: K1 alone {k1_ms:.3f}ms "
         f"(route {k1.route(m, n, k, bf16)})")
-    meshes, rows = {}, []
+    meshes, rows, staged_outs = {}, [], {}
     for sizes, names, strategy, overlap in PLAN_SWEEP_CELLS:
         if (sizes, names) not in meshes:
             meshes[sizes, names] = Mesh(sizes, names, device=dev)
@@ -1734,9 +2003,10 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
         # the check run (untimed) reads each collective call's element size
         # at the seam, to account for the copied bytes through the trace
         _collectives.reset_stats()
-        with k1.trace_launches() as trace, intercept() as cap:
+        with k1.trace_launches() as trace, intercept() as cap, counted_dones() as dones:
             out = planned()
             torch.cuda.synchronize()
+        deferred = dones[0] > 0
         copied = {kind: dict(v) for kind, v in _collectives.stats.items()}
         accounted = account_bytes(label, cap, copied, mesh.size)
         routes = {}
@@ -1746,7 +2016,14 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
                                      f"not {k1.route(pm, pn, pk, bf16)}")
             routes[r] = routes.get(r, 0) + 1
         e = _check_rows("plan-sweep", f"{label} vs K1 alone", out, ref, PLAN_ROW_TOL)
-        del out
+        twins = bitwise_twins(label, planned, out, deferred, staged_outs.get((sizes, strategy)))
+        if strategy in ("cannon", "cannon25d") and not plan.overlap:
+            staged_outs[sizes, strategy] = out
+        graph_out, graph_ms = captured_product(planned)
+        if not torch.equal(graph_out, out):
+            raise AssertionError(f"{label}: the captured product's replay differs from the "
+                                 f"eager run's bits")
+        del out, graph_out
         _, in_specs, _ = lower_dist_mod.rule(plan)
 
         def scatter(mesh=mesh, in_specs=in_specs):
@@ -1768,9 +2045,17 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
                "host_ms": host_ms, "k1_alone_ms": k1_ms,
                "cost": {"comm_bytes_per_rank": plan.cost.comm_bytes, "msgs": plan.cost.msgs,
                         "compute_s": plan.cost.compute_s, "comm_s": plan.cost.comm_s},
-               "copied_bytes_per_rank": moved, "collectives": copied, "accounted": accounted}
+               "copied_bytes_per_rank": moved, "collectives": copied, "accounted": accounted,
+               "deferred_dones": dones[0], "graph_ms": graph_ms, "bitwise_twins": twins}
+        if deferred or (strategy == "cannon" and sizes == (2, 2)):
+            row["hidden"] = profile_hidden(planned, plan, label)
+            if deferred and strategy == "cannon" and sizes == (2, 2):
+                with done_at_start():
+                    row["hidden_control"] = profile_hidden(planned, plan, label + " control")
+                check_hidden(label, row)
         rows.append(row)
-        log(f"[plan-sweep] {label:22s} {row['ms']:8.3f}ms (K1 alone {k1_ms:.3f}, scatter of "
+        log(f"[plan-sweep] {label:22s} {row['ms']:8.3f}ms eager, {graph_ms:.3f}ms captured "
+            f"(K1 alone {k1_ms:.3f}, scatter of "
             f"both operands {row['scatter_ms']:.3f}, host {host_ms:.1f}ms); K1 {len(trace)} "
             f"launches {routes}; cost words {plan.cost.comm_bytes / 1e6:.2f} MB/rank in "
             f"{plan.cost.msgs} msgs, copied {moved / 1e6:.2f} MB/rank "
@@ -1783,6 +2068,29 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
                          f"(the trace's ring all-reduce, 2 (g - 1) shards per group), no limit")
         log(f"[plan-sweep] {'':22s} copied bytes by phase, trace words x the element size "
             f"each call carried (MB/rank): " + "; ".join(parts))
+        if twins:
+            log(f"[plan-sweep] {'':22s} bitwise equal to " + ", ".join(twins)
+                + f" ({dones[0]} deferred ppermutes finished)")
+        for key in ("hidden", "hidden_control"):
+            if key in row:
+                h = row[key]
+                log(f"[plan-sweep] {'':22s} {'control (each done right after its start)' if key == 'hidden_control' else 'profiled'}: "
+                    f"hidden share {h['hidden']:.3f} of {h['prefetch_copies']} prefetch "
+                    f"copies' {h['prefetch_copy_us']:.1f}us under the same rank's K1 "
+                    f"({h['under_any_k1']:.3f} under any rank's)")
+    del staged_outs
+    pairs = {}
+    for r in rows:
+        pairs.setdefault((tuple(r["mesh"]), r["strategy"]), {})[r["overlap"]] = r
+    twin_ms = {f"{st} on {'x'.join(map(str, sz))}": {
+        "staged_graph_ms": v[False]["graph_ms"], "overlapped_graph_ms": v[True]["graph_ms"],
+        "staged_eager_ms": v[False]["ms"], "overlapped_eager_ms": v[True]["ms"]}
+        for (sz, st), v in pairs.items() if set(v) == {False, True}}
+    for key, v in twin_ms.items():
+        log(f"[plan-sweep] twins {key}: captured staged {v['staged_graph_ms']:.3f}ms, "
+            f"overlapped {v['overlapped_graph_ms']:.3f}ms "
+            f"({v['overlapped_graph_ms'] / v['staged_graph_ms']:.2f}x); eager "
+            f"{v['staged_eager_ms']:.3f} / {v['overlapped_eager_ms']:.3f}ms")
     controls = {}
     for what, (sizes, names), strategy in (
             ("cannon without B skew", ((2, 2), ("x", "y")), "cannon"),
@@ -1797,14 +2105,14 @@ def phase_plan_sweep(dev: torch.device, gen: torch.Generator) -> dict:
     del a, b, ref
     torch.cuda.empty_cache()
     return {"shape": [m, k, n], "k1_alone_ms": k1_ms, "cells": rows, "controls": controls,
-            "k1_launches": sum(r["k1_launches"] for r in rows)}
+            "twins": twin_ms, "k1_launches": sum(r["k1_launches"] for r in rows)}
 
 
 def phase_planned_serve(dev: torch.device) -> dict:
     """Phase 8: phase 4's workload through ``Server(mesh=2x2)``, captured
-    per bucket (the rank threads launch on the capturing stream) and
-    replayed, against the eager planned path on the same bucket-padded
-    batch: identical tokens; a failed capture fails the run."""
+    per bucket (the rank streams the graphs' branches) and replayed,
+    against the eager planned path on the same bucket-padded batch:
+    identical tokens; a failed capture fails the run."""
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -1874,7 +2182,10 @@ def phase_planned_serve(dev: torch.device) -> dict:
         step_ms = planned_step_ms(model, params, mesh, dev)
     log(f"[planned-serve] decode step device time (CUDA events, eager, bucket 4x16): planned "
         f"{step_ms['planned_ms']:.3f}ms, mesh=None {step_ms['local_ms']:.3f}ms; CUDA graph of "
-        f"a planned decode step replays in {step_ms['graph']['replay_ms']:.3f}ms")
+        f"a planned decode step (its rank streams the graph's branches) replays in "
+        f"{step_ms['graph']['replay_ms']:.3f}ms (every rank on one stream: "
+        f"{ONE_STREAM['planned_step_replay_ms']}ms); captured p50 "
+        f"{summary['graphs']['p50_ms']:.2f}ms (one stream: {ONE_STREAM['planned_p50_ms']}ms)")
     mesh.close()
     del server, local, params
     torch.cuda.empty_cache()
@@ -1888,8 +2199,9 @@ def phase_planned_serve(dev: torch.device) -> dict:
 def planned_step_ms(model, params, mesh, dev: torch.device) -> dict:
     """One decode step at the (4, 16) bucket, eager, by CUDA events:
     mesh=None and planned in turns; then the planned step captured in a
-    CUDA graph (its rank threads launch on the capturing stream) and one
-    replay timed."""
+    CUDA graph (each rank's compute and copy streams forked from the
+    capturing stream and joined back: the graph's branches) and one replay
+    timed."""
     batch, seq = SERVE_BUCKETS[0]
     cache = model.init_cache(batch, 64, dev)
     rng = np.random.default_rng(2)
@@ -1905,12 +2217,12 @@ def planned_step_ms(model, params, mesh, dev: torch.device) -> dict:
 
     t = {}
     for key in ("local_ms", "planned_ms", "planned_ms", "local_ms"):
-        t.setdefault(key, []).append(event_ms({"local_ms": local, "planned_ms": planned}[key], 3))
+        t.setdefault(key, []).append(event_ms({"local_ms": local, "planned_ms": planned}[key], 1))
     out = {key: min(v) for key, v in t.items()}
     out["runs"] = t
     # a failed capture raises here and fails the run
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capturing(graph):
         planned()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1982,13 +2294,21 @@ def phase_planned_prefill(dev: torch.device) -> dict:
         def local():
             return model.forward(params, tokens)[0]
 
+        def one_stream():
+            # every rank on the caller's stream, as before rank streams
+            # (patched here only): the control of the rank streams' time
+            with mock.patch.object(mesh, "_rank_streams", lambda: [None] * mesh.size):
+                return planned()
+
         t = {}
-        for key in ("local_ms", "planned_ms", "planned_ms", "local_ms"):
-            t.setdefault(key, []).append(event_ms({"local_ms": local, "planned_ms": planned}[key],
-                                                  1))
+        fns = {"local_ms": local, "planned_ms": planned, "one_stream_ms": one_stream}
+        for key in ("local_ms", "planned_ms", "one_stream_ms", "one_stream_ms", "planned_ms",
+                    "local_ms"):
+            t.setdefault(key, []).append(event_ms(fns[key], 1))
     out = {key: min(v) for key, v in t.items()}
     log(f"[planned-prefill] forward device time (CUDA events): planned {out['planned_ms']:.1f}ms "
-        f"({PREFILL_S / out['planned_ms'] * 1e3:.0f} prefill tokens/s), unplanned "
+        f"({PREFILL_S / out['planned_ms'] * 1e3:.0f} prefill tokens/s; every rank on the "
+        f"caller's stream {out['one_stream_ms']:.1f}ms), unplanned "
         f"{out['local_ms']:.1f}ms ({PREFILL_S / out['local_ms'] * 1e3:.0f}); runs {t}")
     mesh.close()
     del params
@@ -2208,7 +2528,9 @@ def phase_calibrate(dev: torch.device) -> dict:
         f"{probe_s:.1f}s: peak {profile.peak_flops / 1e12:.1f} TFLOP/s (K1 at {peak_n}^3 bf16, "
         f"{k1.route(peak_n, peak_n, peak_n, torch.bfloat16)} route); "
         f"links " + ", ".join(f"{n} alpha {v['alpha_us']:.1f}us bw {v['bw_gb_s']:.1f}GB/s"
-                               for n, v in links.items()))
+                               for n, v in links.items())
+        + f" (every rank on one stream: alpha {ONE_STREAM['probe_alpha_us'][0]:.0f}-"
+          f"{ONE_STREAM['probe_alpha_us'][1]:.0f}us, the host barrier)")
     winners = []
     for key, e in table.entries:
         dtype, bm, bn, bk = key
@@ -4165,10 +4487,10 @@ SHARD_MESH = ((2, 2), ("data", "model"))
 SHARD_CHECK_LAYERS, SHARD_CHECK_BATCH, SHARD_CHECK_SEQ = 2, 2, 64
 SHARD_GRAD_TOL = 1e-4
 # (b) the launcher on the mesh: full width and depth, bf16, 8 x 256 tokens
-# a step, 3 steps, and the same 3 steps without a mesh from the same seed.
+# a step, 2 steps, and the same 2 steps without a mesh from the same seed.
 # bf16 products rounded in other orders move a step's loss by ~1e-3; the
 # gap allowed is 2e-2 absolute at every step.
-SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 8, 256, 3
+SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 8, 256, 2
 SHARD_LOSS_GAP = 2e-2
 SHARD_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(SHARD_STEPS), "--batch", str(SHARD_BATCH),
               "--seq", str(SHARD_SEQ)]
@@ -4412,8 +4734,8 @@ def _state_bytes(state, mesh) -> dict:
 
 def sharded_main_path(dev: torch.device) -> dict:
     """(b) The launcher on the 2x2 mesh (``--tp 2 --ranks 4``), full-width
-    Llama-3.2-1B, 3 steps of 8 x 256 tokens, bf16, fp32 masters, then the
-    same 3 steps without a mesh from the same seed (module docstring)."""
+    Llama-3.2-1B, 2 steps of 8 x 256 tokens, bf16, fp32 masters, then the
+    same 2 steps without a mesh from the same seed (module docstring)."""
     tag = "shard-train"
     t0 = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)

@@ -1,31 +1,51 @@
 """Interceptable collective seam for the per-rank programs.
 
 Counterpart of ``repro.dist._collectives``.  Every word a lowered schedule
-moves goes through ``ppermute``, ``all_gather`` or ``psum`` here (the
-reference's three names, which ``repro_torch.verify.interceptor`` patches);
-``axis_index`` and ``axis_size`` answer a rank's place on the mesh, as
-``lax.axis_index`` and ``lax.psum(1, axis)`` do inside the reference's
-shard_map bodies, and ``rank`` the calling rank's number.  Each call goes
-to the communicator of the rank the calling thread runs (``current``), one
-of two:
+moves goes through ``ppermute`` (or its deferred form, ``ppermute_start``
+and ``ppermute_done``), ``all_gather`` or ``psum`` here (the names
+``repro_torch.verify.interceptor`` patches); ``axis_index`` and
+``axis_size`` answer a rank's place on the mesh, as ``lax.axis_index`` and
+``lax.psum(1, axis)`` do inside the reference's shard_map bodies, and
+``rank`` the calling rank's number.  Each call goes to the communicator of
+the rank the calling thread runs (``current``), one of two:
 
 * ``ThreadCommunicator`` -- the single controller: the mesh's ranks are
   threads of one process, and a collective is a barrier exchange over a
   shared ``Rendezvous``: each rank posts its tensor, all wait, each takes
-  what it receives (a copy onto its device), all wait again.  All ranks on
-  one card launch on the caller's current stream, so their kernels run in
-  the order the threads issue them and a copy never runs ahead of the
-  kernel that wrote its source.
+  what it receives.  On a CUDA mesh each rank runs on a compute stream and
+  a copy stream of its own (``RankStreams``, made once per mesh and rank
+  by ``Mesh.run``).  A rank posts its tensor with an event recorded on its
+  compute stream after the kernel that wrote it.  A ppermute's copy waits
+  on that event and runs on the receiver's copy stream, a
+  ``cudaMemcpyAsync`` into a block allocated on the receiver's compute
+  stream (the copy also waits for that stream's earlier use of the
+  block); the receiver's compute stream waits on the copy's event only at
+  ``ppermute_done``, where the tensor is first used.
+  ``psum`` and ``all_gather`` read the posted tensors on the compute
+  stream, after waiting on their events.  A rank keeps every tensor it
+  read from another rank until its program ends, when the caller's stream
+  waits on all of its work, so the caching allocator cannot hand the
+  block out again under the read.  On the CPU and under a fake mode there
+  are no streams: each copy is made at once.
 * ``ProcessGroupCommunicator`` -- one rank per process over
-  ``torch.distributed``: ``ppermute`` is ``batch_isend_irecv``,
-  ``all_gather`` an all-gather into one tensor on the axis' subgroup,
-  ``psum`` an ``all_reduce`` on it.
+  ``torch.distributed``: ``ppermute`` is ``batch_isend_irecv`` (started by
+  ``ppermute_start``, waited on by ``ppermute_done``: on NCCL the wait
+  holds back the stream, not the host), ``all_gather`` an all-gather into
+  one tensor on the axis' subgroup, ``psum`` an ``all_reduce`` on it.
 
 Semantics follow ``jax.lax``: ``perm`` pairs are (source, destination)
 positions in the group over the named axes (``Mesh.axis_index``); a rank
 no pair sends to receives zeros; ``all_gather`` stacks the group's tensors
 in group order, or concatenates them along ``axis`` when ``tiled``;
 ``psum`` gives every member the sum (in group order).
+
+``ppermute_start`` is the counterpart of XLA's ``collective-permute-start``:
+it returns a ``PermuteHandle`` at once, and ``ppermute_done`` gives the
+received tensor (``collective-permute-done``).  A program that returns
+with a handle not finished raises, and so does a handle finished twice.
+``ppermute`` is a start and its done at once.  A deferred ppermute is
+counted once, as one ppermute, by everything below and by the
+interceptor.
 
 ``stats`` counts, per kind, the calls and the bytes each rank received
 from another rank (a rank's own block moves nothing): the measured side of
@@ -41,12 +61,13 @@ ambient strategy tag) and bumps the ``dist.collective.count`` /
 while tracing the body; here every rank calls at run time, so only the
 lowest local rank records (a program's records, as the interceptor takes
 them), and ``obs.collective_multiset()`` equals the interceptor's
-multiset.  The interceptor patches the three names and calls these, so
+multiset.  The interceptor patches the seam's names and calls these, so
 both see the same calls when active together.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import threading
 from typing import Dict, Optional
 
@@ -83,13 +104,18 @@ class RankAborted(RuntimeError):
 
 @contextlib.contextmanager
 def current(comm):
-    """Make ``comm`` the calling thread's communicator within the scope."""
-    prev = getattr(_local, "comm", None)
-    _local.comm = comm
+    """Make ``comm`` the calling thread's communicator within the scope;
+    a deferred ppermute started in it and not finished when it ends
+    without an error raises."""
+    prev = getattr(_local, "comm", None), getattr(_local, "open", None)
+    _local.comm, _local.open = comm, set()
     try:
         yield comm
+        if _local.open:
+            raise RuntimeError(f"{len(_local.open)} deferred ppermute(s) of this program "
+                               f"were started and never finished (ppermute_done)")
     finally:
-        _local.comm = prev
+        _local.comm, _local.open = prev
 
 
 def _comm():
@@ -119,7 +145,42 @@ def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
     if obs.enabled():
         _observe(comm, "ppermute", x, axes, perm)
     with hlo_stats.collective("ppermute", x, x.numel()):
-        return comm.ppermute(x, axes, perm)
+        return comm.ppermute_start(x, axes, perm).wait()
+
+
+class PermuteHandle:
+    """A started ppermute (``ppermute_start``); ``ppermute_done`` finishes
+    it, once."""
+
+    __slots__ = ("_pending", "_done")
+
+    def __init__(self, pending):
+        self._pending = pending
+        self._done = False
+
+
+def ppermute_start(x: torch.Tensor, axis_name, perm) -> PermuteHandle:
+    """Start ``ppermute(x, axis_name, perm)`` and return at once: on a CUDA
+    thread mesh the copy is queued on this rank's copy stream, in a process
+    group the sends and receives are issued.  ``ppermute_done`` gives the
+    received tensor."""
+    comm, axes = _comm(), as_axes(axis_name)
+    if obs.enabled():
+        _observe(comm, "ppermute", x, axes, perm)
+    with hlo_stats.collective("ppermute", x, x.numel()):
+        handle = PermuteHandle(comm.ppermute_start(x, axes, perm))
+    _local.open.add(handle)
+    return handle
+
+
+def ppermute_done(handle: PermuteHandle) -> torch.Tensor:
+    """The tensor a ``ppermute_start`` receives, for use on this rank's
+    compute stream (which waits for the copy, not the host)."""
+    if handle._done:
+        raise RuntimeError("ppermute_done: this deferred ppermute was already finished")
+    handle._done = True
+    _local.open.discard(handle)
+    return handle._pending.wait()
 
 
 def all_gather(x: torch.Tensor, axis_name, *, axis: int, tiled: bool) -> torch.Tensor:
@@ -161,6 +222,16 @@ def _source(perm, me: int) -> Optional[int]:
 
 def _combine(parts, axis: int, tiled: bool) -> torch.Tensor:
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
+
+
+class _Ready:
+    """A ppermute whose result is already there."""
+
+    def __init__(self, out: torch.Tensor):
+        self.out = out
+
+    def wait(self) -> torch.Tensor:
+        return self.out
 
 
 # -- single controller: ranks as threads ----------------------------------------
@@ -261,16 +332,143 @@ def _turn_released():
         _turn.held = True
 
 
+# Events each rank keeps for the ppermute copies in flight at once (an
+# overlapped body has at most two); more are made outside a capture only.
+COPY_EVENTS = 4
+
+# The per-collective event records and waits (the CUDA driver's) and
+# copies (PyTorch's CUDA runtime's, so a profile sees them as it sees
+# PyTorch's) are called through ``ctypes.PyDLL``, which keeps the
+# interpreter lock: each is a microsecond's call.  PyTorch's bindings
+# release the lock for each, and the rank threads, woken together by every
+# barrier, then queue for it at every call, which costs more than the calls
+# (``probe_links``' α of a rank-thread ppermute shows it).
+_driver = None
+_runtime = None
+_DEVICE_TO_DEVICE = 3     # cudaMemcpyDeviceToDevice
+
+
+def _cu():
+    global _driver
+    if _driver is None:
+        lib = ctypes.PyDLL("libcuda.so.1")
+        lib.cuEventRecord.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
+        lib.cuEventRecord.restype = ctypes.c_int
+        lib.cuStreamWaitEvent.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint)
+        lib.cuStreamWaitEvent.restype = ctypes.c_int
+        _driver = lib
+    return _driver
+
+
+def _cudart():
+    global _runtime
+    if _runtime is None:
+        lib = ctypes.PyDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+        lib.cudaMemcpyAsync.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                                        ctypes.c_int, ctypes.c_void_p)
+        lib.cudaMemcpyAsync.restype = ctypes.c_int
+        _runtime = lib
+    return _runtime
+
+
+def _record(event: "torch.cuda.Event", stream: "torch.cuda.Stream") -> None:
+    rc = _cu().cuEventRecord(event.cuda_event, stream.cuda_stream)
+    if rc:
+        raise RuntimeError(f"cuEventRecord failed ({rc})")
+
+
+def _wait(stream: "torch.cuda.Stream", event: "torch.cuda.Event") -> None:
+    rc = _cu().cuStreamWaitEvent(stream.cuda_stream, event.cuda_event, 0)
+    if rc:
+        raise RuntimeError(f"cuStreamWaitEvent failed ({rc})")
+
+
+class RankStreams:
+    """One rank's CUDA streams and events on a single-controller mesh (the
+    module docstring), made once per mesh and rank outside any capture:
+    the compute stream its program runs on, a copy stream (of high
+    priority: copies are short and the compute waits on them), the events
+    of its posts (two, by collective parity: a rank posts again only once
+    every rank has passed the collective before, by which time every
+    receiver has queued its wait on the older post), of its copies in
+    flight, of the end of its program, and a mark of its compute stream
+    for the copy stream to wait on."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.compute = torch.cuda.Stream(device)
+        self.copy = torch.cuda.Stream(device, priority=-1)
+        self.posts = (self._event(), self._event())
+        self.end = self._event()
+        self.mark = self._event()
+        self._copies = [self._event() for _ in range(COPY_EVENTS)]
+
+    def _event(self) -> torch.cuda.Event:
+        ev = torch.cuda.Event()
+        ev.record(self.compute)   # made now (CUDA events are made at first record)
+        return ev
+
+    def copy_in(self, src: torch.Tensor, src_posted) -> "_Copying":
+        """Queue a copy of ``src`` on the copy stream into a block allocated
+        on the compute stream, after the source's post and after the
+        compute stream's earlier use of the block (the mark).  A contiguous
+        source is one ``cudaMemcpyAsync``; another is PyTorch's copy on the
+        copy stream."""
+        out = torch.empty_like(src, memory_format=torch.contiguous_format)
+        _record(self.mark, self.compute)
+        _wait(self.copy, self.mark)
+        _wait(self.copy, src_posted)
+        if src.is_contiguous():
+            rc = _cudart().cudaMemcpyAsync(out.data_ptr(), src.data_ptr(),
+                                           src.numel() * src.element_size(),
+                                           _DEVICE_TO_DEVICE, self.copy.cuda_stream)
+            if rc:
+                raise RuntimeError(f"cudaMemcpyAsync failed ({rc})")
+        else:
+            with torch.cuda.stream(self.copy):
+                out.copy_(src)
+        if not self._copies:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"more than {COPY_EVENTS} deferred ppermutes in flight "
+                                   f"inside a CUDA graph capture")
+            self._copies.append(self._event())
+        ev = self._copies.pop()
+        _record(ev, self.copy)
+        return _Copying(out, ev, self)
+
+
+class _Copying:
+    """A ppermute copy queued on a rank's copy stream."""
+
+    def __init__(self, out: torch.Tensor, event, streams: RankStreams):
+        self.out, self.event, self.streams = out, event, streams
+
+    def wait(self) -> torch.Tensor:
+        _wait(self.streams.compute, self.event)
+        self.streams._copies.append(self.event)
+        return self.out
+
+
 def run_rank(comm: "ThreadCommunicator", stream, fn, args, tags=None, fake=None,
-             counter=None):
-    """One rank's thread: its device and the caller's stream current, its
-    communicator current, the caller's obs tags inherited (``tags``, when
-    tracing), the caller's fake mode (``fake``: the ranks take turns, see
-    ``_FAKE_TURN``) and cost counter (``counter``: counted as this rank's
-    program), ``fn(*args)``; a failure releases the others."""
+             counter=None, fork=None):
+    """One rank's thread: its device current and its stream (its own
+    compute stream after it waits on ``fork``, the caller's stream at the
+    run's start, where ``comm`` has ``RankStreams``; else ``stream``, the
+    caller's), its communicator current, the caller's obs tags inherited
+    (``tags``, when tracing), the caller's fake mode (``fake``: the ranks
+    take turns, see ``_FAKE_TURN``) and cost counter (``counter``: counted
+    as this rank's program), ``fn(*args)``; a failure releases the others.
+    With ``RankStreams`` the end of the program is recorded on its compute
+    stream, failed or not, for the caller to wait on."""
+    own = comm.streams
     try:
         with contextlib.ExitStack() as stack:
-            if stream is not None:
+            if own is not None:
+                stack.enter_context(torch.cuda.device(comm.device))
+                stack.enter_context(torch.cuda.stream(own.compute))
+                stack.callback(own.end.record, own.compute)
+                own.compute.wait_event(fork)
+            elif stream is not None:
                 stack.enter_context(torch.cuda.device(comm.device))
                 stack.enter_context(torch.cuda.stream(stream))
             if fake is not None:
@@ -291,46 +489,71 @@ def run_rank(comm: "ThreadCommunicator", stream, fn, args, tags=None, fake=None,
 
 class ThreadCommunicator:
     """Rank ``rank`` of a single-controller ``Mesh``: its collectives are
-    barrier exchanges with the other rank threads (module docstring)."""
+    barrier exchanges with the other rank threads, on its ``RankStreams``
+    where it has them (module docstring)."""
 
-    def __init__(self, mesh, rank: int, rendezvous: Rendezvous):
+    def __init__(self, mesh, rank: int, rendezvous: Rendezvous,
+                 streams: Optional[RankStreams] = None):
         self.mesh = mesh
         self.rank = rank
         self.device = mesh.device
         self.rendezvous = rendezvous
+        self.streams = streams
+        self._posts = 0
+        self._kept: list = []    # other ranks' tensors this rank read (module docstring)
 
-    def _receive(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.device, copy=True)
+    def _post(self, x: torch.Tensor) -> list:
+        """Post ``x`` with the event of its writing (None without streams);
+        every rank's (tensor, event)."""
+        event = None
+        if self.streams is not None:
+            event = self.streams.posts[self._posts % 2]
+            _record(event, self.streams.compute)
+        self._posts += 1
+        return self.rendezvous.exchange(self.rank, (x, event))
 
-    def ppermute(self, x, axes, perm):
+    def _read(self, view, group) -> list:
+        """The group's posted tensors, each readable on this rank's compute
+        stream."""
+        parts = []
+        for g in group:
+            t, event = view[g]
+            if g != self.rank and self.streams is not None:
+                _wait(self.streams.compute, event)
+                self._kept.append(t)
+            parts.append(t.to(self.device))
+        return parts
+
+    def ppermute_start(self, x, axes, perm):
         group = self.mesh.group(self.rank, axes)
-        view = self.rendezvous.exchange(self.rank, x)
         src = _source(perm, group.index(self.rank))
-        if src is None:
+        src_rank = None if src is None else group[src]
+        view = self._post(x)
+        if src_rank is None:
             _count("ppermute", 0)
-            return torch.zeros_like(x)
-        if group[src] == self.rank:
+            return _Ready(torch.zeros_like(x))
+        if src_rank == self.rank:
             _count("ppermute", 0)
-            return x
-        got = view[group[src]]
+            return _Ready(x)
+        got, event = view[src_rank]
         _count("ppermute", got.numel() * got.element_size())
-        return self._receive(got)
+        if self.streams is None:
+            return _Ready(got.to(self.device, copy=True))
+        self._kept.append(got)
+        return self.streams.copy_in(got, event)
 
     def all_gather(self, x, axes, *, axis, tiled):
         group = self.mesh.group(self.rank, axes)
-        view = self.rendezvous.exchange(self.rank, x)
         # the concatenation is the copy each received shard takes
-        parts = [view[g].to(self.device) for g in group]
+        parts = self._read(self._post(x), group)
         _count("all_gather", sum(p.numel() * p.element_size()
                                  for g, p in zip(group, parts) if g != self.rank))
         return _combine(parts, axis, tiled)
 
     def psum(self, x, axes):
         group = self.mesh.group(self.rank, axes)
-        view = self.rendezvous.exchange(self.rank, x)
         acc = None
-        for g in group:
-            part = view[g].to(self.device)
+        for part in self._read(self._post(x), group):
             acc = part.clone() if acc is None else acc + part
         _count("psum", (len(group) - 1) * x.numel() * x.element_size())
         return acc
@@ -348,8 +571,8 @@ class SoloCommunicator:
         self.rank = rank
         self.device = mesh.device
 
-    def ppermute(self, x, axes, perm):
-        return torch.empty_like(x)
+    def ppermute_start(self, x, axes, perm):
+        return _Ready(torch.empty_like(x))
 
     def all_gather(self, x, axes, *, axis, tiled):
         g = self.mesh.axis_size(axes)
@@ -400,7 +623,7 @@ class ProcessGroupCommunicator:
             self._groups[axes] = mine
         return self._groups[axes]
 
-    def ppermute(self, x, axes, perm):
+    def ppermute_start(self, x, axes, perm):
         import torch.distributed as dist
 
         group = self.mesh.group(self.rank, axes)
@@ -418,11 +641,9 @@ class ProcessGroupCommunicator:
         else:
             out = torch.empty_like(x)
             ops.append(dist.P2POp(dist.irecv, out, group[src]))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+        reqs = dist.batch_isend_irecv(ops) if ops else []
         _count("ppermute", 0 if src is None or src == me else out.numel() * out.element_size())
-        return out
+        return _Requests(reqs, out, x)
 
     def all_gather(self, x, axes, *, axis, tiled):
         import torch.distributed as dist
@@ -445,3 +666,17 @@ class ProcessGroupCommunicator:
         dist.all_reduce(out, group=self._subgroup(axes))
         _count("psum", (self.mesh.axis_size(axes) - 1) * x.numel() * x.element_size())
         return out
+
+
+class _Requests:
+    """A ppermute's sends and receives in flight over the process group;
+    the sent tensor is held until they are done."""
+
+    def __init__(self, reqs, out: torch.Tensor, sent: torch.Tensor):
+        self.reqs, self.out, self.sent = reqs, out, sent
+
+    def wait(self) -> torch.Tensor:
+        for req in self.reqs:
+            req.wait()
+        self.sent = None
+        return self.out

@@ -65,6 +65,18 @@ def _permute(x, axes, perm):
     return _collectives.ppermute(x, axes, list(perm))
 
 
+def _permute_start(x, axes, perm):
+    """``_permute`` deferred: a handle for ``_permute_done`` (``x`` itself
+    for an identity, which moves nothing)."""
+    if _is_identity(perm):
+        return x
+    return _collectives.ppermute_start(x, axes, list(perm))
+
+
+def _permute_done(started):
+    return started if isinstance(started, torch.Tensor) else _collectives.ppermute_done(started)
+
+
 def torus_program_body(prog, axis_x: str, axis_y: str, local_fn=None):
     """Per-rank body executing a reified torus program on local
     (M/q, K/q) x (K/q, N/q) blocks; returns the fp32 accumulator in
@@ -93,16 +105,18 @@ def torus_program_body(prog, axis_x: str, axis_y: str, local_fn=None):
 def torus_program_body_overlapped(prog, axis_x: str, axis_y: str,
                                   local_fn=None):
     """Double-buffered variant of ``torus_program_body``: step k+1's A/B
-    ppermutes are issued BEFORE step k's local multiply, so a communicator
-    that moves data asynchronously can run them under the multiply.  C's
+    ppermutes are started (``ppermute_start``) BEFORE step k's local
+    multiply and finished (``ppermute_done``) after it, before the blocks'
+    first use, as XLA's latency-hiding scheduler places the reference's
+    ``collective-permute-start`` / ``-done``.  On the card each rank's copy
+    runs on its copy stream under the multiply on its compute stream; in a
+    process group the sends and receives are in flight under it.  C's
     per-step permute consumes the fresh partial sum and stays after it.
 
     The permutes and multiplies are the identical operations of the staged
     body in a reordered data-flow: every ``local_fn`` call sees the same
     operands and the accumulator chain is unchanged, so outputs are
-    bitwise-identical and the collective multiset is the same.  (On one
-    card the ranks' copies and kernels share a stream, so the reorder
-    changes only the issue order.)"""
+    bitwise-identical and the collective multiset is the same."""
     axes = (axis_x, axis_y)
     local_fn = local_fn or local_matmul
 
@@ -114,12 +128,12 @@ def torus_program_body_overlapped(prog, axis_x: str, axis_y: str,
             nxt_a = nxt_b = None
             if step < prog.steps - 1:
                 with obs.span("dist.prefetch", comm="hidden"):
-                    nxt_a = _permute(ab, axes, prog.step_a)
-                    nxt_b = _permute(bb, axes, prog.step_b)
+                    nxt_a = _permute_start(ab, axes, prog.step_a)
+                    nxt_b = _permute_start(bb, axes, prog.step_b)
             acc = acc + local_fn(ab, bb, out_dtype=torch.float32)
             if step < prog.steps - 1:
                 acc = _permute(acc, axes, prog.step_c)
-                ab, bb = nxt_a, nxt_b
+                ab, bb = _permute_done(nxt_a), _permute_done(nxt_b)
         return _permute(acc, axes, prog.collect_c)
 
     return body

@@ -15,6 +15,11 @@ Two ways to run the ranks:
   card unless the caller asks for the CPU), and a collective is a barrier
   exchange between the threads (``dist._collectives.ThreadCommunicator``).
   This is how one card runs a 2x2 or 2x2x2 mesh; it needs no process group.
+  On the card each rank launches on a compute stream of its own and copies
+  on a copy stream of its own (``dist._collectives.RankStreams``, made at
+  the mesh's first run), so the ranks' kernels and copies may run at once;
+  each run forks from the caller's stream and joins back to it, captured
+  or not.
 * **process group** (``rank=r``): this process is rank ``r`` of a
   ``torch.distributed`` world of ``size`` processes (initialised by the
   caller), and the collectives are the process group's
@@ -91,6 +96,8 @@ class Mesh:
             self.devices[self.coords(r)] = RankDevice(r, f"{how}:{self.device}")
         self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._comm = None
+        self._streams = None      # per rank, at the first run on the card
+        self._fork = None
         self._lock = threading.Lock()
         self._memo: Dict[tuple, object] = {}   # (what, rank, axes) -> answer
 
@@ -167,7 +174,17 @@ class Mesh:
         ``{r: out}``.
         On a single controller the ranks run at once, one thread each; if
         one raises, the others are released from their collectives and the
-        first error is raised here."""
+        first error is raised here.  On the card (real tensors) each rank
+        runs on its ``RankStreams``: every rank's compute stream first waits
+        on the caller's current stream, and the caller's stream waits on
+        every rank's last event before this returns (also when a rank
+        failed), so nothing a rank queued can overlap the caller's own
+        work, in a CUDA graph capture too (the rank streams are then its
+        branches).  Each tensor a rank returns is recorded on the caller's
+        stream (``record_stream``): the caller reads it there without a
+        synchronise, and the allocator does not reuse its block under that
+        read.  Under a fake mode no stream is made and the ranks take turns
+        on the caller's stream."""
         from torch._guards import detect_fake_mode
 
         from repro_torch import obs
@@ -190,10 +207,15 @@ class Mesh:
             tags = obs.current_tags() if obs.enabled() else None
             fake = detect_fake_mode([t for a in args.values() for t in a])
             counter = hlo_stats.current_counter()
+            streams = self._rank_streams() if stream is not None and fake is None \
+                else [None] * self.size
+            if streams[0] is not None:
+                self._fork.record(stream)
             futures = {
                 r: self._pool.submit(_collectives.run_rank,
-                                     _collectives.ThreadCommunicator(self, r, rendezvous),
-                                     stream, fn, args[r], tags, fake, counter)
+                                     _collectives.ThreadCommunicator(self, r, rendezvous,
+                                                                     streams[r]),
+                                     stream, fn, args[r], tags, fake, counter, self._fork)
                 for r in range(self.size)}
             outs, errors = {}, []
             for r, fut in futures.items():
@@ -201,11 +223,35 @@ class Mesh:
                     outs[r] = fut.result()
                 except BaseException as e:  # noqa: B902 -- re-raised below
                     errors.append(e)
+            if streams[0] is not None:
+                for own in streams:
+                    stream.wait_event(own.end)
+                for out in outs.values():
+                    for t in _tensors_of(out):
+                        if t.is_cuda:
+                            t.record_stream(stream)
         if errors:
             first = next((e for e in errors if not isinstance(e, _collectives.RankAborted)),
                          errors[0])
             raise first
         return outs
+
+    def _rank_streams(self) -> list:
+        """Each rank's ``RankStreams`` and the mesh's fork event, made at
+        the first run on the card (never inside a capture: a stream or
+        event made there would not be one the graph can fork to)."""
+        from . import _collectives
+
+        if self._streams is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a mesh makes its rank streams at its first run on the "
+                                   "card: run it once before capturing a CUDA graph")
+            with torch.cuda.device(self.device):
+                self._streams = [_collectives.RankStreams(self.device)
+                                 for _ in range(self.size)]
+                self._fork = torch.cuda.Event()
+                self._fork.record()
+        return self._streams
 
     def collect(self, outs: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
         """Every rank's output: already all here on a single controller; in
@@ -226,6 +272,18 @@ class Mesh:
             if self._pool is not None:
                 self._pool.shutdown()
                 self._pool = None
+
+
+def _tensors_of(out) -> list:
+    """The tensors of a rank's output (a tensor, or tuples, lists and dicts
+    of them)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        return [t for x in out for t in _tensors_of(x)]
+    return []
 
 
 def parse_mesh(spec: str, *, device: DeviceLike = None) -> Mesh:

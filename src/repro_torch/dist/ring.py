@@ -5,8 +5,10 @@ equations admit exactly the one-hop shift solutions; executed, they are
 the classic ring algorithms.  Both functions run inside a per-rank program
 over a single named axis (or a tuple of names flattened into one ring) and
 decompose the all-gather / reduce-scatter into a chain of one-hop
-``ppermute`` steps, each issued before the matmul of the chunk currently
-resident.
+``ppermute`` steps.  ``ring_ag_matmul`` starts each hop before the matmul
+of the chunk currently resident and finishes it after
+(``ppermute_start`` / ``ppermute_done``); ``ring_rs_matmul``'s hops carry
+the partial sum the step just made, so each follows its add.
 
 Layout contracts (local shards, ``axis`` the ring axis of size t):
 
@@ -51,15 +53,15 @@ def ring_ag_matmul(x: torch.Tensor, w: torch.Tensor, axis, *,
     perm = _ring_perm(n)
     cur = x
     for s in range(n):
-        # issue the permute first so it can overlap the matmul below
+        # start the permute first so it can run under the matmul below
         nxt = None
         if s < n - 1:
             with obs.span("dist.prefetch", comm="hidden"):
-                nxt = _collectives.ppermute(cur, axis, perm)
+                nxt = _collectives.ppermute_start(cur, axis, perm)
         prod = local_fn(cur, w, out_dtype=out_dtype)
         src = (idx - s) % n  # origin rank of the resident chunk
         out[..., src * chunk:(src + 1) * chunk, :] = prod
-        cur = nxt
+        cur = _collectives.ppermute_done(nxt) if nxt is not None else None
     return out
 
 

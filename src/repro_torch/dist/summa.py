@@ -8,8 +8,9 @@ lowering rule (``summa_body``) emits the fused form: two all-gathers plus
 one local matmul.  The overlapped rule (``summa_overlapped_body``)
 decomposes them into one-hop ppermute chains: the B column panel is
 chain-gathered first (nothing to multiply yet -- exposed), then the A
-k-slabs walk their ring with each hop issued *before* the partial multiply
-against the matching B slab.  Both bodies move the identical per-rank
+k-slabs walk their ring with each hop started *before* the partial
+multiply against the matching B slab and finished after it
+(``ppermute_start`` / ``ppermute_done``).  Both bodies move the identical per-rank
 words ((qy-1) A-shards + (qx-1) B-shards); the overlapped output differs
 from the staged single product only by fp32 summation order.
 
@@ -65,7 +66,8 @@ def summa_overlapped_body(axis_x: str, axis_y: str, out_dtype,
                           local_fn=None):
     """Per-rank body: pipelined SUMMA with decomposed gathers (the B panel
     chain-gathered over ``axis_x``, then A's k-slabs walking the ``axis_y``
-    ring, each hop issued before the partial multiply it feeds)."""
+    ring, each hop started before the partial multiply on the resident
+    slab and finished after it)."""
     local_fn = local_fn or local_matmul
 
     def body(ab, bb):
@@ -80,11 +82,11 @@ def summa_overlapped_body(axis_x: str, axis_y: str, out_dtype,
             nxt = None
             if s < qy - 1:
                 with obs.span("dist.prefetch", comm="hidden"):
-                    nxt = _collectives.ppermute(cur, axis_y, perm)
+                    nxt = _collectives.ppermute_start(cur, axis_y, perm)
             src = (iy - s) % qy  # k-slab index of the resident A chunk
             bslab = bcol[src * ky:(src + 1) * ky]
             acc = acc + local_fn(cur, bslab, out_dtype=torch.float32)
-            cur = nxt
+            cur = _collectives.ppermute_done(nxt) if nxt is not None else None
         return acc.to(out_dtype)
 
     return body

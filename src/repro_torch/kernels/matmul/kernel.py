@@ -36,8 +36,9 @@ copies a transposed one for them).
 ``launches_by_route`` the same per route; ``reset_launches`` zeroes both,
 so a run can show which kernels its products went through;
 ``trace_launches`` also lists each launch's (m, n, k, route).  The plan
-engine's rank threads launch concurrently, so the counters, the tile
-tables and the split-K counter arrays are kept under one lock.
+engine's rank threads launch concurrently, each on its own stream, so the
+counters, the tile tables and the split-K counter arrays (one per stream)
+are kept under one lock.
 """
 from __future__ import annotations
 
@@ -92,7 +93,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_by_route: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 _tile_tables: Dict[Tuple[int, int, str, torch.device], torch.Tensor] = {}
-_counters: Dict[torch.device, torch.Tensor] = {}
+_counters: Dict[Tuple[torch.device, Optional[int]], torch.Tensor] = {}
 _sm_counts: Dict[torch.device, int] = {}
 _trace: Optional[List[Tuple[int, int, int, str]]] = None
 _lock = threading.RLock()
@@ -243,22 +244,37 @@ def sm_count(device: torch.device) -> int:
         return count
 
 
-def split_counters(device: torch.device, ntiles: int) -> torch.Tensor:
+def split_counters(device: torch.device, ntiles: int,
+                   stream: Optional[int] = None) -> torch.Tensor:
     """Zeroed int32 arrival counters, one per output tile, shared by every
-    thin-route launch on the device: the last CTA of a tile resets its
-    counter, so launches in stream order find them zero.  Launches that
-    overlap in time (two streams at once) would share counters, so the
-    thin route runs on one stream at a time.  The array is allocated and
-    zeroed outside graph capture; a launch captured before any eager one
-    takes its own array, zeroed inside the graph."""
+    thin-route launch on one stream of the device (``stream``, a CUDA
+    stream handle; by default the device's current stream): the last CTA
+    of a tile resets its counter, so launches in stream order find them
+    zero.  Each stream has its own array, so launches on two streams may
+    run at once (the plan engine's rank streams).  An array is allocated
+    and zeroed on its stream outside graph capture; a launch captured
+    before any eager one on its stream takes its own array, zeroed inside
+    the graph."""
+    if stream is None and device.type == "cuda":
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device, stream)
     with _lock:
-        cnt = _counters.get(device)
+        cnt = _counters.get(key)
         if cnt is None or cnt.numel() < ntiles:
             fresh = torch.zeros(max(ntiles, 4096), dtype=torch.int32, device=device)
             if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
                 return fresh
-            cnt = _counters[device] = fresh
+            cnt = _counters[key] = fresh
         return cnt
+
+
+def prepare_capture_stream(stream: "torch.cuda.Stream") -> None:
+    """Give the stream a CUDA graph will be captured on its split-K
+    counter array now, zeroed on that stream: without one, every thin
+    launch captured there would take its own array, zeroed by a node of
+    the graph.  Call it before the capture starts."""
+    with torch.cuda.stream(stream):
+        split_counters(stream.device, 1)
 
 
 def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: int,
@@ -302,7 +318,7 @@ def zorder_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: in
         ws = cnt = None
         if splits > 1:
             ws = torch.empty(splits * m * n, dtype=torch.float32, device=a.device)
-            cnt = split_counters(a.device, ntiles)
+            cnt = split_counters(a.device, ntiles, stream)
         rc = lib.zorder_matmul_thin_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None,

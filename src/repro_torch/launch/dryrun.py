@@ -52,31 +52,52 @@ of the counted fake run.  Per rank:
   in place of the reference's ``fits_hbm_16g``, a TPU v5e's 16 GiB.
 
 The single controller holds global tensors and runs everything outside
-the planned products itself; the record keeps its ops (``counted.
-controller``) apart from one rank's programs of the planned products and
-its optimizer blocks (``counted.rank_program``).  Per chip, the rule is
-the reference's split of the batch (``_batch_shardings``): the
-controller's work and live bytes shared over the batch axes when the cell
-shards its batch (``ways``), plus one rank's programs whole:
+the planned products itself; the record keeps its ops apart from one
+rank's programs of the planned products and its optimizer blocks
+(``counted.rank_program``).  The reference's GSPMD also shards the
+controller's head- and vocab-parallel work over the ``model`` axis, as its
+sharding rules place the weights (``models.sharding_rules``: the
+column-parallel q/k/v outputs, the vocab-sharded embedding and head).  So
+the dry run declares those tensors split (``hlo_stats.split_over_model``):
+the query heads at RoPE and at the attention core's entry over
+``n_heads``, its K/V (and a decode step's cache) over ``n_kv_heads``, the
+head weight and the logits over the padded vocabulary.  A shard takes
+whole heads: a count the model axis does not divide is split over their
+greatest common divisor, and a K/V head that several shards need is
+computed by each of them (Llama-3.2-1B's 8 K/V heads on 16 shards: 8).
+The ops that read them -- the attention core and its
+backward, the unembedding, the logits and the loss, and their backward --
+are counted per model-axis shard (``counted.model_sharded``); the rest of
+the controller's ops stay whole (``counted.controller``).  MLA's absorbed
+decode (latent einsums outside ``chunked_attention``) and the MLP's
+elementwise ops stay whole.  Per chip, the rule is the reference's split
+of the batch (``_batch_shardings``): the controller's work and live bytes
+shared over the batch axes when the cell shards its batch (``ways``), the
+model-sharded part also over its model-axis shards, plus one rank's
+programs whole:
 
-    per chip = rank_program + controller / ways
+    per chip = rank_program + (controller + model_sharded / shards) / ways
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import json
+import math
 import os
 import time
 import traceback
 from typing import Dict, Optional, Union
+from unittest import mock
 
 import torch
 
 from repro_torch.configs import (SHAPES, ShapeCell, canonical, get_config, runnable_cells,
                                  skipped_cells)
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.layers.embed import padded_vocab
 from repro_torch.launch.specs import (abstract_cache, abstract_opt_state, abstract_params,
                                       fake_mode, input_specs)
 from repro_torch.models.sharding_rules import (cache_shardings, param_shardings,
@@ -95,6 +116,71 @@ def _ways(mesh) -> int:
         return 1
     axes = resolve_axis("batch", mesh)
     return mesh.axis_size(axes) if axes else 1
+
+
+# the modules that call the attention core and the unembedding by name
+_CORE_CALLERS = ("repro_torch.layers.attention", "repro_torch.models.encdec")
+_UNEMBED_CALLERS = ("repro_torch.models.lm", "repro_torch.models.hybrid",
+                    "repro_torch.models.xlstm_model", "repro_torch.models.encdec")
+
+
+def model_shards(count: int, mesh) -> int:
+    """Model-axis shards of a dim of ``count`` heads (or vocabulary
+    columns), each shard taking whole ones: the greatest common divisor of
+    the count and the model axis."""
+    return math.gcd(count, mesh.shape.get("model", 1) if mesh is not None else 1)
+
+
+@contextlib.contextmanager
+def model_split(mesh):
+    """Within the scope, the head- and vocab-parallel tensors of the
+    controller's ops are declared split over ``mesh``'s model axis (module
+    docstring)."""
+    from repro_torch.layers import attention
+
+    def heads(*ts):
+        for t in ts:
+            hlo_stats.split_over_model([t], model_shards(t.shape[2], mesh))
+
+    def split_rope(real):
+        def rope(x, positions, theta):
+            heads(x)
+            return real(x, positions, theta)
+        return rope
+
+    def split_core(real):
+        def core(q, k, v, *args, **kwargs):
+            heads(q, k, v)
+            out = real(q, k, v, *args, **kwargs)
+            if out.requires_grad:
+                # its gradient arrives whole from the planned dA of wo, and
+                # is as split as the output
+                counter, n = hlo_stats.current_counter(), model_shards(q.shape[2], mesh)
+                out.register_hook(lambda g: counter.split_over_model([g], n))
+            return out
+        return core
+
+    def split_unembed(real):
+        def unembed(p, x, vocab):
+            # the padded vocabulary: the head is (d, V), a tied table (V, d)
+            w = p["lm_head"] if "lm_head" in p else p["embedding"]
+            vp = w.shape[1] if "lm_head" in p else w.shape[0]
+            hlo_stats.split_over_model([w], model_shards(vp, mesh), keep=vp)
+            return real(p, x, vocab)
+        return unembed
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(attention, "apply_rope",
+                                              split_rope(attention.apply_rope)))
+        stack.enter_context(mock.patch.object(attention, "mha", split_core(attention.mha)))
+        for name in _CORE_CALLERS:
+            mod = importlib.import_module(name)
+            stack.enter_context(mock.patch.object(mod, "chunked_attention",
+                                                  split_core(mod.chunked_attention)))
+        for name in _UNEMBED_CALLERS:
+            mod = importlib.import_module(name)
+            stack.enter_context(mock.patch.object(mod, "unembed", split_unembed(mod.unembed)))
+        yield
 
 
 def _block(x: torch.Tensor, sharding: Optional[NamedSharding]) -> torch.Tensor:
@@ -223,7 +309,7 @@ def lower_cell(arch: str, shape: Union[str, ShapeCell], mesh, *, remat: str = "c
     t_lower = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with mode, hlo_stats.counting(counter):
+    with mode, hlo_stats.counting(counter), model_split(mesh):
         if cell.kind == "train":
             lr = torch.full((), 1e-4, device=device)
             if mesh is None:
@@ -258,8 +344,9 @@ def lower_cell(arch: str, shape: Union[str, ShapeCell], mesh, *, remat: str = "c
     rank_program = counter.cost(0) if counter.ranks else Cost()
     per_chip = Cost()
     per_chip += counter.cost(None).scaled(1.0 / ways)
+    per_chip += counter.split_cost().scaled(1.0 / ways)
     per_chip += rank_program
-    live_peak = counter.peak_bytes(None) // ways + counter.peak_bytes(0)
+    live_peak = counter.split_peak_bytes() // ways + counter.peak_bytes(0)
     peak = mem["argument_bytes"] + live_peak
     roof = analysis.from_cost(per_chip, chips=chips, model_flops=model_flops)
     return {
@@ -277,8 +364,15 @@ def lower_cell(arch: str, shape: Union[str, ShapeCell], mesh, *, remat: str = "c
         },
         "roofline": roof.summary(),
         "counted": {"controller": _cost_dict(counter.cost(None)),
+                    "model_sharded": {
+                        "whole": _cost_dict(counter.split_whole()),
+                        "per_shard": _cost_dict(counter.split_cost()),
+                        "shards": {"heads": model_shards(cfg.num_heads, mesh),
+                                   "kv_heads": model_shards(cfg.num_kv_heads, mesh),
+                                   "vocab": model_shards(padded_vocab(cfg.vocab_size), mesh)}},
                     "rank_program": _cost_dict(rank_program), "ways": ways,
-                    "rule": "per chip = rank_program + controller / ways",
+                    "rule": "per chip = rank_program + (controller + model_sharded / "
+                            "shards) / ways",
                     "priced": "one rank" if not threads else "every rank's thread"},
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),

@@ -15,10 +15,10 @@ writes the profile JSON the planner consumes):
   * peak FLOP/s come from the Z-order matmul (K1) at a large bf16 square
     product: the wide route on the card, not ``torch.matmul``.
 
-On the card, time is CUDA events on the caller's stream (the stream the
-rank threads of a single-controller mesh launch on), so a collective's
-time includes the host's barrier exchange between the rank threads; on
-the CPU it is the host clock.  On one card every "link" is a device copy
+On the card, time is CUDA events on the caller's stream (every rank
+stream of a single-controller mesh forks from it and joins back to it in
+each ``Mesh.run``), so a collective's time includes the host's barrier
+exchange between the rank threads; on the CPU it is the host clock.  On one card every "link" is a device copy
 between rank threads, and the profile says so (``link_medium``); its
 ``platform`` and ``device_kind`` are the device's.  Nothing touches the
 device at import.

@@ -20,7 +20,8 @@ Here every rank of a per-rank program calls the seam at run time, each in
 a thread of its own on a single-controller mesh: the seam records from the
 lowest local rank only (the rank whose sequence the interceptor takes as
 the program's), and a rank thread starts from the tags of the caller's
-span stack (``inherited``), as ``Mesh.run`` hands it the caller's stream.
+span stack (``inherited``), as ``Mesh.run`` forks its streams from the
+caller's.
 
 Disabled mode (the default) is a no-op fast path: ``span()`` returns a
 shared singleton context manager that allocates nothing, and every

@@ -70,6 +70,16 @@ reference's count, both deliberate:
 ``Counter`` also tracks the live bytes of the tensors the counted ops
 allocate (a weak reference on each new storage), per rank, so a dry run
 reads a peak beside the arguments it was handed.
+
+A caller may declare a storage the controller holds split over a number
+of model-axis shards (``split_over_model``: the dry run's head- and
+vocab-parallel tensors, as the reference's GSPMD places them).  Then a
+controller op that reads a split storage is that many shards' work: it is
+counted apart (``Counter.split_cost``, per shard), and its new outputs are
+split alike (``keep`` names a dim size an output must have to stay split,
+so a product that contracts the split dim away returns a whole tensor).
+Their live bytes count per shard (``split_peak_bytes``).  Without a split
+storage, nothing of this runs.
 """
 from __future__ import annotations
 
@@ -265,13 +275,40 @@ class Counter:
         self.shapes: Dict[str, float] = {}
         self.live: Dict[Optional[int], int] = {}
         self.peak: Dict[Optional[int], int] = {}
-        self._tracked: set = set()
+        # the controller's work on split storages: whole, by shard count;
+        # per shard, by op name
+        self.splits: Dict[int, Cost] = {}
+        self.split_by_op: Dict[str, Cost] = {}
+        self._split_live = 0.0
+        self._split_peak = 0.0
+        self._storages: Dict[int, _Storage] = {}
+        self._any_split = False
         self._memo: Dict = {}
         self._lock = threading.RLock()
 
     def cost(self, rank: Optional[int] = None) -> Cost:
-        """The controller's cost (``rank=None``) or rank ``rank``'s program's."""
+        """The controller's cost (``rank=None``; without its split work)
+        or rank ``rank``'s program's."""
         return self.costs.get(rank, Cost())
+
+    def split_cost(self) -> Cost:
+        """The controller's work on split storages, per model-axis shard."""
+        total = Cost()
+        for n, c in self.splits.items():
+            total += c.scaled(1.0 / n)
+        return total
+
+    def split_whole(self) -> Cost:
+        """The same work whole (as one device runs it)."""
+        total = Cost()
+        for c in self.splits.values():
+            total += c
+        return total
+
+    def split_peak_bytes(self) -> int:
+        """The controller's live bytes at their peak, each split storage's
+        per shard."""
+        return int(self._split_peak)
 
     @property
     def ranks(self) -> List[int]:
@@ -282,6 +319,7 @@ class Counter:
         the lowest rank's program (all ranks run the same program)."""
         total = Cost()
         total += self.cost(None)
+        total += self.split_whole()
         if self.ranks:
             total += self.cost(self.ranks[0])
         return total
@@ -289,9 +327,13 @@ class Counter:
     def peak_bytes(self, rank: Optional[int] = None) -> int:
         return self.peak.get(rank, 0)
 
-    def _add(self, rank, key: str, name: str, c: Cost) -> None:
+    def _add(self, rank, key: str, name: str, c: Cost, shards: int = 1) -> None:
         with self._lock:
-            self.costs.setdefault(rank, Cost()).__iadd__(c)
+            if shards > 1:
+                self.splits.setdefault(shards, Cost()).__iadd__(c)
+                self.split_by_op.setdefault(name, Cost()).__iadd__(c.scaled(1.0 / shards))
+            else:
+                self.costs.setdefault(rank, Cost()).__iadd__(c)
             self.by_op.setdefault(name, Cost()).__iadd__(c)
             self.calls[name] = self.calls.get(name, 0) + 1
             self.shapes[key] = self.shapes.get(key, 0.0) + c.bytes
@@ -331,24 +373,83 @@ class Counter:
         c.coll[kind] += out_bytes
         self._add(rank, f"COLL:{kind} {shape}", f"COLL:{kind}", c)
 
-    def _track(self, rank, outs) -> None:
+    def _entry(self, st) -> "_Storage":
+        """The record of storage ``st``, made on first sight with a weak
+        reference that drops it (and its live bytes) when ``st`` dies."""
+        key = st._cdata
+        e = self._storages.get(key)
+        if e is None:
+            e = self._storages[key] = _Storage(st.nbytes())
+            weakref.finalize(st, self._gone, key)
+        return e
+
+    def _track(self, rank, outs, split: Tuple[int, Optional[int]] = (1, None)) -> None:
         for t in outs:
             st = t.untyped_storage()
-            key = st._cdata
-            nbytes = st.nbytes()
             with self._lock:
-                if key in self._tracked or nbytes == 0:
+                if st._cdata in self._storages and self._storages[st._cdata].tracked:
                     continue
-                self._tracked.add(key)
-                live = self.live[rank] = self.live.get(rank, 0) + nbytes
+                e = self._entry(st)
+                if split[0] > 1 and (split[1] is None or split[1] in t.shape):
+                    e.shards, e.keep = split
+                if e.nbytes == 0:
+                    continue
+                e.tracked, e.rank = True, rank
+                live = self.live[rank] = self.live.get(rank, 0) + e.nbytes
                 if live > self.peak.get(rank, 0):
                     self.peak[rank] = live
-            weakref.finalize(st, self._free, rank, key, nbytes)
+                if rank is None:
+                    self._split_moved(e.nbytes / e.shards)
 
-    def _free(self, rank, key, nbytes) -> None:
+    def _split_moved(self, delta: float) -> None:
+        self._split_live += delta
+        if self._split_live > self._split_peak:
+            self._split_peak = self._split_live
+
+    def _gone(self, key) -> None:
         with self._lock:
-            self._tracked.discard(key)
-            self.live[rank] = self.live.get(rank, 0) - nbytes
+            e = self._storages.pop(key, None)
+            if e is not None and e.tracked:
+                self.live[e.rank] = self.live.get(e.rank, 0) - e.nbytes
+                if e.rank is None:
+                    self._split_live -= e.nbytes / e.shards
+
+    def split_over_model(self, tensors, shards: int, keep: Optional[int] = None) -> None:
+        """Declare each tensor's storage split over ``shards`` model-axis
+        shards (module docstring); ``keep``: the dim size an op's output
+        must have to stay split (None: every output stays split)."""
+        if shards <= 1:
+            return
+        with self._lock:
+            self._any_split = True
+            for t in tensors:
+                e = self._entry(t.untyped_storage())
+                if e.tracked and e.rank is None:
+                    self._split_moved(e.nbytes / shards - e.nbytes / e.shards)
+                e.shards, e.keep = shards, keep
+
+    def _split_of(self, ins) -> Tuple[int, Optional[int]]:
+        """(shards, keep) of the most split storage among ``ins``."""
+        best = (1, None)
+        with self._lock:
+            for t in ins:
+                e = self._storages.get(t.untyped_storage()._cdata)
+                if e is not None and e.shards > best[0]:
+                    best = (e.shards, e.keep)
+        return best
+
+
+@dataclasses.dataclass
+class _Storage:
+    """A storage the counter has seen: its bytes, whether they are live
+    bytes of ``rank`` (allocated by a counted op), and the model-axis split
+    it was declared or inherited (``Counter.split_over_model``)."""
+
+    nbytes: int
+    tracked: bool = False
+    rank: Optional[int] = None
+    shards: int = 1
+    keep: Optional[int] = None
 
 
 def _minus(a, b):
@@ -374,12 +475,15 @@ class _CountingMode(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         kind, allocates = _rule(func)
+        split = (1, None)
+        if self.counter._any_split and self.rank is None and not self.pauses:
+            split = self.counter._split_of(_tensors(tuple(args) + tuple(kwargs.values())))
         if allocates:
             self.counter._track(self.rank, _tensors(
-                out if isinstance(out, (list, tuple)) else (out,)))
+                out if isinstance(out, (list, tuple)) else (out,)), split)
         if not self.pauses and kind != "free":
             self.counter._add(self.rank, _op_key(func, out), func._schema.name,
-                              op_cost(func, args, kwargs, out))
+                              op_cost(func, args, kwargs, out), split[0])
         return out
 
 
@@ -460,6 +564,14 @@ def collective(seam_kind: str, x: torch.Tensor, out_numel: int):
         yield
     finally:
         m.pauses -= 1
+
+
+def split_over_model(tensors, shards: int, keep: Optional[int] = None) -> None:
+    """``Counter.split_over_model`` on the calling thread's counter (a
+    no-op outside a counting scope)."""
+    counter = current_counter()
+    if counter is not None:
+        counter.split_over_model(tensors, shards, keep)
 
 
 def analyze(fn: Callable, *args, **kwargs) -> Cost:

@@ -14,8 +14,11 @@ decode program per bucket at warmup and replays them.  Here:
     planned or not (a model without ``prefill`` has its teacher-forced
     prompt loop captured whole: S decode steps in one graph): static token,
     offset, current-token and slot (``pos``) buffers, the bucket's
-    preallocated cache, one graph memory pool for all buckets.  A planned step's rank threads launch on the capturing
-    stream.  A failed capture raises; nothing falls back to eager.
+    preallocated cache, one graph memory pool for all buckets.  A planned
+    step's rank streams are the graph's branches: each ``Mesh.run`` forks
+    them from the capturing stream and joins them back before the capture
+    ends (the warm pass made them).  A failed capture raises; nothing
+    falls back to eager.
   * ``generate()`` routes a request batch to the smallest bucket that
     fits (left-padding prompts with per-row position offsets, padding the
     batch with dummy rows), copies it into the bucket's static buffers and
@@ -34,8 +37,9 @@ Replays launch nothing from Python, so the kernel launch counters, the
 plan engine's execution counts and the interceptor see nothing of them:
 ``cache_report()`` and ``plan_report()`` count replays x each graph's
 launches and products, recorded at capture.  A bucket's graphs replay on
-one stream, one at a time (K1's thin route shares its split-K arrival
-counters per device).
+the caller's stream, one at a time: every graph that uses a rank stream's
+split-K arrival counters (K1's thin route keeps one array per stream) is
+ordered behind the one before.
 
 With ``mesh=`` (a ``repro_torch.dist.Mesh``, or its sizes such as
 ``(2, 2)``, built on the parameters' device) every projection runs
@@ -284,9 +288,11 @@ class Server:
     def _capture_step(self, fn) -> _Step:
         routes = dict(zorder_kernel.launches_by_route)
         plans = executions_snapshot()
-        torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        capture = torch.cuda.graph(graph, pool=self._pool)
+        zorder_kernel.prepare_capture_stream(capture.capture_stream)
+        torch.cuda.synchronize(self.device)
+        with capture:
             logits = fn()
         return _Step(graph, logits, _moved(routes, zorder_kernel.launches_by_route),
                      _moved(plans, executions_snapshot()))

@@ -129,9 +129,11 @@ def time_candidate(m: int, n: int, k: int, dtype, cand: Candidate, *,
                            f"its plain version at {m}x{n}x{k} {dtype_name(dt)}: worst row "
                            f"rel err {rel:.3e} >= {CHECK_TOL[dt]:g}")
     run(bs[0])
-    torch.cuda.synchronize(device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    capture = torch.cuda.graph(graph)
+    kernel.prepare_capture_stream(capture.capture_stream)
+    torch.cuda.synchronize(device)
+    with capture:
         for b in bs:
             run(b)
     graph.replay()

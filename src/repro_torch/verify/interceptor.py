@@ -1,10 +1,11 @@
 """Counting interceptor for the port's executed per-rank programs.
 
-Port of ``repro.verify.interceptor``.  ``intercept()`` patches the three
+Port of ``repro.verify.interceptor``.  ``intercept()`` patches the
 collectives of ``repro_torch.dist._collectives`` (the seam every lowering
 rule's ppermute / all_gather / psum goes through, called through the
-module by the strategy bodies) and records one ``CollectiveRecord`` per
-call.  The reference records once per collective while shard_map traces
+module by the strategy bodies; a deferred ppermute through its
+``ppermute_start``) and records one ``CollectiveRecord`` per call, a
+deferred ppermute once, as one ppermute.  The reference records once per collective while shard_map traces
 its body; the port runs one program per rank, so every rank calls the
 seam at run time and the capture keeps each rank's sequence apart:
 
@@ -99,10 +100,15 @@ def intercept():
     every plan ``lower_dist`` is asked for (``on_lower``)."""
     cap = Capture()
     orig_ppermute, orig_all_gather, orig_psum = seam.ppermute, seam.all_gather, seam.psum
+    orig_start = seam.ppermute_start
 
     def ppermute(x, axis_name, perm):
         _record(cap, "ppermute", x, axis_name, perm)
         return orig_ppermute(x, axis_name, perm)
+
+    def ppermute_start(x, axis_name, perm):
+        _record(cap, "ppermute", x, axis_name, perm)
+        return orig_start(x, axis_name, perm)
 
     def all_gather(x, axis_name, *, axis, tiled):
         _record(cap, "all_gather", x, axis_name)
@@ -113,12 +119,14 @@ def intercept():
         return orig_psum(x, axis_name)
 
     seam.ppermute, seam.all_gather, seam.psum = ppermute, all_gather, psum
+    seam.ppermute_start = ppermute_start
     remove = on_lower(cap.lowered_plans.append)
     try:
         yield cap
     finally:
         remove()
         seam.ppermute, seam.all_gather, seam.psum = orig_ppermute, orig_all_gather, orig_psum
+        seam.ppermute_start = orig_start
 
 
 def _divergence_error(cap: Capture):

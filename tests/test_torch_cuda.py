@@ -509,6 +509,125 @@ def test_kernels_launch_from_a_fresh_thread(cuda_device):
     assert _row_rel(_heads(got["k2"]), _heads(k2.mha(q, k, v, causal=True))) < 1e-6
 
 
+# -- rank streams: split-K counters per stream, fork and join, capture --------------------
+
+
+@pytest.mark.cuda
+def test_thin_launches_on_two_streams_at_once_give_the_serial_bits(cuda_device):
+    """The thin route's split-K arrival counters are per stream: products
+    with splits > 1 launched on two streams at once give the bits of the
+    same products launched one after the other on one stream."""
+    m, k, n = 8, 8192, 2048
+    assert kernel.split_plan(k, n, kernel.sm_count(cuda_device))[0] > 1
+    pairs = [_bf16_operands(cuda_device, m, k, n, seed=i) for i in range(16)]
+    serial = [matmul(a, b) for a, b in pairs]
+    streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
+    here = torch.cuda.current_stream(cuda_device)
+    for s in streams:
+        s.wait_stream(here)
+    at_once = []
+    for i, (a, b) in enumerate(pairs):
+        with torch.cuda.stream(streams[i % 2]):
+            at_once.append(matmul(a, b))
+    for s in streams:
+        here.wait_stream(s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(at_once, serial))
+    arrays = {kernel.split_counters(cuda_device, 1, s.cuda_stream).data_ptr() for s in streams}
+    assert len(arrays) == 2
+
+
+@pytest.mark.cuda
+def test_a_prepared_capture_stream_keeps_its_counters_in_the_graph(cuda_device):
+    """``prepare_capture_stream`` gives the capture stream its counter
+    array before the capture, so thin launches captured there use it (no
+    array made and zeroed inside the graph) and replay the eager bits."""
+    a, b = _bf16_operands(cuda_device, 8, 8192, 2048)
+    want = matmul(a, b)
+    graph = torch.cuda.CUDAGraph()
+    capture = torch.cuda.graph(graph)
+    kernel.prepare_capture_stream(capture.capture_stream)
+    made = kernel.split_counters(cuda_device, 1, capture.capture_stream.cuda_stream)
+    torch.cuda.synchronize()
+    with capture:
+        inside = kernel.split_counters(cuda_device, 1, capture.capture_stream.cuda_stream)
+        out = matmul(a, b)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert inside is made and torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_mesh_run_on_the_card_runs_each_rank_on_its_streams(cuda_device):
+    """Each rank of a CUDA thread mesh runs on a compute stream of its own
+    (not the caller's), and ``Mesh.run`` returns outputs the caller reads
+    on its own stream without a synchronise: long rank programs (K1
+    products, a deferred ppermute, a psum) read back at once equal the
+    same programs run after a synchronise."""
+    from repro_torch.dist import Mesh, _collectives
+
+    mesh = Mesh((2, 2), ("x", "y"), device=cuda_device)
+    a, b = _bf16_operands(cuda_device, 2048, 4096, 4096)
+
+    def body(x):
+        y = x
+        for _ in range(4):
+            y = matmul(y, b)
+        moved = _collectives.ppermute_done(
+            _collectives.ppermute_start(y, "y", [(0, 1), (1, 0)]))
+        return _collectives.psum(moved.float(), "x"), torch.cuda.current_stream().cuda_stream
+
+    args = {r: (a * (r + 1),) for r in range(4)}
+    outs = mesh.run(body, args)
+    sums = torch.stack([outs[r][0].sum() for r in range(4)]).cpu()   # no synchronise first
+    torch.cuda.synchronize()
+    again = mesh.run(body, args)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, torch.stack([again[r][0].sum() for r in range(4)]).cpu())
+    own = [outs[r][1] for r in range(4)]
+    assert len(set(own)) == 4 and torch.cuda.current_stream(cuda_device).cuda_stream not in own
+    assert own == [mesh._streams[r].compute.cuda_stream for r in range(4)]
+    mesh.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("strategy,overlap", [("cannon", True), ("summa", True),
+                                              ("ring_ag", None), ("cannon", False)])
+def test_a_planned_product_captured_on_rank_streams_replays_bitwise(cuda_device, strategy,
+                                                                    overlap, m):
+    """A planned product on a 2x2 CUDA mesh captured in a CUDA graph (its
+    rank streams become the graph's branches, forked from the capturing
+    stream and joined back) replays the eager run's bits, on new operands
+    copied into the captured ones too."""
+    from repro_torch.dist import Mesh, symmetric_matmul
+
+    mesh = Mesh((2, 2), ("x", "y"), device=cuda_device)
+    a, b = _bf16_operands(cuda_device, m, 1024, 768)
+
+    def run():
+        return symmetric_matmul(a, b, mesh=mesh, strategy=strategy, overlap=overlap)
+
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    a2, b2 = _bf16_operands(cuda_device, m, 1024, 768, seed=7)
+    a.copy_(a2)
+    b.copy_(b2)
+    graph.replay()
+    want = run()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and not torch.equal(out, eager)
+    del graph
+    mesh.close()
+
+
 # -- serving buckets captured as CUDA graphs; the tuner on the card -------------------
 
 SERVE_PROMPTS = [[5, 6, 7], [9, 2, 3, 4, 1], [17, 3], [8, 8, 8, 8, 8, 8, 1]]

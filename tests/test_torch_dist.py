@@ -10,11 +10,13 @@ on divisible fp32 problems; the port must match it within
 oracle on this JAX (ragged and batched problems, the fat-tree slice-back,
 ``pod25d`` on a one-axis mesh) the oracle is the numpy fp64 product.
 """
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import threading
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -138,6 +140,52 @@ def test_staged_and_overlapped_twins_agree(sizes, strategy):
     np.testing.assert_allclose(staged.numpy(), over.numpy(), rtol=TWIN_TOL, atol=TWIN_TOL)
     if strategy in ("cannon", "cannon25d"):   # a pure reorder of the same operations
         assert torch.equal(staged, over)
+
+
+# every body that defers its prefetches (ring_ag has no staged twin), on
+# thread meshes of 2x2, 4 and 2x2x2
+DEFERRED = [((2, 2), "cannon"), ((2, 2), "summa"), ((2, 2), "ring_ag"), ((4,), "ring_ag"),
+            ((2, 2, 2), "cannon25d"), ((2, 2, 2), "pod25d")]
+
+
+@contextlib.contextmanager
+def done_at_start():
+    """Each deferred ppermute finished right after its start: the
+    overlapped bodies' blocking twin (the order before deferred permutes)."""
+    start, done = _collectives.ppermute_start, _collectives.ppermute_done
+    with mock.patch.object(_collectives, "ppermute_start",
+                           lambda x, axis_name, perm: done(start(x, axis_name, perm))), \
+            mock.patch.object(_collectives, "ppermute_done", lambda finished: finished):
+        yield
+
+
+@pytest.mark.parametrize("sizes, strategy", DEFERRED,
+                         ids=[f"{s}-{'x'.join(map(str, z))}" for z, s in DEFERRED])
+def test_deferred_permutes_are_bitwise_their_blocking_twin(sizes, strategy):
+    """Each overlapped body starts its prefetches and finishes them later
+    (as many dones as starts, at least one); its output is bitwise the
+    same body's with every done moved right after its start (against the
+    staged body: ``test_staged_and_overlapped_twins_agree``)."""
+    mesh = _mesh(sizes)
+    a, b = (torch.from_numpy(x) for x in _operands((48, 64, 32), seed=5))
+    overlap = None if strategy == "ring_ag" else True
+    calls = {"start": 0, "done": 0}
+    start, done = _collectives.ppermute_start, _collectives.ppermute_done
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    with mock.patch.object(_collectives, "ppermute_start", counted("start", start)), \
+            mock.patch.object(_collectives, "ppermute_done", counted("done", done)):
+        deferred = symmetric_matmul(a, b, mesh=mesh, strategy=strategy, overlap=overlap)
+    assert calls["start"] == calls["done"] > 0
+    with done_at_start():
+        twin = symmetric_matmul(a, b, mesh=mesh, strategy=strategy, overlap=overlap)
+    assert torch.equal(deferred, twin)
+    assert (deferred.double() - a.double() @ b.double()).abs().max() < TOL
 
 
 # (mesh sizes, names, strategy, overlap, operand shape (M, K, N), batch)
@@ -342,6 +390,28 @@ def test_rank_that_skips_a_collective_is_detected():
 
     with pytest.raises(_collectives.RankAborted, match="returned while others wait"):
         mesh.run(body, {r: (torch.ones(1),) for r in range(2)})
+
+
+@pytest.mark.parametrize("misuse", ["never finished", "finished twice"])
+def test_a_misused_permute_handle_raises(misuse):
+    """A program that returns with a deferred ppermute not finished, or
+    finishes one twice, fails the run; the mesh runs on afterwards."""
+    mesh = Mesh((2,), ("t",), device="cpu")
+
+    def body(x):
+        started = _collectives.ppermute_start(x, "t", [(0, 1), (1, 0)])
+        if misuse == "finished twice":
+            _collectives.ppermute_done(started)
+            return _collectives.ppermute_done(started)
+        return x
+
+    match = "already finished" if misuse == "finished twice" else "never finished"
+    with pytest.raises(RuntimeError, match=match):
+        mesh.run(body, {r: (torch.full((2,), float(r)),) for r in range(2)})
+    outs = mesh.run(lambda x: _collectives.ppermute_done(
+        _collectives.ppermute_start(x, "t", [(0, 1), (1, 0)])),
+        {r: (torch.full((2,), float(r)),) for r in range(2)})
+    assert [o[0].item() for o in outs.values()] == [1.0, 0.0]
 
 
 def test_collective_outside_a_rank_raises():

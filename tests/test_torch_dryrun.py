@@ -226,6 +226,70 @@ def test_the_dry_runs_per_rank_count_equals_the_threaded_fake_runs(arch, kind, m
     assert priced["memory"]["argument_bytes"] == oracle["memory"]["argument_bytes"]
 
 
+# -- the controller's head- and vocab-parallel work per model-axis shard --------------------
+
+# the dot ops of the counter (``hlo_stats._DOTS``) and K1
+_DOT_OPS = {"aten::mm", "aten::bmm", "aten::dot", "aten::mv", "aten::addmm", "aten::baddbmm",
+            "aten::addmv", "repro_torch::zorder_matmul"}
+# the old per-chip rule's peak for Llama-3.2-1B's train_4k on (16, 16)
+OLD_TRAIN_4K_PEAK = 1283 * 2 ** 30
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_model_sharded_controller_work_is_the_reference_specs_arithmetic(shape):
+    """Llama-3.2-1B on the (16, 16) production mesh: the dot FLOPs of the
+    controller's model-sharded part, per model-axis shard, are the closed
+    forms of the reference's specs (``repro.launch.specs``: the batch, the
+    cache's slots; its config's heads, head dim and padded vocabulary):
+    the unembedding (and in training its two backward products) over the
+    vocabulary's shards, the attention core's two einsums a layer (and in
+    training their four backward products) over the query heads' shards.
+    The unembedding's K1 bytes are its operands' and output's per shard."""
+    from repro.layers.embed import padded_vocab as ref_padded_vocab
+    from repro_torch.roofline import hlo_stats
+
+    arch, model = "llama3.2-1b", 16
+    cfg = ref_get_config(arch)
+    batch = ref_specs.input_specs(arch, shape)
+    b, s = batch["tokens"].shape
+    vp = ref_padded_vocab(cfg.vocab_size)
+    heads, vocab = math.gcd(cfg.num_heads, model), math.gcd(vp, model)
+    kind = SHAPES[shape].kind
+    if kind == "decode":
+        keys = jax_shape(ref_specs.abstract_cache(ref_specs.abstract_params(cfg)[0], cfg,
+                                                  shape))
+        queries = 1
+    else:
+        keys = queries = s
+    tokens = b * queries
+    core = 2 * b * cfg.num_heads * queries * keys * cfg.head_dim   # QKᵀ or PV
+    passes = 3 if kind == "train" else 1   # forward; dA and dB in training
+    want = (passes * 2 * tokens * cfg.d_model * vp / vocab
+            + cfg.num_layers * passes * 2 * core / heads)
+    counter = hlo_stats.Counter()
+    rec = dryrun.lower_cell(arch, shape, _mesh(False), device="cpu", counter=counter)
+    got = sum(c.flops for name, c in counter.split_by_op.items() if name in _DOT_OPS)
+    assert got == pytest.approx(want, rel=1e-12)
+    k1 = counter.split_by_op[hlo_stats.K1_OP]
+    assert k1.bytes == pytest.approx((tokens * cfg.d_model * 2 + cfg.d_model * vp * 2
+                                      + tokens * vp * 4) / vocab, rel=1e-12)
+    sharded = rec["counted"]["model_sharded"]
+    assert sharded["shards"] == {"heads": heads, "kv_heads": math.gcd(cfg.num_kv_heads, model),
+                                 "vocab": vocab} == {"heads": 16, "kv_heads": 8, "vocab": 16}
+    assert sharded["per_shard"]["flops"] < sharded["whole"]["flops"] / 8
+    assert rec["counted"]["rule"] == ("per chip = rank_program + (controller + model_sharded "
+                                      "/ shards) / ways")
+    if shape == "train_4k":
+        # the old rule (the controller's work and live bytes over the batch
+        # ways alone) read 1283 GiB a rank
+        assert rec["memory"]["peak_bytes"] < OLD_TRAIN_4K_PEAK / 4
+
+
+def jax_shape(cache) -> int:
+    """The slots of a reference decode cache (its K cache's sequence dim)."""
+    return int(next(v for k, v in _flat(cache) if k[-1] == "k").shape[2])
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-20b"])    # tied, untied head
 def test_a_decode_peak_holds_no_fp32_copy_of_the_head(arch):
     """The smoke model with a 32768-token vocabulary, so the bf16 head
@@ -362,6 +426,8 @@ def _collectives_dropped():
         return torch.cat([x] * g, dim=axis) if tiled else torch.stack([x] * g, dim=axis)
 
     with mock.patch.object(_collectives, "ppermute", lambda x, axis_name, perm: x), \
+            mock.patch.object(_collectives, "ppermute_start", lambda x, axis_name, perm: x), \
+            mock.patch.object(_collectives, "ppermute_done", lambda started: started), \
             mock.patch.object(_collectives, "psum", lambda x, axis_name: x), \
             mock.patch.object(_collectives, "all_gather", all_gather):
         yield

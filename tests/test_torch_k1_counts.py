@@ -109,3 +109,46 @@ def test_the_published_configs_counts(arch, per_step, train):
     projections and the unembedding."""
     cfg = get_config(arch)
     assert (chip_smoke.k1_per_step(cfg), chip_smoke.train_products(cfg)) == (per_step, train)
+
+
+def _trace_event(cat, name, ts, dur, corr, tid=None, stream=None):
+    ev = {"cat": cat, "name": name, "ts": ts, "dur": dur, "args": {"correlation": corr}}
+    if tid is not None:
+        ev["tid"] = tid
+    if stream is not None:
+        ev["args"]["stream"] = stream
+    return ev
+
+
+def test_hidden_share_reads_prefetch_copies_under_the_same_ranks_k1():
+    """``chip_smoke.hidden_shares`` on a hand-made trace of two ranks
+    (threads 11 and 12; compute streams 7 and 8, copy streams 20 and 21;
+    the log keyed by stream handles the trace does not carry): a
+    compute-stream memcpy is no ppermute copy, the logged issue order
+    tells a skew (False) from a prefetch (True), each copy stream is
+    paired with the compute stream its thread launched K1 on, and only K1
+    time of the copy's own rank hides it.  Rank 11's prefetch (10 us) lies
+    4 us under its K1 and 6 us more under rank 12's; rank 12's (10 us)
+    10 us under its own."""
+    ev = [
+        # rank 11: a skew copy, a compute-stream memcpy, its prefetch, its K1
+        _trace_event("cuda_runtime", "cudaMemcpyAsync", 0, 1, 1, tid=11),
+        _trace_event("gpu_memcpy", "Memcpy DtoD", 100, 10, 1, stream=20),
+        _trace_event("cuda_runtime", "cudaMemcpyAsync", 1, 1, 2, tid=11),
+        _trace_event("gpu_memcpy", "Memcpy DtoD", 110, 10, 2, stream=7),
+        _trace_event("cuda_runtime", "cudaMemcpyAsync", 2, 1, 3, tid=11),
+        _trace_event("gpu_memcpy", "Memcpy DtoD", 200, 10, 3, stream=20),
+        _trace_event("cuda_driver", "cuLaunchKernel", 3, 1, 4, tid=11),
+        _trace_event("kernel", "zorder_matmul_wide_kernel<...>", 206, 50, 4, stream=7),
+        # rank 12: its prefetch under its own K1, which also covers rank 11's
+        _trace_event("cuda_runtime", "cudaMemcpyAsync", 2, 1, 5, tid=12),
+        _trace_event("gpu_memcpy", "Memcpy DtoD", 200, 10, 5, stream=21),
+        _trace_event("cuda_runtime", "cudaLaunchKernel", 3, 1, 6, tid=12),
+        _trace_event("kernel", "zorder_matmul_wide_kernel<...>", 195, 16, 6, stream=8),
+    ]
+    got = chip_smoke.hidden_shares(ev, {1020: [False, True], 1021: [True]}, ranks=2)
+    assert got["prefetch_copies"] == 2 and got["prefetch_copy_us"] == 20
+    assert got["hidden"] == pytest.approx((4 + 10) / 20)
+    assert got["under_any_k1"] == pytest.approx(1.0)
+    with pytest.raises(AssertionError, match="no one logged issue order"):
+        chip_smoke.hidden_shares(ev, {1020: [True, True], 1021: [False, True]}, ranks=2)

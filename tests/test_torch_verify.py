@@ -32,6 +32,7 @@ import subprocess
 import sys
 import time
 from types import SimpleNamespace
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -239,6 +240,49 @@ def test_measured_matches_trace_on_thread_mesh(meshes, strategy, shape, names, m
         want = sum(v for (k, _), v in by_phase.items() if k == kind)
         assert _collectives.stats[kind]["bytes"] == want, (kind, by_phase)
     assert _collectives.stats["psum"]["bytes"] == _psum_bytes_thread_convention(cap, mesh.size)
+
+
+DEFERRED_CELLS = [("cannon", (2, 2), ("x", "y")), ("summa", (2, 2), ("x", "y")),
+                  ("ring_ag", (2, 2), ("x", "y")), ("ring_ag", (4,), ("t",)),
+                  ("cannon25d", (2, 2, 2), ("pod", "x", "y")),
+                  ("pod25d", (2, 2, 2), ("pod", "x", "y"))]
+
+
+@pytest.mark.parametrize("strategy,shape,names", DEFERRED_CELLS,
+                         ids=[f"{s}-{'x'.join(map(str, z))}" for s, z, _ in DEFERRED_CELLS])
+def test_deferred_permutes_count_once_as_the_references_trace(meshes, strategy, shape, names):
+    """An overlapped body's deferred ppermutes under the interceptor, obs,
+    the cost counter and ``_collectives.stats`` at once: the interceptor's
+    and obs's multisets equal the reference's trace of the same plan, and
+    the counter and stats count each ppermute once on every rank."""
+    from collections import Counter
+
+    from repro_torch import obs
+    from repro_torch.roofline import hlo_stats
+
+    spec = CASES["square"]
+    mode = None if strategy == "ring_ag" else True
+    _, ref = _plans(strategy, shape, names, "square", "float32", mode)
+    want = Counter(r.key for r in ref_trace.trace_plan(ref).records)
+    mesh = meshes(shape, names)
+    plan = port_plan.build_plan(spec["m"], spec["n"], spec["k"], mesh=mesh, strategy=strategy,
+                                batch=spec["batch"], overlap=mode)
+    flat_m = plan.m * math.prod(plan.batch)
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((flat_m, plan.k), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((plan.k, plan.n), dtype=np.float32))
+    dones = []
+    done = _collectives.ppermute_done
+    _collectives.reset_stats()
+    with mock.patch.object(_collectives, "ppermute_done", lambda h: dones.append(1) or done(h)), \
+            intercept() as cap, obs.observe() as rec, hlo_stats.counting() as counter:
+        port_plan.execute_plan(plan, a, b)
+    assert dones and cap.divergence() is None
+    assert Counter(r.key for r in cap.records) == want
+    assert obs.collective_multiset(rec) == want
+    permutes = sum(n for key, n in want.items() if key[0] == "ppermute")
+    assert _collectives.stats["ppermute"]["calls"] == permutes * mesh.size
+    assert counter.calls["COLL:collective-permute"] == permutes * mesh.size
 
 
 @pytest.mark.parametrize("kwargs", [
