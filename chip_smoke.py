@@ -192,17 +192,27 @@ Phases, each fatal on failure (no result line, non-zero exit):
    gradient non-zero, while a control whose products detach K1's output
    lands outside the limit and the trainer refuses it; (c) the main path:
    ``python -m repro_torch.launch.train --arch llama3.2-1b --steps 10
-   --batch 8 --seq 256 --ckpt <dir>`` (its ``main``), full width, bf16:
-   the logged loss falls, K1 launches 337 a step all wide (counts from 0
-   just before), the peak memory and the checkpoints' size; then the same
-   step timed (CUDA events: loss and gradients, optimizer; host clock;
-   tokens/s) and profiled (K1's device time beside its bound, the
-   unembedding's K1 launch and its backward's two fp32 ``aten::mm``, the
-   step's only ones); (d) the reference's ``train_4k`` cell cut to one
-   sequence of 4096 tokens, ``remat="full"``: 2 steps, finite losses, 449
-   wide K1 launches a step (the layers' forward recomputed), peak memory; (e)
-   the smoke Llama with a failure injected: one restart, a falling loss,
-   the restored state equal bit for bit to its checkpoint file.
+   --batch 8 --seq 256 --ckpt <dir>`` (its ``main``), full width, bf16,
+   each step after the first a replay of one CUDA graph of the whole step
+   (``runtime.train.StaticStep``): the logged loss falls, K1 launches 337
+   wide counted on the host for the eager first step and for the capture
+   each (counts from 0 just before) and 337 for each of the 9 replays by
+   the trainer's ``graph_report()``, the capture's seconds, a replay's
+   host and device ms, the peak memory and the checkpoints' size; then the
+   same run with ``--eager``: each step's loss within ``TRAIN_GRAD_TOL`` of
+   the captured run's and its learning rate bitwise, 337 a step; then the
+   same step timed eager (CUDA events: loss and gradients, optimizer; host
+   clock; tokens/s) and replayed (CUDA events and host clock around each
+   replay), and an eager step profiled (K1's device time beside its bound,
+   the unembedding's K1 launch and its backward's two fp32 ``aten::mm``,
+   the step's only ones); (d) the reference's ``train_4k`` cell cut to one
+   sequence of 4096 tokens, ``remat="full"``: 3 steps captured and 3
+   eager, finite and falling losses, 449 wide K1 launches a step (the
+   layers' forward recomputed), the runs held to each other as in (c),
+   peak memory; (e) the smoke Llama with a failure injected, captured: one
+   restart and one capture (the restore writes into the donated state),
+   a falling loss, the state right after the restore equal bit for bit to
+   its checkpoint file; and the same run eager, held to it as in (c).
 15. zoo-serve -- the MoE and MLA decoders, every leg fatal, each model
    freed before the next: (a) a full-width, 2-layer fp32 deepseek-moe-16b
    (its dense first layer and one MoE layer of all 64 experts) and
@@ -262,17 +272,21 @@ Phases, each fatal on failure (no result line, non-zero exit):
    within ``ROW_TOL`` of "none"'s, each mode's peak memory ("dots" below
    "none"); (c) the main path of this phase: ``launch.train.main(["--arch",
    "zamba2-2.7b", "--steps", "10", "--batch", "2", "--seq", "512"])``, full
-   width and depth, bf16, ``remat="dots"``: every logged loss finite, the
-   last below the first, K1 541 a step all wide (counts from 0 just
-   before), peak memory; then the step timed (host clock, CUDA events:
-   loss and gradients vs optimizer, tokens/s), profiled (K1, the SSD
-   scan's forward, the unembedding's K1 launch and its backward's two fp32
-   ``aten::mm``), and its K1 calls held against the
-   plain version and timed beside ``torch.matmul`` and their bound; (d)
-   the same for ``--arch xlstm-350m --steps 10 --batch 8 --seq 256`` (235
-   a step); (e) deepseek-moe-16b cut to 4 layers (its dense layer and 3
-   MoE layers) through ``Trainer.fit``, 10 steps of 4 x 256, ``"dots"``,
-   measured as (c) (85 a step).
+   width and depth, bf16, ``remat="dots"``, captured (phase 14c's way):
+   every logged loss finite, the last below the first, K1 541 a step all
+   wide (counted on the host for the eager first step and the capture,
+   counts from 0 just before; by ``graph_report()`` for each replay), a
+   replay's host and device ms, the capture's seconds, peak memory; then
+   its first ``ZOO_EAGER_STEPS`` steps with ``--eager``, each step's loss
+   within ``TRAIN_GRAD_TOL`` of the captured run's and its learning rate
+   bitwise, timed (host clock, CUDA events: loss and gradients vs
+   optimizer, tokens/s), profiled (K1, the SSD scan's forward, the
+   unembedding's K1 launch and its backward's two fp32 ``aten::mm``), and
+   its K1 calls held against the plain version and timed beside
+   ``torch.matmul`` and their bound; (d) the same for ``--arch xlstm-350m
+   --steps 10 --batch 8 --seq 256`` (235 a step); (e) deepseek-moe-16b cut
+   to 4 layers (its dense layer and 3 MoE layers) through ``Trainer.fit``,
+   10 steps of 4 x 256, ``"dots"``, measured as (c) (85 a step).
 18. sharded-train -- training on a mesh of rank threads on the card, every
    leg fatal: (a) one fp32 step of a full-width, 2-layer Llama-3.2-1B on
    the (data 2, model 2) mesh (``Trainer(mesh=)``'s step: every projection
@@ -282,19 +296,25 @@ Phases, each fatal on failure (no result line, non-zero exit):
    ``SHARD_GRAD_TOL`` (relative L2), while a planned backward that drops
    one product's dB lands outside it; (b) the main path of this phase:
    ``launch.train.main([..., "--tp", "2", "--ranks", "4"])``, the full
-   Llama-3.2-1B, bf16 with fp32 masters placed by ``param_shardings``, 2
-   steps of 8 x 256 (counts from 0 just before), and the same 2 steps
-   through the launcher without a mesh: each step's loss within
-   ``SHARD_LOSS_GAP``, 336 planned products a step (112 forward, 224 in the
-   planned backward, which autograd runs on its device thread) by
-   strategy, no K1 product outside the rank threads but the
-   unembedding's, once a step (never planned; Llama's remat "none"
-   recomputes nothing), K1 launches a step by route, each rank's
+   Llama-3.2-1B, bf16 with fp32 masters placed by ``param_shardings``, 3
+   steps of 8 x 256, captured: one CUDA graph of the whole step whose
+   branches are the rank streams of every planned product, the backward's
+   on autograd's device thread too (counts from 0 just before: the eager
+   first step and the capture counted on the host, twice a step's, the
+   replays by ``graph_report()``); the same through ``--eager`` for 2
+   steps, each step's loss within ``SHARD_LOSS_GAP`` of the captured run's
+   and its learning rate bitwise; and 3 captured steps through the
+   launcher without a mesh: each step's loss within ``SHARD_LOSS_GAP``;
+   in the eager run 336 planned products a step (112 forward, 224 in the
+   planned backward) by strategy, no K1 product outside the rank threads
+   but the unembedding's, once a step (never planned; Llama's remat
+   "none" recomputes nothing), K1 launches a step by route; each rank's
    state bytes equal to what ``param_shardings`` predicts and the distinct
-   blocks' to the unplaced state's, the step's host time, tokens/s and
-   peak memory beside ``mesh=None``'s, and one step's per-rank K1 calls
-   held against the plain version and timed beside ``torch.matmul`` and
-   their bound; (c) elastic: 2 full-width layers, 2 steps on (pod 2, data
+   blocks' to the unplaced state's; a replay's host and device ms, the
+   capture's seconds, the eager step's, tokens/s and peak memory beside
+   ``mesh=None``'s, and one step's per-rank K1 calls held against the
+   plain version and timed beside ``torch.matmul`` and their bound; (c)
+   elastic: 2 full-width layers, 2 steps on (pod 2, data
    1, model 2) with a checkpoint, a failure injected, the pod dropped
    (``shrink_after_failure``), the checkpoint re-placed onto (data 1,
    model 2) (``replace_state``), 2 more steps: the four losses within
@@ -313,8 +333,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    for real with every K1 and K2 launch's shape logged: the counted K1
    FLOPs equal Σ 2mnk of the launched shapes and K2's equal
    ``flash_bound``'s count, exactly, and each step's counted bound over the
-   device time phases 4, 14 and 6 measured is at most
-   ``ROOF_FRACTION_MAX``; no ``aten::mm`` in the decode step or the
+   device time phases 4, 14 and 6 measured (phase 14's: a replay of the
+   captured training step) is at most ``ROOF_FRACTION_MAX``; no
+   ``aten::mm`` in the decode step or the
    forward and two in the training step (the unembedding's fp32
    backward), and no copy of the LM head in the decode step or the
    forward; (b) the dry run's argument bytes within
@@ -424,7 +445,7 @@ from repro_torch.runtime.serve import (ServeConfig, batch_requests, decode_loop,
                                        planned_scope, token_loop)
 from repro_torch.runtime.serve import decode_step as serve_step  # noqa: E402
 from repro_torch.runtime.serve import prefill as serve_prefill  # noqa: E402
-from repro_torch.runtime.train import TrainConfig, Trainer  # noqa: E402
+from repro_torch.runtime.train import StaticStep, TrainConfig, Trainer  # noqa: E402
 from repro_torch.serve import Server, as_bucket, route as serve_route  # noqa: E402
 from repro_torch.serve.server import DUMMY_TOKEN, PAD_ID  # noqa: E402
 from repro_torch.verify import (ConformanceError, check, check_capture,  # noqa: E402
@@ -3005,8 +3026,9 @@ TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_SEQ = 2, 64
 TRAIN_GRAD_TOL = 1e-3
 # the reference's train_4k cell (seq 4096, batch 256 over 256 chips) cut
-# to one sequence on one card, every block recomputed in the backward
-TRAIN_4K_SEQ, TRAIN_4K_STEPS = 4096, 2
+# to one sequence on one card, every block recomputed in the backward (3
+# steps: captured, that is the eager first step, the capture and a replay)
+TRAIN_4K_SEQ, TRAIN_4K_STEPS = 4096, 3
 TRAIN_TIMED_STEPS = 3
 TRAIN_GRAPH_CALLS = 4      # products a timed CUDA graph replays
 # the restart leg: the reference's test_restart_and_loss_decreases on the card
@@ -3015,6 +3037,92 @@ RESTART_CFG = dict(steps=24, lr=1e-3, warmup=4, ckpt_every=8, log_every=8, fail_
 # copied back), each leg's removed when it ends
 CKPT_DIR = os.path.join(ROOT, "build")
 TRAIN_LOG = re.compile(r"^\[trainer\] step\s+(\d+) loss ([-\d.naif]+) \((\d+) ms\)$")
+
+
+@contextlib.contextmanager
+def step_meter():
+    """Within the scope, every call of a ``StaticStep`` (``Trainer.fit``'s,
+    the launcher's too) is metered: its kind ("warm": a captured trainer's
+    eager first step, on the capture stream; "capture": the capture and the
+    first replay; "replay"; "eager": a step of an uncaptured trainer), the
+    host clock around it (a sync before and after it: ``fit`` syncs after
+    every step anyway), the device time between CUDA events on the caller's
+    stream around it, its loss and its learning rate; and every trainer
+    whose ``fit`` ran, for its ``graph_report()``.  Yields {"rows": [...],
+    "trainers": [...]}: drop the trainers before freeing memory."""
+    meter = {"rows": [], "trainers": []}
+    real_call, real_fit = StaticStep.__call__, Trainer.fit
+
+    def metered(self, batch):
+        kind = ("eager" if not self.capture else "warm" if not self.calls
+                else "replay" if self.graph is not None else "capture")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = real_call(self, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        meter["rows"].append({"kind": kind, "host_ms": (time.perf_counter() - t0) * 1e3,
+                              "device_ms": ev[0].elapsed_time(ev[1]),
+                              "loss": out["loss"].item(), "lr": out["lr"].item()})
+        return out
+
+    def kept(self, *args, **kw):
+        meter["trainers"].append(self)
+        return real_fit(self, *args, **kw)
+
+    with mock.patch.object(StaticStep, "__call__", metered), \
+            mock.patch.object(Trainer, "fit", kept):
+        yield meter
+
+
+def step_summary(rows: list) -> dict:
+    """A metered run (``step_meter``) in its steps' terms: every step's loss
+    and learning rate, the steps by kind, the first step's host ms, the
+    capturing step's, and the medians of the replays' host and device ms
+    (a captured run) or of the eager steps' after the first."""
+    steady = [r for r in rows if r["kind"] == "replay"] or \
+        [r for i, r in enumerate(rows) if i and r["kind"] == "eager"]
+    return {"losses": [r["loss"] for r in rows], "lrs": [r["lr"] for r in rows],
+            "kinds": dict(Counter(r["kind"] for r in rows)),
+            "first_step_ms": rows[0]["host_ms"],
+            "capture_step_ms": next((r["host_ms"] for r in rows if r["kind"] == "capture"), None),
+            "host_ms": float(np.median([r["host_ms"] for r in steady])),
+            "device_ms": float(np.median([r["device_ms"] for r in steady])),
+            "steps_timed": len(steady)}
+
+
+def held_to_eager(tag: str, cap: dict, eag: dict, tol: float, relative: bool = True) -> dict:
+    """A captured run (``step_summary``) against the eager run from the same
+    state and batches: each step's loss within ``tol`` (relative, or
+    absolute) over the steps both ran, every learning rate bitwise (fp32
+    values compared as Python floats)."""
+    n = min(len(cap["losses"]), len(eag["losses"]))
+    gaps = [abs(a - b) / (abs(b) if relative else 1.0)
+            for a, b in zip(cap["losses"][:n], eag["losses"][:n])]
+    lr_bitwise = cap["lrs"][:n] == eag["lrs"][:n]
+    log(f"[{tag}] captured vs eager over {n} steps: loss gaps "
+        f"{[float(f'{g:.3g}') for g in gaps]} ({'relative' if relative else 'absolute'}, limit "
+        f"{tol:g}); learning rates bitwise: {lr_bitwise}")
+    if not n or max(gaps) > tol or not lr_bitwise:
+        raise AssertionError(f"[{tag}] the captured run left the eager one: gaps {gaps}, "
+                             f"lr {cap['lrs'][:n]} vs {eag['lrs'][:n]}")
+    return {"gaps": gaps, "lr_bitwise": lr_bitwise, "steps": n}
+
+
+def check_graph(tag: str, graph: dict, per_step: dict, replays: int,
+                products: dict = None) -> None:
+    """The trainer's ``graph_report()``: one capture, ``replays`` replays of
+    ``per_step`` K1 launches by route (and ``products`` planned products a
+    replay, when given), replays x those replayed."""
+    want = {"captures": 1, "replays": replays, "k1_per_replay": per_step,
+            "k1_replayed": {r: replays * n for r, n in per_step.items()}}
+    if products is not None:
+        want["products_per_replay"] = products
+    got = {k: graph[k] for k in want}
+    if got != want:
+        raise AssertionError(f"[{tag}] graph_report {got}, want {want}")
 
 
 class _Tee(io.TextIOBase):
@@ -3214,8 +3322,13 @@ def train_grad_check(dev: torch.device, arch: str = TRAIN_ARCH, depth: dict = No
 
 
 def _train_step_times(trainer, state, batch, steps: int) -> dict:
-    """Per step: CUDA events around the loss and gradients and around the
-    optimizer, the host clock around the whole step (ended by a sync)."""
+    """``steps`` steps of each kind on one state and batch.  Eager (the
+    trainer's function, after one warm step): CUDA events around the loss
+    and gradients and around the optimizer, the host clock around the whole
+    step (ended by a sync).  Captured (``trainer.static_step``: its eager
+    first step, then the capture and a replay): CUDA events and the host
+    clock around each later replay (the batch's copy into the static
+    buffers included), and the capture's seconds."""
     step = trainer.make_train_step()
     state, _ = step(state, batch)           # warm
     torch.cuda.synchronize()
@@ -3234,7 +3347,24 @@ def _train_step_times(trainer, state, batch, steps: int) -> dict:
                      "device_ms": ev[0].elapsed_time(ev[2]),
                      "grads_ms": ev[0].elapsed_time(ev[1]), "optimizer_ms": ev[1].elapsed_time(ev[2])})
         del grads
-    return {key: float(np.median([r[key] for r in rows])) for key in rows[0]} | {"runs": rows}
+    eager = {key: float(np.median([r[key] for r in rows])) for key in rows[0]} | {"runs": rows}
+    static = trainer.static_step(state)
+    for _ in range(2):                      # the eager first step; the capture and a replay
+        static(batch)
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        static(batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rows.append({"host_ms": (time.perf_counter() - t0) * 1e3,
+                     "device_ms": ev[0].elapsed_time(ev[1])})
+    captured = {key: float(np.median([r[key] for r in rows])) for key in rows[0]}
+    return {"eager": eager, "captured": {**captured, "runs": rows,
+                                         "capture_s": trainer.graph_report()["capture_s"]}}
 
 
 @contextlib.contextmanager
@@ -3297,132 +3427,227 @@ def phase_train(dev: torch.device, gen: torch.Generator) -> dict:
     cfg = get_config(TRAIN_ARCH)
     out = {"kernel": train_kernel_check(dev, gen), "check": train_grad_check(dev)}
 
-    # (c) the main path: the launcher at full width, counts from 0 just before
+    # (c) the main path: the launcher at full width, its step captured,
+    # counts from 0 just before; then the same run eager (--eager, no
+    # checkpoints): the same state and batches
+    per = train_step_launches(cfg)
     os.makedirs(CKPT_DIR, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=CKPT_DIR)
     buf = io.StringIO()
     torch.cuda.reset_peak_memory_stats(dev)
     k1.reset_launches()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+    with contextlib.redirect_stdout(_Tee(buf, sys.stdout)), step_meter() as meter:
         rc = launch_train.main(TRAIN_ARGV + ["--ckpt", ckpt])
     wall = time.perf_counter() - t0
     path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route)}
     peak = torch.cuda.max_memory_allocated(dev)
+    graph = meter["trainers"][0].graph_report()
+    del meter["trainers"]
+    cap = step_summary(meter["rows"])
     logged = [m.groups() for m in map(TRAIN_LOG.match, buf.getvalue().splitlines()) if m]
     losses = [float(x) for _, x, _ in logged]
     latest = train_store.latest_step(ckpt)
     ckpt_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt)
                   for f in fs) / 1e9
     shutil.rmtree(ckpt)
-    want = {"wide": train_step_launches(cfg) * TRAIN_STEPS}
-    log(f"[train] launcher: rc {rc}, {len(logged)} steps logged in {wall:.1f}s (the steps "
-        f"{sum(int(ms) for _, _, ms in logged) / 1e3:.1f}s of it), loss "
-        f"{losses[0] if losses else None} -> {losses[-1] if losses else None}; K1 on the main "
-        f"path {path['routes']} (want {want}); peak memory {peak / 2 ** 30:.2f} GiB; "
-        f"checkpoints {ckpt_gb:.1f} GB on disk, LATEST step {latest}")
+    want = {"wide": 2 * per}     # the eager first step and the capture
+    log(f"[train] launcher, captured: rc {rc}, {len(logged)} steps logged in {wall:.1f}s (the "
+        f"steps {sum(int(ms) for _, _, ms in logged) / 1e3:.1f}s of it), loss "
+        f"{losses[0] if losses else None} -> {losses[-1] if losses else None}; K1 counted on "
+        f"the host {path['routes']} (want {want}: the eager first step and the capture), "
+        f"replayed {graph['k1_replayed']} ({graph['replays']} replays of "
+        f"{graph['k1_per_replay']}); first step {cap['first_step_ms']:.1f}ms, the capturing "
+        f"step {cap['capture_step_ms']:.1f}ms (capture {graph['capture_s']:.2f}s), a replay "
+        f"{cap['host_ms']:.1f}ms host / {cap['device_ms']:.1f}ms device (median of "
+        f"{cap['steps_timed']}); peak memory {peak / 2 ** 30:.2f} GiB; checkpoints "
+        f"{ckpt_gb:.1f} GB on disk, LATEST step {latest}")
     if rc != 0 or len(logged) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"the launcher's run: rc {rc}, logged {logged}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     if path["routes"] != want or latest != TRAIN_STEPS:
         raise AssertionError(f"K1 on the main path {path['routes']}, want {want}; LATEST {latest}")
+    check_graph("train", graph, {"wide": per}, TRAIN_STEPS - 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()), step_meter() as meter:
+        rc_e = launch_train.main(TRAIN_ARGV + ["--eager"])
+    eager_routes = _nonzero(k1.launches_by_route)
+    eager_peak = torch.cuda.max_memory_allocated(dev)
+    del meter["trainers"]
+    eag = step_summary(meter["rows"])
+    log(f"[train] launcher, --eager: rc {rc_e}, K1 {eager_routes} (want "
+        f"{ {'wide': per * TRAIN_STEPS} }); a step {eag['host_ms']:.1f}ms host / "
+        f"{eag['device_ms']:.1f}ms device (median of {eag['steps_timed']}); peak memory "
+        f"{eager_peak / 2 ** 30:.2f} GiB")
+    if rc_e != 0 or eager_routes != {"wide": per * TRAIN_STEPS}:
+        raise AssertionError(f"the eager launcher: rc {rc_e}, K1 {eager_routes}")
+    held = held_to_eager("train", cap, eag, TRAIN_GRAD_TOL)
     out["path"] = {**path, "rc": rc, "losses": losses, "wall_s": wall,
                    "host_ms_logged": [int(ms) for _, _, ms in logged],
-                   "peak_gib": peak / 2 ** 30, "ckpt_gb": ckpt_gb}
+                   "peak_gib": peak / 2 ** 30, "ckpt_gb": ckpt_gb, "graph": graph,
+                   "captured": cap, "eager": {**eag, "routes": eager_routes,
+                                              "launches": sum(eager_routes.values()),
+                                              "peak_gib": eager_peak / 2 ** 30},
+                   "held_to_eager": held}
 
-    # the same step timed and profiled, outside the launcher
+    # the same step timed (eager and replayed) and profiled (eager), outside the launcher
     model = build_model(cfg)
     trainer = Trainer(model, TrainConfig(steps=TRAIN_STEPS), device=dev)
     state = trainer.init_state(torch.Generator(device=dev).manual_seed(0))
     batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
-    times = _train_step_times(trainer, state, batch, TRAIN_TIMED_STEPS)
+    both = _train_step_times(trainer, state, batch, TRAIN_TIMED_STEPS)
     prof = _profile_step(trainer, state, batch)
+    times, ctimes = both["eager"], both["captured"]
     times["tokens_per_s"] = TRAIN_TOKENS / times["host_ms"] * 1e3
     times["busy_share"] = prof["device_ms"] / times["device_ms"]
+    ctimes["tokens_per_s"] = TRAIN_TOKENS / ctimes["host_ms"] * 1e3
     k = out["kernel"]["per_step"]
-    log(f"[train] step at {TRAIN_BATCH}x{TRAIN_SEQ}: host {times['host_ms']:.1f}ms, device "
+    log(f"[train] step at {TRAIN_BATCH}x{TRAIN_SEQ}, eager: host {times['host_ms']:.1f}ms, device "
         f"{times['device_ms']:.1f}ms (loss and gradients {times['grads_ms']:.1f}, optimizer "
-        f"{times['optimizer_ms']:.1f}), {times['tokens_per_s']:.0f} tokens/s; profiled: device "
+        f"{times['optimizer_ms']:.1f}), {times['tokens_per_s']:.0f} tokens/s; captured: a "
+        f"replay {ctimes['host_ms']:.1f}ms host / {ctimes['device_ms']:.1f}ms device, "
+        f"{ctimes['tokens_per_s']:.0f} tokens/s, capture {ctimes['capture_s']:.2f}s; eager "
+        f"step profiled: device "
         f"{prof['device_ms']:.1f}ms (busy {times['busy_share']:.0%} of the step), K1 {prof['k1_ms']:.1f}ms ({prof['k1_launches']} launches; "
         f"bound {k['bound_ms']:.2f}ms), the unembedding's forward (K1) {prof['unembed_ms']:.1f}ms, "
         f"its backward's fp32 aten::mm x{prof['mm_calls']} {prof['mm_ms']:.1f}ms; "
         f"top operators " + ", ".join(f"{r['op']} {r['ms']:.1f}ms" for r in prof["top_operators"][:6]))
     check_unembed_profile("train", prof)
-    out["timing"] = {**times, "profile": prof}
-    del state, batch, trainer
+    # phase 19 reads "device_ms": the replay's
+    out["timing"] = {**ctimes, "eager": times, "profile": prof}
+    del state, batch, trainer, both
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # (d) train_4k cut to one sequence, every block recomputed
+    # (d) train_4k cut to one sequence, every block recomputed: captured, then eager
     cfg4k = dataclasses.replace(cfg, remat="full")
-    torch.cuda.reset_peak_memory_stats(dev)
-    k1.reset_launches()
-    t0 = time.perf_counter()
-    fit = Trainer(build_model(cfg4k), TrainConfig(steps=TRAIN_4K_STEPS, warmup=1, log_every=1),
-                  device=dev).fit(torch.Generator(device=dev).manual_seed(0), batch_iterator(
-                      DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_4K_SEQ, global_batch=1)))
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
-    l4k = [h["loss"] for h in fit["history"]]
-    r4k = _nonzero(k1.launches_by_route)
     # the layers' forward recomputed once (the unembedding is outside them)
-    want4k = {"wide": (train_step_launches(cfg) + 7 * cfg.num_layers) * TRAIN_4K_STEPS}
-    log(f"[train-4k] 1x{TRAIN_4K_SEQ}, remat='full': losses {l4k}, steps "
-        f"{[round(h['sec_per_step'] * 1e3, 1) for h in fit['history']]} ms, {wall:.1f}s in all; "
-        f"peak memory {peak / 2 ** 30:.2f} GiB; K1 {r4k} (want {want4k})")
-    if len(l4k) != TRAIN_4K_STEPS or not all(map(math.isfinite, l4k)) or r4k != want4k:
-        raise AssertionError(f"train_4k: losses {l4k}, K1 {r4k}")
-    out["train_4k"] = {"losses": l4k, "peak_gib": peak / 2 ** 30, "routes": r4k,
-                       "ms_per_step": [h["sec_per_step"] * 1e3 for h in fit["history"]]}
-    del fit
-    torch.cuda.empty_cache()
+    per4k = train_step_launches(cfg) + 7 * cfg.num_layers
+    runs = {}
+    for capture in (True, False):
+        torch.cuda.reset_peak_memory_stats(dev)
+        k1.reset_launches()
+        t0 = time.perf_counter()
+        with step_meter() as meter:
+            fit = Trainer(build_model(cfg4k), TrainConfig(steps=TRAIN_4K_STEPS, warmup=1,
+                                                          log_every=1),
+                          device=dev, capture=capture).fit(
+                torch.Generator(device=dev).manual_seed(0), batch_iterator(DataConfig(
+                    vocab_size=cfg.vocab_size, seq_len=TRAIN_4K_SEQ, global_batch=1)))
+        graph = meter["trainers"][0].graph_report()
+        del meter["trainers"]
+        runs[capture] = {"losses": [h["loss"] for h in fit["history"]],
+                         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                         "routes": _nonzero(k1.launches_by_route), "graph": graph,
+                         "steps": step_summary(meter["rows"]),
+                         "ms_per_step": [h["sec_per_step"] * 1e3 for h in fit["history"]],
+                         "wall_s": time.perf_counter() - t0}
+        del fit
+        gc.collect()
+        torch.cuda.empty_cache()
+    c4k, e4k = runs[True], runs[False]
+    want4k = {"wide": 2 * per4k}
+    log(f"[train-4k] 1x{TRAIN_4K_SEQ}, remat='full', captured: losses {c4k['losses']}, steps "
+        f"{[round(x, 1) for x in c4k['ms_per_step']]} ms (a replay "
+        f"{c4k['steps']['device_ms']:.1f}ms device, capture {c4k['graph']['capture_s']:.2f}s), "
+        f"{c4k['wall_s']:.1f}s in all; peak memory {c4k['peak_gib']:.2f} GiB; K1 counted "
+        f"{c4k['routes']} (want {want4k}), replayed {c4k['graph']['k1_replayed']}; eager: steps "
+        f"{[round(x, 1) for x in e4k['ms_per_step']]} ms, peak {e4k['peak_gib']:.2f} GiB, K1 "
+        f"{e4k['routes']}")
+    if len(c4k["losses"]) != TRAIN_4K_STEPS or not all(map(math.isfinite, c4k["losses"])) \
+            or not c4k["losses"][-1] < c4k["losses"][0] or c4k["routes"] != want4k \
+            or e4k["routes"] != {"wide": per4k * TRAIN_4K_STEPS}:
+        raise AssertionError(f"train_4k: captured {c4k}, eager {e4k}")
+    check_graph("train-4k", c4k["graph"], {"wide": per4k}, TRAIN_4K_STEPS - 1)
+    held = held_to_eager("train-4k", c4k["steps"], e4k["steps"], TRAIN_GRAD_TOL)
+    out["train_4k"] = {**c4k, "eager": e4k, "held_to_eager": held}
 
     out["restart"] = train_restart(dev)
     return out
 
 
 def train_restart(dev: torch.device) -> dict:
-    """(e) The smoke Llama on the card with a failure injected: exactly one
-    restart, a falling loss, and the state the trainer restored equal bit
-    for bit to the checkpoint file it came from."""
+    """(e) The smoke Llama on the card with a failure injected, captured:
+    exactly one restart and one capture (the restore writes into the
+    donated state, so the graph is kept), a falling loss, and the state
+    right after the restore equal bit for bit to the checkpoint file it
+    came from; then the same run eager, each step's loss and learning rate
+    held to it."""
     cfg = get_smoke_config(TRAIN_ARCH)
-    ckpt = tempfile.mkdtemp(prefix="train_restart_", dir=CKPT_DIR)
-    restored = []
-    real_restore = train_store.restore
+    runs, restored = {}, []
+    real_restore = Trainer.restore
 
-    def spy(ckpt_dir, template, step=None):
-        s, tree = real_restore(ckpt_dir, template, step)
-        restored.append((s, [(p, t.detach().cpu().clone()) for p, t in tree_paths(tree)]))
+    def spy(self, ckpt_dir, state):
+        s, tree = real_restore(self, ckpt_dir, state)
+        restored.append((ckpt_dir, s, [(p, t.detach().cpu().clone())
+                                       for p, t in tree_paths(tree)]))
         return s, tree
 
-    k1.reset_launches()
-    with mock.patch.object(train_store, "restore", spy):
-        fit = Trainer(build_model(cfg), TrainConfig(ckpt_dir=ckpt, **RESTART_CFG), device=dev).fit(
-            torch.Generator(device=dev).manual_seed(0),
-            batch_iterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)))
-    losses = [h["loss"] for h in fit["history"]]
-    routes = _nonzero(k1.launches_by_route)
-    if fit["restarts"] != 1 or len(restored) != 1 or not losses[-1] < losses[0]:
-        raise AssertionError(f"restart leg: {fit['restarts']} restarts, {len(restored)} "
-                             f"restores, losses {losses}")
-    step, leaves = restored[0]
-    with np.load(os.path.join(ckpt, f"step_{step:08d}", "arrays.npz")) as npz:
+    for capture in (True, False):
+        ckpt = tempfile.mkdtemp(prefix="train_restart_", dir=CKPT_DIR)
+        k1.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with mock.patch.object(Trainer, "restore", spy), step_meter() as meter:
+            fit = Trainer(build_model(cfg), TrainConfig(ckpt_dir=ckpt, **RESTART_CFG),
+                          device=dev, capture=capture).fit(
+                torch.Generator(device=dev).manual_seed(0),
+                batch_iterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)))
+        runs[capture] = {"restarts": fit["restarts"], "losses": [h["loss"] for h in fit["history"]],
+                         "routes": _nonzero(k1.launches_by_route),
+                         "graph": meter["trainers"][0].graph_report(),
+                         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                         "steps": step_summary(meter["rows"]), "ckpt": ckpt}
+        del fit, meter["trainers"]
+    cap, eag = runs[True], runs[False]
+    mine = [r for r in restored if r[0] == cap["ckpt"]]
+    if cap["restarts"] != 1 or len(mine) != 1 or not cap["losses"][-1] < cap["losses"][0] \
+            or cap["graph"]["captures"] != 1 or eag["restarts"] != 1:
+        raise AssertionError(f"restart leg: {cap['restarts']} restarts, {len(mine)} restores, "
+                             f"{cap['graph']['captures']} captures, losses {cap['losses']}; "
+                             f"eager {eag['restarts']} restarts")
+    _, step, leaves = mine[0]
+    with np.load(os.path.join(cap["ckpt"], f"step_{step:08d}", "arrays.npz")) as npz:
         files = {k: npz[k] for k in npz.files}
     differ = []
     for p, t in leaves:
         key = "//".join(map(str, p))
-        mine = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+        mine_bits = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
         disk = files[key].view(np.int16) if t.dtype == torch.bfloat16 else files[key]
-        if mine.dtype != disk.dtype or not np.array_equal(mine, disk):
+        if mine_bits.dtype != disk.dtype or not np.array_equal(mine_bits, disk):
             differ.append(key)
-    shutil.rmtree(ckpt)
-    log(f"[train-restart] smoke on the card, failure at step {RESTART_CFG['fail_at_step']}: "
-        f"{fit['restarts']} restart from step {step}, losses {[round(x, 4) for x in losses]}; "
-        f"{len(leaves)} restored leaves equal the checkpoint bitwise: {not differ}; K1 {routes}")
+    for r in runs.values():
+        shutil.rmtree(r.pop("ckpt"))
+    steps = cap["steps"]
+    log(f"[train-restart] smoke on the card, failure at step {RESTART_CFG['fail_at_step']}, "
+        f"captured: {cap['restarts']} restart from step {step}, {cap['graph']['captures']} "
+        f"capture ({cap['graph']['capture_s']:.3f}s), {cap['graph']['replays']} replays, steps "
+        f"by kind {steps['kinds']}; losses {[round(x, 4) for x in cap['losses']]}; "
+        f"{len(leaves)} leaves of the state after the restore equal the checkpoint bitwise: "
+        f"{not differ}; K1 counted {cap['routes']}, replayed {cap['graph']['k1_replayed']}; a "
+        f"replay {steps['host_ms']:.2f}ms host / {steps['device_ms']:.2f}ms device, eager "
+        f"{eag['steps']['host_ms']:.2f}ms / {eag['steps']['device_ms']:.2f}ms; peak "
+        f"{cap['peak_gib']:.3f} GiB (eager {eag['peak_gib']:.3f})")
     if differ:
         raise AssertionError(f"restored leaves differ from the checkpoint: {differ}")
-    return {"restarts": fit["restarts"], "restored_step": step, "losses": losses,
-            "leaves": len(leaves), "routes": routes}
+    held = held_to_eager("train-restart", cap["steps"], eag["steps"], TRAIN_GRAD_TOL)
+    return {**cap, "restored_step": step, "leaves": len(leaves), "eager": eag,
+            "held_to_eager": held}
+
+
+def train_route_rows(tr: dict) -> list:
+    """(path, part, K1 launches by route) of phase 14's captured runs: the
+    launches counted on the host ("": the eager first step and the
+    capture), the graph's replays and the same run eager."""
+    legs = {"train": tr["path"], "train_4k_remat_full": tr["train_4k"],
+            "train_restart_smoke": tr["restart"]}
+    return [row for key, leg in legs.items()
+            for row in ((key, "", leg["routes"]),
+                        (key, "_graph_replays", leg["graph"]["k1_replayed"]),
+                        (key, "_eager", leg["eager"]["routes"]))]
 
 
 def layout_k1_rows(layouts: dict) -> dict:
@@ -4193,6 +4418,10 @@ REMAT_LAYERS, REMAT_BATCH, REMAT_SEQ = 12, 2, 512
 # (repeats cut, not widths, depths or checks)
 ZOO_TRAIN_RUNS = {"zamba2-2.7b": (2, 512, 10), "xlstm-350m": (8, 256, 10)}
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_RUN = "deepseek-moe-16b", 4, (4, 256, 10)
+# each leg runs captured for its steps (the main path), then eager for the
+# first ZOO_EAGER_STEPS of them (the same state, batches and learning rates:
+# the launcher's warmup is 5 steps for both), measured and profiled
+ZOO_EAGER_STEPS = 6
 
 
 def k1_train_times(calls: list, dev: torch.device) -> dict:
@@ -4330,14 +4559,56 @@ def metered_steps(profile_at: int, host_side: bool):
         yield meter
 
 
+def _zoo_run(dev: torch.device, cfg, run: tuple, launcher: bool, capture: bool,
+             steps: int) -> dict:
+    """One run of a zoo leg: ``launch.train.main`` (``--eager`` unless
+    ``capture``) or ``Trainer.fit`` with the launcher's schedule; its logged
+    losses, K1's launches counted on the host from 0 just before, the peak
+    memory, its steps (``step_meter``) and its trainer's ``graph_report()``."""
+    batch, seq, _ = run
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    with step_meter() as meter:
+        if launcher:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+                rc = launch_train.main(["--arch", cfg.name, "--steps", str(steps), "--batch",
+                                        str(batch), "--seq", str(seq)]
+                                       + ([] if capture else ["--eager"]))
+            logged = [m.groups() for m in map(TRAIN_LOG.match, buf.getvalue().splitlines()) if m]
+            losses = [float(x) for _, x, _ in logged]
+        else:
+            fit = Trainer(build_model(cfg), TrainConfig(steps=steps, warmup=max(steps // 20, 5),
+                                                        log_every=1),
+                          device=dev, capture=capture).fit(
+                torch.Generator(device=dev).manual_seed(0), batch_iterator(
+                    DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)))
+            rc, losses = 0, [h["loss"] for h in fit["history"]]
+            del fit
+    graph = meter["trainers"][0].graph_report()
+    del meter["trainers"]
+    return {"rc": rc, "losses": losses, "wall_s": time.perf_counter() - t0,
+            "routes": _nonzero(k1.launches_by_route),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "steps": step_summary(meter["rows"]), "graph": graph}
+
+
 def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) -> dict:
     """(c, d) ``launch.train.main(["--arch", ..., "--steps", ..., "--batch",
     ..., "--seq", ...])`` at full width and depth (``launcher``), or (e)
     ``Trainer.fit`` on ``cfg`` with the launcher's schedule, bf16, the
-    config's remat policy: every logged loss finite and the last below the
-    first, K1 3 x the forward's products a step but the unembedding's dA
-    and dB (``train_step_launches``), all wide (counts from 0 just before),
-    the peak memory.  Its own steps are measured
+    config's remat policy; the main path captured: every logged loss finite
+    and the last below the first, K1 3 x the forward's products a step but
+    the unembedding's dA and dB (``train_step_launches``), all wide, counted
+    on the host for the eager first step and the capture (counts from 0
+    just before) and by ``graph_report()`` for each replay; a replay's host
+    and device ms, the capture's seconds, the peak memory.  Then the first
+    ``ZOO_EAGER_STEPS`` steps eager (``--eager``): each step's loss within
+    ``TRAIN_GRAD_TOL`` of the captured run's and its learning rate bitwise,
+    K1 ``train_step_launches`` a step, and its steps measured
     (``metered_steps``): the medians over the steps after the first, the
     profiled one left out, of the host step time, tokens/s and the
     CUDA-event split (loss and gradients, optimizer); the next-to-last step
@@ -4345,44 +4616,38 @@ def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) 
     SSD scan's forward and the operators), and its K1 calls held against
     the plain version and timed beside ``torch.matmul`` and their bound."""
     batch, seq, steps = run
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    k1.reset_launches()
     t0 = time.perf_counter()
-    # the host side of the trace where the SSD scan's range is read: xLSTM's
-    # step alone is ~2 x 10^5 operators (its sLSTM steps through time)
-    with metered_steps(steps - 2, host_side=cfg.family == "hybrid") as meter:
-        if launcher:
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
-                rc = launch_train.main(["--arch", cfg.name, "--steps", str(steps), "--batch",
-                                        str(batch), "--seq", str(seq)])
-            logged = [m.groups() for m in map(TRAIN_LOG.match, buf.getvalue().splitlines()) if m]
-            losses = [float(x) for _, x, _ in logged]
-        else:
-            fit = Trainer(build_model(cfg), TrainConfig(steps=steps, warmup=max(steps // 20, 5),
-                                                        log_every=1), device=dev).fit(
-                torch.Generator(device=dev).manual_seed(0), batch_iterator(
-                    DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)))
-            rc, losses = 0, [h["loss"] for h in fit["history"]]
-            del fit
-    wall = time.perf_counter() - t0
-    routes = _nonzero(k1.launches_by_route)
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     per_step = train_step_launches(cfg)
-    want = {"wide": per_step * steps}
-    log(f"[{tag}] {'launcher' if launcher else 'Trainer.fit'}: {cfg.name} "
-        f"({cfg.num_layers} layers, remat={cfg.remat!r}), {batch}x{seq} tokens, rc {rc}, "
-        f"{len(losses)} steps in {wall:.1f}s, loss {losses[0] if losses else None} -> "
-        f"{losses[-1] if losses else None}; K1 {routes} (want {want}: {per_step} a step); peak "
-        f"memory {peak:.2f} GiB")
-    if rc != 0 or len(losses) != steps or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"[{tag}] the run: rc {rc}, losses {losses}")
+    cap = _zoo_run(dev, cfg, run, launcher, True, steps)
+    want = {"wide": 2 * per_step}
+    losses, cs, graph = cap["losses"], cap["steps"], cap["graph"]
+    log(f"[{tag}] {'launcher' if launcher else 'Trainer.fit'}, captured: {cfg.name} "
+        f"({cfg.num_layers} layers, remat={cfg.remat!r}), {batch}x{seq} tokens, rc {cap['rc']}, "
+        f"{len(losses)} steps in {cap['wall_s']:.1f}s, loss {losses[0] if losses else None} -> "
+        f"{losses[-1] if losses else None}; K1 counted {cap['routes']} (want {want}: the eager "
+        f"first step and the capture, {per_step} each), replayed {graph['k1_replayed']}; first "
+        f"step {cs['first_step_ms']:.0f}ms, the capturing step {cs['capture_step_ms']:.0f}ms "
+        f"(capture {graph['capture_s']:.2f}s), a replay {cs['host_ms']:.1f}ms host / "
+        f"{cs['device_ms']:.1f}ms device (median of {cs['steps_timed']}), "
+        f"{batch * seq / cs['host_ms'] * 1e3:.0f} tokens/s; peak memory {cap['peak_gib']:.2f} GiB")
+    if cap["rc"] != 0 or len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{tag}] the run: rc {cap['rc']}, losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"[{tag}] the loss did not fall: {losses}")
-    if routes != want:
-        raise AssertionError(f"[{tag}] K1 launched {routes}, want {want}")
+    if cap["routes"] != want:
+        raise AssertionError(f"[{tag}] K1 launched {cap['routes']}, want {want}")
+    check_graph(tag, graph, {"wide": per_step}, steps - 1)
+
+    # the eager run: the host side of the trace where the SSD scan's range is
+    # read: xLSTM's step alone is ~2 x 10^5 operators (its sLSTM steps through time)
+    with metered_steps(ZOO_EAGER_STEPS - 2, host_side=cfg.family == "hybrid") as meter:
+        eag = _zoo_run(dev, cfg, run, launcher, False, ZOO_EAGER_STEPS)
+    want_eager = {"wide": per_step * ZOO_EAGER_STEPS}
+    if eag["rc"] != 0 or len(eag["losses"]) != ZOO_EAGER_STEPS \
+            or not all(map(math.isfinite, eag["losses"])) or eag["routes"] != want_eager:
+        raise AssertionError(f"[{tag}] the eager run: rc {eag['rc']}, losses {eag['losses']}, "
+                             f"K1 {eag['routes']} (want {want_eager})")
+    held = held_to_eager(tag, cs, eag["steps"], TRAIN_GRAD_TOL)
     calls, prof = meter["calls"], meter["profile"]
     if len(calls) != per_step:
         raise AssertionError(f"[{tag}] the profiled step called K1 {len(calls)} times, "
@@ -4390,7 +4655,7 @@ def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) 
     if cfg.family == "hybrid":   # the one leg profiled from the host side too
         check_unembed_profile(tag, prof)
     steady = [(host, ev) for i, (host, ev) in enumerate(meter["rows"])
-              if i and i != steps - 2]
+              if i and i != ZOO_EAGER_STEPS - 2]
     times = {"host_ms": float(np.median([h * 1e3 for h, _ in steady])),
              "device_ms": float(np.median([ev[0].elapsed_time(ev[2]) for _, ev in steady])),
              "grads_ms": float(np.median([ev[0].elapsed_time(ev[1]) for _, ev in steady])),
@@ -4401,11 +4666,12 @@ def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) 
     gc.collect()
     torch.cuda.empty_cache()
     k1t = k1_train_times(calls, dev)
-    log(f"[{tag}] its steps at {batch}x{seq} (medians of {len(steady)}): host "
+    log(f"[{tag}] eager, its steps at {batch}x{seq} (medians of {len(steady)}): host "
         f"{times['host_ms']:.1f}ms, device {times['device_ms']:.1f}ms (loss and gradients "
         f"{times['grads_ms']:.1f}, optimizer {times['optimizer_ms']:.1f}), "
-        f"{times['tokens_per_s']:.0f} tokens/s, the first {times['first_step_ms']:.0f}ms; step "
-        f"{steps - 1} profiled: device {prof['device_ms']:.1f}ms (busy {times['busy_share']:.0%}), "
+        f"{times['tokens_per_s']:.0f} tokens/s, the first {times['first_step_ms']:.0f}ms; peak "
+        f"memory {eag['peak_gib']:.2f} GiB; step {ZOO_EAGER_STEPS - 1} profiled: device "
+        f"{prof['device_ms']:.1f}ms (busy {times['busy_share']:.0%}), "
         f"K1 {prof['k1_ms']:.1f}ms ({prof['k1_launches']} launches), the SSD scan's forward "
         f"{prof['ssd_scan_forward_ms']:.1f}ms ({prof['ssd_scan_calls']} calls), the "
         f"unembedding's forward (K1) {prof['unembed_ms']:.1f}ms, its backward's fp32 aten::mm "
@@ -4419,11 +4685,16 @@ def zoo_train_leg(dev: torch.device, tag: str, cfg, run: tuple, launcher: bool) 
         f"{k1t['ms']:.2f}ms, bound {k1t['bound_ms']:.2f}ms ({k1t['bound_by']}, "
         f"{k1t['tflop']:.2f} TFLOP), torch.matmul {k1t['library_ms']:.2f}ms, plain "
         f"{k1t['plain_ms']:.2f}ms; the leg took {time.perf_counter() - t0:.1f}s")
-    return {"launches": sum(routes.values()), "routes": routes, "losses": losses,
-            "host_ms_per_step": [h * 1e3 for h, _ in meter["rows"]], "wall_s": wall,
-            "seconds": time.perf_counter() - t0, "peak_gib": peak,
-            "timing": {**times, "profile": prof}, "k1": k1t, "layers": cfg.num_layers,
-            "batch": batch, "seq": seq}
+    return {"launches": sum(cap["routes"].values()), "routes": cap["routes"], "losses": losses,
+            "graph": graph, "captured": {**cs, "peak_gib": cap["peak_gib"],
+                                         "wall_s": cap["wall_s"]},
+            "eager": {"routes": eag["routes"], "launches": sum(eag["routes"].values()),
+                      "losses": eag["losses"], "peak_gib": eag["peak_gib"],
+                      "host_ms_per_step": [h * 1e3 for h, _ in meter["rows"]],
+                      "wall_s": eag["wall_s"]},
+            "held_to_eager": held, "seconds": time.perf_counter() - t0,
+            "peak_gib": cap["peak_gib"], "timing": {**times, "profile": prof}, "k1": k1t,
+            "layers": cfg.num_layers, "batch": batch, "seq": seq}
 
 
 def phase_zoo_train(dev: torch.device) -> dict:
@@ -4448,9 +4719,14 @@ def phase_zoo_train(dev: torch.device) -> dict:
 
 
 def zoo_train_launches(zt: dict) -> dict:
-    """K1's launches on phase 17's paths, for the kernels line."""
-    return {**{f"zoo_train_{arch}": zt[arch]["launches"]
-               for arch in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)},
+    """K1's launches on phase 17's paths, for the kernels line: each main
+    path's counted on the host (the eager first step and the capture), its
+    graph's replays, and the eager run's."""
+    legs = (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)
+    return {**{f"zoo_train_{arch}": zt[arch]["launches"] for arch in legs},
+            **{f"zoo_train_{arch}_graph_replays": sum(zt[arch]["graph"]["k1_replayed"].values())
+               for arch in legs},
+            **{f"zoo_train_{arch}_eager": zt[arch]["eager"]["launches"] for arch in legs},
             **{f"zoo_train_check_{arch}_fp32": sum(c["launches"].values())
                for arch, c in zt["check"].items()},
             **{f"zoo_train_remat_{mode}_step": sum(r["routes"].values())
@@ -4459,8 +4735,11 @@ def zoo_train_launches(zt: dict) -> dict:
 
 def zoo_train_routes(zt: dict) -> dict:
     """K1's launches by route on phase 17's paths, for the kernels line."""
-    return {**{f"zoo_train_{arch}": zt[arch]["routes"]
-               for arch in (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)},
+    legs = (*ZOO_TRAIN_RUNS, MOE_TRAIN_ARCH)
+    return {**{f"zoo_train_{arch}": zt[arch]["routes"] for arch in legs},
+            **{f"zoo_train_{arch}_graph_replays": zt[arch]["graph"]["k1_replayed"]
+               for arch in legs},
+            **{f"zoo_train_{arch}_eager": zt[arch]["eager"]["routes"] for arch in legs},
             **{f"zoo_train_check_{arch}_fp32": c["launches"] for arch, c in zt["check"].items()},
             **{f"zoo_train_remat_{mode}_step": r["routes"] for mode, r in zt["remat"].items()}}
 
@@ -4487,13 +4766,21 @@ SHARD_MESH = ((2, 2), ("data", "model"))
 SHARD_CHECK_LAYERS, SHARD_CHECK_BATCH, SHARD_CHECK_SEQ = 2, 2, 64
 SHARD_GRAD_TOL = 1e-4
 # (b) the launcher on the mesh: full width and depth, bf16, 8 x 256 tokens
-# a step, 2 steps, and the same 2 steps without a mesh from the same seed.
-# bf16 products rounded in other orders move a step's loss by ~1e-3; the
-# gap allowed is 2e-2 absolute at every step.
+# a step, and the same steps without a mesh from the same seed.  bf16
+# products rounded in other orders move a step's loss by ~1e-3; the gap
+# allowed is 2e-2 absolute at every step (captured against eager too).
 SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 8, 256, 2
 SHARD_LOSS_GAP = 2e-2
 SHARD_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(SHARD_STEPS), "--batch", str(SHARD_BATCH),
               "--seq", str(SHARD_SEQ)]
+# the main path runs captured for 3 steps (the eager first step, the
+# capture and a replay, then a replay), beside 2 eager steps on the mesh and
+# 3 captured ones with mesh=None: the launcher's 5 warmup steps give all
+# three runs the same learning rates
+SHARD_CAPTURED_STEPS = 3
+SHARD_CAPTURED_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(SHARD_CAPTURED_STEPS), "--batch",
+                       str(SHARD_BATCH), "--seq", str(SHARD_SEQ)]
+SHARD_MESH_ARGV = ["--tp", "2", "--ranks", "4"]
 # (c) elastic: 2 full-width layers, (pod 2, data 1, model 2) -> (data 1, model 2)
 ELASTIC_MESH = ((2, 1, 2), ("pod", "data", "model"))
 ELASTIC_LAYERS, ELASTIC_BATCH, ELASTIC_SEQ = 2, 4, 128
@@ -4683,22 +4970,27 @@ def _run_conditions(dev: torch.device):
 
 def _launcher_run(argv: list, dev: torch.device) -> dict:
     """``launch.train.main(argv)``: its logged losses and step times, K1's
-    launches by route (counted from 0 just before), the peak memory and
-    the run's conditions (``_run_conditions``)."""
+    launches by route (counted from 0 just before), the peak memory, the
+    run's conditions (``_run_conditions``), its steps (``step_meter``) and
+    its trainer's ``graph_report()``."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     k1.reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(_Tee(buf, sys.stdout)), _run_conditions(dev) as cond:
+    with contextlib.redirect_stdout(_Tee(buf, sys.stdout)), _run_conditions(dev) as cond, \
+            step_meter() as meter:
         rc = launch_train.main(argv)
     wall = time.perf_counter() - t0
+    graph = meter["trainers"][0].graph_report()
+    del meter["trainers"]
     logged = [m.groups() for m in map(TRAIN_LOG.match, buf.getvalue().splitlines()) if m]
     return {"rc": rc, "losses": [float(x) for _, x, _ in logged],
             "host_ms": [int(ms) for _, _, ms in logged], "wall_s": wall,
             "routes": _nonzero(k1.launches_by_route), "launches": k1.launches,
-            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30, "conditions": cond}
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30, "conditions": cond,
+            "steps": step_summary(meter["rows"]), "graph": graph}
 
 
 def _conditions_line(c: dict) -> str:
@@ -4734,58 +5026,86 @@ def _state_bytes(state, mesh) -> dict:
 
 def sharded_main_path(dev: torch.device) -> dict:
     """(b) The launcher on the 2x2 mesh (``--tp 2 --ranks 4``), full-width
-    Llama-3.2-1B, 2 steps of 8 x 256 tokens, bf16, fp32 masters, then the
-    same 2 steps without a mesh from the same seed (module docstring)."""
+    Llama-3.2-1B, 8 x 256 tokens a step, bf16, fp32 masters: captured, 3
+    steps (the main path); then 2 steps eager on the mesh (``--eager``), and
+    3 captured without a mesh, from the same seed (module docstring)."""
     tag = "shard-train"
     t0 = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
-    lower_dist_mod.reset_executions()
-    with sharded_meter() as meter:
-        run = _launcher_run(SHARD_ARGV + ["--tp", "2", "--ranks", "4"], dev)
-        fit = meter["fit"]
-        state, history = fit["state"], fit["history"]
-        mesh = tree_leaves(state)[0].sharding.mesh
-        nbytes = _state_bytes(state, mesh)
-        del state, fit, meter["fit"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    plain = _launcher_run(SHARD_ARGV, dev)
-    per_step = {side: {s: n // SHARD_STEPS for (sd, s), n in sorted(meter["planned"].items())
-                       if sd == side} for side in ("forward", "backward")}
-    planned = {side: sum(v.values()) for side, v in per_step.items()}
     # every product but the unembedding's, which runs K1 outside the rank
     # threads once a step (its bf16 backward none)
     layers = layer_products(cfg, cached=False)
     want_planned = {"forward": layers, "backward": 2 * layers}
+    lower_dist_mod.reset_executions()
+    with sharded_meter() as cmeter:
+        run = _launcher_run(SHARD_CAPTURED_ARGV + SHARD_MESH_ARGV, dev)
+        state = cmeter["fit"]["state"]
+        mesh = tree_leaves(state)[0].sharding.mesh
+        nbytes = _state_bytes(state, mesh)
+        del state, cmeter["fit"]
+    # counted on the host: the eager first step and the capture
+    planned_host = {side: sum(n for (sd, _), n in cmeter["planned"].items() if sd == side)
+                    for side in ("forward", "backward")}
+    graph, cs = run["graph"], run["steps"]
+    products = dict(Counter(s for (_, s), n in cmeter["planned"].items() for _ in range(n // 2)))
+    lower_dist_mod.reset_executions()
+    with sharded_meter() as meter:
+        eager = _launcher_run(SHARD_ARGV + SHARD_MESH_ARGV + ["--eager"], dev)
+        del meter["fit"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = _launcher_run(SHARD_CAPTURED_ARGV, dev)
+    per_step = {side: {s: n // SHARD_STEPS for (sd, s), n in sorted(meter["planned"].items())
+                       if sd == side} for side in ("forward", "backward")}
+    planned = {side: sum(v.values()) for side, v in per_step.items()}
     gaps = [abs(a - b) for a, b in zip(run["losses"], plain["losses"])]
-    steady = [h["sec_per_step"] * 1e3 for h in history[1:]]
-    step_ms = float(np.median(steady))
     calls = meter["calls"]
     one_step = [c for c, n in Counter(calls).items() for _ in range(n // SHARD_STEPS)]
-    routes_step = {r: n // SHARD_STEPS for r, n in run["routes"].items()}
-    log(f"[{tag}] launcher on {dict(mesh.shape)} (rank threads on the card): rc {run['rc']}, "
-        f"losses {run['losses']}; mesh=None {plain['losses']}; gaps "
-        f"{[round(g, 5) for g in gaps]} (limit {SHARD_LOSS_GAP:g}); planned a step: forward "
+    routes_step = {r: n // SHARD_STEPS for r, n in eager["routes"].items()}
+    es = eager["steps"]
+    log(f"[{tag}] launcher on {dict(mesh.shape)} (rank threads on the card), captured: rc "
+        f"{run['rc']}, losses {run['losses']}; mesh=None (captured) {plain['losses']}; gaps "
+        f"{[round(g, 5) for g in gaps]} (limit {SHARD_LOSS_GAP:g}); planned counted on the host "
+        f"{planned_host} (the eager first step and the capture: want twice {want_planned}), a "
+        f"replay's {graph['products_per_replay']}, replayed {graph['products_replayed']}; K1 "
+        f"counted {run['routes']}, replayed {graph['k1_replayed']} ({graph['replays']} replays "
+        f"of {graph['k1_per_replay']}), {cmeter['outside_ranks']} K1 calls outside the rank "
+        f"threads; the planned backward ran on {sorted(cmeter['backward_threads'])}; first step "
+        f"{cs['first_step_ms']:.1f}ms, the capturing step {cs['capture_step_ms']:.1f}ms "
+        f"(capture {graph['capture_s']:.2f}s), a replay {cs['host_ms']:.1f}ms host / "
+        f"{cs['device_ms']:.1f}ms device, {SHARD_BATCH * SHARD_SEQ / cs['host_ms'] * 1e3:.0f} "
+        f"tokens/s; mesh=None a replay {plain['steps']['host_ms']:.1f}ms host; peak "
+        f"{run['peak_gib']:.2f} GiB (mesh=None {plain['peak_gib']:.2f}); state bytes per rank "
+        f"{nbytes['per_rank']} (param_shardings predicts {nbytes['predicted_per_rank']}), "
+        f"distinct {nbytes['distinct'] / 1e9:.3f} GB vs unplaced {nbytes['unplaced'] / 1e9:.3f} GB")
+    log(f"[{tag}] eager on the mesh: losses {eager['losses']}; planned a step: forward "
         f"{per_step['forward']}, backward {per_step['backward']} (want {want_planned}); K1 a "
         f"step {routes_step}, {meter['outside_ranks']} K1 calls outside the rank threads; the "
-        f"planned backward ran on {sorted(meter['backward_threads'])}; step "
-        f"{step_ms:.1f}ms host (steps {[round(h, 1) for h in [x['sec_per_step'] * 1e3 for x in history]]}), "
-        f"{SHARD_BATCH * SHARD_SEQ / step_ms * 1e3:.0f} tokens/s; mesh=None steps "
-        f"{plain['host_ms']} ms; peak {run['peak_gib']:.2f} GiB (mesh=None "
-        f"{plain['peak_gib']:.2f}); state bytes per rank {nbytes['per_rank']} (param_shardings "
-        f"predicts {nbytes['predicted_per_rank']}), distinct {nbytes['distinct'] / 1e9:.3f} GB "
-        f"vs unplaced {nbytes['unplaced'] / 1e9:.3f} GB")
-    log(f"[{tag}] on the mesh: {_conditions_line(run['conditions'])}")
+        f"planned backward ran on {sorted(meter['backward_threads'])}; steps "
+        f"{eager['host_ms']} ms, after the first {es['host_ms']:.1f}ms host / "
+        f"{es['device_ms']:.1f}ms device; peak {eager['peak_gib']:.2f} GiB")
+    log(f"[{tag}] captured on the mesh: {_conditions_line(run['conditions'])}")
+    log(f"[{tag}] eager on the mesh: {_conditions_line(eager['conditions'])}")
     log(f"[{tag}] mesh=None: {_conditions_line(plain['conditions'])}")
-    if run["rc"] != 0 or plain["rc"] != 0 or len(run["losses"]) != SHARD_STEPS \
-            or len(plain["losses"]) != SHARD_STEPS or not all(map(math.isfinite, run["losses"])):
-        raise AssertionError(f"[{tag}] runs: {run}, {plain}")
+    if run["rc"] != 0 or plain["rc"] != 0 or eager["rc"] != 0 \
+            or len(run["losses"]) != SHARD_CAPTURED_STEPS \
+            or len(plain["losses"]) != SHARD_CAPTURED_STEPS \
+            or len(eager["losses"]) != SHARD_STEPS \
+            or not all(map(math.isfinite, run["losses"])):
+        raise AssertionError(f"[{tag}] runs: {run}, {eager}, {plain}")
     if max(gaps) > SHARD_LOSS_GAP:
         raise AssertionError(f"[{tag}] loss gaps {gaps} over {SHARD_LOSS_GAP}")
     if planned != want_planned or meter["outside_ranks"] != SHARD_STEPS:
         raise AssertionError(f"[{tag}] planned a step {planned}, want {want_planned}; "
                              f"{meter['outside_ranks']} K1 calls ran locally, want "
                              f"{SHARD_STEPS} (the unembedding's)")
+    if planned_host != {k: 2 * v for k, v in want_planned.items()} \
+            or cmeter["outside_ranks"] != 2:
+        raise AssertionError(f"[{tag}] captured: planned on the host {planned_host}, "
+                             f"{cmeter['outside_ranks']} K1 calls outside the rank threads")
+    check_graph(tag, graph, {r: n // 2 for r, n in run["routes"].items()},
+                SHARD_CAPTURED_STEPS - 1, products)
+    held = held_to_eager(tag, cs, es, SHARD_LOSS_GAP, relative=False)
     if nbytes["per_rank"] != nbytes["predicted_per_rank"] \
             or nbytes["distinct"] != nbytes["unplaced"]:
         raise AssertionError(f"[{tag}] state bytes {nbytes}")
@@ -4797,13 +5117,20 @@ def sharded_main_path(dev: torch.device) -> dict:
         f"{k1t['worst_row_rel']:.3e}) timed alone: {k1t['ms']:.2f}ms, bound "
         f"{k1t['bound_ms']:.2f}ms ({k1t['bound_by']}), torch.matmul {k1t['library_ms']:.2f}ms, "
         f"plain {k1t['plain_ms']:.2f}ms; the leg took {time.perf_counter() - t0:.1f}s")
-    return {"launches": run["launches"], "routes": run["routes"], "routes_per_step": routes_step,
-            "losses": run["losses"], "losses_mesh_none": plain["losses"], "gaps": gaps,
-            "planned_per_step": per_step, "local_k1_calls": meter["outside_ranks"],
-            "backward_threads": sorted(meter["backward_threads"]),
-            "step_ms": step_ms, "step_ms_all": [h["sec_per_step"] * 1e3 for h in history],
-            "tokens_per_s": SHARD_BATCH * SHARD_SEQ / step_ms * 1e3,
-            "mesh_none_host_ms": plain["host_ms"], "peak_gib": run["peak_gib"],
+    return {"launches": run["launches"], "routes": run["routes"], "graph": graph,
+            "routes_per_step": routes_step, "losses": run["losses"],
+            "losses_mesh_none": plain["losses"], "gaps": gaps,
+            "planned_per_step": per_step, "planned_host_captured": planned_host,
+            "local_k1_calls": meter["outside_ranks"],
+            "backward_threads": sorted(cmeter["backward_threads"] | meter["backward_threads"]),
+            "captured": cs, "step_ms": cs["host_ms"], "device_ms": cs["device_ms"],
+            "tokens_per_s": SHARD_BATCH * SHARD_SEQ / cs["host_ms"] * 1e3,
+            "eager": {"losses": eager["losses"], "routes": eager["routes"],
+                      "launches": eager["launches"], "steps": es, "host_ms": eager["host_ms"],
+                      "peak_gib": eager["peak_gib"], "conditions": eager["conditions"]},
+            "held_to_eager": held,
+            "mesh_none_host_ms": plain["host_ms"], "mesh_none": plain["steps"],
+            "peak_gib": run["peak_gib"],
             "conditions": run["conditions"], "conditions_mesh_none": plain["conditions"],
             "peak_gib_mesh_none": plain["peak_gib"], "state_bytes": nbytes, "k1": k1t,
             "mesh": dict(mesh.shape), "seconds": time.perf_counter() - t0}
@@ -4862,6 +5189,7 @@ def sharded_elastic(dev: torch.device) -> dict:
     if step != 2 or len(got) != 4 or len(want) != 4 or max(gaps) > SHARD_LOSS_GAP:
         raise AssertionError(f"[{tag}] the elastic restart: step {step}, {got} vs {want}")
     del rest, unbroken
+    gc.collect()
     torch.cuda.empty_cache()
     return {"from": dict(pods.shape), "to": dict(survivors.shape), "losses": got,
             "losses_unbroken": want, "gaps": gaps, "seconds": time.perf_counter() - t0}
@@ -4942,13 +5270,19 @@ def sharded_compress(dev: torch.device) -> dict:
 
 
 def sharded_launches(st: dict) -> dict:
-    """K1's launches on phase 18's paths, for the kernels line."""
+    """K1's launches on phase 18's paths, for the kernels line: the captured
+    main path's counted on the host, its graph's replays, the eager run's."""
     return {"sharded_train_2x2": st["path"]["launches"],
+            "sharded_train_2x2_graph_replays":
+                sum(st["path"]["graph"]["k1_replayed"].values()),
+            "sharded_train_2x2_eager": st["path"]["eager"]["launches"],
             "sharded_train_check_fp32": sum(st["check"]["routes"].values())}
 
 
 def sharded_routes(st: dict) -> dict:
     return {"sharded_train_2x2": st["path"]["routes"],
+            "sharded_train_2x2_graph_replays": st["path"]["graph"]["k1_replayed"],
+            "sharded_train_2x2_eager": st["path"]["eager"]["routes"],
             "sharded_train_check_fp32": st["check"]["routes"]}
 
 
@@ -5643,10 +5977,12 @@ def main() -> int:
                                  report["calibrate"]["tuned_serve"]["runs"][0]["launches"],
                              "profiled_planned_forward":
                                  report["profiler"]["planned"]["k1_launches"],
-                             "train": report["train"]["path"]["launches"],
-                             "train_4k_remat_full": sum(report["train"]["train_4k"]["routes"].values()),
+                             # a captured training run: counted on the host (its
+                             # eager first step and the capture), its graph's
+                             # replays, and the same run eager
+                             **{f"{key}{part}": sum(routes.values())
+                                for key, part, routes in train_route_rows(report["train"])},
                              "train_check_fp32": sum(report["train"]["check"]["launches"].values()),
-                             "train_restart_smoke": sum(report["train"]["restart"]["routes"].values()),
                              **{f"zoo_{arch}_{leg}": v
                                 for arch, z in report["zoo_serve"].items()
                                 for leg, v in (("serve", z["serve"]["path"]["launches"]),
@@ -5674,10 +6010,9 @@ def main() -> int:
                        report["calibrate"]["tuned_serve"]["runs"][0]["routes"],
                    "tuned_planned_serve_eager":
                        report["calibrate"]["tuned_serve"]["eager_runs"][0]["routes"],
-                   "train": report["train"]["path"]["routes"],
-                   "train_4k_remat_full": report["train"]["train_4k"]["routes"],
+                   **{f"{key}{part}": routes
+                      for key, part, routes in train_route_rows(report["train"])},
                    "train_check_fp32": report["train"]["check"]["launches"],
-                   "train_restart_smoke": report["train"]["restart"]["routes"],
                    **{f"zoo_{arch}_{leg}": v
                       for arch, z in report["zoo_serve"].items()
                       for leg, v in (("serve", z["serve"]["path"]["routes"]),

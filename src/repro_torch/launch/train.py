@@ -18,6 +18,14 @@ alone is accepted and ignored with a note.  On the CPU, for example,
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 4 --tp 2 --ranks 4
 
+On ``cuda`` every step after the first replays one CUDA graph of the
+whole step (``runtime.train.StaticStep``: the first step runs eagerly,
+the second is captured and replayed), as the reference's launcher runs
+one jitted step; ``--eager`` dispatches every step's kernels from Python
+instead.  The CPU always runs the step eagerly.  The done line gives K1's
+launches counted on the host (the eager step and the capture) and the
+captured graph's, replays x its launches.
+
 ``--arch`` takes every config name: each family trains with its config's
 remat policy (``"dots"`` for all but Llama and xLSTM), e.g.
 
@@ -72,6 +80,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="dispatch every step from Python: no CUDA graph")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -93,19 +103,26 @@ def main(argv=None) -> int:
                      ckpt_dir=args.ckpt, ckpt_every=max(args.steps // 4, 10),
                      log_every=max(args.steps // 20, 1))
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    trainer = Trainer(model, tc, mesh=mesh, device=device,
+                      capture=False if args.eager else None)
     try:
-        out = Trainer(model, tc, mesh=mesh, device=device).fit(gen, batch_iterator(dc))
+        out = trainer.fit(gen, batch_iterator(dc))
     finally:
         if mesh is not None:
             mesh.close()
     h = out["history"]
+    graph = trainer.graph_report()
     print(f"[launch] done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} "
           f"({out['restarts']} restarts); zorder_matmul launches: {k1.launches} "
           f"{ {r: n for r, n in k1.launches_by_route.items() if n} }")
+    print(f"[launch] step {'captured' if trainer.capture else 'eager'}: "
+          f"{graph['captures']} captures, {graph['replays']} replays of "
+          f"{graph['k1_per_replay']} K1 launches (replayed {graph['k1_replayed']})")
     if mesh is not None:
         # the module, not the function ``repro_torch.plan.lower_dist`` of its name
         lower_dist = importlib.import_module("repro_torch.plan.lower_dist")
-        print(f"[launch] planned products: {lower_dist.executions_snapshot()}")
+        print(f"[launch] planned products: {lower_dist.executions_snapshot()}; replayed "
+              f"{graph['products_replayed']}")
     return 0
 
 

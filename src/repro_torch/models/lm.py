@@ -107,7 +107,10 @@ def remat(fn, cfg: ModelConfig):
         forward, recompute = contexts()
         return forward, _within(restore_scope(scope), recompute)
 
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+    # no op of a block draws random numbers, and a step captured as a CUDA
+    # graph may not read the generator's state: none is stashed
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn,
+                                    preserve_rng_state=False)
 
 
 @contextmanager

@@ -8,7 +8,11 @@ updates the state's tensors in place (no second copy of the 12 bytes a
 parameter of master, m and v) and returns the same dict; each leaf's
 update is the reference's ``upd``, op for op, in fp32.  The step counter,
 the learning rate and the bias corrections stay 0-d tensors on the
-state's device, so a step never waits for the card.
+state's device, so a step never waits for the card, and the counter is
+written into its own tensor (``copy_``): no leaf of the state changes
+identity across a step, so a step captured as a CUDA graph
+(``runtime.train.StaticStep``) reads the advanced counter at its next
+replay.
 
 A placed state (``runtime.sharding.Placed`` leaves, the trainer's on a
 mesh) steps block by block: each distinct block of a leaf once (replicas
@@ -25,7 +29,7 @@ from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
-from repro_torch.runtime.sharding import Placed, place, unplace
+from repro_torch.runtime.sharding import Placed, unplace
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -104,10 +108,9 @@ def step(state: Dict[str, Any], grads: Any, lr: torch.Tensor, cfg: AdamWConfig
         mhat = m / b1c
         vhat = v / b2c
         w.sub_(lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * w))
-    if isinstance(state["step"], Placed):
-        state["step"] = place(t, state["step"].sharding)
-    else:
-        state["step"] = t
+    counter = state["step"]
+    for c in counter.distinct() if isinstance(counter, Placed) else (counter,):
+        c.copy_(t)
     return state, {"grad_norm": gnorm, "lr": lr}
 
 

@@ -199,6 +199,19 @@ def place(x: torch.Tensor, sharding: NamedSharding) -> Placed:
     return Placed(blocks, sharding, tuple(x.shape), x.dtype)
 
 
+def place_into(placed: Placed, x: torch.Tensor) -> Placed:
+    """``place`` into ``placed``'s own tensors: each distinct local block of
+    ``x`` under ``placed``'s sharding copied into the block ``placed``
+    holds, so every block keeps its storage.  ``x`` of another shape
+    raises ``ValueError``."""
+    if tuple(x.shape) != tuple(placed.shape):
+        raise ValueError(f"{tuple(x.shape)} into a placed {tuple(placed.shape)}")
+    mesh, spec = placed.sharding.mesh, placed.sharding.spec
+    for r in placed.distinct_ranks():
+        placed[r].copy_(x.detach()[block_slices(x.shape, spec, mesh, r)])
+    return placed
+
+
 def unplace_tree(tree):
     """``tree`` with every placed leaf unplaced (other leaves as they are)."""
     return tree_map(lambda x: unplace(x) if isinstance(x, Placed) else x, tree)

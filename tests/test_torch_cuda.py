@@ -855,6 +855,9 @@ def test_smoke_train_step_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_trainer_restarts_on_the_card(cuda_device, tmp_path):
+    """The captured step through a failure at step 13: the checkpoint of
+    step 8 restored into the donated state, the one graph kept (steps 1-12
+    and 8-23 replay it: 28 replays)."""
     from repro_torch.data.pipeline import DataConfig, batch_iterator
     from repro_torch.runtime.train import TrainConfig, Trainer
 
@@ -862,12 +865,59 @@ def test_trainer_restarts_on_the_card(cuda_device, tmp_path):
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
     tc = TrainConfig(steps=24, lr=1e-3, warmup=4, ckpt_dir=str(tmp_path), ckpt_every=8,
                      log_every=8, fail_at_step=13)
-    out = Trainer(build_model(cfg), tc, device=cuda_device).fit(
-        torch.Generator(device=cuda_device).manual_seed(0), batch_iterator(dc))
+    trainer = Trainer(build_model(cfg), tc, device=cuda_device)
+    out = trainer.fit(torch.Generator(device=cuda_device).manual_seed(0), batch_iterator(dc))
     assert out["restarts"] == 1
     losses = [h["loss"] for h in out["history"]]
     assert losses[-1] < losses[0]
     assert out["state"]["master"]["embed"]["embedding"].device.type == "cuda"
+    report = trainer.graph_report()
+    assert trainer.capture and report["captures"] == 1 and report["replays"] == 28
+    assert report["k1_replayed"] == {r: 28 * n for r, n in report["k1_per_replay"].items()}
+    assert sum(report["k1_per_replay"].values()) == 3 * (7 * cfg.num_layers + 1) - 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [None, (2, 2)], ids=["unplanned", "2x2"])
+def test_captured_training_steps_follow_the_eager_ones(cuda_device, mesh):
+    """The fp32 smoke Llama from one seed and one batch stream, 3 steps
+    captured (an eager step, the capture, a replay... of one graph) and 3
+    eager: losses within 1e-5 relative, every master within 1e-5 relative
+    L2, the learning rate of every step bitwise; on the 2x2 mesh the planned
+    products (both sides of the backward) in the graph."""
+    from repro_torch.data.pipeline import DataConfig, batch_iterator, device_put_batch
+    from repro_torch.dist.mesh import Mesh
+    from repro_torch.runtime.sharding import unplace_tree
+    from repro_torch.runtime.train import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_smoke_config("llama3_2_1b"), dtype="float32")
+    runs = {}
+    for capture in (True, False):
+        m = None if mesh is None else Mesh(mesh, ("data", "model"), device=cuda_device)
+        trainer = Trainer(build_model(cfg), TrainConfig(steps=3, lr=1e-3, warmup=1), mesh=m,
+                          device=cuda_device, capture=capture)
+        state = trainer.init_state(torch.Generator(device=cuda_device).manual_seed(0))
+        step = trainer.static_step(state)
+        data = batch_iterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4))
+        losses, lrs = [], []
+        for _ in range(3):
+            out = step(device_put_batch(next(data), cuda_device, m))
+            losses.append(out["loss"].item())
+            lrs.append(out["lr"].item())
+        torch.cuda.synchronize()
+        runs[capture] = ([t.cpu() for t in tree_leaves(unplace_tree(state)["master"])],
+                         losses, lrs, trainer.graph_report())
+        if m is not None:
+            m.close()
+    (w1, l1, r1, g1), (w0, l0, r0, g0) = runs[True], runs[False]
+    assert g1["captures"] == 1 and g1["replays"] == 2 and g0["captures"] == 0
+    assert (sum(g1["products_per_replay"].values()) > 0) == (mesh is not None)
+    assert r1 == r0
+    for a, b in zip(l1, l0):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(w1, w0):
+        assert ((a - b).norm() / b.norm().clamp_min(1e-30)).item() < 1e-5
 
 
 # -- the MoE and MLA decoders on the card -------------------------------------------

@@ -231,11 +231,17 @@ dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", world), ran
 cfg = dataclasses.replace(get_smoke_config("llama3_2_1b"), dtype="float32")
 mesh = Mesh((2, 2), ("data", "model"), device="cpu", rank=rank)
 dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)
-out = Trainer(build_model(cfg), TrainConfig(steps=2, lr=1e-3, warmup=1, log_every=1),
-              mesh=mesh).fit(torch.Generator().manual_seed(0), batch_iterator(dc))
+try:
+    Trainer(build_model(cfg), TrainConfig(), mesh=mesh, capture=True)
+    refused = ""
+except NotImplementedError as e:
+    refused = str(e)
+trainer = Trainer(build_model(cfg), TrainConfig(steps=2, lr=1e-3, warmup=1, log_every=1),
+                  mesh=mesh)
+out = trainer.fit(torch.Generator().manual_seed(0), batch_iterator(dc))
 own = all(sorted(x.blocks) == [rank] for x in tree_leaves(out["state"]))
 np.savez(f"{tmp}/out{rank}.npz", losses=np.array([h["loss"] for h in out["history"]]),
-         own=np.array(own))
+         own=np.array(own), refused=np.array(refused), eager=np.array(not trainer.capture))
 dist.destroy_process_group()
 print("RANK_OK", rank)
 """
@@ -260,5 +266,7 @@ def test_gloo_ranks_train_as_the_single_controller(tmp_path):
     mesh.close()
     for r, got in enumerate(outs):
         assert bool(got["own"]), f"rank {r} holds blocks of other ranks"
+        # capture in a process group is refused, and the default steps eagerly
+        assert "ROADMAP queue 1 item 2" in str(got["refused"]) and bool(got["eager"]), r
         assert got["losses"].shape == (2,)
         assert np.max(np.abs(got["losses"] - want)) < TOL, (r, got["losses"], want)

@@ -16,6 +16,13 @@ port against the reference with ``_ssd_chunk_scan`` swapped for
 the ``exp``, for that test only; a second test pins the reference's own
 non-finite gradients beside the port's finite ones.
 
+The compiled step (``runtime.train.StaticStep``, the body a card captures
+as one CUDA graph) of every family the launcher trains, run eagerly here:
+bitwise the eager step over 8 steps, and the reference's ``jax.jit``
+trainer's 8-step loss curve at ``CURVE_TOL`` (zamba2's with the mask before
+the ``exp``, as above); the smoke Llama's and the meshes' cases are in
+``tests/test_torch_train_graph.py``.
+
 Also here: the compute types the trainer casts each master to (the
 reference's ``_dtypes``), the scans' forwards bitwise against the
 reference's expression of the gate, and the MoE's routing recomputed
@@ -40,21 +47,26 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.data import pipeline as jax_pipeline
 from repro.layers import mamba2 as jmamba2
 from repro.models.registry import build_model as jax_build_model
+from repro.optim import adamw as jax_adamw
 from repro.runtime.train import TrainConfig as JaxTrainConfig, Trainer as JaxTrainer
-from repro_torch.checkpoint import params_from_jax
-from repro_torch.configs import ARCHS, get_smoke_config
+from repro_torch.checkpoint import params_from_jax, state_from_jax
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.data.pipeline import DataConfig, batch_iterator, device_put_batch
 from repro_torch.layers import mamba2 as tmamba2
 from repro_torch.layers import moe as tmoe
 from repro_torch.layers import xlstm as txlstm
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
 from repro_torch.runtime.train import TrainConfig, Trainer
-from repro_torch.tree import tree_map, tree_paths
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 TOL = 1e-5
 A_LOG_TOL = 1e-4
+# the 8-step loss curve, as test_torch_train.py's
+CURVE_TOL, CURVE_STEPS = 1e-4, 8
 BATCH, SEQ, SRC = 2, 32, 16
 ZOO = ("deepseek-moe-16b", "qwen3-moe-30b-a3b", "minicpm3-4b", "xlstm-350m",
        "seamless-m4t-medium")
@@ -339,3 +351,54 @@ def test_moe_dots_gradients_equal_none_where_capacity_drops_tokens(monkeypatch):
     assert torch.equal(out["none"][0], out["dots"][0])
     for g0, g1 in zip(out["none"][2], out["dots"][2]):
         assert torch.equal(g0, g1)
+
+
+# -- the compiled step ------------------------------------------------------------------------
+
+def _curve(trainer, state, static: bool):
+    """8 steps of 4 x 16 synthetic tokens through the trainer's
+    ``StaticStep`` or its eager function: (state, losses, learning rates)."""
+    dc = DataConfig(vocab_size=trainer.model.cfg.vocab_size, seq_len=16, global_batch=4)
+    data = batch_iterator(dc)
+    run = trainer.static_step(state) if static else trainer.make_train_step()
+    losses, lrs = [], []
+    for _ in range(CURVE_STEPS):
+        batch = device_put_batch(next(data), "cpu")
+        if static:
+            out = run(batch)
+        else:
+            state, out = run(state, batch)
+        losses.append(out["loss"].clone())
+        lrs.append(out["lr"].clone())
+    return state, losses, lrs
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if a not in ("llama3_2_1b", "seamless_m4t_medium")])
+def test_the_static_step_is_the_eager_step_and_the_reference_curve(arch, monkeypatch):
+    """fp32 smoke configs under their full configs' remat policies, from the
+    reference's init at ``PRNGKey(0)``: the static step's state, losses and
+    learning rates bitwise the eager step's, its losses the reference
+    trainer's."""
+    remat = get_config(arch).remat
+    jmodel = jax_build_model(dataclasses.replace(jax_smoke_config(arch), dtype="float32",
+                                                 remat=remat))
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", remat=remat)
+    kw = dict(steps=CURVE_STEPS, lr=1e-3, warmup=2)
+    with monkeypatch.context() as mp:
+        if arch == "zamba2_2_7b":
+            mp.setattr(jmamba2, "_ssd_chunk_scan", _masked_ssd_chunk_scan)
+        ref = JaxTrainer(jmodel, JaxTrainConfig(log_every=1, **kw)).fit(
+            jax.random.PRNGKey(0), jax_pipeline.batch_iterator(jax_pipeline.DataConfig(
+                vocab_size=tcfg.vocab_size, seq_len=16, global_batch=4)))
+    np_state = jax.tree.map(np.asarray, jax_adamw.init(jmodel.init(jax.random.PRNGKey(0))))
+    runs = [_curve(Trainer(build_model(tcfg), TrainConfig(**kw), device="cpu"),
+                   state_from_jax(np_state, tcfg, device="cpu"), static)
+            for static in (True, False)]
+    (s1, l1, r1), (s0, l0, r0) = runs
+    assert int(s1["step"]) == CURVE_STEPS
+    for a, b in zip(tree_leaves(s1), tree_leaves(s0)):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(l1 + r1, l0 + r0))
+    np.testing.assert_allclose([float(x) for x in l1], [h["loss"] for h in ref["history"]],
+                               rtol=CURVE_TOL)
