@@ -343,7 +343,8 @@ Phases, each fatal on failure (no result line, non-zero exit):
    peak over one real step's ``max_memory_allocated`` within
    ``PEAK_BAND``; (c) ``python -m repro_torch.launch.perf_probe --arch
    xlstm-350m --shape decode_32k --mesh single`` in a subprocess (the
-   (16, 16) production mesh on fake CUDA tensors), its JSON read; (d)
+   (16, 16) production mesh on fake CUDA tensors), started before phase
+   15 to run beside phases 15-18 (host work only), its JSON read; (d)
    ``check(plan, hlo=True)`` over phase 10's catalog on card rank threads.
 20. big -- the configs that fill one card, every leg fatal, each model
    freed before the next, after ``memory_allocated()`` is back under
@@ -376,6 +377,29 @@ Phases, each fatal on failure (no result line, non-zero exit):
    (e) K2 alone at the three head layouts (48/1, 64/8, 32/4, D 128, causal,
    S = 8192), held row by row to its plain version, timed beside SDPA and
    the plain version.
+21. examples -- the reference's examples through their port
+   (``repro_torch.examples``), each ``main`` in this process on the card,
+   K1's launches counted by route around each: (a) the quickstart, its
+   solver numbers the reference quickstart's and K1 at 256^3 on the fma
+   (fp32) and wide (bf16) routes within ``TOL`` per row; (b) the
+   distributed demo in bf16 and fp32 (Cannon, staged and overlapped SUMMA
+   on a 4x4 torus of 16 rank threads, the 2.5D split on 2x2x2, the ring
+   all-gather matmul on 8): the fp32 run's collective bytes per rank by
+   kind are the reference demo's, the bf16 run's half of each kind but the
+   fp32 all-reduce, every row within ``ROW_TOL`` of the fp32 product, 16
+   distinct rank threads, each bf16 product's device ms; (c)
+   ``serve_batched`` on the 2x2 mesh and with ``--no-mesh``: bucket 4x16
+   served from its graphs, the planned run's serve-window hit rate 1.0, the
+   planned logits along its tokens within ``PLANNED_LOGITS_TOL`` per row of
+   ``mesh=None``'s; (d) ``train_lm --preset 100m`` (12 layers, d_model 768,
+   vocab 32768), 60 steps at 8 x 256, captured, a failure injected at step
+   30: one restart, one capture, the loss falling, and each step's loss and
+   learning rate held to an uninterrupted run fed the same batches; (e) K1
+   bf16 with its tile table in Z-order and row-major at 2048^3 (all in the
+   L2), 8192^3 and 16384^3, outputs bitwise equal, CUDA-graph replays timed
+   in turns with ``torch.matmul`` beside ``bound``, and the reference's
+   Sec. 4.3 LRU model rows
+   (a 16^3 grid, caches of 48, 192, 768 blocks) printed beside.
 
 On one card the collectives are device copies between the ranks'
 streams (a ppermute's is a ``cudaMemcpyAsync`` on the receiver's copy
@@ -393,10 +417,12 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import gc
 import gzip
 import importlib
 import io
+import itertools
 import json
 import math
 import os
@@ -419,12 +445,18 @@ import torch  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.checkpoint import store as train_store  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core.zorder import (block_reuse_distance_traffic, ideal_traffic,  # noqa: E402
+                                     rowmajor_schedule, zorder_schedule)
 from repro_torch.data.pipeline import (DataConfig, batch_iterator, device_put_batch,  # noqa: E402
                                        synth_batch)
 from repro_torch.device import param_device  # noqa: E402
 from repro_torch.dist import Mesh, _collectives, symmetric_matmul  # noqa: E402
 from repro_torch.dist import cannon as cannon_mod  # noqa: E402
 from repro_torch.dist.local import local_matmul  # noqa: E402
+from repro_torch.examples import distributed_matmul as ex_distributed  # noqa: E402
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import serve_batched as ex_serve  # noqa: E402
+from repro_torch.examples import train_lm as ex_train  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
@@ -1265,10 +1297,12 @@ def step_device_ms(model, params, dev: torch.device, bucket) -> dict:
     return out
 
 
-def event_ms(fn, reps: int) -> float:
-    """Mean device ms per call of ``fn()``: one warm call, then ``reps``
-    calls between two CUDA events."""
-    fn()
+def event_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device ms per call of ``fn()``: one warm call (unless ``fn``
+    just ran: ``warm=False``), then ``reps`` calls between two CUDA
+    events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2236,9 +2270,11 @@ def planned_step_ms(model, params, mesh, dev: torch.device) -> dict:
         with planned_matmuls(mesh):
             return model.decode_step(params, cache, tokens, seq, offsets)
 
-    t = {}
+    t, last = {}, None
     for key in ("local_ms", "planned_ms", "planned_ms", "local_ms"):
-        t.setdefault(key, []).append(event_ms({"local_ms": local, "planned_ms": planned}[key], 1))
+        t.setdefault(key, []).append(event_ms({"local_ms": local, "planned_ms": planned}[key], 1,
+                                              warm=key != last))
+        last = key
     out = {key: min(v) for key, v in t.items()}
     out["runs"] = t
     # a failed capture raises here and fails the run
@@ -2321,11 +2357,12 @@ def phase_planned_prefill(dev: torch.device) -> dict:
             with mock.patch.object(mesh, "_rank_streams", lambda: [None] * mesh.size):
                 return planned()
 
-        t = {}
+        t, last = {}, None
         fns = {"local_ms": local, "planned_ms": planned, "one_stream_ms": one_stream}
         for key in ("local_ms", "planned_ms", "one_stream_ms", "one_stream_ms", "planned_ms",
                     "local_ms"):
-            t.setdefault(key, []).append(event_ms(fns[key], 1))
+            t.setdefault(key, []).append(event_ms(fns[key], 1, warm=key != last))
+            last = key
     out = {key: min(v) for key, v in t.items()}
     log(f"[planned-prefill] forward device time (CUDA events): planned {out['planned_ms']:.1f}ms "
         f"({PREFILL_S / out['planned_ms'] * 1e3:.0f} prefill tokens/s; every rank on the "
@@ -2844,36 +2881,116 @@ CHAIN_KERNELS = {"zero fp32": ("FillFunctor<float>",), "add fp32": ("CUDAFunctor
                  "device copies": ("Memcpy DtoD",)}
 
 
-def _device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total", None)
-                 or getattr(evt, "self_cuda_time_total", 0) or 0)
+# host events torch's own processing leaves out (``_filter_name``)
+PROFILE_SKIPPED = {"[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+                   "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+                   "aten::is_leaf", "aten::output_nr", "aten::_version"}
+
+
+def profile_totals(prof) -> tuple:
+    """What ``prof.key_averages()`` gives ``profile_split``, read from the
+    profiler's raw events, without the objects ``key_averages()`` builds
+    first (about a minute of host work a 10^5 host operators): by name,
+    the device kernels' time (us) and launches; each host operator's own
+    kernels' time and its calls; each ``record_function`` range's calls and
+    device time, host side (the kernels of the operators inside it) and
+    device side (its span).  As in torch's processing, a kernel belongs to
+    the host operator its correlation id links it to, host events nest by
+    time on their thread, and an event alone inside one of its own name is
+    not counted apart from it."""
+    from torch.autograd import DeviceType
+
+    kernels, counts, own = Counter(), Counter(), Counter()
+    spans: dict = {}
+    calls = Counter()   # (name, range?) -> host events, the nested duplicates left out
+    host = []           # sync host events: (thread, start, end, correlation id, name, range?)
+    results = prof.profiler.kineto_results
+    t0 = results.trace_start_ns()
+    for e in results.events():
+        name = e.name()
+        if name in PROFILE_SKIPPED or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+        ranged = e.is_user_annotation()
+        linked = e.linked_correlation_id()
+        if e.device_type() == DeviceType.CPU:
+            if is_async:
+                calls[name, ranged] += 1
+            else:
+                host.append((e.start_thread_id(), e.start_ns(), e.end_ns(),
+                             e.correlation_id() if linked == 0 else -1, name, ranged))
+            continue
+        # in us from the trace's start, rounded as torch's processing rounds them
+        us = 0.0 if is_async else (e.end_ns() - t0) / 1e3 - (e.start_ns() - t0) / 1e3
+        if ranged:
+            span = spans.setdefault(name, [0.0, 0])
+            span[0] += us
+            span[1] += 1
+        else:
+            kernels[name] += us
+            counts[name] += 1
+        if linked > 0:
+            own[linked] += us
+    host.sort(key=lambda h: (h[0], h[1], -h[2]))
+    groups = [list(g) for _, g in itertools.groupby(range(len(host)), key=lambda i: host[i][0])]
+
+    def nested():
+        """(event, the events around it, innermost last), thread by thread."""
+        for group in groups:
+            stack = []
+            for i in group:
+                start, end = host[i][1], host[i][2]
+                while stack and (start >= host[stack[-1]][2] or end > host[stack[-1]][2]):
+                    stack.pop()
+                yield i, stack
+                stack.append(i)
+
+    parent, children = [-1] * len(host), [0] * len(host)
+    for i, stack in nested():
+        if stack:
+            parent[i] = stack[-1]
+            children[stack[-1]] += 1
+    # torch's tree drops an event alone inside one of its own name, its
+    # kernels lifted into the outer one in place of the outer one's own
+    dup = [p >= 0 and children[p] == 1 and host[p][4] == host[i][4]
+           for i, p in enumerate(parent)]
+    lifted = [False] * len(host)
+    for i, d in enumerate(dup):
+        if d:
+            lifted[parent[i]] = True
+    ops, inside = Counter(), Counter()
+    for i, stack in nested():
+        _, _, _, corr, name, ranged = host[i]
+        us = own.get(corr, 0.0) if corr > 0 and not lifted[i] else 0.0
+        if not us:
+            continue
+        for j in stack:
+            if host[j][5] and not dup[j]:
+                inside[host[j][4]] += us
+        if ranged and not dup[i]:
+            inside[name] += us
+        elif not ranged and "::" in name:
+            ops[name] += us
+    for i, (_, _, _, _, name, ranged) in enumerate(host):
+        if not dup[i]:
+            calls[name, ranged] += 1
+    ranges = {}
+    for (name, ranged), n in calls.items():
+        if ranged:
+            ranges.setdefault(name, {})["cpu"] = {"ms": inside[name] / 1e3, "count": n}
+    for name, (us, n) in spans.items():
+        ranges.setdefault(name, {})["device"] = {"ms": us / 1e3, "count": n}
+    ops = Counter({k: v for k, v in ops.items() if v})
+    return (Counter({k: v for k, v in kernels.items() if v}),
+            Counter({k: counts[k] for k, v in kernels.items() if v}),
+            ops, Counter({k: calls[k, False] for k in ops}), ranges)
 
 
 def profile_split(prof) -> dict:
     """Device time of one profiled forward by kernel name: K1, K2, the
     rest named by its top kernels and top operators, and the accumulate
     chain's kernels (``CHAIN_KERNELS``)."""
-    kernels, ops = Counter(), Counter()
-    counts, op_calls = Counter(), Counter()
-    ranges = {}
-    for e in prof.key_averages():
-        if getattr(e, "is_user_annotation", False):
-            # a record_function range: its device time (the kernels of its
-            # operators, host side; its span, device side), kept apart
-            side = "cpu" if str(getattr(e, "device_type", "")).endswith("CPU") else "device"
-            ranges.setdefault(e.key, {})[side] = {
-                "ms": float(getattr(e, "device_time_total", 0) or 0) / 1e3, "count": e.count}
-            continue
-        us = _device_us(e)
-        if not us:
-            continue
-        if str(getattr(e, "device_type", "")).endswith("CPU"):
-            if "::" in e.key:   # operators, not runtime events
-                ops[e.key] += us
-                op_calls[e.key] += e.count
-        else:
-            kernels[e.key] += us
-            counts[e.key] += e.count
+    kernels, counts, ops, op_calls, ranges = profile_totals(prof)
     total = sum(kernels.values())
     k1_us = sum(v for key, v in kernels.items() if any(s in key for s in K1_KERNELS))
     k2_us = sum(v for key, v in kernels.items() if any(s in key for s in K2_KERNELS))
@@ -3376,8 +3493,8 @@ def _profiled_step(host_side: bool = True):
     that holds, after the scope, the device time of K1 and of the rest by
     kernel name, and from the host side the unembedding's forward (its K1
     launch, an ``unembed_ranges`` range), its backward's two fp32 products
-    (``aten::mm``: a step's only ones), the scan's and the operators'.  The
-    host side costs about 10 s of trace processing per 10^5 operators."""
+    (``aten::mm``: a step's only ones), the scan's and the operators'
+    (``profile_totals``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     real_scan = mamba2_layer._ssd_chunk_scan
@@ -4277,7 +4394,7 @@ def phase_hybrid_prefill(dev: torch.device, gen: torch.Generator) -> dict:
             raise AssertionError(f"[{tag}] the forward launched {got}, want {want}")
         if tuple(logits.shape) != (1, s, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"[{tag}] logits malformed: {tuple(logits.shape)}")
-        fwd_ms = event_ms(lambda: model.forward(params, tokens), 1)
+        fwd_ms = event_ms(lambda: model.forward(params, tokens), 1, warm=False)
         xlogits, _ = xla.forward(params, tokens)
         e = row_err(logits, xlogits)
         del logits, xlogits
@@ -4420,8 +4537,9 @@ ZOO_TRAIN_RUNS = {"zamba2-2.7b": (2, 512, 10), "xlstm-350m": (8, 256, 10)}
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_RUN = "deepseek-moe-16b", 4, (4, 256, 10)
 # each leg runs captured for its steps (the main path), then eager for the
 # first ZOO_EAGER_STEPS of them (the same state, batches and learning rates:
-# the launcher's warmup is 5 steps for both), measured and profiled
-ZOO_EAGER_STEPS = 6
+# the launcher's warmup is 5 steps for both), measured (the medians of the
+# 3 steps that are neither the first nor the profiled one) and profiled
+ZOO_EAGER_STEPS = 5
 
 
 def k1_train_times(calls: list, dev: torch.device) -> dict:
@@ -5488,27 +5606,53 @@ def roofline_prefill(dev: torch.device, report: dict) -> dict:
                              head=(padded_vocab(cfg.vocab_size), cfg.d_model))
 
 
-def roofline_probe() -> dict:
-    """(c) ``python -m repro_torch.launch.perf_probe --arch xlstm-350m
+def start_probe() -> dict:
+    """Start (c) ``python -m repro_torch.launch.perf_probe --arch xlstm-350m
     --shape decode_32k --mesh single`` in a subprocess (fake CUDA tensors on
-    the (16, 16) production mesh); its JSON."""
+    the (16, 16) production mesh: host work only, no kernel), beside the
+    phases that run until ``roofline_probe`` reads it."""
     out_path = os.path.join(OUT_DIR, "perf_iterations.json")
     if os.path.exists(out_path):
         os.remove(out_path)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    job = {"t0": time.perf_counter(), "out_path": out_path}
+    job["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.perf_probe", *PROBE_ARGV, "--out", out_path],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def reap():
+        job["stdout"], job["stderr"] = job["proc"].communicate()
+        job["seconds"] = time.perf_counter() - job["t0"]
+
+    job["reaper"] = threading.Thread(target=reap, daemon=True)
+    job["reaper"].start()
+    return job
+
+
+def stop_probe(job: dict) -> None:
+    """Kill ``start_probe``'s process if it still runs (a phase failed)."""
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+    job["reaper"].join(timeout=30)
+
+
+def roofline_probe(job: dict) -> dict:
+    """(c) ``start_probe``'s run: its JSON, and the seconds it took."""
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.perf_probe", *PROBE_ARGV,
-                          "--out", out_path], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    secs = time.perf_counter() - t0
+    job["reaper"].join(timeout=600)
+    if job["reaper"].is_alive():
+        stop_probe(job)
+        raise AssertionError("perf_probe --arch did not end within 600 s of phase 19")
+    res, secs = job["proc"], job["seconds"]
     if res.returncode != 0:
-        raise AssertionError(f"perf_probe --arch: rc {res.returncode}\n{res.stderr[-3000:]}")
-    probe = json.loads(res.stdout)
+        raise AssertionError(f"perf_probe --arch: rc {res.returncode}\n{job['stderr'][-3000:]}")
+    probe = json.loads(job["stdout"])
     want = {"tag", "arch", "shape", "dominant", "compute_s", "memory_s", "collective_s",
             "step_bound_s", "roofline_fraction", "coll_by_kind", "peak_GiB"}
-    with open(out_path) as f:
+    with open(job["out_path"]) as f:
         rec = json.load(f)[-1]
-    log(f"[roofline] perf_probe {' '.join(PROBE_ARGV)}: {secs:.1f}s, {json.dumps(probe)}; "
+    log(f"[roofline] perf_probe {' '.join(PROBE_ARGV)}: {secs:.1f}s from its start before "
+        f"phase 15 (waited {time.perf_counter() - t0:.1f}s here), {json.dumps(probe)}; "
         f"analyzer {rec['analyzer']}, mesh {rec['mesh']}")
     if set(probe) != want or rec["mesh"] != "16x16" or probe["memory_s"] <= 0:
         raise AssertionError(f"perf_probe printed {sorted(probe)}, mesh {rec['mesh']}")
@@ -5532,9 +5676,9 @@ def roofline_hlo(dev: torch.device) -> dict:
     return {"plans": len(rows), "seconds": secs}
 
 
-def phase_roofline(dev: torch.device, report: dict) -> dict:
+def phase_roofline(dev: torch.device, report: dict, probe_job: dict) -> dict:
     """Phase 19: the roofline and the dry run against the kernels (module
-    docstring)."""
+    docstring); (c) from ``start_probe``'s process."""
     t0 = time.perf_counter()
     k1.reset_launches()
     k2.reset_launches()
@@ -5543,7 +5687,7 @@ def phase_roofline(dev: torch.device, report: dict) -> dict:
     out["launches"] = {"K1": k1.launches, "K2": k2.launches,
                        "K1_routes": _nonzero(k1.launches_by_route),
                        "K2_routes": _nonzero(k2.launches_by_route)}
-    out["probe"] = roofline_probe()
+    out["probe"] = roofline_probe(probe_job)
     out["hlo"] = roofline_hlo(dev)
     out["seconds"] = time.perf_counter() - t0
     log(f"[roofline] phase 19 took {out['seconds']:.1f}s")
@@ -5756,7 +5900,7 @@ def big_prefill(dev: torch.device, gen: torch.Generator) -> dict:
         if head["row_rel"] > 1e-5:
             raise AssertionError(f"the chunked logits differ from the forward's: {head}")
         del logits
-        fwd_ms = event_ms(lambda: model.forward(params, tokens), 1)
+        fwd_ms = event_ms(lambda: model.forward(params, tokens), 1, warm=False)
         with hidden_recorder(seen, "xla"):
             xlogits, _ = xla.forward(params, tokens)
         xloss = cross_entropy(xlogits, labels).item()
@@ -5907,6 +6051,337 @@ def phase_big(dev: torch.device, gen: torch.Generator) -> dict:
     return out
 
 
+# -- phase 21: the reference's examples and the Sec. 4.3 tile orders ------------------------
+
+# What the reference's quickstart prints (examples/quickstart.py, run on the CPU)
+QUICKSTART_WANT = {"schedules": 3648, "min_hop_cost": 2,
+                   "movements": {"A": (1, 0), "B": (0, 0), "C": (0, 1)},
+                   "skew": [(1, 4), (1, 0), (1, 1), (1, 2), (1, 3)],
+                   "words_per_node": "5.369e+06", "lower_bound": "5.152e+05", "factor": "10.4"}
+# The collective bytes per device the reference's demo prints
+# (examples/distributed_matmul.py on 16 fake CPU devices, where XLA's CPU
+# compiler makes every bf16 collective an f32 one): the port's fp32 run
+# counts these; its bf16 run half of each kind but the 2.5D all-reduce,
+# which sums fp32 partials
+DEMO_F32_BYTES = {"cannon": {"collective-permute": 524288}, "summa": {"all-gather": 524288},
+                  "summa+ov": {"collective-permute": 393216},
+                  "pod25d": {"all-reduce": 262144, "collective-permute": 262144},
+                  "ring_ag": {"collective-permute": 458752}}
+DEMO_RANKS = {"cannon": 16, "summa": 16, "summa+ov": 16, "pod25d": 8, "ring_ag": 8}
+DEMO_TIMED_REPS = 3
+EX_SERVE_ARCH = "llama3.2-1b"
+# (d): the example's own full-width model (12 layers, d_model 768, vocab
+# 32768), 60 steps at 8 x 256, a failure injected at step 30
+EX_TRAIN_ARGV = ["--preset", "100m", "--steps", "60", "--batch", "8", "--seq", "256"]
+EX_TRAIN_FAIL = 30
+# (e): K1's two tile orders at n^3, bf16, wide route; CUDA-graph calls a timing
+ORDER_SIZES = {2048: 16, 8192: 4, 16384: 2}
+ORDER_ROUNDS = 3           # rounds of the turns (z, r, library, library, r, z)
+ORDER_MODEL_GRID = 16
+ORDER_MODEL_CACHES = (48, 192, 768)
+
+
+def _moved_routes(fn):
+    """(fn(), K1's launches by route during it)."""
+    before = dict(k1.launches_by_route)
+    out = fn()
+    return out, routes_moved(before)
+
+
+def examples_quickstart() -> dict:
+    """(a) ``repro_torch.examples.quickstart`` on the card: the solver's
+    numbers are the reference quickstart's, and K1's fp32 (fma) and bf16
+    (wide) rows at 256^3 within ``TOL`` per row of the plain version."""
+    qs, routes = _moved_routes(lambda: ex_quickstart.main([]))
+    got = {**{k: qs[k] for k in ("schedules", "min_hop_cost", "movements", "skew")},
+           "words_per_node": f"{qs['words_per_node']:.3e}",
+           "lower_bound": f"{qs['lower_bound']:.3e}", "factor": f"{qs['factor']:.1f}"}
+    if got != QUICKSTART_WANT or not (qs["cannon_like"] and qs["cannon_found"]
+                                      and qs["simulated"] and all(qs["systolic"].values())):
+        raise AssertionError(f"[examples] the quickstart gave {got}, want {QUICKSTART_WANT}")
+    for name, dtype, route in (("float32", torch.float32, "fma"),
+                               ("bfloat16", torch.bfloat16, "wide")):
+        r = qs["k1"][name]
+        if r["launched"] != {route: 1} or not r["finite"] or r["row_rel"] >= TOL[dtype]:
+            raise AssertionError(f"[examples] quickstart's K1 {name}: {r}, want one {route} "
+                                 f"launch within {TOL[dtype]} per row")
+    log(f"[examples] quickstart: the reference's numbers; K1 " + ", ".join(
+        f"{name} {r['route']} worst row {r['row_rel']:.3e} max abs {r['max_abs_err']:.3e}"
+        for name, r in qs["k1"].items()))
+    return {**qs, "k1_routes": routes}
+
+
+def examples_distributed(dev: torch.device) -> dict:
+    """(b) ``repro_torch.examples.distributed_matmul`` on the card, bf16 and
+    fp32: bytes by kind per strategy against the reference demo's, each
+    product's rows against the fp32 product, the ranks' threads, K1's
+    launches by route; then each bf16 strategy's device ms (CUDA events on
+    the caller's stream, which ``Mesh.run`` joins)."""
+    seen = set()
+    real = _collectives.run_rank
+
+    def spy(comm, *args, **kw):
+        seen.add((comm.mesh.size, comm.rank, threading.get_ident()))
+        return real(comm, *args, **kw)
+
+    runs = {}
+    with mock.patch.object(_collectives, "run_rank", spy):
+        for dt in ("bfloat16", "float32"):
+            runs[dt], routes = _moved_routes(lambda: ex_distributed.main(["--dtype", dt]))
+            runs[dt]["k1_path_routes"] = routes
+    main_thread = threading.get_ident()
+    torus = {(r, t) for size, r, t in seen if size == 16}
+    if {r for r, _ in torus} != set(range(16)) or len({t for _, t in torus}) < 16 \
+            or main_thread in {t for _, t in torus}:
+        raise AssertionError(f"[examples] the 4x4 torus ran ranks {sorted(torus)}")
+    rows = {}
+    for name, want in DEMO_F32_BYTES.items():
+        f32, bf16 = runs["float32"]["strategies"][name], runs["bfloat16"]["strategies"][name]
+        halves = {k: v if k == "all-reduce" else v // 2 for k, v in want.items()}
+        e16, e32 = row_err(bf16.pop("out"), bf16.pop("ref")), row_err(f32.pop("out"),
+                                                                      f32.pop("ref"))
+        ok = (f32["by_kind"] == want and bf16["by_kind"] == halves
+              and f32["same_on_every_rank"] and bf16["same_on_every_rank"]
+              and f32["ranks"] == bf16["ranks"] == DEMO_RANKS[name]
+              and set(f32["k1_routes"]) == {"fma"} and bf16["k1_routes"]
+              and e16["row_rel"] <= ROW_TOL[torch.bfloat16] and e16["finite"]
+              and e32["row_rel"] <= ROW_TOL[torch.float32] and e32["finite"])
+        rows[name] = {"bf16": {**bf16, "rows": e16}, "fp32": {**f32, "rows": e32}}
+        log(f"[examples] {name:8s} {DEMO_RANKS[name]} ranks: fp32 bytes {f32['by_kind']} "
+            f"(reference {want}), bf16 {bf16['by_kind']}; worst row bf16 {e16['row_rel']:.3e} "
+            f"fp32 {e32['row_rel']:.3e}; K1 bf16 {bf16['k1_routes']} fp32 {f32['k1_routes']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[examples] {name}: {rows[name]}")
+    meshes, products = ex_distributed.cases(dev)
+    try:
+        for name, (fn, operands) in products.items():
+            fn(*operands)
+            ms = []
+            for _ in range(DEMO_TIMED_REPS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                fn(*operands)
+                ev[1].record()
+                ev[1].synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+            rows[name]["ms"] = float(np.median(ms))
+            rows[name]["runs_ms"] = ms
+    finally:
+        for mesh in meshes:
+            mesh.close()
+    log("[examples] bf16 device ms a product (events, median of "
+        f"{DEMO_TIMED_REPS}): " + ", ".join(f"{n} {r['ms']:.3f}" for n, r in rows.items()))
+    return {"strategies": rows, "threads": len({t for _, _, t in seen}),
+            "torus_ranks": len({r for r, _ in torus}),
+            "k1_routes": {dt: r["k1_path_routes"] for dt, r in runs.items()},
+            "cost_model": runs["bfloat16"]["cost_model"]}
+
+
+def examples_serve(dev: torch.device) -> dict:
+    """(c) ``repro_torch.examples.serve_batched`` on the card with the 2x2
+    mesh and with ``--no-mesh``: bucket 4x16 replayed from its graphs, 16
+    tokens a request, the planned run's serve-window hit rate 1.0; the
+    planned path's logits along the planned run's tokens within
+    ``PLANNED_LOGITS_TOL`` per row of ``mesh=None``'s (phase 8's limit)."""
+    runs = {}
+    for mesh in (True, False):
+        runs[mesh], routes = _moved_routes(
+            lambda: ex_serve.main(["--arch", EX_SERVE_ARCH] + ([] if mesh else ["--no-mesh"])))
+        runs[mesh]["k1_path_routes"] = routes
+        r = runs[mesh]
+        if r["bucket"] != "4x16" or not r["graphs"] or \
+                [len(t) for t in r["new_tokens"]] != [16] * len(r["prompts"]) or \
+                (mesh and (r["hit_rate"] != 1.0 or not r["strategies"])):
+            raise AssertionError(f"[examples] serve_batched mesh={mesh}: bucket {r['bucket']}, "
+                                 f"graphs {r['graphs']}, hit rate {r['hit_rate']}")
+    planned, local = runs[True], runs[False]
+    _, model, params = ex_serve.model_and_params(EX_SERVE_ARCH, dev)
+    batch, lens = batch_requests(planned["prompts"], PAD_ID, pad_to=16)
+    full = np.concatenate([batch, np.asarray(planned["new_tokens"])], axis=1)
+    offsets = torch.as_tensor(16 - lens, dtype=torch.int64, device=dev)
+    mesh = Mesh(*ex_serve.MESH, device=dev)
+    try:
+        lower_dist_mod.reset_executions()
+        got = forced_logits(model, params, dev, full.tolist(), 16, offsets, mesh, None)
+        forced_plans = lower_dist_mod.executions_snapshot()
+        ref = forced_logits(model, params, dev, full.tolist(), 16, offsets, None, None)
+    finally:
+        mesh.close()
+    if not forced_plans:
+        raise AssertionError("[examples] the planned logits ran no planned product")
+    errs = [row_err(g, r) for g, r in zip(got, ref)]
+    worst = max(e["row_rel"] for e in errs)
+    agree = sum(x == y for p, q in zip(planned["new_tokens"], local["new_tokens"])
+                for x, y in zip(p, q))
+    log(f"[examples] serve_batched {planned['arch']}: 2x2 {planned['tokens_per_s']:.1f} tok/s, "
+        f"ttft {planned['ttft_s'] * 1e3:.2f}ms, p50 {planned['p50_ms']:.2f}ms, hit rate "
+        f"{planned['hit_rate']}, strategies {planned['strategies']}; no mesh "
+        f"{local['tokens_per_s']:.1f} tok/s, ttft {local['ttft_s'] * 1e3:.2f}ms, p50 "
+        f"{local['p50_ms']:.2f}ms; planned logits along the planned tokens, worst row "
+        f"{worst:.3e} of mesh=None's (limit {PLANNED_LOGITS_TOL}) over {len(errs)} steps "
+        f"({forced_plans}); "
+        f"{agree} of {sum(map(len, local['new_tokens']))} tokens agree (printed, not held)")
+    if worst > PLANNED_LOGITS_TOL or not all(e["finite"] for e in errs):
+        raise AssertionError(f"[examples] planned serving logits left mesh=None's: {worst}")
+    del model, params
+    return {"mesh": planned, "no_mesh": local, "logits_worst_row": worst,
+            "logit_steps": len(errs), "logit_plans": forced_plans, "agree": agree}
+
+
+def examples_train(dev: torch.device) -> dict:
+    """(d) ``repro_torch.examples.train_lm --preset 100m`` on the card,
+    captured, a failure injected at step ``EX_TRAIN_FAIL``: one restart,
+    one capture, the loss falling; then the same run without the failure,
+    fed the batches the restarted run saw (a restart loses the failed
+    step's batch), each step's loss and learning rate held to it.  That
+    run writes no checkpoint (it restores none): its steps do not read
+    them."""
+    runs = {}
+    for fail in (True, False):
+        ckpt = tempfile.mkdtemp(prefix="examples_train_", dir=CKPT_DIR)
+        argv = EX_TRAIN_ARGV + ["--ckpt", ckpt] + (
+            ["--inject-failure", str(EX_TRAIN_FAIL)] if fail else [])
+        skip = None if fail else EX_TRAIN_FAIL
+
+        def batches(dc, start_step=0):
+            return (synth_batch(dc, s) for s in itertools.count(start_step) if s != skip)
+
+        try:
+            with mock.patch.object(ex_train, "batch_iterator", batches), \
+                    contextlib.ExitStack() as stack, step_meter() as meter:
+                if not fail:
+                    stack.enter_context(mock.patch.object(
+                        train_store.AsyncWriter, "save", lambda *a, **kw: None))
+                out, routes = _moved_routes(lambda: ex_train.main(argv))
+                graph = meter["trainers"][0].graph_report()
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        runs[fail] = {**out, "routes": routes, "graph": graph,
+                      "steps_run": step_summary(meter["rows"])}
+        del meter["trainers"]
+    cut, whole = runs[True], runs[False]
+    if cut["restarts"] != 1 or whole["restarts"] != 0 or cut["graph"]["captures"] != 1 \
+            or not cut["last_loss"] < cut["first_loss"]:
+        raise AssertionError(f"[examples] train_lm: {cut['restarts']} restarts, "
+                             f"{cut['graph']['captures']} captures, losses "
+                             f"{cut['first_loss']} -> {cut['last_loss']}")
+    s, w = cut["steps_run"], whole["steps_run"]
+    gaps = [abs(x - y) / abs(y) for x, y in zip(s["losses"], w["losses"])]
+    held = {"steps": len(gaps), "worst_gap": max(gaps), "lr_bitwise": s["lrs"] == w["lrs"]}
+    log(f"[examples] train_lm restarted vs uninterrupted (the same batches) over {len(gaps)} "
+        f"steps: worst relative loss gap {held['worst_gap']:.3g} (limit {TRAIN_GRAD_TOL:g}), "
+        f"learning rates bitwise {held['lr_bitwise']}")
+    if len(s["losses"]) != len(w["losses"]) or held["worst_gap"] > TRAIN_GRAD_TOL \
+            or not held["lr_bitwise"]:
+        raise AssertionError(f"[examples] the restarted run left the uninterrupted one: {held}")
+    log(f"[examples] train_lm 100m ({cut['params'] / 1e6:.1f}M params) 60 steps at 8x256: "
+        f"loss {cut['first_loss']:.4f} -> {cut['last_loss']:.4f}, {cut['restarts']} restart, "
+        f"steps by kind {s['kinds']}, a replay {s['host_ms']:.2f}ms host / "
+        f"{s['device_ms']:.2f}ms device ({8 * 256 / s['device_ms'] * 1e3:.0f} tokens/s), "
+        f"K1 counted {cut['routes']}, replayed {cut['graph']['k1_replayed']}")
+    for r in runs.values():
+        r.pop("ckpt_dir")
+    return {"restart": cut, "uninterrupted": whole, "held": held}
+
+
+def order_times(dev: torch.device, gen: torch.Generator) -> dict:
+    """(e) K1 bf16 (wide route) with its tile table in Z-order and in
+    row-major order at n^3 for each n of ``ORDER_SIZES``: both outputs
+    bitwise equal, and within ``ROW_TOL`` per row of the plain version
+    (timed once between CUDA events); CUDA-graph replays timed in ``ORDER_ROUNDS`` rounds of
+    the turns (z, r, library, library, r, z; the library is
+    ``torch.matmul``) beside ``bound``; and
+    the reference's Sec. 4.3 model rows (``benchmarks/paper_benches.py``:
+    block fetches through an LRU cache on a 16^3 grid), printed beside,
+    neither claimed to predict the other."""
+    rows = []
+    for n, calls in ORDER_SIZES.items():
+        a = torch.randn(n, n, generator=gen, device=dev).to(torch.bfloat16)
+        b = (torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)).to(torch.bfloat16)
+        z, r = matmul(a, b, order="zorder"), matmul(a, b, order="rowmajor")
+        bitwise = torch.equal(z, r)
+        rows_err = row_err(z, matmul_ref(a, b))
+        del z, r
+        if not bitwise or meant_route(n, n, n, torch.bfloat16) != "wide":
+            raise AssertionError(f"[examples] K1's tile orders disagree at {n}^3")
+        if not rows_err["finite"] or rows_err["row_rel"] > ROW_TOL[torch.bfloat16]:
+            raise AssertionError(f"[examples] K1 at {n}^3 left its plain version: {rows_err}")
+        plain_ms = event_ms(lambda: matmul_ref(a, b), 1)
+        fns = {"zorder": functools.partial(matmul, order="zorder"),
+               "rowmajor": functools.partial(matmul, order="rowmajor"),
+               "library": torch.matmul}
+        t = {name: [] for name in fns}
+        for _ in range(ORDER_ROUNDS):
+            for name in ("zorder", "rowmajor", "library", "library", "rowmajor", "zorder"):
+                t[name].append(graph_ms(fns[name], [(a, b)] * calls))
+        bms, by = bound(n, n, n, torch.bfloat16)
+        row = {"n": n, "calls": calls, **{f"{name}_ms": min(v) for name, v in t.items()},
+               **{f"{name}_median_ms": float(np.median(v)) for name, v in t.items()},
+               "runs": t, "bound_ms": bms, "bound_by": by, "bitwise": bitwise,
+               "rows": rows_err, "plain_ms": plain_ms}
+        row["rowmajor_over_zorder"] = row["rowmajor_ms"] / row["zorder_ms"]
+        rows.append(row)
+        log(f"[examples] K1 bf16 {n}^3 wide, min (median) of {2 * ORDER_ROUNDS}: zorder "
+            f"{row['zorder_ms']:.3f}ms ({row['zorder_median_ms']:.3f}) rowmajor "
+            f"{row['rowmajor_ms']:.3f}ms ({row['rowmajor_median_ms']:.3f}), "
+            f"x{row['rowmajor_over_zorder']:.3f}; bound {bms:.3f}ms ({by}), torch.matmul "
+            f"{row['library_ms']:.3f}ms ({row['library_median_ms']:.3f}), plain {plain_ms:.3f}ms; "
+            f"outputs bitwise equal, worst row {rows_err['row_rel']:.3e} of the plain version's "
+            f"(limit {ROW_TOL[torch.bfloat16]:g})")
+        del a, b
+        torch.cuda.empty_cache()
+    g = ORDER_MODEL_GRID
+    zo, ro = zorder_schedule(g, g, g), rowmajor_schedule(g, g, g)
+    model = []
+    for cache in ORDER_MODEL_CACHES:
+        tz, tr = block_reuse_distance_traffic(zo, cache), block_reuse_distance_traffic(ro, cache)
+        model.append({"cache_blocks": cache, "zorder": tz, "rowmajor": tr, "saving": tr / tz,
+                      "ideal": ideal_traffic(len(zo), cache)})
+        log(f"[examples] Sec. 4.3 model, {g}^3 grid, LRU of {cache} blocks: zorder {tz} "
+            f"rowmajor {tr} fetches (saving x{tr / tz:.2f}; ideal {model[-1]['ideal']:.1f})")
+    return {"timed": rows, "model": model}
+
+
+def phase_examples(dev: torch.device, gen: torch.Generator) -> dict:
+    """Phase 21: the reference's examples on the card through their port
+    (``repro_torch.examples``), each ``main`` in this process, and K1's
+    two tile orders timed past the L2 (module docstring)."""
+    out = {}
+    for key, fn in (("quickstart", examples_quickstart),
+                    ("distributed", lambda: examples_distributed(dev)),
+                    ("serve", lambda: examples_serve(dev)),
+                    ("train", lambda: examples_train(dev)),
+                    ("orders", lambda: order_times(dev, gen))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["seconds"] = time.perf_counter() - t0
+        log(f"[examples] ({key}) took {out[key]['seconds']:.1f}s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def examples_routes(ex: dict) -> dict:
+    """Phase 21's K1 launches by route counted on each example's path (the
+    serving graphs' replays apart; the training run's host counts, then its
+    replays)."""
+    return {"examples_quickstart": ex["quickstart"]["k1_routes"],
+            **{f"examples_distributed_{dt}": r
+               for dt, r in ex["distributed"]["k1_routes"].items()},
+            **{f"examples_serve_{leg}": ex["serve"][leg]["k1_path_routes"]
+               for leg in ("mesh", "no_mesh")},
+            **{f"examples_serve_{leg}_replayed": ex["serve"][leg]["k1"]["replayed_by_route"]
+               for leg in ("mesh", "no_mesh")},
+            "examples_train": ex["train"]["restart"]["routes"],
+            "examples_train_replayed": ex["train"]["restart"]["graph"]["k1_replayed"]}
+
+
+def examples_launches(ex: dict) -> dict:
+    """``examples_routes`` summed over the routes."""
+    return {key: sum(r.values()) for key, r in examples_routes(ex).items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5941,12 +6416,17 @@ def main() -> int:
     run("obs_drift", phase_obs_drift, dev, report["calibrate"]["profile_path"])
     run("profiler", phase_profiler, dev)
     run("train", phase_train, dev, gen)
-    run("zoo_serve", phase_zoo_serve, dev)
-    run("families", phase_families, dev, gen)
-    run("zoo_train", phase_zoo_train, dev)
-    run("sharded_train", phase_sharded_train, dev)
-    run("roofline", phase_roofline, dev, report)
+    probe_job = start_probe()
+    try:
+        run("zoo_serve", phase_zoo_serve, dev)
+        run("families", phase_families, dev, gen)
+        run("zoo_train", phase_zoo_train, dev)
+        run("sharded_train", phase_sharded_train, dev)
+        run("roofline", phase_roofline, dev, report, probe_job)
+    finally:
+        stop_probe(probe_job)
     run("big", phase_big, dev, gen)
+    run("examples", phase_examples, dev, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -5995,7 +6475,8 @@ def main() -> int:
                              **zoo_train_launches(report["zoo_train"]),
                              **sharded_launches(report["sharded_train"]),
                              "roofline": report["roofline"]["launches"]["K1"],
-                             **big_launches(report["big"])},
+                             **big_launches(report["big"]),
+                             **examples_launches(report["examples"])},
         "routes": {"serve": report["serve"]["path"]["routes"],
                    "serve_graph_replays": report["serve"]["runs"][0]["routes"],
                    **{f"serve_{step}_step": r
@@ -6023,7 +6504,8 @@ def main() -> int:
                    **zoo_train_routes(report["zoo_train"]),
                    **sharded_routes(report["sharded_train"]),
                    "roofline": report["roofline"]["launches"]["K1_routes"],
-                   **big_routes(report["big"])},
+                   **big_routes(report["big"]),
+                   **examples_routes(report["examples"])},
         "max_abs_err": max(report["kernel"]["worst_main_abs_err"],
                            report["train"]["kernel"]["worst_abs_err"],
                            *(z["serve"]["measured"]["k1"]["check"]["worst_abs_err"]
@@ -6041,7 +6523,9 @@ def main() -> int:
                              for a in BIG_ARCHS),
                            *(r["check"]["max_abs_err"] for r in report["big"]["prefill"]["projections"]),
                            report["long_prefill"]["k1_check"]["worst_abs_err"],
-                           report["big"]["prefill"]["k1_check"]["worst_abs_err"]),
+                           report["big"]["prefill"]["k1_check"]["worst_abs_err"],
+                           *(r["max_abs_err"]
+                             for r in report["examples"]["quickstart"]["k1"].values())),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
         "work": "one bf16 decode step at batch 4: 16 layers x 7 projections",

@@ -161,3 +161,18 @@ def calibrated_total_s(flops: float, comm_bytes: float, msgs: float, *,
     else:
         comm_s = msgs * alpha_s + comm_bytes / max(bw_bytes_per_s, 1e-9)
     return max(compute_s, comm_s) if overlapped else compute_s + comm_s
+
+
+def matmul_time_model(m: int, n: int, k: int, dtype_bytes: int = 2) -> Dict[str, float]:
+    """Single-chip roofline terms of an (m, k) x (k, n) matmul at the
+    reference's TPU v5e datasheet rates above (``PEAK_FLOPS_BF16``,
+    ``HBM_BW``): the reference's model, copied for parity.  Its seconds
+    are a TPU's, never the card's; the card's terms are
+    ``repro_torch.roofline.analysis``'s."""
+    flops = 2.0 * m * n * k
+    bytes_moved = dtype_bytes * (m * k + k * n + m * n)
+    return {
+        "compute_s": flops / PEAK_FLOPS_BF16,
+        "memory_s": bytes_moved / HBM_BW,
+        "arithmetic_intensity": flops / bytes_moved,
+    }

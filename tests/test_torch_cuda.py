@@ -1300,3 +1300,31 @@ def test_a_fake_trace_leaves_the_launch_counters_unchanged(cuda_device):
     assert counter.calls["repro_torch::zorder_matmul"] > 0
     assert (kernel.launches, k2.kernel.launches) == (0, 0)
     assert (dict(kernel.launches_by_route), dict(k2.kernel.launches_by_route)) == before
+
+
+# The reference demo's collective bytes per device (``examples/distributed_matmul.py``
+# on 16 fake CPU devices, where XLA makes every bf16 collective an f32 one)
+DEMO_F32_BYTES = {"cannon": {"collective-permute": 524288}, "summa": {"all-gather": 524288},
+                  "summa+ov": {"collective-permute": 393216},
+                  "pod25d": {"all-reduce": 262144, "collective-permute": 262144},
+                  "ring_ag": {"collective-permute": 458752}}
+
+
+@pytest.mark.cuda
+def test_distributed_demo_on_the_card(cuda_device):
+    """``repro_torch.examples.distributed_matmul`` on the card: in fp32 each
+    strategy counts the reference demo's bytes by kind; in bf16 the bf16
+    blocks are half of them (the 2.5D all-reduce sums fp32 partials), each
+    row within 2^-8 of the fp32 product; every block product a K1 launch."""
+    from repro_torch.examples import distributed_matmul
+
+    runs = {dt: distributed_matmul.main(["--dtype", dt]) for dt in ("float32", "bfloat16")}
+    for name, want in DEMO_F32_BYTES.items():
+        f32, bf16 = runs["float32"]["strategies"][name], runs["bfloat16"]["strategies"][name]
+        assert f32["by_kind"] == want and f32["same_on_every_rank"]
+        assert bf16["by_kind"] == {k: v if k == "all-reduce" else v // 2 for k, v in want.items()}
+        assert f32["ranks"] == bf16["ranks"] == (8 if name in ("pod25d", "ring_ag") else 16)
+        assert set(f32["k1_routes"]) == {"fma"} and set(bf16["k1_routes"]) <= {"wide", "thin"}
+        out, ref = bf16["out"].float(), bf16["ref"]
+        assert ((out - ref).norm(dim=1) / ref.norm(dim=1)).max().item() <= 2.0 ** -8
+        assert _rel_err(f32["out"], f32["ref"]) < TOL[torch.float32]

@@ -64,7 +64,9 @@ NEW_MODULES = ["repro_torch.obs.runtime", "repro_torch.obs.metrics", "repro_torc
                "repro_torch.launch.mesh", "repro_torch.roofline",
                "repro_torch.roofline.hlo_stats", "repro_torch.roofline.analysis",
                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
-               "repro_torch.launch.report"]
+               "repro_torch.launch.report", "repro_torch.examples",
+               "repro_torch.examples.quickstart", "repro_torch.examples.distributed_matmul",
+               "repro_torch.examples.serve_batched", "repro_torch.examples.train_lm"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)

@@ -152,3 +152,135 @@ def test_hidden_share_reads_prefetch_copies_under_the_same_ranks_k1():
     assert got["under_any_k1"] == pytest.approx(1.0)
     with pytest.raises(AssertionError, match="no one logged issue order"):
         chip_smoke.hidden_shares(ev, {1020: [True, True], 1021: [False, True]}, ranks=2)
+
+
+def _totals_by_key_averages(prof):
+    """``chip_smoke.profile_totals``'s five tables through torch's own
+    processing (``key_averages()``), the way ``profile_split`` read them
+    before: the reference the raw-event reading is held to."""
+    from collections import Counter
+
+    kernels, counts, ops, op_calls, ranges = Counter(), Counter(), Counter(), Counter(), {}
+    for e in prof.key_averages():
+        host = str(e.device_type).endswith("CPU")
+        if e.is_user_annotation:
+            ranges.setdefault(e.key, {})["cpu" if host else "device"] = {
+                "ms": float(e.device_time_total or 0) / 1e3, "count": e.count}
+            continue
+        us = float(e.self_device_time_total or 0)
+        if not us:
+            continue
+        if not host:
+            kernels[e.key] += us
+            counts[e.key] += e.count
+        elif "::" in e.key:
+            ops[e.key] += us
+            op_calls[e.key] += e.count
+    return kernels, counts, ops, op_calls, ranges
+
+
+def _assert_same_totals(got, want):
+    """Every entry of the five tables equal (times to 1e-9 relative), all
+    differences listed on failure."""
+    diffs = []
+    for g, w, what in zip(got, want, ("kernels", "launches", "operators", "calls", "ranges")):
+        if set(g) != set(w):
+            diffs.append((what, sorted(set(g) ^ set(w))))
+        for key in set(g) & set(w):
+            if what != "ranges":
+                if g[key] != pytest.approx(w[key], rel=1e-9):
+                    diffs.append((what, key, g[key], w[key]))
+                continue
+            for side in set(g[key]) | set(w[key]):
+                a, b = g[key].get(side), w[key].get(side)
+                if a is None or b is None or a["count"] != b["count"] or \
+                        a["ms"] != pytest.approx(b["ms"], rel=1e-9, abs=1e-9):
+                    diffs.append((what, key, side, a, b))
+    assert not diffs, diffs
+
+
+def _profiled_loss(device, arch, activities):
+    """One training forward and backward of ``arch``'s smoke model under
+    ``torch.profiler`` with the chip run's ranges: the unembedding's
+    (``unembed_ranges``) and, around each SSD scan, ``ssd_chunk_scan``."""
+    from torch.profiler import profile, record_function
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    leaves = [p for p in chip_smoke.tree_leaves(params) if p.is_floating_point()]
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {"tokens": _tokens(cfg).to(device), "labels": _tokens(cfg, 1).to(device)}
+    real = chip_smoke.mamba2_layer._ssd_chunk_scan
+
+    def ranged(*args, **kw):
+        with record_function("ssd_chunk_scan"):
+            return real(*args, **kw)
+
+    with pytest.MonkeyPatch.context() as mp, chip_smoke.unembed_ranges():
+        mp.setattr(chip_smoke.mamba2_layer, "_ssd_chunk_scan", ranged)
+        with profile(activities=activities) as prof:
+            loss, _ = model.loss(params, batch)
+            torch.autograd.grad(loss, leaves)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+    return prof
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b"])
+def test_profile_totals_are_key_averages_on_the_cpu(arch):
+    """On the CPU the tables hold no device time: the ranges' calls and the
+    empty kernel and operator tables are ``key_averages()``'s."""
+    from torch.profiler import ProfilerActivity
+
+    prof = _profiled_loss(torch.device("cpu"), arch, [ProfilerActivity.CPU])
+    got = chip_smoke.profile_totals(prof)
+    _assert_same_totals(got, _totals_by_key_averages(prof))
+    assert got[4]["unembed"]["cpu"]["count"] == 1
+    if arch == "zamba2-2.7b":
+        assert got[4]["ssd_chunk_scan"]["cpu"]["count"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host_side", [True, False], ids=["cpu+cuda", "cuda"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b"])
+def test_profile_totals_are_key_averages_on_the_card(arch, host_side):
+    """On the card: every kernel's time and launches, each operator's own
+    kernels' time and calls (the unembedding's backward ``aten::mm`` among
+    them), each range's calls, its kernels' time and its span, as
+    ``key_averages()`` gives them."""
+    from torch.profiler import ProfilerActivity
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_side else [])
+    prof = _profiled_loss(torch.device("cuda"), arch, acts)
+    got = chip_smoke.profile_totals(prof)
+    _assert_same_totals(got, _totals_by_key_averages(prof))
+    assert any("zorder_matmul" in k for k in got[0])
+    if host_side:
+        assert got[3]["aten::mm"] == 2 and got[2]["aten::mm"] > 0
+        assert got[4]["unembed"]["cpu"]["ms"] > 0
+
+
+def test_profile_totals_count_nested_ranges_as_key_averages():
+    """A range alone inside one of its own name (once or twice over) counts
+    once, as torch's event tree counts it; a range beside another event
+    inside it counts twice."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.randn(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(5):
+            with record_function("a"), record_function("a"):
+                x @ x
+            with record_function("b"), record_function("b"), record_function("b"):
+                x + 1
+            with record_function("c"):
+                with record_function("c"):
+                    x + 1
+                x * 2
+    got = chip_smoke.profile_totals(prof)
+    _assert_same_totals(got, _totals_by_key_averages(prof))
+    assert {k: r["cpu"]["count"] for k, r in got[4].items()} == {"a": 5, "b": 5, "c": 10}
