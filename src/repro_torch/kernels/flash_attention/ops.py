@@ -18,12 +18,19 @@ the output's shape and type without touching memory.  Being an op of the
 dispatcher, it is what a dispatch mode sees as one call (the cost counter,
 ``repro_torch.roofline.hlo_stats``) and what a fake tensor runs through (the
 dry run).  It has no autograd formula: ``mha`` refuses gradients first.
+
+With ``repro_torch.obs`` tracing enabled, each call of the op counts in
+``kernel.flash_attention.launches{route}`` and is a
+``kernel.flash_attention`` span around the launch (the plain version's
+call on the CPU, route ``plain``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch import obs
 
 from . import kernel
 from .ref import attention_ref
@@ -70,6 +77,17 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
     """``mha``'s product as an op of the dispatcher (module docstring):
     the kernel on CUDA tensors, the plain version on CPU tensors; a new
     contiguous (B, S_q, H_q, D) in q's type.  ``mha`` checks the arguments."""
+    if not obs.enabled():
+        return _run(q, k, v, causal, window, scale)
+    route = ("plain" if q.device.type == "cpu" else
+             kernel.route(q.shape[-1], q.dtype, kernel.aligned(q, k, v)))
+    obs.counter("kernel.flash_attention.launches").inc(route=route)
+    with obs.span("kernel.flash_attention", b=q.shape[0], sq=q.shape[1], skv=k.shape[1],
+                  h=q.shape[2], d=q.shape[3], causal=causal, route=route):
+        return _run(q, k, v, causal, window, scale)
+
+
+def _run(q, k, v, causal, window, scale):
     if q.device.type == "cpu":
         b, sq, hq, d = q.shape
 

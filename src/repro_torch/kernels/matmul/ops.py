@@ -7,13 +7,17 @@ is too small for the kernel: decode multiplies batch-sized rows (4-8), and
 sending those to a library call would take every decode product off the
 kernel.  Ragged shapes are masked inside the kernel instead of padded.
 
-With ``repro_torch.obs`` tracing enabled, a call outside CUDA-graph
-capture is a ``kernel.matmul`` span: its device time (CUDA events,
-synchronised at span end, as the reference's ``block_until_ready``; the
-host clock on the CPU) lands in the ``kernel.matmul.us`` histogram, its
-FLOPs in ``kernel.matmul.flops`` and, on the card, its share of the
-published peak in ``kernel.matmul.roofline_fraction``.  Disabled mode adds
-one flag read and nothing else.
+With ``repro_torch.obs`` tracing enabled, every launch counts in
+``kernel.matmul.launches{route}``, and a call outside CUDA-graph capture
+is a ``kernel.matmul`` span around the launch itself, so the profiler
+links K1's kernels to that range.  Its device time lands in the
+``kernel.matmul.us`` histogram: on the card a pair of CUDA events around
+the launch, resolved when the histogram is read, so tracing never waits
+for the device (the reference blocks on each call instead); the host
+clock on the CPU.  Its FLOPs land in ``kernel.matmul.flops`` and, on the
+card, its share of its roofline (``bound_s``) in
+``kernel.matmul.roofline_fraction``.  Disabled mode adds one flag read and
+nothing else.
 
 Each operand is row-major contiguous or the ``.t()`` of a row-major
 contiguous tensor with a 16-byte aligned base (a tied embedding read as the
@@ -50,7 +54,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import aligned16, dispatch_mode_active, is_fake
-from repro_torch.roofline.analysis import PEAK_FLOPS
+from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
 
 from . import kernel
 from .kernel import layout
@@ -137,11 +141,26 @@ def matmul(
 
 
 def _launch(a, b, blocks, order, out_dtype):
-    # nothing to time (or to wait for) inside a CUDA-graph capture
-    if obs.enabled() and not (a.device.type == "cuda"
-                              and torch.cuda.is_current_stream_capturing()):
-        return _observed(a, b, blocks, order, out_dtype)
+    if obs.enabled():
+        route = kernel.ROUTE_OF[a.dtype, blocks] if a.device.type == "cuda" else "plain"
+        obs.counter("kernel.matmul.launches").inc(route=route)
+        # a captured launch is timed by its layer's graph events instead
+        if not (a.device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            return _observed(a, b, blocks, order, out_dtype, route)
     return _run(a, b, blocks, order, out_dtype)
+
+
+def bound_s(m: int, n: int, k: int, dtype: torch.dtype, out_dtype: torch.dtype) -> float:
+    """The least time of an (m, k) x (k, n) product on the card: the larger
+    of its FLOPs at ``dtype``'s published peak and its bytes (each operand
+    read once, the output written once) at the memory rate.  The reference
+    divides a launch's FLOP rate by the compute peak alone; here a thin,
+    byte-bound launch is held to its byte bound, an intended divergence."""
+    size = torch.empty((), dtype=dtype).element_size()
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    flops = 2.0 * m * n * k
+    nbytes = (m * k + k * n) * size + m * n * out_size
+    return max(flops / PEAK_FLOPS[dtype], nbytes / HBM_BW)
 
 
 def _fresh(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -219,11 +238,10 @@ def _run(a, b, blocks, order, out_dtype):
                                 block_k=blocks[2], out_dtype=out_dtype, order=order)
 
 
-def _observed(a, b, blocks, order, out_dtype):
+def _observed(a, b, blocks, order, out_dtype, route):
     """``_run`` inside a ``kernel.matmul`` span, timed (module docstring)."""
     m, k = a.shape
     n = b.shape[1]
-    route = kernel.ROUTE_OF[a.dtype, blocks] if a.device.type == "cuda" else "plain"
     with obs.span("kernel.matmul", m=m, n=n, k=k, order=order, route=route):
         if a.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
@@ -231,16 +249,32 @@ def _observed(a, b, blocks, order, out_dtype):
             start.record()
             out = _run(a, b, blocks, order, out_dtype)
             end.record()
-            end.synchronize()
-            dt = start.elapsed_time(end) / 1e3
         else:
             t0 = time.perf_counter()
             out = _run(a, b, blocks, order, out_dtype)
             dt = time.perf_counter() - t0
-    flops = 2.0 * m * n * k
-    obs.histogram("kernel.matmul.us").observe(dt * 1e6)
-    obs.counter("kernel.matmul.flops").inc(flops)
-    if a.device.type == "cuda" and dt > 0:
-        obs.histogram("kernel.matmul.roofline_fraction").observe(
-            flops / dt / PEAK_FLOPS[a.dtype])
+    obs.counter("kernel.matmul.flops").inc(2.0 * m * n * k)
+    if a.device.type == "cuda":
+        elapsed = _Elapsed(start, end)
+        bound = bound_s(m, n, k, a.dtype, out_dtype)
+        obs.histogram("kernel.matmul.us").defer(lambda: elapsed.seconds() * 1e6)
+        obs.histogram("kernel.matmul.roofline_fraction").defer(
+            lambda: bound / elapsed.seconds() if elapsed.seconds() > 0 else None)
+    else:
+        obs.histogram("kernel.matmul.us").observe(dt * 1e6)
     return out
+
+
+class _Elapsed:
+    """Seconds between two recorded CUDA events, waited for and read once."""
+
+    __slots__ = ("start", "end", "_s")
+
+    def __init__(self, start, end):
+        self.start, self.end, self._s = start, end, None
+
+    def seconds(self) -> float:
+        if self._s is None:
+            self.end.synchronize()
+            self._s = self.start.elapsed_time(self.end) / 1e3
+        return self._s

@@ -123,11 +123,9 @@ def serve_sweep_table(data):
 
 def kernel_metrics_table(metrics):
     """Kernel-side health rows from an ``obs.write_metrics`` snapshot:
-    per-call microseconds, roofline fraction, the ragged-shape padding
-    waste ratio (padded/useful FLOPs; 1.0 = no waste), and autotune
-    candidate timings when a search ran in-process."""
-    names = ("kernel.matmul.us", "kernel.matmul.roofline_fraction",
-             "kernel.pad_waste", "tune.candidate_us")
+    per-call microseconds, roofline fraction, and autotune candidate
+    timings when a search ran in-process."""
+    names = ("kernel.matmul.us", "kernel.matmul.roofline_fraction", "tune.candidate_us")
     rows = [
         "| metric | n | mean | min | max |",
         "|---|---|---|---|---|",

@@ -44,6 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.flash_attention import mha
 from repro_torch.models.config import ModelConfig
 from .linear import linear, linear_params
@@ -163,54 +164,59 @@ def gqa_attention(
     serving batches: cache slot j holds row i's position j - offsets[i], so
     padding slots sit at negative positions and the mask removes them.
     ``positions`` is then the matching per-row (B, S) query positions."""
-    b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(x, p["wq"]).reshape(b, s, h, hd)
-    k = linear(x, p["wk"]).reshape(b, s, kv, hd)
-    v = linear(x, p["wv"]).reshape(b, s, kv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    with obs.span("layer.attention"):
+        b, s, _ = x.shape
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = linear(x, p["wq"]).reshape(b, s, h, hd)
+        k = linear(x, p["wk"]).reshape(b, s, kv, hd)
+        v = linear(x, p["wv"]).reshape(b, s, kv, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
-    pdt = torch.bfloat16 if cfg.attn_probs_dtype == "bf16" else torch.float32
-    if cache is None and cfg.attn_impl == "flash":
-        if positions.shape != (s,):
-            raise ValueError("the flash route takes 1-D positions 0..S-1: the kernel "
-                             "puts query i and key j at positions i and j")
-        if pdt != torch.float32:
-            raise ValueError("the flash route keeps the probabilities in fp32; "
-                             "attn_probs_dtype='bf16' needs attn_impl='xla'")
-        o = mha(q, k, v, causal=causal, window=cfg.window)
-    elif cache is None:
-        o = chunked_attention(q, k, v, positions, positions, window=cfg.window,
-                              chunk=cfg.attn_chunk, causal=causal, probs_dtype=pdt)
-    else:
-        s_cache = cache["k"].shape[1]
-        rolling = cfg.window > 0 and s_cache == cfg.window
-        if torch.is_tensor(pos):
-            if rolling and s > 1:
-                check_cache_write(cfg, cache, 0, s)
-            slot = torch.remainder(pos, s_cache) if rolling else pos
-            rows = slot + torch.arange(s, device=x.device)
-            cache["k"].index_copy_(1, rows, k)
-            cache["v"].index_copy_(1, rows, v)
+        pdt = torch.bfloat16 if cfg.attn_probs_dtype == "bf16" else torch.float32
+        if cache is None and cfg.attn_impl == "flash":
+            if positions.shape != (s,):
+                raise ValueError("the flash route takes 1-D positions 0..S-1: the kernel "
+                                 "puts query i and key j at positions i and j")
+            if pdt != torch.float32:
+                raise ValueError("the flash route keeps the probabilities in fp32; "
+                                 "attn_probs_dtype='bf16' needs attn_impl='xla'")
+            with obs.span("layer.attention_core"):
+                o = mha(q, k, v, causal=causal, window=cfg.window)
+        elif cache is None:
+            with obs.span("layer.attention_core"):
+                o = chunked_attention(q, k, v, positions, positions, window=cfg.window,
+                                      chunk=cfg.attn_chunk, causal=causal, probs_dtype=pdt)
         else:
-            check_cache_write(cfg, cache, pos, s)
-            slot = pos % s_cache if rolling else pos
-            cache["k"][:, slot:slot + s] = k
-            cache["v"][:, slot:slot + s] = v
-        idx = torch.arange(s_cache, device=x.device)
-        if rolling:
-            # slot i holds position pos - ((pos - i) mod W); invalid (< 0)
-            # slots fail the causal check against qpos = pos
-            kpos = pos - torch.remainder(pos - idx, s_cache)
-        else:
-            kpos = idx
-        if offsets is not None:
-            kpos = kpos[None, :] - offsets[:, None]
-        o = chunked_attention(q, cache["k"], cache["v"], positions, kpos,
-                              window=cfg.window, chunk=cfg.attn_chunk, probs_dtype=pdt)
-    o = linear(o.reshape(b, s, h * hd), p["wo"])
-    return o, cache
+            s_cache = cache["k"].shape[1]
+            rolling = cfg.window > 0 and s_cache == cfg.window
+            if torch.is_tensor(pos):
+                if rolling and s > 1:
+                    check_cache_write(cfg, cache, 0, s)
+                slot = torch.remainder(pos, s_cache) if rolling else pos
+                rows = slot + torch.arange(s, device=x.device)
+                cache["k"].index_copy_(1, rows, k)
+                cache["v"].index_copy_(1, rows, v)
+            else:
+                check_cache_write(cfg, cache, pos, s)
+                slot = pos % s_cache if rolling else pos
+                cache["k"][:, slot:slot + s] = k
+                cache["v"][:, slot:slot + s] = v
+            idx = torch.arange(s_cache, device=x.device)
+            if rolling:
+                # slot i holds position pos - ((pos - i) mod W); invalid (< 0)
+                # slots fail the causal check against qpos = pos
+                kpos = pos - torch.remainder(pos - idx, s_cache)
+            else:
+                kpos = idx
+            if offsets is not None:
+                kpos = kpos[None, :] - offsets[:, None]
+            with obs.span("layer.attention_core"):
+                o = chunked_attention(q, cache["k"], cache["v"], positions, kpos,
+                                      window=cfg.window, chunk=cfg.attn_chunk,
+                                      probs_dtype=pdt)
+        o = linear(o.reshape(b, s, h * hd), p["wo"])
+        return o, cache
 
 
 def gqa_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
@@ -270,57 +276,60 @@ def mla_attention(
     x's device, unchecked) in place and attend over the whole latent cache
     (the absorbed path).  ``offsets`` and ``positions`` as in
     ``gqa_attention``."""
-    b, s, _ = x.shape
-    h = cfg.num_heads
-    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    kvr = cfg.kv_lora_rank
-    scale = 1.0 / math.sqrt(nope + rope)
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
-    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    with obs.span("layer.attention"):
+        b, s, _ = x.shape
+        h = cfg.num_heads
+        nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        kvr = cfg.kv_lora_rank
+        scale = 1.0 / math.sqrt(nope + rope)
+        q_nope, q_rope = _mla_q(p, x, cfg, positions)
+        c_kv, k_rope = _mla_latent(p, x, cfg, positions)
 
-    if cache is None:
-        # expanded path: materialise per-head K/V from the latent
-        kvb = linear(c_kv, p["wkv_b"]).reshape(b, s, h, nope + vd)
-        k_nope, v = kvb[..., :nope], kvb[..., nope:]
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        pdt = torch.bfloat16 if cfg.attn_probs_dtype == "bf16" else torch.float32
-        o = chunked_attention(q, k, v, positions, positions, chunk=cfg.attn_chunk,
-                              scale=scale, probs_dtype=pdt)
-    else:
-        if torch.is_tensor(pos):
-            rows = pos + torch.arange(s, device=x.device)
-            cache["c_kv"].index_copy_(1, rows, c_kv)
-            cache["k_rope"].index_copy_(1, rows, k_rope)
+        if cache is None:
+            # expanded path: materialise per-head K/V from the latent
+            kvb = linear(c_kv, p["wkv_b"]).reshape(b, s, h, nope + vd)
+            k_nope, v = kvb[..., :nope], kvb[..., nope:]
+            k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
+            q = torch.cat([q_nope, q_rope], dim=-1)
+            pdt = torch.bfloat16 if cfg.attn_probs_dtype == "bf16" else torch.float32
+            with obs.span("layer.attention_core"):
+                o = chunked_attention(q, k, v, positions, positions, chunk=cfg.attn_chunk,
+                                      scale=scale, probs_dtype=pdt)
         else:
-            check_cache_write(cfg, cache, pos, s)
-            cache["c_kv"][:, pos:pos + s] = c_kv
-            cache["k_rope"][:, pos:pos + s] = k_rope
-        cc, cr = cache["c_kv"].float(), cache["k_rope"].float()
-        # wkv_b's columns are per-head blocks of (nope + vd), as the
-        # expanded path's reshape reads them
-        w_b = p["wkv_b"].reshape(kvr, h, nope + vd).float()
-        w_uk, w_uv = w_b[:, :, :nope], w_b[:, :, nope:]
-        q_c = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk)   # w_uk folded into q
-        sc = torch.einsum("bshl,btl->bsht", q_c, cc)
-        sc = sc + torch.einsum("bshr,btr->bsht", q_rope.float(), cr)
-        sc = sc * scale
-        kpos = torch.arange(cc.shape[1], device=x.device)
-        if offsets is not None:
-            # per-row logical slot positions; left-padding slots (< 0) are
-            # masked, as GQA's kpos >= 0
-            kpos_b = kpos[None, :] - offsets[:, None]                  # (B, T)
-            valid = ((kpos_b[:, None, :] <= positions[:, :, None])
-                     & (kpos_b[:, None, :] >= 0))                      # (B, S, T)
-            sc = torch.where(valid[:, :, None, :], sc, _NEG)
-        else:
-            valid = kpos[None, :] <= positions[:, None]                # (S, T)
-            sc = torch.where(valid[None, :, None, :], sc, _NEG)
-        pr = torch.softmax(sc, dim=-1)
-        att_c = torch.einsum("bsht,btl->bshl", pr, cc)
-        o = torch.einsum("bshl,lhv->bshv", att_c, w_uv).to(x.dtype)
-    o = linear(o.reshape(b, s, h * vd), p["wo"])
-    return o, cache
+            if torch.is_tensor(pos):
+                rows = pos + torch.arange(s, device=x.device)
+                cache["c_kv"].index_copy_(1, rows, c_kv)
+                cache["k_rope"].index_copy_(1, rows, k_rope)
+            else:
+                check_cache_write(cfg, cache, pos, s)
+                cache["c_kv"][:, pos:pos + s] = c_kv
+                cache["k_rope"][:, pos:pos + s] = k_rope
+            with obs.span("layer.attention_core"):
+                cc, cr = cache["c_kv"].float(), cache["k_rope"].float()
+                # wkv_b's columns are per-head blocks of (nope + vd), as the
+                # expanded path's reshape reads them
+                w_b = p["wkv_b"].reshape(kvr, h, nope + vd).float()
+                w_uk, w_uv = w_b[:, :, :nope], w_b[:, :, nope:]
+                q_c = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk)   # w_uk folded into q
+                sc = torch.einsum("bshl,btl->bsht", q_c, cc)
+                sc = sc + torch.einsum("bshr,btr->bsht", q_rope.float(), cr)
+                sc = sc * scale
+                kpos = torch.arange(cc.shape[1], device=x.device)
+                if offsets is not None:
+                    # per-row logical slot positions; left-padding slots (< 0) are
+                    # masked, as GQA's kpos >= 0
+                    kpos_b = kpos[None, :] - offsets[:, None]                  # (B, T)
+                    valid = ((kpos_b[:, None, :] <= positions[:, :, None])
+                             & (kpos_b[:, None, :] >= 0))                      # (B, S, T)
+                    sc = torch.where(valid[:, :, None, :], sc, _NEG)
+                else:
+                    valid = kpos[None, :] <= positions[:, None]                # (S, T)
+                    sc = torch.where(valid[None, :, None, :], sc, _NEG)
+                pr = torch.softmax(sc, dim=-1)
+                att_c = torch.einsum("bsht,btl->bshl", pr, cc)
+                o = torch.einsum("bshl,lhv->bshv", att_c, w_uv).to(x.dtype)
+        o = linear(o.reshape(b, s, h * vd), p["wo"])
+        return o, cache
 
 
 def mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,

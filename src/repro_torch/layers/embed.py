@@ -9,6 +9,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.matmul.ops import matmul
 
 Params = Dict[str, torch.Tensor]
@@ -50,14 +51,15 @@ def unembed(p: Params, x: torch.Tensor, vocab: int) -> torch.Tensor:
     place through its ``.t()`` view, so no copy of the head is made.
     Operands of two types meet in the wider one, as ``jnp.matmul``
     promotes them."""
-    w = p.get("lm_head")
-    if w is None:
-        w = p["embedding"].t()
-    dt = torch.promote_types(x.dtype, w.dtype)
-    rows = x.reshape(-1, x.shape[-1]).to(dt).contiguous()
-    logits = matmul(rows, w.to(dt), out_dtype=torch.float32)
-    logits = logits.reshape(*x.shape[:-1], w.shape[1])
-    vp = logits.shape[-1]
-    if vp != vocab:
-        logits[..., vocab:] = _NEG
-    return logits
+    with obs.span("layer.unembed"):
+        w = p.get("lm_head")
+        if w is None:
+            w = p["embedding"].t()
+        dt = torch.promote_types(x.dtype, w.dtype)
+        rows = x.reshape(-1, x.shape[-1]).to(dt).contiguous()
+        logits = matmul(rows, w.to(dt), out_dtype=torch.float32)
+        logits = logits.reshape(*x.shape[:-1], w.shape[1])
+        vp = logits.shape[-1]
+        if vp != vocab:
+            logits[..., vocab:] = _NEG
+        return logits

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dist.local import local_matmul
 from repro_torch.plan.context import planned_mesh, planned_strategy, planned_tuning
 
@@ -28,10 +29,11 @@ def linear_params(generator: torch.Generator, d_in: int, d_out: int,
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with fp32 accumulation, in x's dtype."""
-    mesh = planned_mesh()
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        from repro_torch.dist.api import symmetric_matmul
+    with obs.span("layer.linear"):
+        mesh = planned_mesh()
+        if mesh is not None and getattr(mesh, "size", 1) > 1:
+            from repro_torch.dist.api import symmetric_matmul
 
-        return symmetric_matmul(x, w, mesh=mesh, out_dtype=x.dtype,
-                                strategy=planned_strategy(), tuning=planned_tuning())
-    return local_matmul(x, w, out_dtype=x.dtype)
+            return symmetric_matmul(x, w, mesh=mesh, out_dtype=x.dtype,
+                                    strategy=planned_strategy(), tuning=planned_tuning())
+        return local_matmul(x, w, out_dtype=x.dtype)

@@ -6,6 +6,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from .linear import linear, linear_params
 
 Params = Dict[str, torch.Tensor]
@@ -23,6 +24,7 @@ def mlp_params(generator: torch.Generator, d: int, d_ff: int,
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     # gate/up stay in the compute dtype, as in the reference: silu is tame
     # and fp32 intermediates would double the (B, S, d_ff) traffic
-    g = F.silu(linear(x, p["w_gate"]))
-    u = linear(x, p["w_up"])
-    return linear(g * u, p["w_down"])
+    with obs.span("layer.mlp"):
+        g = F.silu(linear(x, p["w_gate"]))
+        u = linear(x, p["w_up"])
+        return linear(g * u, p["w_down"])

@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.models.config import ModelConfig
 from .mlp import mlp, mlp_params
 
@@ -88,46 +89,47 @@ def expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
 
 def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d) in x's type, aux loss fp32 scalar)."""
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.top_k
-    g = min(cfg.moe_group_size, s)
-    if s % g:
-        raise ValueError(f"sequence length {s} is not a multiple of the routing "
-                         f"group {g} (moe_group_size {cfg.moe_group_size})")
-    n = b * (s // g)
-    cap = _capacity(g, e, k, cfg.capacity_factor)
-    xg = x.reshape(n, g, d)
-    xf = xg.float()
+    with obs.span("layer.moe"):
+        b, s, d = x.shape
+        e, k = cfg.num_experts, cfg.top_k
+        g = min(cfg.moe_group_size, s)
+        if s % g:
+            raise ValueError(f"sequence length {s} is not a multiple of the routing "
+                             f"group {g} (moe_group_size {cfg.moe_group_size})")
+        n = b * (s // g)
+        cap = _capacity(g, e, k, cfg.capacity_factor)
+        xg = x.reshape(n, g, d)
+        xf = xg.float()
 
-    logits = torch.einsum("ngd,de->nge", xf, p["router"].float())
-    probs = torch.softmax(logits, dim=-1)                           # (N, g, E)
-    gate_vals, expert_idx = top_k(probs, k)                         # (N, g, k)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        logits = torch.einsum("ngd,de->nge", xf, p["router"].float())
+        probs = torch.softmax(logits, dim=-1)                           # (N, g, E)
+        gate_vals, expert_idx = top_k(probs, k)                         # (N, g, k)
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
 
-    # per-choice accumulation keeps intermediates at (N, g, E, C)
-    dispatch = torch.zeros((n, g, e, cap), dtype=torch.float32, device=x.device)
-    combine = torch.zeros_like(dispatch)
-    counts = torch.zeros((n, 1, e), dtype=torch.float32, device=x.device)  # used slots
-    for c in range(k):
-        oh = _one_hot(expert_idx[:, :, c], e)
-        pos = torch.cumsum(oh, dim=1) - 1.0 + counts                # (N, g, E)
-        keep = (pos < cap).float() * oh
-        slot = pos.clamp(0, cap - 1).to(torch.int64)
-        sel = _one_hot(slot, cap) * keep[..., None]
-        dispatch = dispatch + sel
-        combine = combine + sel * gate_vals[:, :, c, None, None]
-        counts = counts + keep.sum(dim=1, keepdim=True)
+        # per-choice accumulation keeps intermediates at (N, g, E, C)
+        dispatch = torch.zeros((n, g, e, cap), dtype=torch.float32, device=x.device)
+        combine = torch.zeros_like(dispatch)
+        counts = torch.zeros((n, 1, e), dtype=torch.float32, device=x.device)  # used slots
+        for c in range(k):
+            oh = _one_hot(expert_idx[:, :, c], e)
+            pos = torch.cumsum(oh, dim=1) - 1.0 + counts                # (N, g, E)
+            keep = (pos < cap).float() * oh
+            slot = pos.clamp(0, cap - 1).to(torch.int64)
+            sel = _one_hot(slot, cap) * keep[..., None]
+            dispatch = dispatch + sel
+            combine = combine + sel * gate_vals[:, :, c, None, None]
+            counts = counts + keep.sum(dim=1, keepdim=True)
 
-    xe = torch.einsum("ngd,ngec->necd", xf, dispatch).to(x.dtype)   # (N, E, C, d)
-    ye = expert_ffn(p, xe)
-    y = torch.einsum("necd,ngec->ngd", ye.float(), combine)
-    y = y.to(x.dtype).reshape(b, s, d)
+        xe = torch.einsum("ngd,ngec->necd", xf, dispatch).to(x.dtype)   # (N, E, C, d)
+        ye = expert_ffn(p, xe)
+        y = torch.einsum("necd,ngec->ngd", ye.float(), combine)
+        y = y.to(x.dtype).reshape(b, s, d)
 
-    if "shared" in p:
-        y = y + mlp(p["shared"], x)
+        if "shared" in p:
+            y = y + mlp(p["shared"], x)
 
-    # Switch load-balance loss: E * mean_e f_e * P_e
-    f = _one_hot(expert_idx, e).sum(dim=2).mean(dim=1)              # (N, E)
-    pmean = probs.mean(dim=1)                                       # (N, E)
-    aux = e * (f * pmean).sum(dim=-1).mean()
-    return y, aux
+        # Switch load-balance loss: E * mean_e f_e * P_e
+        f = _one_hot(expert_idx, e).sum(dim=2).mean(dim=1)              # (N, E)
+        pmean = probs.mean(dim=1)                                       # (N, E)
+        aux = e * (f * pmean).sum(dim=-1).mean()
+        return y, aux

@@ -49,6 +49,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
 import repro_torch.kernels.matmul.ops  # noqa: F401  (registers the op ``_SAVED`` names)
 from repro_torch.layers.attention import check_cache_write, gqa_cache, mla_cache
@@ -164,17 +165,18 @@ class DecoderLM:
     def forward(self, params: Params, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) -> (logits (B, S, V_padded) fp32, aux loss)."""
-        cfg = self.cfg
-        x = embed(params["embed"], tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        block = remat(self._block, cfg)
-        for kind, layers in self.stacks(params):
-            for lp in layers:
-                x, a = block(lp, x, positions, kind)
-                aux = aux + a
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return unembed(params["embed"], x, cfg.vocab_size), aux
+        with obs.span("model.forward"):
+            cfg = self.cfg
+            x = embed(params["embed"], tokens)
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            block = remat(self._block, cfg)
+            for kind, layers in self.stacks(params):
+                for lp in layers:
+                    x, a = block(lp, x, positions, kind)
+                    aux = aux + a
+            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            return unembed(params["embed"], x, cfg.vocab_size), aux
 
     def _block(self, lp: Params, x: torch.Tensor, positions: torch.Tensor, kind: str):
         x, a, _ = block_apply(lp, x, self.cfg, kind, positions)
@@ -206,10 +208,11 @@ class DecoderLM:
         ``offsets`` (B,) marks per-row left-padding: row i's logical
         positions are arange(S) - offsets[i], so its padding slots sit at
         negative positions and attention masks them out."""
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        if offsets is not None:
-            positions = positions[None, :] - offsets[:, None]
-        return self._cached_forward(params, cache, tokens, positions, 0, offsets)
+        with obs.span("model.prefill"):
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            if offsets is not None:
+                positions = positions[None, :] - offsets[:, None]
+            return self._cached_forward(params, cache, tokens, positions, 0, offsets)
 
     def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor,
                     pos, offsets: Optional[torch.Tensor] = None
@@ -219,11 +222,12 @@ class DecoderLM:
         position is pos - offsets[i].  An int slot past the cache end
         raises; a tensor slot is not checked (that would wait for the
         device): check it with ``check_decode_pos`` first."""
-        if offsets is not None:
-            positions = pos - offsets[:, None]
-        else:
-            positions = decode_positions(pos, tokens.device)
-        return self._cached_forward(params, cache, tokens, positions, pos, offsets)
+        with obs.span("model.decode_step"):
+            if offsets is not None:
+                positions = pos - offsets[:, None]
+            else:
+                positions = decode_positions(pos, tokens.device)
+            return self._cached_forward(params, cache, tokens, positions, pos, offsets)
 
     def check_decode_pos(self, cache: Cache, pos: int) -> None:
         """Raise where a decode step at slot ``pos`` (an int on the host)

@@ -8,7 +8,10 @@ them:
   runtime    -- hierarchical span tracing (``span("plan.build")``),
                 context-propagated tags (inherited by the rank threads of
                 a single-controller mesh), a process-global recorder, and a
-                no-op fast path when disabled (the default)
+                no-op fast path when disabled (the default); an enabled
+                span is a ``torch.profiler`` range on the profiler's clock,
+                and inside a captured CUDA graph a ``model.*`` / ``layer.*``
+                span is a pair of timing events (``graph_events``)
   metrics    -- typed counters/histograms (plan-cache hits, per-strategy
                 collective counts/words, kernel device time)
   export     -- Chrome/Perfetto ``trace_event`` JSON + the flat metrics
@@ -37,8 +40,8 @@ from .profile import (PROFILE_SCHEMA, LinkParams, MachineProfile,
                       save_profile)
 from .runtime import (NOOP_SPAN, CollectiveEvent, Recorder, SpanRecord,
                       current_tags, disable, enable, enabled, get_recorder,
-                      inherited, instant, observe, record_collective, reset,
-                      span)
+                      graph_events, graph_times_us, inherited, instant,
+                      observe, record_collective, reset, span)
 
 __all__ = [
     "calibrate", "export", "metrics", "profile", "runtime",
@@ -46,6 +49,7 @@ __all__ = [
     "enable", "disable", "enabled", "observe", "span", "instant",
     "record_collective", "current_tags", "inherited", "get_recorder", "reset",
     "Recorder", "SpanRecord", "CollectiveEvent", "NOOP_SPAN",
+    "graph_events", "graph_times_us",
     # metrics
     "Counter", "Histogram", "counter", "histogram", "reset_metrics",
     "snapshot",

@@ -5,11 +5,17 @@ Instrumentation sites guard on ``repro_torch.obs.enabled()`` before
 recording, so the registry only fills while tracing is on; direct use
 (tests, ``chip_smoke.py``) works regardless.  ``snapshot()`` flattens
 everything into the flat metrics JSON.
+
+A histogram may also take a value that is not known yet
+(``Histogram.defer``): a device time whose events have been recorded but
+not waited for.  Reading the histogram (``summary``, hence ``snapshot``
+and the exporters) resolves every such value first, so the instrumented
+code never waits for the device.
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 class Counter:
@@ -55,6 +61,13 @@ class Histogram:
         self.sum = 0.0
         self.min: Optional[float] = None
         self.max: Optional[float] = None
+        self._pending: List[Callable[[], Optional[float]]] = []
+
+    def defer(self, value: Callable[[], Optional[float]]) -> None:
+        """Observe ``value()`` when the histogram is next read (None: no
+        observation)."""
+        with self._lock:
+            self._pending.append(value)
 
     def observe(self, value: float) -> None:
         v = float(value)
@@ -65,6 +78,12 @@ class Histogram:
             self.max = v if self.max is None else max(self.max, v)
 
     def summary(self) -> Dict[str, Optional[float]]:
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for value in pending:
+            v = value()
+            if v is not None:
+                self.observe(v)
         with self._lock:
             mean = self.sum / self.count if self.count else None
             return {"count": self.count, "sum": self.sum,

@@ -23,16 +23,38 @@ the program's), and a rank thread starts from the tags of the caller's
 span stack (``inherited``), as ``Mesh.run`` forks its streams from the
 caller's.
 
+Every span has an ``id`` and the ``parent`` id of the span that opened it
+on its thread, and carries the ``batch`` tag of the nearest enclosing span
+that has one (``serve.generate`` tags each served batch).  While enabled,
+a span is also a ``torch.profiler.record_function`` range of its name, and
+its timestamps are read on the profiler's own clock (``CLOCK_REALTIME``,
+``time.time_ns``), so ``write_trace`` output lays over a profiler trace
+(whose chrome export counts from its ``baseTimeNanoseconds``).
+A range holds the host calls that launch its kernels; the profiler's
+device-side annotation of a kernel goes to the innermost range only, so an
+outer span's device time is read through its launches (their correlation
+ids), not from its annotation.
+
+Inside a CUDA-graph capture opened under ``graph_events()``, each span
+named ``model.*`` or ``layer.*`` (``DEVICE_TIMED``) also records a timing
+event at its entry and exit on the capturing stream
+(``torch.cuda.Event(enable_timing=True, external=True)``): the events are
+nodes of the graph, every replay records them again, and
+``graph_times_us`` reads one replay's device time by span name.  A
+capture made with tracing off holds no such node.
+
 Disabled mode (the default) is a no-op fast path: ``span()`` returns a
-shared singleton context manager that allocates nothing, and every
-instrumentation site guards on ``enabled()`` (one module-global read)
-before touching the recorder or the device.  ``observe()`` is the scoped
-enable used by tests, the drift check and ``chip_smoke.py``.
+shared singleton context manager after one module-global read, with no
+profiler range, no event and no allocation, and every instrumentation
+site guards on ``enabled()`` before touching the recorder or the device.
+``observe()`` is the scoped enable used by tests, the drift check and
+``chip_smoke.py``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -40,6 +62,9 @@ from typing import Any, Dict, List, Optional, Tuple
 Perm = Tuple[Tuple[int, int], ...]
 
 _ENABLED = False
+# spans whose device time a CUDA-graph capture records (``graph_events``)
+DEVICE_TIMED = ("model.", "layer.")
+_IDS = itertools.count(1)
 
 
 def enabled() -> bool:
@@ -61,7 +86,9 @@ def disable() -> None:
 
 
 def _now_us() -> float:
-    return time.perf_counter_ns() / 1e3
+    """Microseconds on the clock ``torch.profiler`` stamps its events with
+    (``CLOCK_REALTIME``; ``tests/test_torch_tracing.py`` pins it)."""
+    return time.time_ns() / 1e3
 
 
 def canonical_perm(perm) -> Perm:
@@ -74,7 +101,9 @@ def canonical_perm(perm) -> Perm:
 
 @dataclasses.dataclass
 class SpanRecord:
-    """One finished span: a Perfetto complete ("X") event."""
+    """One finished span: a Perfetto complete ("X") event, its own ``id``,
+    the ``parent`` id of the span that opened it on its thread (None at
+    the top) and the ``batch`` tag it runs under (None outside one)."""
 
     name: str
     ts_us: float
@@ -82,6 +111,9 @@ class SpanRecord:
     tid: int
     depth: int
     args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    id: int = 0
+    parent: Optional[int] = None
+    batch: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,8 +203,8 @@ def current_tags() -> Dict[str, Any]:
     wins), over the tags the thread inherited (``inherited``) -- how the
     collective seam learns the executing strategy."""
     tags: Dict[str, Any] = dict(getattr(_TLS, "base", None) or {})
-    for _, _, args in _stack():
-        tags.update(args)
+    for frame in _stack():
+        tags.update(frame.args)
     return tags
 
 
@@ -189,8 +221,24 @@ def inherited(tags: Dict[str, Any]):
         _TLS.base = prev
 
 
+class _Frame:
+    """One entered span on its thread's stack."""
+
+    __slots__ = ("name", "args", "id", "parent", "batch", "t0", "range", "events")
+
+    def __init__(self, name: str, args: Dict[str, Any], up: Optional["_Frame"]):
+        self.name = name
+        self.args = args
+        self.id = next(_IDS)
+        self.parent = up.id if up is not None else None
+        inherited_batch = (up.batch if up is not None
+                           else (getattr(_TLS, "base", None) or {}).get("batch"))
+        self.batch = args.get("batch", inherited_batch)
+        self.events = None
+
+
 class _Span:
-    """Active span handle; re-entrant per ``with`` (one handle per enter)."""
+    """Active span handle; re-entrant per ``with`` (one frame per enter)."""
 
     __slots__ = ("name", "args")
 
@@ -199,15 +247,44 @@ class _Span:
         self.args = args
 
     def __enter__(self):
-        _stack().append((self.name, _now_us(), self.args))
+        st = _stack()
+        frame = _Frame(self.name, self.args, st[-1] if st else None)
+        log = getattr(_TLS, "graph_log", None)
+        if log is not None and self.name.startswith(DEVICE_TIMED):
+            frame.events = _record_event()
+        frame.t0 = _now_us()
+        frame.range = _record_function(self.name)
+        frame.range.__enter__()
+        st.append(frame)
         return self
 
     def __exit__(self, *exc):
-        name, t0, args = _stack().pop()
+        st = _stack()
+        frame = st.pop()
+        if frame.events is not None:
+            _TLS.graph_log.append((frame.name, frame.events, _record_event()))
+        frame.range.__exit__(None, None, None)
         _RECORDER.add_span(SpanRecord(
-            name=name, ts_us=t0, dur_us=_now_us() - t0,
-            tid=threading.get_ident(), depth=len(_stack()), args=args))
+            name=frame.name, ts_us=frame.t0, dur_us=_now_us() - frame.t0,
+            tid=threading.get_ident(), depth=len(st), args=frame.args,
+            id=frame.id, parent=frame.parent, batch=frame.batch))
         return False
+
+
+def _record_function(name: str):
+    from torch.profiler import record_function
+
+    return record_function(name)
+
+
+def _record_event():
+    """A timing event recorded on the current stream; inside a capture it
+    becomes a node of the graph (``external``)."""
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True, external=True)
+    ev.record()
+    return ev
 
 
 class _NoopSpan:
@@ -238,6 +315,32 @@ def span(name: str, **args):
     if not _ENABLED:
         return NOOP_SPAN
     return _Span(name, args)
+
+
+@contextlib.contextmanager
+def graph_events():
+    """Around a CUDA-graph capture on this thread: with tracing on, every
+    ``DEVICE_TIMED`` span entered inside records a timing event at its
+    entry and exit on the capturing stream (module docstring).  Yields
+    the list the capture fills with ``(name, start, end)``; it stays empty
+    with tracing off."""
+    log: List = []
+    prev = getattr(_TLS, "graph_log", None)
+    _TLS.graph_log = log if _ENABLED else None
+    try:
+        yield log
+    finally:
+        _TLS.graph_log = prev
+
+
+def graph_times_us(log) -> Dict[str, float]:
+    """The device microseconds of the last replay of a graph whose capture
+    filled ``log`` (``graph_events``), summed by span name.  The replay
+    must have finished on the device."""
+    out: Dict[str, float] = {}
+    for name, start, end in log:
+        out[name] = out.get(name, 0.0) + start.elapsed_time(end) * 1e3
+    return out
 
 
 def record_collective(kind: str, group: int, shard_words: int,

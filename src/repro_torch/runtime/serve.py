@@ -16,7 +16,8 @@ device, checked on the host first, as the captured steps do.  With a
 ``planned_scope``: every projection goes through the plan engine
 (``tuning=`` prices and tiles its plans with measured kernel seconds).
 Under ``repro_torch.obs`` tracing the prefill and each decode step are
-``serve.prefill`` / ``serve.decode_step`` spans.
+``serve.prefill`` / ``serve.decode_step`` spans (tagged with the batch's
+``rows``), and each sampling is a ``serve.sample`` span.
 """
 from __future__ import annotations
 
@@ -156,18 +157,21 @@ def token_loop(model, cache, tokens: torch.Tensor, cfg: ServeConfig,
     b, sp = tokens.shape
     out = [tokens]
     marks = []
-    with obs.span("serve.prefill", batch=b, seq=sp):
+    with obs.span("serve.prefill", rows=b, seq=sp):
         logits = prefill()
     if cfg.max_new_tokens > 0:
-        cur = _sample(logits, cfg, generator)
+        with obs.span("serve.sample"):
+            cur = _sample(logits, cfg, generator)
         out.append(cur[:, None])
         if on_token is not None:
             marks.append(on_token())
         for t in range(sp, sp + cfg.max_new_tokens - 1):
             model.check_decode_pos(cache, t)
-            with obs.span("serve.decode_step", batch=b, pos=t):
+            with obs.span("serve.decode_step", rows=b, pos=t):
                 pos = torch.full((), t, dtype=torch.int64, device=tokens.device)
-                cur = _sample(step(cur[:, None], pos), cfg, generator)
+                logits = step(cur[:, None], pos)
+                with obs.span("serve.sample"):
+                    cur = _sample(logits, cfg, generator)
             out.append(cur[:, None])
             if on_token is not None:
                 marks.append(on_token())

@@ -45,16 +45,36 @@ With ``mesh=`` (a ``repro_torch.dist.Mesh``, or its sizes such as
 ``(2, 2)``, built on the parameters' device) every projection runs
 through the plan engine (``planned_scope``); ``strategy=`` pins one
 schedule, ``tuning=`` (a ``repro_torch.tune`` table or live ``Tuner``)
-prices and tiles the plans with measured kernel seconds.  Observability,
-all guarded on ``obs.enabled()``: ``serve.warmup`` / ``serve.prefill`` /
-``serve.decode_step`` spans, ``serve.ttft_us`` / ``serve.decode_token_us``
-histograms, ``serve.warmup.buckets`` / ``serve.requests`` /
-``serve.tokens`` / ``serve.cold_bucket`` / ``serve.plan_repin`` counters.
+prices and tiles the plans with measured kernel seconds.
+
+Observability, all guarded on ``obs.enabled()``:
+
+  * spans: ``serve.warmup`` a bucket; ``serve.generate`` a call (tags
+    ``bucket`` and ``batch``, a number of its own that every span inside
+    carries); inside it ``serve.prefill``, ``serve.decode_step`` and
+    ``serve.sample`` (``runtime.serve.token_loop``), ``serve.token_sync``
+    (the latency clock's wait for the device), ``serve.inputs`` (copies
+    into a bucket's static buffers) and ``serve.replay`` (the host's side
+    of a graph replay);
+  * counters: ``serve.warmup.buckets``, ``serve.requests{bucket}``,
+    ``serve.tokens``, ``serve.cold_bucket``, ``serve.replays{step}``;
+  * histograms: ``serve.ttft_us`` and ``serve.decode_token_us`` (host
+    clock); on the card, ``serve.decode_step.device_us`` (a pair of CUDA
+    events around each decode step's input copies and replay) and
+    ``serve.between_steps.device_us`` (from one step's end event to the
+    next one's start), and ``serve.graph.<span>_us``, each ``model.*`` /
+    ``layer.*`` span's device time in one decode step (the sum over its
+    calls), from the timing events a capture made with tracing on holds
+    (``obs.graph_events``); ``serve.graph.prefill.<span>_us`` the same of
+    the prefill graph.  All are read once a batch, after its last step,
+    never between steps.  A bucket captured with tracing off holds no
+    event: warm it again with tracing on to read the in-graph times.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -78,6 +98,7 @@ DEFAULT_BUCKETS = ((4, 16), (4, 32), (8, 16), (8, 32))
 # the reference's defaults of ``Server(pad_id=, dummy_token=)``
 PAD_ID = 0        # left-padding token (masked out through the offsets)
 DUMMY_TOKEN = 1   # fills the dummy rows that pad a batch to its bucket
+_BATCH_IDS = itertools.count()   # the ``batch`` tag of each ``serve.generate``
 
 
 @dataclasses.dataclass
@@ -114,14 +135,17 @@ class ServeResult:
 
 @dataclasses.dataclass
 class _Step:
-    """One captured step: the graph, its static output, what the capture
-    launched (K1 launches by route, planned products by strategy) and how
-    often it was replayed."""
+    """One captured step: its name, the graph, its static output, what the
+    capture launched (K1 launches by route, planned products by strategy),
+    the timing events it holds (``obs.graph_events``, empty when captured
+    with tracing off) and how often it was replayed."""
 
+    name: str
     graph: "torch.cuda.CUDAGraph"
     logits: torch.Tensor
     k1_routes: Dict[str, int]
     products: Dict[str, int]
+    events: List = dataclasses.field(default_factory=list)
     replays: int = 0
 
 
@@ -135,6 +159,9 @@ class _BucketGraphs:
     pos: torch.Tensor         # () int64, the decode step's cache slot
     cache: Dict
     steps: Dict[str, _Step] = dataclasses.field(default_factory=dict)
+    # a pair of timing events per decode step of a batch, made when a batch
+    # is first served with tracing on
+    step_events: Optional[List[Tuple["torch.cuda.Event", "torch.cuda.Event"]]] = None
 
 
 def _as_mesh(mesh, device) -> Optional[Mesh]:
@@ -280,22 +307,22 @@ class Server:
         def decode():
             return decode_step(self.model, self.params, cache, g.cur, g.pos, g.offsets)
 
-        g.steps["prefill"] = self._capture_step(prefill)
+        g.steps["prefill"] = self._capture_step("prefill", prefill)
         if self.cfg.max_new_tokens > 1:
-            g.steps["decode"] = self._capture_step(decode)
+            g.steps["decode"] = self._capture_step("decode", decode)
         self._captured[bucket] = g
 
-    def _capture_step(self, fn) -> _Step:
+    def _capture_step(self, name: str, fn) -> _Step:
         routes = dict(zorder_kernel.launches_by_route)
         plans = executions_snapshot()
         graph = torch.cuda.CUDAGraph()
         capture = torch.cuda.graph(graph, pool=self._pool)
         zorder_kernel.prepare_capture_stream(capture.capture_stream)
         torch.cuda.synchronize(self.device)
-        with capture:
+        with obs.graph_events() as events, capture:
             logits = fn()
-        return _Step(graph, logits, _moved(routes, zorder_kernel.launches_by_route),
-                     _moved(plans, executions_snapshot()))
+        return _Step(name, graph, logits, _moved(routes, zorder_kernel.launches_by_route),
+                     _moved(plans, executions_snapshot()), events)
 
     # -- serving -------------------------------------------------------------
 
@@ -309,6 +336,14 @@ class Server:
         n = len(prompt_list)
         maxlen = max(len(p) for p in prompt_list)
         bucket = route(n, maxlen, self.buckets)
+        label = bucket.label if bucket else "cold"
+        with obs.span("serve.generate", bucket=label, batch=next(_BATCH_IDS)):
+            return self._generate(prompt_list, bucket, generator, t_start)
+
+    def _generate(self, prompt_list, bucket: Optional[Bucket], generator,
+                  t_start: float) -> ServeResult:
+        """``generate`` past the routing, inside its ``serve.generate`` span."""
+        n = len(prompt_list)
         probe = self._probe_bucket(bucket)
         if bucket is None:
             if obs.enabled():
@@ -322,7 +357,8 @@ class Server:
         sp = batch.shape[1]
 
         def mark():
-            maybe_sync(self.device)
+            with obs.span("serve.token_sync"):
+                maybe_sync(self.device)
             return time.perf_counter()
 
         captured = self._captured.get(bucket)
@@ -364,21 +400,42 @@ class Server:
         into the static buffers, each step's inputs copied in and its
         graph replayed."""
         sp = batch.shape[1]
-        g.tokens.copy_(torch.from_numpy(batch))
-        g.offsets.copy_(torch.from_numpy((sp - lens).astype(np.int64)))
+        with obs.span("serve.inputs"):
+            g.tokens.copy_(torch.from_numpy(batch))
+            g.offsets.copy_(torch.from_numpy((sp - lens).astype(np.int64)))
+        if obs.enabled() and g.step_events is None:
+            g.step_events = [(torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                             for _ in range(self.cfg.max_new_tokens - 1)]
+        spare = iter(g.step_events if obs.enabled() else ())
+        timed = []
 
         def decode(cur, pos):
-            g.cur.copy_(cur)
-            g.pos.copy_(pos)
-            return self._replay_step(g.steps["decode"])
+            pair = next(spare, None)
+            if pair is not None:
+                timed.append(pair)
+                pair[0].record()
+            with obs.span("serve.inputs"):
+                g.cur.copy_(cur)
+                g.pos.copy_(pos)
+            logits = self._replay_step(g.steps["decode"])
+            if pair is not None:
+                pair[1].record()
+            return logits
 
-        return token_loop(self.model, g.cache, g.tokens, self.cfg, generator,
-                          prefill=lambda: self._replay_step(g.steps["prefill"]),
-                          step=decode, on_token=mark)
+        out = token_loop(self.model, g.cache, g.tokens, self.cfg, generator,
+                         prefill=lambda: self._replay_step(g.steps["prefill"]),
+                         step=decode, on_token=mark)
+        if obs.enabled():
+            _read_device_times(g, timed)
+        return out
 
     def _replay_step(self, step: _Step) -> torch.Tensor:
-        step.graph.replay()
+        with obs.span("serve.replay", step=step.name):
+            step.graph.replay()
         step.replays += 1
+        if obs.enabled():
+            obs.counter("serve.replays").inc(step=step.name)
         for s, v in step.products.items():
             self._plans[s] += v
         return step.logits
@@ -387,9 +444,8 @@ class Server:
 
     def _probe_bucket(self, bucket: Optional[Bucket]) -> Dict[str, int]:
         """Re-``get`` the bucket's warm plan keys: all hits after warmup;
-        an evicted entry is re-pinned from the warmup snapshot and
-        counted (``serve.plan_repin``).  With a tuner, also probe the
-        bucket's tuning keys."""
+        an evicted entry is re-pinned from the warmup snapshot.  With a
+        tuner, also probe the bucket's tuning keys."""
         if bucket is None or bucket not in self._bucket_plans:
             return {"probed": 0, "missing": 0}
         snapshot = self._bucket_plans[bucket]
@@ -397,8 +453,6 @@ class Server:
         for k in missing:
             if snapshot[k] is not None:
                 plan_cache.put(k, snapshot[k])
-        if missing and obs.enabled():
-            obs.counter("serve.plan_repin").inc(len(missing))
         out = {"probed": len(snapshot), "missing": len(missing)}
         if self.tuning is not None and hasattr(self.tuning, "lookup_key"):
             tune_keys = self._bucket_tune_keys.get(bucket, ())
@@ -462,6 +516,25 @@ class Server:
                                        else None}
             rep["tuning"] = tun
         return rep
+
+
+def _read_device_times(g: _BucketGraphs, pairs: List) -> None:
+    """After a batch's last step (its tokens are on the host, so every
+    event has completed): each decode step's device time and the gaps
+    between steps from ``pairs``, and the in-graph span times of the last
+    replay of each of the bucket's steps (``Server`` module docstring)."""
+    step_h = obs.histogram("serve.decode_step.device_us")
+    gap_h = obs.histogram("serve.between_steps.device_us")
+    for start, end in pairs:
+        step_h.observe(start.elapsed_time(end) * 1e3)
+    for (_, end), (start, _) in zip(pairs, pairs[1:]):
+        gap_h.observe(end.elapsed_time(start) * 1e3)
+    for name, step in g.steps.items():
+        if not step.replays:
+            continue
+        prefix = "serve.graph." if name == "decode" else f"serve.graph.{name}."
+        for span, us in obs.graph_times_us(step.events).items():
+            obs.histogram(f"{prefix}{span}_us").observe(us)
 
 
 def _zero(cache: Dict) -> None:

@@ -1328,3 +1328,118 @@ def test_distributed_demo_on_the_card(cuda_device):
         out, ref = bf16["out"].float(), bf16["ref"]
         assert ((out - ref).norm(dim=1) / ref.norm(dim=1)).max().item() <= 2.0 ** -8
         assert _rel_err(f32["out"], f32["ref"]) < TOL[torch.float32]
+
+
+# -- tracing on the card ---------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_timing_events_captured_in_a_graph_read_what_events_outside_its_replay_read(
+        cuda_device):
+    """Two external timing events captured around a graph's work read,
+    after a replay, the time two events recorded around the replay read,
+    within 1 % (the ``obs.graph_events`` mechanism).  The work takes about
+    30 ms, a decode step's time, so the replay's launch latency (tens of
+    microseconds, outside the captured events) stays under the 1 %."""
+    a = torch.randn(4096, 4096, device=cuda_device, dtype=torch.bfloat16)
+    b = torch.randn(4096, 4096, device=cuda_device, dtype=torch.bfloat16)
+    graph = torch.cuda.CUDAGraph()
+    inner = [torch.cuda.Event(enable_timing=True, external=True) for _ in range(2)]
+    matmul(a, b)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        inner[0].record()
+        for _ in range(150):
+            c = matmul(a, b)
+        inner[1].record()
+    outer = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for _ in range(3):
+        outer[0].record()
+        graph.replay()
+        outer[1].record()
+        torch.cuda.synchronize()
+        got, want = inner[0].elapsed_time(inner[1]), outer[0].elapsed_time(outer[1])
+        assert 0 < got <= want * 1.01 and got >= want * 0.99, (got, want)
+    assert c.shape == (4096, 4096)
+
+
+@pytest.mark.cuda
+def test_k1_under_tracing_waits_for_nothing_and_reads_its_roofline_later(cuda_device):
+    """With tracing on a launch records an event pair and returns; reading
+    the registry resolves each launch's time and its share of ``bound_s``."""
+    from repro_torch import obs
+    from repro_torch.kernels.matmul import ops
+
+    a, b = _bf16_operands(cuda_device, 8, 4096, 4096)
+    waited = []
+    real = torch.cuda.Event.synchronize
+
+    def spy(self):
+        waited.append(self)
+        return real(self)
+
+    obs.reset_metrics()
+    try:
+        torch.cuda.Event.synchronize = spy
+        with obs.observe() as rec:
+            for _ in range(10):
+                matmul(a, b)
+            assert waited == []
+            snap = obs.snapshot()
+        spans = rec.span_counts()
+    finally:
+        torch.cuda.Event.synchronize = real
+        obs.reset()
+        obs.reset_metrics()
+    assert len(waited) == 10 and spans == {"kernel.matmul": 10}
+    assert snap["kernel.matmul.us"]["count"] == 10
+    frac = snap["kernel.matmul.roofline_fraction"]
+    assert frac["count"] == 10 and 0 < frac["min"] <= frac["max"] <= 1.05
+    assert ops.bound_s(8, 4096, 4096, torch.bfloat16, torch.bfloat16) > \
+        2.0 * 8 * 4096 * 4096 / ops.PEAK_FLOPS[torch.bfloat16]     # thin: bytes bound it
+    assert snap["kernel.matmul.launches{route=thin}"] == 10
+
+
+@pytest.mark.cuda
+def test_a_bucket_captured_under_tracing_times_its_spans_inside_the_graph(cuda_device):
+    """A bucket warmed with tracing on holds timing events at each
+    ``model.*`` / ``layer.*`` span; one captured with tracing off holds
+    none.  Both serve the same tokens; the traced server reads each step's
+    device time, the gaps between steps, and each span's in-graph time once
+    a batch, the step's own span within the step's event pair."""
+    from repro_torch import obs
+    from repro_torch.runtime.serve import ServeConfig
+    from repro_torch.serve import Server
+
+    model, params = _smoke_llama(cuda_device)
+    scfg = ServeConfig(max_new_tokens=6, max_seq=32)
+    plain = Server(model, params, scfg, buckets=[(4, 8)])
+    plain.warmup()
+    assert all(s.events == [] for s in plain._captured[plain.buckets[0]].steps.values())
+    want = plain.generate(SERVE_PROMPTS).new_tokens
+    obs.reset_metrics()
+    try:
+        with obs.observe() as rec:
+            traced = Server(model, params, scfg, buckets=[(4, 8)])
+            traced.warmup()
+            rec.clear()
+            got = [traced.generate(SERVE_PROMPTS).new_tokens for _ in range(2)]
+        snap = obs.snapshot()
+        names = {s.name for s in rec.spans}
+    finally:
+        obs.reset()
+        obs.reset_metrics()
+    assert got == [want, want]
+    steps = traced._captured[traced.buckets[0]].steps
+    timed = [n for n, _, _ in steps["decode"].events]
+    assert timed.count("layer.attention") == model.cfg.num_layers
+    assert timed.count("model.decode_step") == 1 and "layer.unembed" in timed
+    assert snap["serve.decode_step.device_us"]["count"] == 2 * 5
+    assert snap["serve.between_steps.device_us"]["count"] == 2 * 4
+    assert snap["serve.replays{step=decode}"] == 2 * 5
+    in_graph = snap["serve.graph.model.decode_step_us"]
+    assert in_graph["count"] == 2 and snap["serve.graph.layer.attention_us"]["count"] == 2
+    assert 0 < in_graph["max"] <= snap["serve.decode_step.device_us"]["max"]
+    assert snap["serve.graph.prefill.model.prefill_us"]["count"] == 2
+    assert names >= {"serve.generate", "serve.replay", "serve.inputs", "serve.token_sync",
+                     "serve.sample"}
