@@ -6,8 +6,9 @@
 Phases, each fatal on failure (no result line, non-zero exit):
 
 1. build  -- compile the Z-order matmul kernel (K1: its wide, thin and
-   wmma/fma sources, one nvcc each) and the flash-attention kernel (K2) from
-   their ``csrc/``, all at once, and print ptxas's registers and spills.
+   wmma/fma sources, one nvcc each), the flash-attention kernel (K2) and
+   the split-KV decode-attention kernel (D1) from their ``csrc/``, all at
+   once, and print ptxas's registers and spills.
 2. kernel -- K1 against its plain version on the card at every (M, K, N)
    Llama-3.2-1B's serving path gives it (M in 4, 8, 64, 256), ragged shapes
    and shapes on both sides of each route threshold (m = 16 | 17,
@@ -47,6 +48,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    Prints TTFT, p50/p99 per-token latency and tokens/s for both, and the
    device time of one prefill and one decode step (CUDA-graph replays).
    K1's count on this main path runs from 0 before the server is built.
+   So does D1's: one launch a layer in each eager decode step (``d1_per_step``;
+   none for MLA), none in a one-pass prefill, none from Python in a
+   replayed run.
 5. flash-kernel -- K2 against its plain version on the card on each of
    its three routes (``FLASH_CHECKS``): head dims 16-128 (Llama's 64,
    zamba2's 80, danube's 120, 128), GQA groups 1, 2 and 4, ragged S_q and
@@ -329,8 +333,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    bucket as phase 4 captures it, Llama-3.2-1B's 8 x 256 training step
    (``lower_cell(mesh=None)``, the ``train_4k`` cell cut as phase 14 cuts
    it) and h2o-danube-3-4b's 32768-token ``flash`` forward, each counted on
-   fake CUDA tensors (K1's and K2's launch counters unmoved) and run once
-   for real with every K1 and K2 launch's shape logged: the counted K1
+   fake CUDA tensors (K1's, K2's and D1's launch counters unmoved) and run
+   once for real with every K1 and K2 launch's shape logged (the decode
+   step's D1 ops counted equal to its launches, one a layer): the counted K1
    FLOPs equal Σ 2mnk of the launched shapes and K2's equal
    ``flash_bound``'s count, exactly, and each step's counted bound over the
    device time phases 4, 14 and 6 measured (phase 14's: a replay of the
@@ -400,6 +405,19 @@ Phases, each fatal on failure (no result line, non-zero exit):
    in turns with ``torch.matmul`` beside ``bound``, and the reference's
    Sec. 4.3 LRU model rows
    (a 16^3 grid, caches of 48, 192, 768 blocks) printed beside.
+22. decode-kernel -- the split-KV decode-attention kernel (D1) at the
+   serving cells' decode steps (``DECODE_CELLS``: h2o-danube-3-4b's 64 rows
+   of 8 x 4 heads, D 120, and deepseek-moe-16b's 16 x 1, D 128, over 850
+   slots, each on its own ``split_plan``), every layer its own cache: the
+   step at ``pos`` 512 with no padding, at ``pos`` 680 with the serving
+   mix's left padding (``decode_offsets``), a rolling window cache and
+   non-causal (S,) key positions, each within ``DECODE_RTOL`` /
+   ``DECODE_ATOL`` of the plain version (``_sdpa``, fp32 probabilities)
+   and rerun bitwise, one launch a call; then a decode step's layers by
+   CUDA-graph replays, in turns: the kernel, its bound (``decode_cost``:
+   the valid slots' K and V once), the plain version and
+   ``F.scaled_dot_product_attention`` with the boolean mask and
+   ``enable_gqa`` (the library call).
 
 On one card the collectives are device copies between the ranks'
 streams (a ppermute's is a ``cudaMemcpyAsync`` on the receiver's copy
@@ -457,6 +475,7 @@ from repro_torch.examples import distributed_matmul as ex_distributed  # noqa: E
 from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
 from repro_torch.examples import serve_batched as ex_serve  # noqa: E402
 from repro_torch.examples import train_lm as ex_train  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as kdec  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
@@ -709,10 +728,11 @@ def graph_ms(fn, calls) -> float:
 
 
 def phase_build() -> dict:
-    """Build K1 and K2 at once (one nvcc per source file, all in parallel),
-    load both, print ptxas's registers and spills per kernel instance."""
+    """Build K1, K2 and the decode-attention kernel at once (one nvcc per
+    source file, all in parallel), load them, print ptxas's registers and
+    spills per kernel instance."""
     t0 = time.perf_counter()
-    mods = {"zorder_matmul": _build, "flash_attention": k2}
+    mods = {"zorder_matmul": _build, "flash_attention": k2, "decode_attention": kdec}
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         futs = {name: pool.submit(m.build) for name, m in mods.items()}
         paths = {name: f.result() for name, f in futs.items()}
@@ -1038,6 +1058,7 @@ def served_runs(server, prompts, reps: int, tag: str, vocab: int) -> list:
     runs = []
     for rep in range(reps):
         k1.reset_launches()
+        kdec.reset_launches()
         replayed = dict(server.cache_report()["kernels"]["zorder_matmul"]["replayed_by_route"])
         before = dict(server.plan_report()["strategies"])
         res = server.generate(prompts)
@@ -1051,6 +1072,7 @@ def served_runs(server, prompts, reps: int, tag: str, vocab: int) -> list:
                              routes=_nonzero(routes), counted=counted, taken=taken,
                              ttft_s=res.ttft_s, steps_s=res.step_latencies_s,
                              wall_s=res.wall_s, new_tokens=res.new_tokens))
+        runs[-1]["d1_launches"] = kdec.launches
     return runs
 
 
@@ -1077,6 +1099,7 @@ def eager_runs(model, params, sc, prompts, reps: int, tag: str, *, mesh=None, tu
     runs = []
     for rep in range(reps):
         k1.reset_launches()
+        kdec.reset_launches()
         before = lower_dist_mod.executions_snapshot()
         t0 = time.perf_counter()
         tokens = torch.as_tensor(batch, dtype=torch.int64, device=dev)
@@ -1108,6 +1131,7 @@ def eager_runs(model, params, sc, prompts, reps: int, tag: str, *, mesh=None, tu
                        routes=counted, counted=counted, taken=taken, ttft_s=marks[0] - t0,
                        steps_s=np.diff(np.asarray(marks)), wall_s=wall, new_tokens=new)
         row["full"] = full.tolist()
+        row["d1_launches"] = kdec.launches
         runs.append(row)
     return runs
 
@@ -1171,6 +1195,17 @@ def train_step_launches(cfg, dtype: torch.dtype = torch.bfloat16) -> int:
     return 3 * layer_products(cfg, cached=False) + unembed
 
 
+def d1_per_step(cfg) -> int:
+    """Launches of the decode-attention kernel (D1) in one bf16 decode step
+    of a model ``phase_serve`` serves: one a call of ``chunked_attention``
+    with one query per row, so one a GQA layer, one a shared block of
+    zamba2; none for xLSTM, and none for MLA, whose cached path runs its
+    own latent einsums."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return cfg.num_layers if cfg.family != "ssm" and cfg.attn_type == "gqa" else 0
+
+
 def prefill_steps(model, seq: int) -> int:
     """Forward steps of a prefill of ``seq`` tokens: one pass where the
     model has ``prefill``, else one decode step a token (teacher forcing)."""
@@ -1217,11 +1252,19 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
                       [as_bucket(b) for b in SERVE_BUCKETS]).seq
     forwards = prefill_steps(model, seq) + SERVE_NEW - 1
     want = per_forward * forwards
+    d1_step = d1_per_step(cfg)
+    token_prefill = prefill_steps(model, seq) > 1     # one decode step a prompt token
     # the main path: counts from 0 before the server is built, read after its runs
     k1.reset_launches()
+    kdec.reset_launches()
     server = Server(model, params, sc, buckets=SERVE_BUCKETS)
     warm = server.warmup(warm)
-    path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route)}
+    path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route),
+            "d1_launches": kdec.launches}
+    if d1_step and (not path["d1_launches"] or path["d1_launches"] % d1_step) or (
+            not d1_step and path["d1_launches"]):
+        raise AssertionError(f"warmup and captures launched the decode kernel "
+                             f"{path['d1_launches']} times, not a multiple of {d1_step} a step")
     log(f"[{tag}] {cfg.name}: {n_params / 1e9:.3f}B params bf16 in {init_s:.1f}s; warmup "
         + ", ".join(f"{k} {v['warm_s']:.2f}s + {v['graphs']} graphs captured in "
                     f"{v['capture_s']:.2f}s" for k, v in warm.items())
@@ -1240,9 +1283,16 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
         raise AssertionError("a request served alone decodes differently from "
                              "the same request in a batch")
     eager = eager_runs(model, params, sc, prompts, 1, tag)
+    for r in runs:
+        if r["d1_launches"]:
+            raise AssertionError(f"a captured run launched the decode kernel from Python "
+                                 f"{r['d1_launches']} times")
     for r in eager:
         if r["graphs"] or r["routes"] != {"thin": want} or r["counted"] != r["routes"]:
             raise AssertionError(f"an eager run launched {r['routes']}, want {want} thin")
+        if r["d1_launches"] != d1_step * (forwards if token_prefill else SERVE_NEW - 1):
+            raise AssertionError(f"an eager run launched the decode kernel {r['d1_launches']} "
+                                 f"times, want {d1_step} a one-token step")
         if r["tokens"] != runs[0]["tokens"]:
             raise AssertionError("the captured steps' tokens differ from the eager path's")
     path["report"] = server.cache_report()
@@ -1263,6 +1313,15 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
         n = per_forward * (prefill_steps(model, SERVE_BUCKETS[0][1]) if step == "prefill" else 1)
         if r != {"thin": n}:
             raise AssertionError(f"one {step} step launched K1 {r}, want {n} thin")
+    d1_prefill = d1_step * SERVE_BUCKETS[0][1] if token_prefill else 0
+    if device_ms["d1_launches"] != {"prefill": d1_prefill, "decode": d1_step}:
+        raise AssertionError(f"the bucket's steps launched the decode kernel "
+                             f"{device_ms['d1_launches']}, want {d1_prefill} in the prefill "
+                             f"and {d1_step} in a decode step")
+    log(f"[{tag}] decode kernel (D1): {d1_step} launches a decode step, {d1_prefill} in the "
+        f"bucket's prefill; "
+        f"{path['d1_launches']} in warmup and captures, "
+        f"{eager[0]['d1_launches']} per eager generate, 0 from Python per replayed generate")
     measured = None if measure is None else measure(model, params)
     peak = max(init_peak, torch.cuda.max_memory_allocated(dev)) / 2 ** 30
     log(f"[{tag}] peak memory allocated {peak:.2f} GiB")
@@ -1287,12 +1346,14 @@ def step_device_ms(model, params, dev: torch.device, bucket) -> dict:
     offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
     steps = {"prefill": lambda: serve_prefill(model, params, cache, tokens, offsets),
              "decode": lambda: serve_step(model, params, cache, tokens[:, -1:], seq, offsets)}
-    out = {"routes": {}}
+    out = {"routes": {}, "d1_launches": {}}
     with torch.no_grad():
         for name, step in steps.items():
             k1.reset_launches()
+            kdec.reset_launches()
             step()
             out["routes"][name] = {r: v for r, v in k1.launches_by_route.items() if v}
+            out["d1_launches"][name] = kdec.launches
             out[name] = graph_ms(step, [()])
     return out
 
@@ -5440,15 +5501,15 @@ PROBE_ARGV = ["--arch", "xlstm-350m", "--shape", "decode_32k", "--mesh", "single
 
 def _fake_count(setup, step) -> hlo_stats.Counter:
     """``step(*setup())`` under a fresh fake mode, the step alone under the
-    cost counter; K1's and K2's launch counters may not move."""
-    before = (k1.launches, k2.launches)
+    cost counter; K1's, K2's and D1's launch counters may not move."""
+    before = (k1.launches, k2.launches, kdec.launches)
     with FakeTensorMode():
         args = setup()
         with hlo_stats.counting() as counter, torch.no_grad():
             step(*args)
-    if (k1.launches, k2.launches) != before:
+    if (k1.launches, k2.launches, kdec.launches) != before:
         raise AssertionError(f"a fake trace moved the launch counters: {before} -> "
-                             f"{(k1.launches, k2.launches)}")
+                             f"{(k1.launches, k2.launches, kdec.launches)}")
     return counter
 
 
@@ -5521,13 +5582,21 @@ def roofline_decode(dev: torch.device, report: dict) -> dict:
     cache = model.init_cache(batch, 64, dev)
     tokens = torch.ones((batch, 1), dtype=torch.int64, device=dev)
     offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
+    kdec.reset_launches()
     with torch.no_grad(), k1.trace_launches() as c1, k2.trace_launches() as c2:
         serve_step(model, params, cache, tokens, seq, offsets)
         torch.cuda.synchronize()
+    d1 = {"counted": counter.calls.get(hlo_stats.D1_OP, 0), "launched": kdec.launches}
+    log(f"[roofline] Llama-3.2-1B decode step: D1 counted {d1['counted']} ops, launched "
+        f"{d1['launched']} (one a layer)")
+    if not d1["counted"] == d1["launched"] == cfg.num_layers:
+        raise AssertionError(f"decode step: D1 counted {d1['counted']}, launched "
+                             f"{d1['launched']}, want {cfg.num_layers}")
     out = _held_to_launches("Llama-3.2-1B decode step, bucket 4x16", counter, c1, c2,
                             report["serve"]["step_device_ms"]["decode"],
                             roof_analysis.infer_model_flops(cfg.active_param_count(), batch),
                             head=(padded_vocab(cfg.vocab_size), cfg.d_model))
+    out["d1"] = d1
     del params, cache
     torch.cuda.empty_cache()
     return out
@@ -6377,6 +6446,160 @@ def examples_routes(ex: dict) -> dict:
             "examples_train_replayed": ex["train"]["restart"]["graph"]["k1_replayed"]}
 
 
+# -- the split-KV decode-attention kernel (phase 22) -----------------------------------
+
+# the serving cells' decode steps (portbench's danube-serve-b64, deepseek-serve-b64):
+# (layers, B, S, H_kv, G, D)
+DECODE_CELLS = {"h2o-danube-3-4b": (24, 64, 850, 8, 4, 120),
+                "deepseek-moe-16b": (28, 64, 850, 16, 1, 128)}
+# the card tests' tolerance (tests/test_torch_cuda.py): one bf16 ulp of the
+# plain version's fp32 output, plus 1e-5 absolute for outputs near 0
+DECODE_RTOL, DECODE_ATOL = 2.0 ** -8, 1e-5
+# the serving mix's prompts: a lognormal of sigma 0.8 with ShareGPT's mean
+# input (161.31 tokens; vLLM, arXiv:2309.06180), left-padded into a 512 bucket
+SHAREGPT_MEAN_IN, SHAREGPT_SIGMA, DECODE_BUCKET = 161.31, 0.8, 512
+
+
+def decode_offsets(rng, b: int, dev: torch.device) -> torch.Tensor:
+    """Each row's left padding in the 512 bucket for prompts of the serving
+    mix's lengths."""
+    mu = math.log(SHAREGPT_MEAN_IN) - SHAREGPT_SIGMA ** 2 / 2
+    lens = np.clip(np.exp(rng.normal(mu, SHAREGPT_SIGMA, size=b)).astype(np.int64), 1,
+                   DECODE_BUCKET)
+    return torch.from_numpy(DECODE_BUCKET - lens).to(dev)
+
+
+def decode_cases(rng, b: int, s: int, dev: torch.device) -> dict:
+    """(qpos, kpos, window, causal) of each checked case, as the callers
+    build them; the first two are timed."""
+    idx = torch.arange(s, device=dev)
+    zero = torch.zeros(b, dtype=torch.int64, device=dev)
+    off = decode_offsets(rng, b, dev)
+    p = torch.tensor(3 * s + 5, device=dev)
+    return {"step at pos 512, no padding": (512 - zero[:, None], idx[None, :] - zero[:, None],
+                                            0, True),
+            "step at pos 680, the serving mix's padding": (680 - off[:, None],
+                                                           idx[None, :] - off[:, None], 0, True),
+            "rolling window cache": (p.reshape(1), p - torch.remainder(p - idx, s), s, True),
+            "non-causal (S,) keys": (torch.zeros(1, dtype=torch.int64, device=dev), idx, 0,
+                                     False)}
+
+
+def phase_decode_kernel(dev: torch.device) -> dict:
+    """Phase 22 (module docstring)."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    checks, timings, worst = [], {}, 0.0
+    for arch, (layers, b, s, hkv, g, d) in DECODE_CELLS.items():
+        chunk, splits = kdec.split_plan(b, hkv, g, s, sms)
+        q = torch.randn(b, 1, hkv, g, d, device=dev).bfloat16()
+        ks = [torch.randn(b, s, hkv, d, device=dev).bfloat16() for _ in range(layers)]
+        vs = [torch.randn(b, s, hkv, d, device=dev).bfloat16() for _ in range(layers)]
+        scale = d ** -0.5
+        for name, (qpos, kpos, window, causal) in decode_cases(rng, b, s, dev).items():
+
+            def kern(i):
+                return kdec.decode_attention(q, ks[i], vs[i], qpos, kpos, window=window,
+                                             scale=scale, causal=causal)
+
+            def plain(i):
+                return attention_layer._sdpa(q, ks[i], vs[i], qpos, kpos, window, scale, causal)
+
+            kdec.reset_launches()
+            out, again = kern(0), kern(0)
+            torch.cuda.synchronize()
+            if kdec.launches != 2 or not torch.equal(out, again):
+                raise AssertionError(f"D1 {arch} {name}: {kdec.launches} launches for 2 calls, "
+                                     f"or two calls disagree")
+            ref = attention_layer._sdpa(q, ks[0], vs[0].float(), qpos, kpos, window, scale,
+                                        causal)
+            err = (out.float() - ref).abs()
+            over = int((err > DECODE_RTOL * ref.abs() + DECODE_ATOL).sum())
+            e = row_err(out, ref)
+            cost = hlo_stats.decode_cost(q, ks[0], vs[0], qpos, kpos, window, causal)
+            valid = cost.flops / (2.0 * 2 * d * hkv * g * b)
+            log(f"[decode-kernel] D1 {arch} {name}: {splits} chunks of {chunk} slots, "
+                f"{valid:.1f} valid slots a row; worst abs err {e['max_abs_err']:.3g}, row rel "
+                f"{e['row_rel']:.3g}, {over} outputs past {DECODE_RTOL:.3g} rel + "
+                f"{DECODE_ATOL:g}; rerun bitwise")
+            if over or not e["finite"]:
+                raise AssertionError(f"D1 {arch} {name}: {over} outputs outside the tolerance")
+            worst = max(worst, e["max_abs_err"])
+            checks.append({"arch": arch, "case": name, "chunk": chunk, "splits": splits,
+                           "valid_slots_per_row": valid, "outputs_outside": over, **e})
+            if len(timings.get(arch, {})) == 2:
+                continue
+            qh = q.reshape(b, 1, hkv * g, d).transpose(1, 2)
+            mask = attention_layer._mask(qpos, kpos, window, causal)[:, None]
+
+            def library(i):
+                return F.scaled_dot_product_attention(
+                    qh, ks[i].transpose(1, 2), vs[i].transpose(1, 2), attn_mask=mask,
+                    scale=scale, enable_gqa=True)
+
+            calls = [(i,) for i in range(layers)]
+            t = {}
+            for key in ("ms", "library_ms", "plain_ms", "library_ms", "ms"):
+                fn = {"ms": kern, "library_ms": library, "plain_ms": plain}[key]
+                t.setdefault(key, []).append(layers * graph_ms(fn, calls))
+            bms, by = _bound(cost.scaled(layers), torch.bfloat16)
+            row = {"shape": [layers, b, s, hkv, g, d], "case": name, "chunk": chunk,
+                   "splits": splits, "valid_slots_per_row": valid,
+                   **{key: min(v) for key, v in t.items()}, "runs": t, "bound_ms": bms,
+                   "bound_by": by}
+            row["bound_share"] = bms / row["ms"]
+            timings.setdefault(arch, {})[name] = row
+            log(f"[decode-time] D1 {arch} decode step ({layers} layers x (B, S, H_kv, G, D) = "
+                f"{(b, s, hkv, g, d)}), {name}: {row['ms']:.3f}ms, bound {bms:.3f}ms ({by}, "
+                f"{row['bound_share']:.1%}), plain {row['plain_ms']:.3f}ms, "
+                f"scaled_dot_product_attention {row['library_ms']:.3f}ms")
+        del q, ks, vs
+        torch.cuda.empty_cache()
+    return {"checks": checks, "timings": timings, "worst_abs_err": worst}
+
+
+def decode_row(report: dict) -> dict:
+    """D1's entry: a danube serving cell's decode step at the serving mix's
+    mean, every layer's launch; the main path's launches (phase 4's
+    warmup, captures and eager run; the zoo's and phase 20's served
+    decoders; phase 19's real step) and each timed step beside it."""
+    t = report["decode_kernel"]["timings"]
+    row = t["h2o-danube-3-4b"]["step at pos 680, the serving mix's padding"]
+    served = {"serve": report["serve"], **{f"zoo_{a}": z["serve"]
+                                            for a, z in report["zoo_serve"].items()},
+              **{f"family_{a}": report["families"][a] for a in SERVED_FAMILIES},
+              **{f"big_{a}": report["big"][a]["serve"] for a in BIG_ARCHS}}
+    by_path = {}
+    for key, srv in served.items():
+        by_path[f"{key}_warmup_and_captures"] = srv["path"]["d1_launches"]
+        by_path[f"{key}_eager_per_generate"] = srv["eager_runs"][0]["d1_launches"]
+        by_path[f"{key}_decode_step"] = srv["step_device_ms"]["d1_launches"]["decode"]
+    by_path["roofline_decode_step"] = report["roofline"]["decode"]["d1"]["launched"]
+    by_path["decode_kernel_checks"] = 2 * len(report["decode_kernel"]["checks"])
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "replaces": None,
+        "launches": report["serve"]["path"]["d1_launches"]
+                    + report["serve"]["eager_runs"][0]["d1_launches"],
+        "launches_by_path": by_path,
+        "routes": {"split_kv": by_path},
+        "max_abs_err": report["decode_kernel"]["worst_abs_err"],
+        **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+        "work": f"one bf16 decode step of h2o-danube-3-4b's serving cell: {row['shape'][0]} "
+                f"launches at (B, S, H_kv, G, D) = {tuple(row['shape'][1:])}, pos 680 with "
+                f"the serving mix's left padding ({row['valid_slots_per_row']:.1f} valid slots "
+                f"a row); library: scaled_dot_product_attention with the boolean mask and "
+                f"enable_gqa",
+        "per_step": {f"{arch}: {name}": {key: r[key] for key in (
+            "shape", "chunk", "splits", "valid_slots_per_row", "ms", "bound_ms", "bound_by",
+            "plain_ms", "library_ms")} for arch, rows in t.items() for name, r in rows.items()},
+    }
+
+
 def examples_launches(ex: dict) -> dict:
     """``examples_routes`` summed over the routes."""
     return {key: sum(r.values()) for key, r in examples_routes(ex).items()}
@@ -6427,6 +6650,7 @@ def main() -> int:
         stop_probe(probe_job)
     run("big", phase_big, dev, gen)
     run("examples", phase_examples, dev, gen)
+    run("decode_kernel", phase_decode_kernel, dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -6553,7 +6777,7 @@ def main() -> int:
             **zoo_train_rows(report["zoo_train"]),
             **sharded_rows(report["sharded_train"]),
             **big_k1_rows(report["big"])},
-    }, flash_row(report)]
+    }, flash_row(report), decode_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   phase_seconds=seconds, device=torch.cuda.get_device_name(0))
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -5,7 +5,10 @@ Counterpart of ``repro.layers.attention``.  Two attention cores for GQA,
 chosen by ``cfg.attn_impl`` as in the reference:
 
 * ``xla`` -- the reference's chunked masked einsum and softmax in plain
-  PyTorch, with fp32 statistics;
+  PyTorch, with fp32 statistics; a call with one query per row on the
+  card (every cached decode step) runs the same function in the split-KV
+  decode kernel (``kernels.decode_attention``), which reads the bf16 cache
+  in place and only its valid slots;
 * ``flash`` -- the flash-attention kernel (K2, ``kernels.flash_attention``),
   on the uncached path only: it puts query i and key j at positions i and
   j, and has no mask for the per-row offsets of a cached serving batch.
@@ -45,6 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import decode_attention
 from repro_torch.kernels.flash_attention import mha
 from repro_torch.models.config import ModelConfig
 from .linear import linear, linear_params
@@ -99,12 +103,21 @@ def chunked_attention(
     causal: bool = True, probs_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """q: (B, Sq, H, Dk) grouped against k/v: (B, Skv, Hkv, D*).  Loops
-    over query chunks so the score matrix is O(B*chunk*H*Skv)."""
+    over query chunks so the score matrix is O(B*chunk*H*Skv).
+
+    One query per row (a decode step) with fp32 probabilities goes to the
+    split-KV decode kernel where it takes the tensors
+    (``kernels.decode_attention.takes``: CUDA bf16, no grad, head dims it
+    compiles): the same function, reading the cache in place and only its
+    valid slots.  Every other call runs ``_sdpa``."""
     b, sq, h, dk = q.shape
     _, skv, hkv, dv = v.shape
     g = h // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(dk)
     qg = q.reshape(b, sq, hkv, g, dk)
+    if sq == 1 and probs_dtype == torch.float32 and decode_attention.takes(qg, k, v):
+        o = decode_attention.decode_attention(qg, k, v, qpos, kpos, window, scale, causal)
+        return o.reshape(b, sq, h, dv)
     if sq <= chunk:
         o = _sdpa(qg, k, v, qpos, kpos, window, scale, causal, probs_dtype)
         return o.reshape(b, sq, h, dv)

@@ -6,10 +6,11 @@ optimized HLO text of a compiled program; the port compiles no program, so
 there is no text to read.  It counts the operations themselves instead:
 ``counting()`` pushes a ``TorchDispatchMode`` that sees every aten
 operation after autograd and the composite ops have lowered (``einsum``
-and ``matmul`` arrive as ``mm`` / ``bmm``), and the port's two kernels as
-one op each (``repro_torch::zorder_matmul``, K1, and
-``repro_torch::flash_attention``, K2: both are registered ops, and under an
-active dispatch mode every call takes them).  It works on real tensors and
+and ``matmul`` arrive as ``mm`` / ``bmm``), and the port's kernels as
+one op each (``repro_torch::zorder_matmul``, K1,
+``repro_torch::flash_attention``, K2, and ``repro_torch::decode_attention``,
+D1: all are registered ops, and under an active dispatch mode every call
+takes them).  It works on real tensors and
 under ``FakeTensorMode``, so a cell at full size touches no memory.
 
 Per op, the reference's conventions (``repro/roofline/hlo_stats.py``):
@@ -21,6 +22,12 @@ Per op, the reference's conventions (``repro/roofline/hlo_stats.py``):
                                           key) pair (``attention_pairs``,
                                           K2's causal alignment); Q, K, V
                                           read once, O written once
+    D1  (decode_attention)             : 2 (Dk + Dv) flops per valid slot
+                                          and query head; Q read once, the
+                                          valid slots' K and V once (all
+                                          of V for a row with no valid
+                                          key), O written once; every slot
+                                          valid on fake positions
     gather (embedding, index_select,   : 1 flop per output element; 2x the
             gather, index, take)         output bytes (what is read is
                                           what is written)
@@ -94,6 +101,8 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
+from repro_torch.device import is_fake
+
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 # the reference's names for the port's seam calls
@@ -101,6 +110,7 @@ SEAM_KINDS = {"ppermute": "collective-permute", "all_gather": "all-gather",
               "psum": "all-reduce"}
 K1_OP = "repro_torch::zorder_matmul"
 K2_OP = "repro_torch::flash_attention"
+D1_OP = "repro_torch::decode_attention"
 
 # dot ops -> position of the left operand, whose last dim is contracted
 _DOTS = {"aten::mm": 1, "aten::bmm": 1, "aten::dot": 1, "aten::mv": 1,
@@ -179,6 +189,35 @@ def flash_cost(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, causal: boo
                 float(2 * b * d * (sq * hq + skv * hkv) * dtype.itemsize))
 
 
+def decode_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: torch.Tensor,
+                kpos: torch.Tensor, window: int, causal: bool) -> Cost:
+    """D1's cost for q (B, 1, Hkv, G, Dk), k (B, S, Hkv, Dk), v (B, S, Hkv,
+    Dv): 2 (Dk + Dv) flops per valid slot and query head (QKᵀ and PV); Q
+    read once, each row's valid slots of K and V once (a row with no valid
+    key reads all S slots of V, their mean), O written once.  A slot is
+    valid as ``_sdpa``'s mask says (``kpos >= 0``; ``kpos <= qpos`` when
+    causal; ``kpos > qpos - window`` when ``window > 0``); on fake
+    positions (a dry run) every slot counts."""
+    b, _, hkv, g, dk = q.shape
+    s, dv = k.shape[1], v.shape[-1]
+    if is_fake(qpos) or is_fake(kpos):
+        valid = np.full(b, s, dtype=np.int64)
+    else:
+        qp, kp = qpos.reshape(-1, 1).to(torch.int64), kpos.reshape(-1, s).to(torch.int64)
+        ok = kp >= 0
+        if causal:
+            ok = ok & (kp <= qp)
+        if window > 0:
+            ok = ok & (kp > qp - window)
+        valid = np.broadcast_to(ok.sum(-1).cpu().numpy(), (b,))
+    slots = int(valid.sum())
+    empty = int((valid == 0).sum())
+    item = v.dtype.itemsize
+    return Cost(2.0 * (dk + dv) * hkv * g * slots,
+                float(item * (b * hkv * g * (dk + dv) + hkv * (slots * (dk + dv)
+                                                                + empty * s * dv))))
+
+
 # -- per-op rules ------------------------------------------------------------------
 
 
@@ -194,6 +233,8 @@ def _rule(func) -> Tuple[str, bool]:
         return "k1", allocates
     if name == K2_OP:
         return "k2", allocates
+    if name == D1_OP:
+        return "d1", allocates
     if name in _DOTS:
         return "dot", allocates
     if name in _GATHERS:
@@ -233,6 +274,8 @@ def op_cost(func, args, kwargs, out) -> Cost:
         bsz, sq, hq, d = q.shape
         return flash_cost(bsz, sq, k.shape[1], hq, k.shape[2], d, bool(args[3]),
                           int(args[4]), q.dtype)
+    if kind == "d1":
+        return decode_cost(*args[:5], int(args[5]), bool(args[7]))
     if kind == "dot":
         lhs = args[_DOTS[func._schema.name] - 1]
         return Cost(2.0 * out_e * lhs.shape[-1], float(in_b + out_b))

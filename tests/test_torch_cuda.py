@@ -9,6 +9,7 @@ on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -1266,12 +1267,23 @@ def _smoke_train_cost(device, arch="llama3.2-1b", mesh=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b"])
-def test_fake_cuda_and_fake_cpu_count_the_same_cost(cuda_device, arch):
+def test_fake_cuda_and_fake_cpu_count_the_same_cost(cuda_device, arch, monkeypatch):
+    """The dry run's fake CUDA tensors count what fake CPU tensors count.
+    A one-query call takes the decode kernel's op on the card and the plain
+    version on the CPU, so on the CPU side one-query calls take the op too
+    (``takes`` asked of stand-ins on the card, which make no op the counter
+    would see): every op counts the same."""
     from repro_torch.dist.mesh import Mesh
+    from repro_torch.kernels import decode_attention
 
+    takes = decode_attention.takes
     for count in (_smoke_decode_cost, _smoke_train_cost):
         got = count(cuda_device, arch)
-        want = count(torch.device("cpu"), arch)
+        with monkeypatch.context() as m:
+            m.setattr(decode_attention, "takes", lambda q, k, v: takes(*(
+                SimpleNamespace(device=cuda_device, dtype=t.dtype, shape=t.shape,
+                                requires_grad=t.requires_grad) for t in (q, k, v))))
+            want = count(torch.device("cpu"), arch)
         if isinstance(got, tuple):
             (got, rec_gpu), (want, rec_cpu) = got, want
             assert rec_gpu["memory"] == rec_cpu["memory"]
@@ -1443,3 +1455,263 @@ def test_a_bucket_captured_under_tracing_times_its_spans_inside_the_graph(cuda_d
     assert snap["serve.graph.prefill.model.prefill_us"]["count"] == 2
     assert names >= {"serve.generate", "serve.replay", "serve.inputs", "serve.token_sync",
                      "serve.sample"}
+
+
+# -- the split-KV decode-attention kernel -----------------------------------------------
+
+# (B, S, H_kv, G, D_k, D_v): danube's and deepseek's serving cells (B 64 at
+# 850 slots: split_plan's 128- and 256-slot chunks, as the cells run);
+# danube's heads over two rows and one K/V head (64-slot chunks, 14 splits,
+# empty ones under left padding); granite's 48 query heads over one K/V
+# head (six groups of 8), a group of 6 (a partial group), zamba2's D 80,
+# D 64 and 256 (the lane layouts), D_k != D_v (MLA's expanded path)
+DECODE_SHAPES = {"danube": (64, 850, 8, 4, 120, 120), "deepseek": (64, 850, 16, 1, 128, 128),
+                 "danube-two-rows": (2, 850, 1, 4, 120, 120),
+                 "granite-mqa": (2, 300, 1, 48, 128, 128), "group6-d64": (3, 200, 2, 6, 64, 64),
+                 "zamba2-d80": (2, 150, 4, 8, 80, 80), "d256": (2, 100, 2, 2, 256, 256),
+                 "dk96-dv64": (2, 70, 2, 4, 96, 64)}
+# The kernel's fp32 result differs from the plain version's only in the order
+# of its fp32 sums (about 1e-6 relative), then is rounded once to bf16: held
+# to one bf16 ulp of the plain version's fp32 output (2^-8 relative), plus
+# 1e-5 absolute for outputs that cancel to near 0.
+DECODE_RTOL, DECODE_ATOL = 2.0 ** -8, 1e-5
+
+
+def _decode_operands(device, b, s, hkv, g, dk, dv, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        device, torch.bfloat16) for shape in ((b, 1, hkv, g, dk), (b, s, hkv, dk), (b, s, hkv, dv)))
+    return q, k, v
+
+
+def _decode_masks(device, b, s, mask, seed=0):
+    """(qpos, kpos, window, causal) cases of one mask kind, as the callers
+    build them: per-row left padding (``gqa_attention`` with offsets), at
+    positions from the first slot to the last, the last row padded to the
+    last slot so it has no valid key until then; a rolling window cache
+    (slot i holds pos - ((pos - i) mod W)); non-causal (S,) key positions
+    (``encdec``'s cross-attention)."""
+    idx = torch.arange(s, device=device)
+    if mask == "offsets":
+        rng = np.random.default_rng(seed)
+        offsets = torch.from_numpy(rng.integers(0, s, size=b)).to(device)
+        offsets[0], offsets[-1] = 0, s - 1
+        kpos = idx[None, :] - offsets[:, None]
+        return [(pos - offsets[:, None], kpos, 0, True)
+                for pos in (0, 1, s // 3, s // 2, s - 2, s - 1)]
+    if mask == "rolling":
+        window = s
+        out = []
+        for pos in (s // 2, s - 1, s, 3 * s + 5):
+            p = torch.tensor(pos, device=device)
+            out.append((p.reshape(1), p - torch.remainder(p - idx, window), window, True))
+        return out
+    assert mask == "cross"
+    return [(torch.arange(1, device=device), idx, 0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["offsets", "rolling", "cross"])
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES), ids=list(DECODE_SHAPES))
+def test_decode_kernel_matches_plain_version(cuda_device, shape, mask):
+    """The split-KV kernel against ``_sdpa`` (fp32 probabilities) on the
+    card, on the chunks ``split_plan`` gives each shape (``DECODE_SHAPES``:
+    the serving cells' own plans, and many splits with empty ones): held
+    to ``DECODE_RTOL`` / ``DECODE_ATOL``; a rerun gives the same bits; a
+    row with no valid key gets the mean of V over all S slots."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.layers.attention import _sdpa
+
+    b, s, hkv, g, dk, dv = DECODE_SHAPES[shape]
+    q, k, v = _decode_operands(cuda_device, b, s, hkv, g, dk, dv)
+    scale = 1.0 / dk ** 0.5
+    chunk, splits = dec.split_plan(b, hkv, g, s, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    for qpos, kpos, window, causal in _decode_masks(cuda_device, b, s, mask):
+        ref = _sdpa(q, k, v.float(), qpos, kpos, window, scale, causal)
+        dec.kernel.reset_launches()
+        out = dec.kernel.decode_attention(q, k, v, qpos, kpos, window=window, scale=scale,
+                                          causal=causal)
+        again = dec.kernel.decode_attention(q, k, v, qpos, kpos, window=window, scale=scale,
+                                            causal=causal)
+        torch.cuda.synchronize()
+        assert dec.kernel.launches == 2 and torch.equal(out, again)
+        assert out.shape == (b, 1, hkv, g, dv) and out.dtype == torch.bfloat16
+        err = (out.float() - ref).abs()
+        assert bool((err <= DECODE_RTOL * ref.abs() + DECODE_ATOL).all()), \
+            f"{splits} chunks of {chunk}: worst {err.max().item():.3g}"
+        if mask == "offsets" and int(qpos[-1]) < 0:       # the last row sees no key yet
+            mean = v[-1].float().mean(0)[:, None, :].expand(hkv, g, dv)
+            assert torch.allclose(out[-1, 0].float(), mean, rtol=DECODE_RTOL, atol=DECODE_ATOL)
+    if shape in ("danube", "deepseek", "danube-two-rows"):
+        assert (chunk, splits) == {"danube": (128, 7), "deepseek": (256, 4),
+                                   "danube-two-rows": (64, 14)}[shape]
+
+
+@pytest.mark.cuda
+def test_chunked_attention_sends_one_query_to_the_decode_kernel(cuda_device):
+    """On the card a one-query bf16 call of ``chunked_attention`` launches
+    the kernel once and gives its bits; two queries, bf16 probabilities,
+    fp32 tensors and a query that requires grad launch nothing."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.layers.attention import chunked_attention
+
+    b, s, hkv, g, d = 4, 96, 2, 4, 64
+    q, k, v = _decode_operands(cuda_device, b, s, hkv, g, d, d)
+    q = q.reshape(b, 1, hkv * g, d)
+    qpos, kpos, window, causal = _decode_masks(cuda_device, b, s, "offsets")[3]
+    dec.kernel.reset_launches()
+    out = chunked_attention(q, k, v, qpos, kpos)
+    want = dec.kernel.decode_attention(q.reshape(b, 1, hkv, g, d), k, v, qpos, kpos,
+                                       window=0, scale=d ** -0.5, causal=True)
+    assert dec.kernel.launches == 2 and torch.equal(out, want.reshape(b, 1, hkv * g, d))
+    q2 = torch.cat([q, q], dim=1)
+    chunked_attention(q2, k, v, torch.cat([qpos - 1, qpos], dim=1), kpos)
+    chunked_attention(q, k, v, qpos, kpos, probs_dtype=torch.bfloat16)
+    chunked_attention(q.float(), k.float(), v.float(), qpos, kpos)
+    chunked_attention(q.detach().requires_grad_(), k, v, qpos, kpos).float().sum().backward()
+    torch.cuda.synchronize()
+    assert dec.kernel.launches == 2
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_what_it_cannot_do(cuda_device):
+    """fp32 tensors and head dims that are not multiples of 8 are not the
+    kernel's (``takes`` says no, so ``chunked_attention`` runs ``_sdpa``);
+    a view its 16-byte loads cannot read is the kernel's call all the
+    same, and raises there and in ``chunked_attention``: a one-query call
+    on the card never falls back to the plain version unseen."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.layers.attention import chunked_attention
+
+    q, k, v = _decode_operands(cuda_device, 2, 16, 2, 2, 64, 64)
+    qpos, kpos = torch.tensor([15], device=cuda_device), torch.arange(16, device=cuda_device)
+    kw = dict(window=0, scale=0.125, causal=True)
+    for bad in ((q.float(), k.float(), v.float()),                       # fp32
+                (q[..., :60], k[..., :60], v[..., :60])):                 # D not a multiple of 8
+        assert not dec.takes(*bad)
+        with pytest.raises(ValueError):
+            dec.kernel.decode_attention(*bad, qpos, kpos, **kw)
+    unaligned = (q, k[:, :, :, 1:57], v[..., :56])                        # base 2 bytes off
+    assert dec.takes(*unaligned) and not dec.kernel.aligned(*unaligned)
+    with pytest.raises(ValueError):
+        dec.kernel.decode_attention(*unaligned, qpos, kpos, **kw)
+    with pytest.raises(ValueError):
+        chunked_attention(q[..., :56].reshape(2, 1, 4, 56), unaligned[1], unaligned[2], qpos, kpos)
+
+
+@pytest.mark.cuda
+def test_a_captured_decode_step_replays_the_eager_step_at_each_device_pos(cuda_device):
+    """One CUDA graph of the smoke Llama's decode step (bf16, left-padded
+    rows, the slot a device tensor) replayed at several positions gives the
+    eager step's logits bit for bit: the mask is read on the device, no
+    host sync, one launch of the decode kernel a layer."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.runtime.serve import decode_step
+    from repro_torch.tree import tree_map
+
+    model, params = _smoke_llama(cuda_device)
+    b, slots, plen = 4, 32, 8
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(1, 256, size=(b, plen))).to(cuda_device)
+    tok = torch.from_numpy(rng.integers(1, 256, size=(b, 1))).to(cuda_device)
+    offsets = torch.tensor([0, 2, 5, 7], device=cuda_device)
+    with torch.no_grad():
+        base = model.init_cache(b, slots, cuda_device)
+        model.prefill(params, base, prompt, offsets)
+        want = {}
+        for pos in (plen, 13, slots - 1):
+            cache = tree_map(torch.clone, base)
+            dec.kernel.reset_launches()
+            want[pos] = decode_step(model, params, cache, tok, torch.tensor(pos, device=cuda_device),
+                                    offsets)
+            assert dec.kernel.launches == model.cfg.num_layers
+        cache = tree_map(torch.clone, base)
+        pos_t = torch.tensor(plen, device=cuda_device)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits = decode_step(model, params, cache, tok, pos_t, offsets)
+        for pos in (13, plen, slots - 1):
+            tree_map(lambda c, b0: c.copy_(b0), cache, base)
+            pos_t.fill_(pos)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(logits, want[pos]), pos
+
+
+@pytest.mark.cuda
+def test_a_decode_step_on_fake_cuda_tensors_prices_the_decode_op(cuda_device):
+    """A bf16 decode step counted on fake CUDA tensors (the dry run's) meets
+    one ``repro_torch::decode_attention`` a layer, priced at every slot of
+    the cache; the same step on fake CPU tensors runs the plain version's
+    einsums instead.  Every other op is the same on both."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.roofline import hlo_stats
+    from repro_torch.runtime.serve import decode_step
+
+    cfg = get_smoke_config("llama3_2_1b")
+    counts = {}
+    for dev in ("cpu", "cuda"):
+        with FakeTensorMode():
+            model, fparams = abstract_params(cfg, dev)
+            with hlo_stats.counting() as c, torch.no_grad():
+                cache = model.init_cache(2, 16, dev)
+                decode_step(model, fparams, cache,
+                            torch.ones((2, 1), dtype=torch.int64, device=dev), 3)
+        counts[dev] = c
+    cuda, cpu = counts["cuda"], counts["cpu"]
+    layers, hkv, d = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // hkv
+    slots = 2 * 16                     # both rows' 16 slots, every one priced
+    assert cfg.dtype == "bfloat16"
+    assert cuda.calls[hlo_stats.D1_OP] == layers and hlo_stats.D1_OP not in cpu.calls
+    assert cuda.by_op[hlo_stats.D1_OP].flops == layers * 2 * 2 * d * hkv * g * slots
+    # bf16 Q and O of both rows, K and V of every slot
+    assert cuda.by_op[hlo_stats.D1_OP].bytes == layers * 2 * (2 * hkv * g * 2 * d
+                                                              + hkv * slots * 2 * d)
+    softmax = {name for name in cpu.calls if "softmax" in name}
+    assert softmax and not softmax & set(cuda.calls)
+    shared = set(cuda.calls) - {hlo_stats.D1_OP}
+    assert shared <= set(cpu.calls)
+
+
+@pytest.mark.cuda
+def test_a_traced_decode_step_counts_one_split_kv_launch_a_layer_and_copies_no_cache(cuda_device):
+    """With tracing on, an eager bf16 decode step on the card counts one
+    ``split_kv`` launch of the decode kernel per ``layer.attention_core``
+    span; profiled, no op of a step copies or casts a tensor of the
+    cache's shape (the plain route's fp32 upcast of K and V)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.runtime.serve import decode_step
+
+    model, params = _smoke_llama(cuda_device)
+    b, slots = 4, 32
+    cache = model.init_cache(b, slots, cuda_device)
+    tok = torch.ones((b, 1), dtype=torch.int64, device=cuda_device)
+    offsets = torch.tensor([0, 2, 5, 7], device=cuda_device)
+    obs.reset_metrics()
+    try:
+        with torch.no_grad(), obs.observe() as rec:
+            decode_step(model, params, cache, tok, torch.tensor(9, device=cuda_device), offsets)
+            torch.cuda.synchronize()
+        snap = obs.snapshot()
+        spans = rec.span_counts()
+    finally:
+        obs.reset()
+        obs.reset_metrics()
+    n = spans["layer.attention_core"]
+    assert n == model.cfg.num_layers
+    assert snap["kernel.decode_attention.launches{route=split_kv}"] == n
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        decode_step(model, params, cache, tok, torch.tensor(10, device=cuda_device), offsets)
+        torch.cuda.synchronize()
+    shape = list(cache["layers"][0]["k"].shape)
+    copies = [e.name for e in prof.events()
+              if e.name in ("aten::_to_copy", "aten::to", "aten::copy_", "aten::clone")
+              and shape in e.input_shapes]
+    assert copies == []

@@ -3,15 +3,20 @@
 Parameters are the JAX smoke model's, passed through ``params_from_jax``;
 activations come from a seeded numpy generator.  Tolerance: 1e-5 of the
 output's largest magnitude (both sides compute in fp32; only the order of
-sums differs).
+sums differs).  At the end, the decode route of ``chunked_attention`` (one
+query on the card -> ``kernels.decode_attention``): which calls take it, the
+op's CPU implementation, its fake implementation, the cost counter's price
+and the kernel's chunk plan, on the CPU without JAX.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke_config
@@ -23,11 +28,13 @@ from repro.layers.rope import apply_rope as jax_apply_rope
 from repro.models.registry import build_model as jax_build_model
 from repro_torch.checkpoint import params_from_jax, tensor_from_numpy
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import decode_attention
 from repro_torch.layers import attention, embed
 from repro_torch.models.registry import build_model
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rope import apply_rope
+from repro_torch.roofline import hlo_stats
 
 TOL = 1e-5
 CPU = torch.device("cpu")
@@ -514,3 +521,203 @@ def test_published_widths_prefill_and_decode_match_reference(arch, over):
                                              torch.tensor(t), to)
         assert _row_rel(out[:, :v], np.asarray(ref)[:, :v]) < TOL
         cur = np.argmax(np.asarray(ref)[:, :v], axis=-1)
+
+
+# -- the decode route: one query on the card -> kernels.decode_attention ----------------
+
+# (overrides of a bf16 one-query call on the card, the route it takes)
+DECODE_ROUTES = {
+    "one query on the card": ({}, "kernel"),
+    "non-causal one query": ({"causal": False}, "kernel"),
+    "two queries": ({"sq": 2}, "plain"),
+    "bf16 probabilities": ({"probs": torch.bfloat16}, "plain"),
+    "CPU tensors": ({"device": "cpu"}, "plain"),
+    "fp32 tensors": ({"dtype": torch.float32}, "plain"),
+    "head dim 12": ({"d": 12}, "plain"),
+    "head dim 264": ({"d": 264}, "plain"),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_ROUTES))
+def test_chunked_attention_sends_one_query_on_the_card_to_the_decode_kernel(monkeypatch, case):
+    """The route is chosen from the tensors alone: a patched launcher and a
+    patched ``_sdpa`` record which one a call reaches, on fake tensors (no
+    card needed).  An operand that requires grad is checked on the card
+    (``tests/test_torch_cuda.py``): a CPU-only build of PyTorch cannot make
+    a fake CUDA tensor that requires grad."""
+    kw, want = DECODE_ROUTES[case]
+    calls = []
+
+    def record(name):
+        def run(q, k, v, *args):
+            calls.append(name)
+            return v.new_empty((*q.shape[:-1], v.shape[-1]))
+        return run
+
+    monkeypatch.setattr(decode_attention, "decode_attention", record("kernel"))
+    monkeypatch.setattr(attention, "_sdpa", record("plain"))
+    b, s, hkv, g = 2, 24, 2, 4
+    sq, d, dev = kw.get("sq", 1), kw.get("d", 16), kw.get("device", "cuda")
+    dtype = kw.get("dtype", torch.bfloat16)
+    with FakeTensorMode():
+        q = torch.empty(b, sq, hkv * g, d, dtype=dtype, device=dev)
+        k = torch.empty(b, s, hkv, d, dtype=dtype, device=dev)
+        qpos = torch.empty(b, sq, dtype=torch.int64, device=dev)
+        kpos = torch.empty(b, s, dtype=torch.int64, device=dev)
+        out = attention.chunked_attention(q, k, k, qpos, kpos, causal=kw.get("causal", True),
+                                          probs_dtype=kw.get("probs", torch.float32))
+    assert calls == [want] and out.shape == (b, sq, hkv * g, d)
+
+
+def _decode_case(mask, b=3, s=20, hkv=2, g=4, dk=16, dv=16):
+    """bf16 CPU operands and (qpos, kpos, window, causal) as the callers
+    make them (see ``tests/test_torch_cuda.py``'s decode tests)."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16()
+               for shape in ((b, 1, hkv, g, dk), (b, s, hkv, dk), (b, s, hkv, dv)))
+    idx = torch.arange(s)
+    offsets = torch.tensor([0, 5, s - 1])[:b]
+    if mask == "rolling":
+        pos = torch.tensor(2 * s + 3)
+        return q, k, v, pos.reshape(1), pos - torch.remainder(pos - idx, s), s, True
+    if mask == "cross":
+        return q, k, v, torch.arange(1), idx, 0, False
+    pos = s - 1 if mask in ("offsets", "dk != dv") else 4     # row 3 sees no key at pos 4
+    return q, k, v, pos - offsets[:, None], idx[None, :] - offsets[:, None], 0, True
+
+
+DECODE_MASKS = {"offsets": {}, "rolling": {}, "cross": {}, "no valid key": {},
+                "dk != dv": {"dk": 24, "dv": 16}}
+
+
+@pytest.mark.parametrize("mask", list(DECODE_MASKS))
+def test_the_decode_op_on_the_cpu_is_sdpa_to_the_bit(mask):
+    """The op's CPU implementation, reached through the dispatcher and
+    through ``decode_attention``, is the plain version: ``_sdpa`` with fp32
+    probabilities, bit for bit."""
+    q, k, v, qpos, kpos, window, causal = _decode_case(mask, **DECODE_MASKS[mask])
+    want = attention._sdpa(q, k, v, qpos, kpos, window, 0.3, causal, torch.float32)
+    got = torch.ops.repro_torch.decode_attention(q, k, v, qpos, kpos, window, 0.3, causal)
+    again = decode_attention.decode_attention(q, k, v, qpos, kpos, window, 0.3, causal)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert want.shape == (3, 1, 2, 4, v.shape[-1]) and want.dtype == torch.bfloat16
+    if mask == "no valid key":
+        assert torch.allclose(want[-1, 0].float(),
+                              v[-1].float().mean(0)[:, None, :].expand(2, 4, 16), atol=1e-2)
+
+
+def test_the_decode_ops_fake_implementation_gives_the_shape_and_type():
+    with FakeTensorMode():
+        q = torch.empty(2, 1, 2, 3, 24, dtype=torch.bfloat16, device="cuda")
+        k = torch.empty(2, 40, 2, 24, dtype=torch.bfloat16, device="cuda")
+        v = torch.empty(2, 40, 2, 16, dtype=torch.bfloat16, device="cuda")
+        qpos = torch.empty(2, 1, dtype=torch.int64, device="cuda")
+        kpos = torch.empty(2, 40, dtype=torch.int64, device="cuda")
+        out = torch.ops.repro_torch.decode_attention(q, k, v, qpos, kpos, 0, 0.2, True)
+    assert out.shape == (2, 1, 2, 3, 16) and out.dtype == torch.bfloat16
+    assert out.device.type == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "granite_20b", "h2o_danube3_4b",
+                                  "chameleon_34b", "qwen3_moe_30b_a3b", "deepseek_moe_16b",
+                                  "zamba2_2_7b", "seamless_m4t_medium", "minicpm3_4b"])
+def test_every_familys_one_query_calls_give_views_the_decode_kernel_reads(monkeypatch, arch):
+    """The decode kernel raises on a view its 16-byte loads cannot read
+    (``kernel.aligned``), so every one-query call a bf16 smoke model makes
+    in a teacher-forced prefill and a decode step (seamless after
+    ``prefill_cross``; the cross-attention too; danube's rolling window
+    cache) must give aligned views.
+    ``takes`` is asked of stand-ins on the card, and the launcher records
+    each call's views and runs the plain version; MLA's cached path makes
+    no such call."""
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.runtime.serve import prefill
+
+    seen = []
+
+    def record(q, k, v, qpos, kpos, window, scale, causal):
+        seen.append(kernel.aligned(q, k, v))
+        return decode_attention.plain(q, k, v, qpos, kpos, window, scale, causal)
+
+    takes = decode_attention.takes
+    monkeypatch.setattr(decode_attention, "takes", lambda q, k, v: takes(*(
+        SimpleNamespace(device=torch.device("cuda"), dtype=t.dtype, shape=t.shape,
+                        requires_grad=t.requires_grad) for t in (q, k, v))))
+    monkeypatch.setattr(decode_attention, "decode_attention", record)
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.ones((2, 8), dtype=torch.int64)
+    with torch.no_grad():
+        if cfg.family == "audio":
+            src = torch.zeros((2, 32, cfg.d_model), dtype=torch.bfloat16)
+            cache = model.prefill_cross(params, model.encode(params, src),
+                                        model.init_cache(2, 16, "cpu", src_len=32))
+        else:
+            cache = model.init_cache(2, 32, "cpu")
+        if cfg.window:                  # a rolling cache of the window's slots, a token a step
+            for pos in (0, 8, cfg.window + 3):
+                model.decode_step(params, cache, tokens[:, -1:], torch.tensor(pos))
+        else:
+            prefill(model, params, cache, tokens)
+            model.decode_step(params, cache, tokens[:, -1:], torch.tensor(8))
+    assert cfg.dtype == "bfloat16" and all(seen)
+    assert bool(seen) == (cfg.attn_type != "mla")
+
+
+# each mask kind's (valid slots over the case's 3 rows, rows with no valid key)
+DECODE_VALID = {"offsets": (20 + 15 + 1, 0), "rolling": (3 * 20, 0), "cross": (3 * 20, 0),
+                "no valid key": (5, 2)}
+
+
+def _decode_price(slots, empty, b=3, s=20, hkv=2, g=4, dk=16, dv=16):
+    """``hlo_stats.decode_cost`` by hand: 2 (Dk + Dv) flops per valid slot
+    and query head; bf16 Q and O once, K and V of the valid slots, V whole
+    for a row with no valid key."""
+    return (2.0 * (dk + dv) * hkv * g * slots,
+            2.0 * (b * hkv * g * (dk + dv) + hkv * (slots * (dk + dv) + empty * s * dv)))
+
+
+@pytest.mark.parametrize("mask", list(DECODE_VALID))
+def test_the_cost_counter_prices_the_decode_op_by_its_valid_slots(mask):
+    """Under the cost counter ``decode_attention`` is one op,
+    ``repro_torch::decode_attention``, priced as the kernel works: the
+    valid slots of each row, counted here by hand from the case's
+    positions; the plain version's einsums and fp32 casts are not seen.
+    On fake tensors (the dry run) every slot is priced."""
+    q, k, v, qpos, kpos, window, causal = _decode_case(mask)
+    with hlo_stats.counting() as c:
+        out = decode_attention.decode_attention(q, k, v, qpos, kpos, window, 0.3, causal)
+    assert torch.equal(out, attention._sdpa(q, k, v, qpos, kpos, window, 0.3, causal))
+    assert c.calls == {hlo_stats.D1_OP: 1}
+    assert (c.cost().flops, c.cost().bytes) == _decode_price(*DECODE_VALID[mask])
+    with FakeTensorMode() as fake:
+        fq, fk, fv, fqpos, fkpos = (fake.from_tensor(t) for t in (q, k, v, qpos, kpos))
+        with hlo_stats.counting() as c:
+            decode_attention.decode_attention(fq, fk, fv, fqpos, fkpos, window, 0.3, causal)
+    assert c.calls == {hlo_stats.D1_OP: 1}
+    assert (c.cost().flops, c.cost().bytes) == _decode_price(3 * 20, 0)
+
+
+# (B, H_kv, G, S): the serving cells, a small-batch decode, granite's 48 query
+# heads over one K/V head, a long context, a cache shorter than any chunk
+SPLIT_SHAPES = [(64, 8, 4, 850), (64, 16, 1, 850), (4, 8, 4, 64), (2, 1, 48, 300),
+                (1, 8, 4, 32768), (1, 1, 1, 5)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_the_split_plan_covers_every_slot_in_chunks_the_kernel_takes(shape):
+    """Chunks of 32-slot multiples from ``MIN_CHUNK`` to ``MAX_CHUNK`` (or
+    all of a shorter cache) covering S, within ``MAX_SLOT_HEADS`` slots x
+    query heads; as many blocks as ``BLOCKS_PER_SM`` asks for within one
+    32-slot step of the chunk, unless the chunk is as short as it goes."""
+    from repro_torch.kernels.decode_attention import kernel
+
+    b, hkv, g, s = shape
+    chunk, splits = kernel.split_plan(*shape, 132)
+    assert 1 <= chunk <= min(s, kernel.MAX_CHUNK) and splits == -(-s // chunk)
+    assert chunk == s or (chunk % 32 == 0 and chunk >= kernel.MIN_CHUNK)
+    assert chunk * kernel.group_tile(g) <= kernel.MAX_SLOT_HEADS or chunk == kernel.MIN_CHUNK
+    groups = b * hkv * -(-g // kernel.MAX_GROUP)
+    assert (groups * -(-s // (chunk - 32)) >= kernel.BLOCKS_PER_SM * 132
+            or chunk == min(s, kernel.MIN_CHUNK))

@@ -303,6 +303,33 @@ def test_the_decode_step_nests_model_attention_linear_and_kernel_spans(arch):
                for s in rec.spans)
 
 
+def test_the_decode_route_counts_one_launch_a_layer_inside_the_attention_core(monkeypatch):
+    """A decode step counts one ``kernel.decode_attention`` launch a layer,
+    its span inside ``layer.attention_core``; a prefill counts none.  The
+    kernel takes CUDA tensors only, so ``takes`` is patched to let the CPU
+    through: the op's CPU implementation (route ``plain``) runs and counts
+    as the kernel would."""
+    from repro_torch.kernels import decode_attention
+
+    monkeypatch.setattr(decode_attention, "takes", lambda q, k, v: True)
+    model = build_model(get_smoke_config("llama3_2_1b"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    n_layers = model.cfg.num_layers
+    with torch.no_grad(), obs.observe() as rec:
+        model.prefill(params, model.init_cache(2, 16, "cpu"), torch.ones((2, 8), dtype=torch.int64))
+        assert "kernel.decode_attention.launches{route=plain}" not in obs.snapshot()
+        assert rec.span_counts().get("kernel.decode_attention", 0) == 0
+        decode_step(model, params, model.init_cache(2, 16, "cpu"),
+                    torch.ones((2, 1), dtype=torch.int64), 3)
+    counts = rec.span_counts()
+    assert obs.snapshot()["kernel.decode_attention.launches{route=plain}"] == n_layers
+    assert counts["kernel.decode_attention"] == n_layers == counts["layer.attention_core"] // 2
+    chains = _chain(rec, "kernel.decode_attention", ["kernel.decode_attention",
+                                                     "layer.attention_core", "layer.attention",
+                                                     "model.decode_step"])
+    assert len(chains) == n_layers
+
+
 def test_the_forward_and_prefill_have_one_attention_span_a_layer(smoke):
     model, params = smoke
     tokens = torch.ones((2, 8), dtype=torch.int64)
