@@ -1,4 +1,5 @@
-"""Architecture configs, one module per architecture: all ten of the reference's.
+"""Architecture configs, one module per architecture: all ten of the
+reference's, and the port's own DeepSeek-V2-Lite (``PORT_ARCHS``).
 
 ``get_config(name)`` returns the published configuration and
 ``get_smoke_config(name)`` a reduced same-family one for CPU tests, as in
@@ -25,6 +26,10 @@ from repro_torch.models.config import ModelConfig
 ARCHS = ("llama3_2_1b", "granite_20b", "minicpm3_4b", "h2o_danube3_4b", "chameleon_34b",
          "qwen3_moe_30b_a3b", "deepseek_moe_16b", "seamless_m4t_medium", "xlstm_350m",
          "zamba2_2_7b")
+
+# the port's own, beyond the reference's: not in ``ARCHS``, so not in its
+# (arch x shape) grid; ``get_config`` finds them all the same
+PORT_ARCHS = ("deepseek_v2_lite",)   # DeepSeek-V2-Lite (hf:deepseek-ai/DeepSeek-V2-Lite)
 
 ALIASES = {"llama3.2-1b": "llama3_2_1b", "h2o-danube-3-4b": "h2o_danube3_4b"}
 
@@ -54,8 +59,8 @@ def canonical(name: str) -> str:
 
 def _module(name: str):
     arch = canonical(name)
-    if arch not in ARCHS:
-        raise ValueError(f"architecture {name!r} is not ported; have {ARCHS}")
+    if arch not in ARCHS + PORT_ARCHS:
+        raise ValueError(f"architecture {name!r} is not ported; have {ARCHS + PORT_ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -143,9 +143,9 @@ def model_split(mesh):
             hlo_stats.split_over_model([t], model_shards(t.shape[2], mesh))
 
     def split_rope(real):
-        def rope(x, positions, theta):
+        def rope(x, *args, **kwargs):
             heads(x)
-            return real(x, positions, theta)
+            return real(x, *args, **kwargs)
         return rope
 
     def split_core(real):

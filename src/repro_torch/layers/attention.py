@@ -1,5 +1,5 @@
 """Attention layers with their caches: GQA (covers MHA, MQA and sliding
-windows) and MLA (latent-compressed KV, minicpm3).
+windows) and MLA (latent-compressed KV: minicpm3, DeepSeek-V2-Lite).
 
 Counterpart of ``repro.layers.attention``.  Two attention cores for GQA,
 chosen by ``cfg.attn_impl`` as in the reference:
@@ -19,10 +19,18 @@ matmul kernel.
 MLA, as in the reference, never calls ``mha``.  Uncached, it expands the
 latent into per-head keys and values (``wkv_b`` through ``linear``) and
 attends with ``chunked_attention``.  Cached, it keeps the latent
-``{"c_kv", "k_rope"}`` and attends in the latent space: ``w_uk`` folded
-into the query, the shared rope key added, the offsets mask, ``w_uv``
-applied after, all in fp32 einsums (the reference's absorbed decode, which
-runs outside any Pallas kernel), so ``wkv_b`` takes no kernel launch there.
+``{"c_kv", "k_rope"}``.  A decode step attends in the latent space
+(``latent_core``): ``w_uk`` folded into the query, the shared rope key
+added, the offsets mask, ``w_uv`` applied after, all in fp32 einsums (the
+reference's absorbed decode, which runs outside any Pallas kernel).  A
+cached write of more than one token (the serving prefill) expands every
+slot of the latent cache into per-head keys and values (an fp32 einsum
+through ``wkv_b``) and attends with ``chunked_attention`` a query chunk at
+a time, so no (B, S, H, T) score tensor is built whole; the reference
+attends in the latent space there too, the same function.  ``wkv_b``
+takes no kernel launch on either cached path.  DeepSeek-V2-Lite's query
+comes from one direct projection (``q_lora_rank`` 0) and its RoPE and
+softmax scale follow YaRN (``cfg.yarn``).
 
 The KV cache is preallocated and written in place (the reference returns
 a new cache from ``dynamic_update_slice``); a write past the cache end
@@ -53,7 +61,7 @@ from repro_torch.kernels.flash_attention import mha
 from repro_torch.models.config import ModelConfig
 from .linear import linear, linear_params
 from .norms import rms_norm, rms_norm_params
-from .rope import apply_rope
+from .rope import apply_rope, yarn_mscale
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -241,19 +249,25 @@ def gqa_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
 
 
 # ---------------------------------------------------------------------------
-# MLA (minicpm3): latent-compressed KV with absorbed decode
+# MLA (minicpm3, DeepSeek-V2-Lite): latent-compressed KV
 # ---------------------------------------------------------------------------
 
 
 def mla_params(generator: torch.Generator, cfg: ModelConfig,
                dtype: torch.dtype, device) -> Params:
+    """The query through a LoRA (``wq_a``, ``q_norm``, ``wq_b``), or with
+    ``q_lora_rank`` 0 through one direct projection ``wq`` (DeepSeek-V2-Lite)."""
     d, h = cfg.d_model, cfg.num_heads
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if qr:
+        p = {"wq_a": linear_params(generator, d, qr, dtype, device),
+             "q_norm": rms_norm_params(qr, device),
+             "wq_b": linear_params(generator, qr, h * (nope + rope), dtype, device)}
+    else:
+        p = {"wq": linear_params(generator, d, h * (nope + rope), dtype, device)}
     return {
-        "wq_a": linear_params(generator, d, qr, dtype, device),
-        "q_norm": rms_norm_params(qr, device),
-        "wq_b": linear_params(generator, qr, h * (nope + rope), dtype, device),
+        **p,
         "wkv_a": linear_params(generator, d, kvr + rope, dtype, device),
         "kv_norm": rms_norm_params(kvr, device),
         "wkv_b": linear_params(generator, kvr, h * (nope + vd), dtype, device),
@@ -261,20 +275,89 @@ def mla_params(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def mla_scale(cfg: ModelConfig) -> float:
+    """The softmax scale: 1 / sqrt(nope + rope), times YaRN's
+    ``mscale(factor, mscale_all_dim) ** 2`` where the config sets it
+    (DeepSeek-V2's attention)."""
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if cfg.yarn is not None and cfg.yarn.mscale_all_dim:
+        scale *= yarn_mscale(cfg.yarn.factor, cfg.yarn.mscale_all_dim) ** 2
+    return scale
+
+
 def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     b, s, _ = x.shape
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = linear(rms_norm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps), p["wq_b"])
+    if cfg.q_lora_rank:
+        q = linear(rms_norm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps), p["wq_b"])
+    else:
+        q = linear(x, p["wq"])
     q = q.reshape(b, s, cfg.num_heads, nope + rope)
-    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta, cfg.yarn)
 
 
 def _mla_latent(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     kvr = cfg.kv_lora_rank
     kv = linear(x, p["wkv_a"])
     c_kv = rms_norm(kv[..., :kvr], p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions, cfg.rope_theta,
+                        cfg.yarn)[:, :, 0, :]
     return c_kv, k_rope
+
+
+def _mla_count(route: str) -> None:
+    if obs.enabled():
+        obs.counter("layer.mla.calls").inc(route=route)
+
+
+def _latent_kpos(t: int, offsets: Optional[torch.Tensor], device) -> torch.Tensor:
+    """The logical positions of a latent cache's ``t`` slots: (T,), or
+    (B, T) shifted by each row's left padding (padding slots < 0)."""
+    kpos = torch.arange(t, device=device)
+    return kpos if offsets is None else kpos[None, :] - offsets[:, None]
+
+
+def latent_core(q_nope: torch.Tensor, q_rope: torch.Tensor, cache: Cache,
+                wkv_b: torch.Tensor, positions: torch.Tensor,
+                offsets: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """The absorbed attention over the whole latent cache (a decode step):
+    ``w_uk`` folded into the query, the scores against the latent and the
+    shared rope key, the offsets mask, the softmax, the weighted latent and
+    ``w_uv``, in fp32 einsums.  q_nope (B, S, H, nope), q_rope (B, S, H,
+    rope) -> (B, S, H, v_head_dim) fp32."""
+    with obs.span("layer.mla.latent_core"):
+        h, nope = q_nope.shape[2], q_nope.shape[3]
+        cc, cr = cache["c_kv"].float(), cache["k_rope"].float()
+        kvr = cc.shape[-1]
+        # wkv_b's columns are per-head blocks of (nope + vd), as the
+        # expanded path's reshape reads them
+        w_b = wkv_b.reshape(kvr, h, -1).float()
+        w_uk, w_uv = w_b[:, :, :nope], w_b[:, :, nope:]
+        q_c = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk)   # w_uk folded into q
+        sc = torch.einsum("bshl,btl->bsht", q_c, cc)
+        sc = sc + torch.einsum("bshr,btr->bsht", q_rope.float(), cr)
+        sc = sc * scale
+        kpos = _latent_kpos(cc.shape[1], offsets, cc.device)
+        if offsets is not None:
+            # left-padding slots (< 0) are masked, as GQA's kpos >= 0
+            valid = (kpos[:, None, :] <= positions[:, :, None]) & (kpos[:, None, :] >= 0)
+            sc = torch.where(valid[:, :, None, :], sc, _NEG)               # (B, S, T)
+        else:
+            valid = kpos[None, :] <= positions[:, None]                     # (S, T)
+            sc = torch.where(valid[None, :, None, :], sc, _NEG)
+        pr = torch.softmax(sc, dim=-1)
+        att_c = torch.einsum("bsht,btl->bshl", pr, cc)
+        return torch.einsum("bshl,lhv->bshv", att_c, w_uv)
+
+
+def _head_kv(kvb: torch.Tensor, k_rope: torch.Tensor, nope: int):
+    """Per-head keys (B, T, H, nope + rope), the shared rope key beside
+    each head's, and values (B, T, H, vd) from the latent's expansion
+    ``kvb`` (B, T, H, nope + vd)."""
+    b, t, h, _ = kvb.shape
+    k = torch.cat([kvb[..., :nope], k_rope[:, :, None, :].expand(b, t, h, k_rope.shape[-1])],
+                  dim=-1)
+    return k, kvb[..., nope:]
 
 
 def mla_attention(
@@ -286,25 +369,26 @@ def mla_attention(
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: (B, S, d).  Without a cache: the expanded path.  With one: write
     this step's latent at slot ``pos`` (an int, or a 0-d int64 tensor on
-    x's device, unchecked) in place and attend over the whole latent cache
-    (the absorbed path).  ``offsets`` and ``positions`` as in
-    ``gqa_attention``."""
+    x's device, unchecked) in place and attend over the whole latent cache:
+    one token a row (a decode step) by the absorbed path (``latent_core``),
+    more (a serving prefill) by the expanded path over the cache, query
+    chunk by query chunk.  ``offsets`` and ``positions`` as in
+    ``gqa_attention``.  Counted in ``layer.mla.calls{route}``: ``uncached``,
+    ``absorbed``, ``cached_prefill``."""
     with obs.span("layer.attention"):
         b, s, _ = x.shape
         h = cfg.num_heads
-        nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        kvr = cfg.kv_lora_rank
-        scale = 1.0 / math.sqrt(nope + rope)
+        nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
+        scale = mla_scale(cfg)
+        pdt = torch.bfloat16 if cfg.attn_probs_dtype == "bf16" else torch.float32
         q_nope, q_rope = _mla_q(p, x, cfg, positions)
         c_kv, k_rope = _mla_latent(p, x, cfg, positions)
 
         if cache is None:
+            _mla_count("uncached")
             # expanded path: materialise per-head K/V from the latent
-            kvb = linear(c_kv, p["wkv_b"]).reshape(b, s, h, nope + vd)
-            k_nope, v = kvb[..., :nope], kvb[..., nope:]
-            k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
+            k, v = _head_kv(linear(c_kv, p["wkv_b"]).reshape(b, s, h, nope + vd), k_rope, nope)
             q = torch.cat([q_nope, q_rope], dim=-1)
-            pdt = torch.bfloat16 if cfg.attn_probs_dtype == "bf16" else torch.float32
             with obs.span("layer.attention_core"):
                 o = chunked_attention(q, k, v, positions, positions, chunk=cfg.attn_chunk,
                                       scale=scale, probs_dtype=pdt)
@@ -317,30 +401,24 @@ def mla_attention(
                 check_cache_write(cfg, cache, pos, s)
                 cache["c_kv"][:, pos:pos + s] = c_kv
                 cache["k_rope"][:, pos:pos + s] = k_rope
-            with obs.span("layer.attention_core"):
-                cc, cr = cache["c_kv"].float(), cache["k_rope"].float()
-                # wkv_b's columns are per-head blocks of (nope + vd), as the
-                # expanded path's reshape reads them
-                w_b = p["wkv_b"].reshape(kvr, h, nope + vd).float()
-                w_uk, w_uv = w_b[:, :, :nope], w_b[:, :, nope:]
-                q_c = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk)   # w_uk folded into q
-                sc = torch.einsum("bshl,btl->bsht", q_c, cc)
-                sc = sc + torch.einsum("bshr,btr->bsht", q_rope.float(), cr)
-                sc = sc * scale
-                kpos = torch.arange(cc.shape[1], device=x.device)
-                if offsets is not None:
-                    # per-row logical slot positions; left-padding slots (< 0) are
-                    # masked, as GQA's kpos >= 0
-                    kpos_b = kpos[None, :] - offsets[:, None]                  # (B, T)
-                    valid = ((kpos_b[:, None, :] <= positions[:, :, None])
-                             & (kpos_b[:, None, :] >= 0))                      # (B, S, T)
-                    sc = torch.where(valid[:, :, None, :], sc, _NEG)
-                else:
-                    valid = kpos[None, :] <= positions[:, None]                # (S, T)
-                    sc = torch.where(valid[None, :, None, :], sc, _NEG)
-                pr = torch.softmax(sc, dim=-1)
-                att_c = torch.einsum("bsht,btl->bshl", pr, cc)
-                o = torch.einsum("bshl,lhv->bshv", att_c, w_uv).to(x.dtype)
+            if s == 1:
+                _mla_count("absorbed")
+                with obs.span("layer.attention_core"):
+                    o = latent_core(q_nope, q_rope, cache, p["wkv_b"], positions, offsets,
+                                    scale).to(x.dtype)
+            else:
+                _mla_count("cached_prefill")
+                with obs.span("layer.attention_core"):
+                    # every slot expanded in fp32 (an einsum, as the absorbed
+                    # path multiplies wkv_b), then attended a query chunk at a time
+                    cc = cache["c_kv"].float()
+                    kvb = torch.einsum("btl,lhx->bthx", cc,
+                                       p["wkv_b"].reshape(cc.shape[-1], h, -1).float())
+                    k, v = _head_kv(kvb, cache["k_rope"].float(), nope)
+                    kpos = _latent_kpos(k.shape[1], offsets, x.device)
+                    q = torch.cat([q_nope, q_rope], dim=-1)
+                    o = chunked_attention(q, k, v, positions, kpos, chunk=cfg.attn_chunk,
+                                          scale=scale).to(x.dtype)
         o = linear(o.reshape(b, s, h * vd), p["wo"])
         return o, cache
 

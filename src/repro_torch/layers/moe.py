@@ -3,10 +3,13 @@ dispatch/combine) and optional always-on shared experts (deepseek-moe).
 
 Counterpart of ``repro.layers.moe``, with the same semantics: tokens route
 in groups of ``min(moe_group_size, S)`` (``S % g`` must be 0), the router
-runs in fp32, gates are the top-k softmax probabilities renormalised,
-each choice takes the next free slot of its expert in the group (a
-per-choice cumulative count) and tokens past the capacity are dropped.
-The Switch load-balancing loss comes back beside the output.
+runs in fp32, gates are the top-k softmax probabilities renormalised (or,
+with ``moe_renormalize`` off, as they are: DeepSeek-V2), each choice takes
+the next free slot of its expert in the group (a per-choice cumulative
+count) and tokens past the capacity are dropped.
+The Switch load-balancing loss comes back beside the output.  An input of
+more than ``DISPATCH_TOKENS`` tokens routes its groups in slices of that
+many, which bounds the dispatched expert products' transient memory.
 
 The expert products (SiLU(gate) * up, then down, on the stacked
 ``(E, d, ff)`` / ``(E, ff, d)`` weights), the router and the one-hot
@@ -87,6 +90,50 @@ def expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
     return torch.einsum("necf,efd->necd", h.to(xe.dtype), p["w_down"])
 
 
+# the tokens whose routing and expert products run at once: a larger input
+# runs its routing groups in slices of this many tokens (groups never
+# share tokens, so the answer is the one pass's), which bounds the fp32
+# (N, E, C, ff) transients of ``expert_ffn``: 1.4 GB each at 64 experts of
+# width 1408, top-6, against 5.5 GB for DeepSeek-V2-Lite's 64 x 2048 serving
+# prefill in one pass.  deepseek-moe-16b's 64 x 512 prefill is one slice.
+DISPATCH_TOKENS = 32768
+
+
+def _routed(p: Params, xg: torch.Tensor, cfg: ModelConfig, cap: int):
+    """The routed experts on token groups xg (N, g, d): (y (N, g, d) in
+    xg's type, each group's share of choices per expert f (N, E), its mean
+    router probabilities (N, E))."""
+    n, g, _ = xg.shape
+    e, k = cfg.num_experts, cfg.top_k
+    xf = xg.float()
+
+    logits = torch.einsum("ngd,de->nge", xf, p["router"].float())
+    probs = torch.softmax(logits, dim=-1)                           # (N, g, E)
+    gate_vals, expert_idx = top_k(probs, k)                         # (N, g, k)
+    if cfg.moe_renormalize:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+
+    # per-choice accumulation keeps intermediates at (N, g, E, C)
+    dispatch = torch.zeros((n, g, e, cap), dtype=torch.float32, device=xg.device)
+    combine = torch.zeros_like(dispatch)
+    counts = torch.zeros((n, 1, e), dtype=torch.float32, device=xg.device)  # used slots
+    for c in range(k):
+        oh = _one_hot(expert_idx[:, :, c], e)
+        pos = torch.cumsum(oh, dim=1) - 1.0 + counts                # (N, g, E)
+        keep = (pos < cap).float() * oh
+        slot = pos.clamp(0, cap - 1).to(torch.int64)
+        sel = _one_hot(slot, cap) * keep[..., None]
+        dispatch = dispatch + sel
+        combine = combine + sel * gate_vals[:, :, c, None, None]
+        counts = counts + keep.sum(dim=1, keepdim=True)
+
+    xe = torch.einsum("ngd,ngec->necd", xf, dispatch).to(xg.dtype)  # (N, E, C, d)
+    ye = expert_ffn(p, xe)
+    y = torch.einsum("necd,ngec->ngd", ye.float(), combine).to(xg.dtype)
+    f = _one_hot(expert_idx, e).sum(dim=2).mean(dim=1)              # (N, E)
+    return y, f, probs.mean(dim=1)
+
+
 def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d) in x's type, aux loss fp32 scalar)."""
     with obs.span("layer.moe"):
@@ -99,37 +146,14 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
         n = b * (s // g)
         cap = _capacity(g, e, k, cfg.capacity_factor)
         xg = x.reshape(n, g, d)
-        xf = xg.float()
-
-        logits = torch.einsum("ngd,de->nge", xf, p["router"].float())
-        probs = torch.softmax(logits, dim=-1)                           # (N, g, E)
-        gate_vals, expert_idx = top_k(probs, k)                         # (N, g, k)
-        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-
-        # per-choice accumulation keeps intermediates at (N, g, E, C)
-        dispatch = torch.zeros((n, g, e, cap), dtype=torch.float32, device=x.device)
-        combine = torch.zeros_like(dispatch)
-        counts = torch.zeros((n, 1, e), dtype=torch.float32, device=x.device)  # used slots
-        for c in range(k):
-            oh = _one_hot(expert_idx[:, :, c], e)
-            pos = torch.cumsum(oh, dim=1) - 1.0 + counts                # (N, g, E)
-            keep = (pos < cap).float() * oh
-            slot = pos.clamp(0, cap - 1).to(torch.int64)
-            sel = _one_hot(slot, cap) * keep[..., None]
-            dispatch = dispatch + sel
-            combine = combine + sel * gate_vals[:, :, c, None, None]
-            counts = counts + keep.sum(dim=1, keepdim=True)
-
-        xe = torch.einsum("ngd,ngec->necd", xf, dispatch).to(x.dtype)   # (N, E, C, d)
-        ye = expert_ffn(p, xe)
-        y = torch.einsum("necd,ngec->ngd", ye.float(), combine)
-        y = y.to(x.dtype).reshape(b, s, d)
+        step = max(1, DISPATCH_TOKENS // g)
+        parts = [_routed(p, xg[i:i + step], cfg, cap) for i in range(0, n, step)]
+        y, f, pmean = parts[0] if len(parts) == 1 else (torch.cat(t) for t in zip(*parts))
+        y = y.reshape(b, s, d)
 
         if "shared" in p:
             y = y + mlp(p["shared"], x)
 
         # Switch load-balance loss: E * mean_e f_e * P_e
-        f = _one_hot(expert_idx, e).sum(dim=2).mean(dim=1)              # (N, E)
-        pmean = probs.mean(dim=1)                                       # (N, E)
         aux = e * (f * pmean).sum(dim=-1).mean()
         return y, aux

@@ -2,7 +2,20 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN RoPE as DeepSeek-V2 defines it (``layers.rope``): the scaling
+    ``factor`` over ``original_max_pos`` positions, the correction range's
+    ``beta_fast`` / ``beta_slow`` and the two mscales."""
+    factor: float
+    original_max_pos: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,8 +36,10 @@ class ModelConfig:
     rope_theta: float = 10000.0
     attn_impl: str = "xla"       # xla (chunked masked einsum) | flash (K2, CUDA, uncached)
     attn_chunk: int = 1024       # q-chunk for the xla impl
+    yarn: Optional[Yarn] = None  # None: plain RoPE; a dict is read as a Yarn
 
-    # MLA (minicpm3)
+    # MLA (minicpm3; DeepSeek-V2-Lite with q_lora_rank 0: a direct query
+    # projection ``wq``, no query norm)
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
     qk_nope_dim: int = 0
@@ -39,6 +54,7 @@ class ModelConfig:
     capacity_factor: float = 1.25
     first_dense_layers: int = 0  # deepseek-moe: leading dense layers
     moe_group_size: int = 256    # GShard routing-group size
+    moe_renormalize: bool = True  # False: the top-k probabilities as gates (DeepSeek-V2)
 
     # SSM / hybrid / xlstm
     ssm_state: int = 0
@@ -67,6 +83,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if isinstance(self.yarn, dict):
+            object.__setattr__(self, "yarn", Yarn(**self.yarn))
 
     @property
     def group_size(self) -> int:
@@ -100,11 +118,14 @@ class ModelConfig:
         if self.attn_type == "mla":
             qr, kvr = self.q_lora_rank, self.kv_lora_rank
             nope, rope, vh = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim
-            n = d * qr + qr * h * (nope + rope)           # q down+up
+            if qr:
+                n = d * qr + qr * h * (nope + rope) + qr  # q down+up, q norm
+            else:
+                n = d * h * (nope + rope)                  # direct q
             n += d * (kvr + rope)                          # kv down (+ shared rope k)
             n += kvr * h * (nope + vh)                     # kv up
             n += h * vh * d                                # o proj
-            n += qr + kvr                                  # lora norms
+            n += kvr                                       # kv norm
             return n
         return d * h * hd + 2 * d * kv * hd + h * hd * d  # q, k, v, o
 
@@ -149,3 +170,14 @@ class ModelConfig:
                           + 2 * d * d)           # concat down-projection
             return total
         raise ValueError(self.family)
+
+
+# the fields the reference's ModelConfig lacks: DeepSeek-V2's YaRN and gates
+PORT_ONLY_FIELDS = ("yarn", "moe_renormalize")
+
+
+def port_only_defaults() -> dict:
+    """Each of ``PORT_ONLY_FIELDS`` at its default, the reference's
+    behaviour: plain RoPE, renormalised gates."""
+    return {f.name: f.default for f in dataclasses.fields(ModelConfig)
+            if f.name in PORT_ONLY_FIELDS}

@@ -25,6 +25,7 @@ from repro.runtime.serve import ServeConfig as JaxServeConfig
 from repro.runtime.serve import generate as jax_generate
 from repro_torch.checkpoint import params_from_jax, params_to_jax, state_from_jax, state_to_jax
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models.config import port_only_defaults
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.serve import ServeConfig, batch_requests, generate
 from repro_torch.serve import Server
@@ -63,7 +64,8 @@ def _models(dtype: str = "float32", **over):
 def test_config_is_the_references():
     for port, ref in ((get_config(ARCH), jax_get_config(ARCH)),
                       (get_smoke_config(ARCH), jax_smoke_config(ARCH))):
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        # the reference's fields, and the port's own at the defaults that keep them
+        assert dataclasses.asdict(port) == {**dataclasses.asdict(ref), **port_only_defaults()}
     cfg = get_config(ARCH)
     assert (cfg.enc_layers, cfg.dec_layers, cfg.d_model, cfg.num_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size) == (12, 12, 1024, 16, 64, 4096, 256206)

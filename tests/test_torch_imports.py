@@ -66,7 +66,8 @@ NEW_MODULES = ["repro_torch.obs.runtime", "repro_torch.obs.metrics", "repro_torc
                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
                "repro_torch.launch.report", "repro_torch.examples",
                "repro_torch.examples.quickstart", "repro_torch.examples.distributed_matmul",
-               "repro_torch.examples.serve_batched", "repro_torch.examples.train_lm"]
+               "repro_torch.examples.serve_batched", "repro_torch.examples.train_lm",
+               "repro_torch.configs.deepseek_v2_lite"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)

@@ -33,6 +33,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.layers import blocks as tblocks
 from repro_torch.layers import mamba2 as tmamba2
 from repro_torch.layers import xlstm as txlstm
+from repro_torch.models.config import port_only_defaults
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.serve import ServeConfig, batch_requests, generate, prefill
 from repro_torch.serve import Server
@@ -222,7 +223,8 @@ def test_configs_hold_the_reference(arch):
 
     for port, ref in ((get_config(arch), jax_get_config(arch)),
                       (get_smoke_config(arch), jax_smoke_config(arch))):
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        # the reference's fields, and the port's own at the defaults that keep them
+        assert dataclasses.asdict(port) == {**dataclasses.asdict(ref), **port_only_defaults()}
     model = build_model(get_config(arch))
     assert type(model).__name__ == {"zamba2-2.7b": "HybridLM", "xlstm-350m": "XLSTMLM"}[arch]
     assert not hasattr(model, "prefill")
