@@ -6,9 +6,10 @@
 Phases, each fatal on failure (no result line, non-zero exit):
 
 1. build  -- compile the Z-order matmul kernel (K1: its wide, thin and
-   wmma/fma sources, one nvcc each), the flash-attention kernel (K2) and
-   the split-KV decode-attention kernel (D1) from their ``csrc/``, all at
-   once, and print ptxas's registers and spills.
+   wmma/fma sources, one nvcc each), the flash-attention kernel (K2), the
+   split-KV decode-attention kernel (D1) and the routed MoE experts kernel
+   (M1) from their ``csrc/``, all at once, and print ptxas's registers and
+   spills.
 2. kernel -- K1 against its plain version on the card at every (M, K, N)
    Llama-3.2-1B's serving path gives it (M in 4, 8, 64, 256), ragged shapes
    and shapes on both sides of each route threshold (m = 16 | 17,
@@ -50,7 +51,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    K1's count on this main path runs from 0 before the server is built.
    So does D1's: one launch a layer in each eager decode step (``d1_per_step``;
    none for MLA), none in a one-pass prefill, none from Python in a
-   replayed run.
+   replayed run; and M1's (``m1_per_forward``): one launch set an MoE layer
+   and dispatch slice in each eager bf16 prefill and decode step (none for
+   a dense model), none from Python in a replayed run.
 5. flash-kernel -- K2 against its plain version on the card on each of
    its three routes (``FLASH_CHECKS``): head dims 16-128 (Llama's 64,
    zamba2's 80, danube's 120, 128), GQA groups 1, 2 and 4, ragged S_q and
@@ -239,9 +242,9 @@ Phases, each fatal on failure (no result line, non-zero exit):
    products alone (``moe.expert_ffn`` over the 27 MoE layers' weights,
    CUDA events) beside their bound, and one eager decode step profiled
    (K1 and the rest by kernel name, the unembedding's K1 launch; no
-   ``aten::mm``).  The reference's dense dispatch runs
-   every expert on every step, and MLA's cached path multiplies ``wkv_b``
-   in einsums, outside K1.
+   ``aten::mm``).  The dense route's expert products are timed for the
+   record: the served steps run the routed kernel M1 (phase 23), and
+   MLA's cached path multiplies ``wkv_b`` in einsums, outside K1.
 16. families -- the recurrent and encoder-decoder families, every leg
    fatal, each model freed before the next: (a) zamba2-2.7b (6 Mamba
    layers and the shared block), xlstm-350m (one mmm-s group) and
@@ -419,6 +422,19 @@ Phases, each fatal on failure (no result line, non-zero exit):
    ``F.scaled_dot_product_attention`` with the boolean mask and
    ``enable_gqa`` (the library call).
 
+23. moe-kernel -- the routed MoE experts kernel (M1) at the MoE serving
+   cells' decode steps (``MOE_CELLS``: deepseek-moe-16b's 27 MoE layers
+   and DeepSeek-V2-Lite's 26, 64 rows, top-6 of 64 experts, d 2048, ff
+   1408, each cell's own gate normalisation) and at one prefill slice
+   (``MOE_PREFILL``: 64 x 512 tokens in groups of 256, capacity 32, a few
+   layers), every layer its own weights and router: layer 0 against the
+   plain version within ``ROW_TOL`` and rerun bitwise; then CUDA-graph
+   replays over the layers, in turns: the kernel alone, the routed layer
+   (routing, pair list, kernel), the dense route's layer (``plain_ms``),
+   and batched cuBLAS on the experts' gathered rows (``library_ms``, timed
+   only), beside the bound (the chosen experts' weights once at decode;
+   the kept pairs' operations in the prefill).
+
 On one card the collectives are device copies between the ranks'
 streams (a ppermute's is a ``cudaMemcpyAsync`` on the receiver's copy
 stream), so an overlapped body's prefetch can run under its rank's K1; no
@@ -476,6 +492,8 @@ from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
 from repro_torch.examples import serve_batched as ex_serve  # noqa: E402
 from repro_torch.examples import train_lm as ex_train  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as kdec  # noqa: E402
+from repro_torch.kernels.moe_experts import kernel as kmoe  # noqa: E402
+from repro_torch.kernels.moe_experts import plain as moe_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.matmul import _build, kernel as k1  # noqa: E402
@@ -728,11 +746,12 @@ def graph_ms(fn, calls) -> float:
 
 
 def phase_build() -> dict:
-    """Build K1, K2 and the decode-attention kernel at once (one nvcc per
+    """Build K1, K2, the decode-attention kernel and the MoE kernel at once (one nvcc per
     source file, all in parallel), load them, print ptxas's registers and
     spills per kernel instance."""
     t0 = time.perf_counter()
-    mods = {"zorder_matmul": _build, "flash_attention": k2, "decode_attention": kdec}
+    mods = {"zorder_matmul": _build, "flash_attention": k2, "decode_attention": kdec,
+            "moe_experts": kmoe}
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         futs = {name: pool.submit(m.build) for name, m in mods.items()}
         paths = {name: f.result() for name, f in futs.items()}
@@ -1059,6 +1078,7 @@ def served_runs(server, prompts, reps: int, tag: str, vocab: int) -> list:
     for rep in range(reps):
         k1.reset_launches()
         kdec.reset_launches()
+        kmoe.reset_launches()
         replayed = dict(server.cache_report()["kernels"]["zorder_matmul"]["replayed_by_route"])
         before = dict(server.plan_report()["strategies"])
         res = server.generate(prompts)
@@ -1073,6 +1093,7 @@ def served_runs(server, prompts, reps: int, tag: str, vocab: int) -> list:
                              ttft_s=res.ttft_s, steps_s=res.step_latencies_s,
                              wall_s=res.wall_s, new_tokens=res.new_tokens))
         runs[-1]["d1_launches"] = kdec.launches
+        runs[-1]["m1_launches"] = kmoe.launches
     return runs
 
 
@@ -1100,6 +1121,7 @@ def eager_runs(model, params, sc, prompts, reps: int, tag: str, *, mesh=None, tu
     for rep in range(reps):
         k1.reset_launches()
         kdec.reset_launches()
+        kmoe.reset_launches()
         before = lower_dist_mod.executions_snapshot()
         t0 = time.perf_counter()
         tokens = torch.as_tensor(batch, dtype=torch.int64, device=dev)
@@ -1132,6 +1154,7 @@ def eager_runs(model, params, sc, prompts, reps: int, tag: str, *, mesh=None, tu
                        steps_s=np.diff(np.asarray(marks)), wall_s=wall, new_tokens=new)
         row["full"] = full.tolist()
         row["d1_launches"] = kdec.launches
+        row["m1_launches"] = kmoe.launches
         runs.append(row)
     return runs
 
@@ -1206,6 +1229,16 @@ def d1_per_step(cfg) -> int:
     return cfg.num_layers if cfg.family != "ssm" and cfg.attn_type == "gqa" else 0
 
 
+def m1_per_forward(cfg, tokens: int) -> int:
+    """Launch sets of the MoE kernel (M1) in one bf16 forward of ``tokens``
+    tokens (batch x length) of a model ``phase_serve`` serves: one an MoE
+    layer and dispatch slice (``moe.DISPATCH_TOKENS``), none for a model
+    without experts."""
+    if not cfg.num_experts:
+        return 0
+    return (cfg.num_layers - cfg.first_dense_layers) * -(-tokens // moe_layer.DISPATCH_TOKENS)
+
+
 def prefill_steps(model, seq: int) -> int:
     """Forward steps of a prefill of ``seq`` tokens: one pass where the
     model has ``prefill``, else one decode step a token (teacher forcing)."""
@@ -1248,19 +1281,26 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in (5, 9, 12, 16)]
     per_forward = k1_per_step(cfg)
-    seq = serve_route(len(prompts), max(len(p) for p in prompts),
-                      [as_bucket(b) for b in SERVE_BUCKETS]).seq
+    bucket = serve_route(len(prompts), max(len(p) for p in prompts),
+                         [as_bucket(b) for b in SERVE_BUCKETS])
+    seq = bucket.seq
     forwards = prefill_steps(model, seq) + SERVE_NEW - 1
     want = per_forward * forwards
     d1_step = d1_per_step(cfg)
     token_prefill = prefill_steps(model, seq) > 1     # one decode step a prompt token
     # the main path: counts from 0 before the server is built, read after its runs
+    m1_step = m1_per_forward(cfg, bucket.batch)
     k1.reset_launches()
     kdec.reset_launches()
+    kmoe.reset_launches()
     server = Server(model, params, sc, buckets=SERVE_BUCKETS)
     warm = server.warmup(warm)
     path = {"launches": k1.launches, "routes": _nonzero(k1.launches_by_route),
-            "d1_launches": kdec.launches}
+            "d1_launches": kdec.launches, "m1_launches": kmoe.launches}
+    if m1_step and (not path["m1_launches"] or path["m1_launches"] % m1_step) or (
+            not m1_step and path["m1_launches"]):
+        raise AssertionError(f"warmup and captures launched the MoE kernel "
+                             f"{path['m1_launches']} times, not a multiple of {m1_step} a step")
     if d1_step and (not path["d1_launches"] or path["d1_launches"] % d1_step) or (
             not d1_step and path["d1_launches"]):
         raise AssertionError(f"warmup and captures launched the decode kernel "
@@ -1284,15 +1324,21 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
                              "the same request in a batch")
     eager = eager_runs(model, params, sc, prompts, 1, tag)
     for r in runs:
-        if r["d1_launches"]:
-            raise AssertionError(f"a captured run launched the decode kernel from Python "
-                                 f"{r['d1_launches']} times")
+        if r["d1_launches"] or r["m1_launches"]:
+            raise AssertionError(f"a captured run launched the decode kernel "
+                                 f"{r['d1_launches']} times and the MoE kernel "
+                                 f"{r['m1_launches']} times from Python")
     for r in eager:
         if r["graphs"] or r["routes"] != {"thin": want} or r["counted"] != r["routes"]:
             raise AssertionError(f"an eager run launched {r['routes']}, want {want} thin")
         if r["d1_launches"] != d1_step * (forwards if token_prefill else SERVE_NEW - 1):
             raise AssertionError(f"an eager run launched the decode kernel {r['d1_launches']} "
                                  f"times, want {d1_step} a one-token step")
+        m1_want = m1_step * (SERVE_NEW - 1) + m1_per_forward(cfg, bucket.batch * seq)
+        if r["m1_launches"] != m1_want:
+            raise AssertionError(f"an eager run launched the MoE kernel {r['m1_launches']} "
+                                 f"times, want {m1_want}: {m1_step} a decode step and one an "
+                                 f"MoE layer and slice in the prefill")
         if r["tokens"] != runs[0]["tokens"]:
             raise AssertionError("the captured steps' tokens differ from the eager path's")
     path["report"] = server.cache_report()
@@ -1322,6 +1368,15 @@ def phase_serve(dev: torch.device, arch: str = "llama3.2-1b", tag: str = "serve"
         f"bucket's prefill; "
         f"{path['d1_launches']} in warmup and captures, "
         f"{eager[0]['d1_launches']} per eager generate, 0 from Python per replayed generate")
+    m1_prefill = m1_per_forward(cfg, SERVE_BUCKETS[0][0] * SERVE_BUCKETS[0][1])
+    m1_decode = m1_per_forward(cfg, SERVE_BUCKETS[0][0])
+    if device_ms["m1_launches"] != {"prefill": m1_prefill, "decode": m1_decode}:
+        raise AssertionError(f"the bucket's steps launched the MoE kernel "
+                             f"{device_ms['m1_launches']}, want {m1_prefill} in the prefill "
+                             f"and {m1_decode} in a decode step")
+    log(f"[{tag}] MoE kernel (M1): {m1_decode} launch sets a decode step, {m1_prefill} in the "
+        f"bucket's prefill; {path['m1_launches']} in warmup and captures, "
+        f"{eager[0]['m1_launches']} per eager generate, 0 from Python per replayed generate")
     measured = None if measure is None else measure(model, params)
     peak = max(init_peak, torch.cuda.max_memory_allocated(dev)) / 2 ** 30
     log(f"[{tag}] peak memory allocated {peak:.2f} GiB")
@@ -1346,14 +1401,16 @@ def step_device_ms(model, params, dev: torch.device, bucket) -> dict:
     offsets = torch.zeros(batch, dtype=torch.int64, device=dev)
     steps = {"prefill": lambda: serve_prefill(model, params, cache, tokens, offsets),
              "decode": lambda: serve_step(model, params, cache, tokens[:, -1:], seq, offsets)}
-    out = {"routes": {}, "d1_launches": {}}
+    out = {"routes": {}, "d1_launches": {}, "m1_launches": {}}
     with torch.no_grad():
         for name, step in steps.items():
             k1.reset_launches()
             kdec.reset_launches()
+            kmoe.reset_launches()
             step()
             out["routes"][name] = {r: v for r, v in k1.launches_by_route.items() if v}
             out["d1_launches"][name] = kdec.launches
+            out["m1_launches"][name] = kmoe.launches
             out[name] = graph_ms(step, [()])
     return out
 
@@ -6600,6 +6657,165 @@ def decode_row(report: dict) -> dict:
     }
 
 
+# phase 23: each MoE serving cell's model and its MoE layers at decode (64 rows), and
+# one prefill slice: deepseek-serve-b64's 64 x 512 prefill, a few layers of it
+MOE_CELLS = {"deepseek-moe-16b": 27, "deepseek-v2-lite": 26}
+MOE_ROWS = 64
+MOE_PREFILL = ("deepseek-moe-16b", (64, 512), 4)
+
+
+def moe_layers(cfg, dev: torch.device, gen: torch.Generator, layers: int, b: int, s: int):
+    """bf16 x (b, s, d) and, for each of ``layers`` MoE layers of ``cfg`` with
+    weights of its own (``moe_params``' draws, no shared experts), the
+    routing its router makes of x as ``moe`` makes it (the top-k experts
+    and gates, (T, k) views), and the pair list of that routing
+    (``moe.pairs``): (x, params, routes, pair lists, group, capacity)."""
+    cfg = dataclasses.replace(cfg, num_shared_experts=0)
+    e, k = cfg.num_experts, cfg.top_k
+    g = min(cfg.moe_group_size, s)
+    n = b * s // g
+    cap = moe_layer._capacity(g, e, k, cfg.capacity_factor)
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).bfloat16()
+    ps, routes, pairs = [], [], []
+    for _ in range(layers):
+        p = moe_layer.moe_params(gen, cfg, torch.bfloat16, dev)
+        _, gate_vals, idx = moe_layer._route(p, x.reshape(n, g, -1).float(), cfg)
+        ps.append(p)
+        routes.append((idx.reshape(n * g, k), gate_vals.reshape(n * g, k)))
+        pairs.append(moe_layer.pairs(idx, gate_vals, e, cap))
+    return x, ps, routes, pairs, g, cap
+
+
+def moe_library(x2: torch.Tensor, p: dict, pairs: tuple):
+    """The batched cuBLAS yardstick of one layer: each expert's rows
+    gathered into an (E, R, d) block padded to the most rows an expert has
+    (made here, outside the timing), and the call that runs its SwiGLU
+    with three ``torch.bmm``."""
+    rows, offsets = pairs[0], pairs[1]
+    bounds = offsets.tolist()
+    r = max(hi - lo for lo, hi in zip(bounds, bounds[1:]))
+    xe = x2.new_zeros((len(bounds) - 1, r, x2.shape[1]))
+    for e, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        xe[e, :hi - lo] = x2[rows[lo:hi].long()]
+
+    def call():
+        gate = torch.bmm(xe, p["w_gate"]).float()
+        up = torch.bmm(xe, p["w_up"]).float()
+        return torch.bmm((torch.nn.functional.silu(gate) * up).bfloat16(), p["w_down"])
+    return call
+
+
+def moe_time(tag: str, cfg, dev: torch.device, gen: torch.Generator, layers: int, b: int,
+             s: int) -> dict:
+    """Phase 23 at one shape: layer 0 checked against the plain version and
+    rerun bitwise, then the layers timed (module docstring)."""
+    x, ps, routes, pairs, g, cap = moe_layers(cfg, dev, gen, layers, b, s)
+    x2 = x.reshape(b * s, -1)
+    e, d, ff = ps[0]["w_gate"].shape
+
+    def kern(i):
+        return kmoe.moe_experts(x2, ps[i]["w_gate"], ps[i]["w_up"], ps[i]["w_down"], *routes[i],
+                                g, cap)
+
+    def layer(i):
+        return moe_layer.moe(ps[i], x, cfg)[0]
+
+    kmoe.reset_launches()
+    with torch.no_grad():
+        out, again = kern(0), kern(0)
+        ref = moe_plain(x2, ps[0]["w_gate"], ps[0]["w_up"], ps[0]["w_down"], *routes[0], g, cap)
+        routed = layer(0)
+    torch.cuda.synchronize()
+    err = row_err(out, ref)
+    if kmoe.launches != 3 or not torch.equal(out, again) or not torch.equal(
+            routed.reshape(b * s, d), out):
+        raise AssertionError(f"M1 {tag}: {kmoe.launches} launch sets for 3 calls, or two calls "
+                             f"disagree, or the layer's routed route is not the kernel's")
+    if err["row_rel"] > ROW_TOL[torch.bfloat16] or not err["finite"]:
+        raise AssertionError(f"M1 {tag}: worst row {err['row_rel']:.3g} from the plain version")
+    offsets = torch.stack([pr[1] for pr in pairs]).long()
+    counts = offsets[:, 1:] - offsets[:, :-1]
+    kept = int(offsets[:, -1].sum())
+    used = int((counts > 0).sum())
+    nbytes = used * 3 * d * ff * 2 + layers * 2 * x2.numel() * 2
+    flops = kept * 6.0 * d * ff
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    libs = [moe_library(x2, ps[i], pairs[i]) for i in range(layers)]
+    calls = [(i,) for i in range(layers)]
+    fns = {"ms": kern, "layer_ms": layer, "plain_ms": layer, "library_ms": lambda i: libs[i]()}
+    t = {}
+    with torch.no_grad():
+        for key in ("ms", "layer_ms", "plain_ms", "library_ms", "library_ms", "plain_ms",
+                    "layer_ms", "ms"):
+            with (mock.patch.object(moe_layer.moe_experts, "takes", lambda *a: False)
+                  if key == "plain_ms" else contextlib.nullcontext()):
+                t.setdefault(key, []).append(layers * graph_ms(fns[key], calls))
+    row = {"layers": layers, "rows": b * s, "experts": e, "top_k": cfg.top_k, "d": d, "ff": ff,
+           "tile": kmoe.tile_for(b * s * cfg.top_k, e), "kept_pairs": kept,
+           "dropped_pairs": layers * b * s * cfg.top_k - kept, "experts_used": used,
+           **{key: min(v) for key, v in t.items()}, "runs": t,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+           "operations", **err}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    log(f"[moe-kernel] M1 {tag}: {layers} layers x {b * s} rows, top-{cfg.top_k} of {e}, d {d}, "
+        f"ff {ff} ({row['tile']} tiles; {kept} kept pairs, {row['dropped_pairs']} dropped, "
+        f"{used} experts used): {row['ms']:.3f}ms, bound {row['bound_ms']:.3f}ms "
+        f"({row['bound_by']}, {row['bound_share']:.1%}); the routed layer {row['layer_ms']:.3f}ms, "
+        f"the dense route {row['plain_ms']:.3f}ms, batched cuBLAS {row['library_ms']:.3f}ms; "
+        f"layer 0 worst row {err['row_rel']:.3g} from the plain version, rerun bitwise")
+    del x, ps, routes, pairs, libs
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe_kernel(dev: torch.device) -> dict:
+    """Phase 23 (module docstring)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    timings = {f"{arch}: decode": moe_time(f"{arch} decode", get_config(arch), dev, gen, layers,
+                                           MOE_ROWS, 1)
+               for arch, layers in MOE_CELLS.items()}
+    arch, (b, s), layers = MOE_PREFILL
+    timings[f"{arch}: prefill slice"] = moe_time(f"{arch} prefill slice", get_config(arch), dev,
+                                                 gen, layers, b, s)
+    return {"timings": timings, "worst_row_rel": max(r["row_rel"] for r in timings.values())}
+
+
+def moe_row(report: dict) -> dict:
+    """M1's entry: deepseek-serve-b64's decode step (27 MoE layers, 64
+    rows); the main path's launches (the served MoE models: warmup and
+    captures, each eager ``generate``, one decode step) and each timed
+    shape beside it."""
+    t = report["moe_kernel"]["timings"]
+    row = t["deepseek-moe-16b: decode"]
+    served = {f"zoo_{a}": z["serve"] for a, z in report["zoo_serve"].items()}
+    served.update({f"big_{a}": report["big"][a]["serve"] for a in BIG_ARCHS})
+    by_path = {}
+    for key, srv in served.items():
+        by_path[f"{key}_warmup_and_captures"] = srv["path"]["m1_launches"]
+        by_path[f"{key}_eager_per_generate"] = srv["eager_runs"][0]["m1_launches"]
+        by_path[f"{key}_decode_step"] = srv["step_device_ms"]["m1_launches"]["decode"]
+    by_path["moe_kernel_checks"] = 3 * len(t)
+    zoo = report["zoo_serve"]["deepseek-moe-16b"]["serve"]
+    return {
+        "name": "moe_experts",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_experts/csrc/moe_experts.cu",
+        "replaces": None,
+        "launches": zoo["path"]["m1_launches"] + zoo["eager_runs"][0]["m1_launches"],
+        "launches_by_path": by_path,
+        "routes": {"grouped": by_path},
+        "max_abs_err": max(r["max_abs_err"] for r in t.values()),
+        **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+        "work": f"the routed experts of deepseek-serve-b64's decode step: {row['layers']} MoE "
+                f"layers of {row['rows']} rows, top-{row['top_k']} of {row['experts']} experts, "
+                f"d {row['d']}, ff {row['ff']}; plain: the dense route's layer; library: "
+                f"batched cuBLAS on the gathered rows",
+        "per_shape": {name: {key: r[key] for key in (
+            "layers", "rows", "tile", "kept_pairs", "experts_used", "ms", "layer_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share")} for name, r in t.items()},
+    }
+
+
 def examples_launches(ex: dict) -> dict:
     """``examples_routes`` summed over the routes."""
     return {key: sum(r.values()) for key, r in examples_routes(ex).items()}
@@ -6651,6 +6867,7 @@ def main() -> int:
     run("big", phase_big, dev, gen)
     run("examples", phase_examples, dev, gen)
     run("decode_kernel", phase_decode_kernel, dev)
+    run("moe_kernel", phase_moe_kernel, dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -6777,7 +6994,7 @@ def main() -> int:
             **zoo_train_rows(report["zoo_train"]),
             **sharded_rows(report["sharded_train"]),
             **big_k1_rows(report["big"])},
-    }, flash_row(report), decode_row(report)]
+    }, flash_row(report), decode_row(report), moe_row(report)]
     report.update(kernels=kernels, nvidia_smi=smi, seconds=time.perf_counter() - t_all,
                   phase_seconds=seconds, device=torch.cuda.get_device_name(0))
     os.makedirs(OUT_DIR, exist_ok=True)

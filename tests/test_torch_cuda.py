@@ -1715,3 +1715,155 @@ def test_a_traced_decode_step_counts_one_split_kv_launch_a_layer_and_copies_no_c
               if e.name in ("aten::_to_copy", "aten::to", "aten::copy_", "aten::clone")
               and shape in e.input_shapes]
     assert copies == []
+
+
+# -- the routed MoE experts kernel (kernels/moe_experts) --------------------------------
+
+# name -> (T tokens, routing group g, E, top-k, d, ff): deepseek-moe-16b's decode step
+# (64 rows, a group of 1, capacity 4: nothing dropped), a prefill slice of 32768 tokens
+# in groups of 256 (capacity 32, a skewed router: the first experts overflow), qwen3-
+# moe-30b-a3b's widths at decode, and a tiny shape whose last experts get no row.
+MOE_SHAPES = {"deepseek-decode": (64, 1, 64, 6, 2048, 1408),
+              "prefill-slice": (32768, 256, 64, 6, 2048, 1408),
+              "qwen3-decode": (64, 1, 128, 8, 2048, 768),
+              "tiny": (8, 8, 8, 2, 64, 48)}
+
+
+def _moe_operands(device, t, g, e, k, d, ff, seed=0):
+    """bf16 x and stacked weights (``moe_params``' scales), a skewed
+    router's top-k experts and gates as (T, k) views of its sort, as the
+    layer passes them to the kernel, the group and the capacity; the tiny
+    shape's last two experts are never chosen."""
+    from repro_torch.layers import moe as tmoe
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * std).bfloat16()
+
+    x = normal(t, d)
+    wg, wu, wd = normal(e, d, ff, std=d ** -0.5), normal(e, d, ff, std=d ** -0.5), \
+        normal(e, ff, d, std=ff ** -0.5)
+    logits = torch.randn(t // g, g, e, generator=gen, device=device) \
+        - torch.arange(e, device=device) / e
+    if e <= 8:
+        logits[..., -2:] -= 30.0
+    gate_vals, idx = tmoe.top_k(torch.softmax(logits, dim=-1), k)
+    cap = tmoe._capacity(g, e, k, 1.25)
+    return x, wg, wu, wd, idx.reshape(t, k), gate_vals.reshape(t, k), g, cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(MOE_SHAPES))
+def test_moe_kernel_matches_plain_version(cuda_device, shape):
+    """The grouped kernel against its plain version (``layers.moe.pairs``,
+    then each expert's pairs through cuBLAS bf16 products, the same
+    rounding points) in bf16: the pair list built on the card equal to
+    ``pairs``' bit for bit; the output's worst row within
+    ``ROW_TOL_BF16``; a rerun and a CUDA-graph replay give the same bits;
+    one launch set a call; the tiling ``tile_for`` picks from the pairs
+    per expert; drops in the prefill slice, empty experts in the tiny
+    shape, none at decode."""
+    from repro_torch.kernels.moe_experts import kernel as kmoe, plain
+    from repro_torch.layers import moe as tmoe
+
+    t, g, e, k, d, ff = MOE_SHAPES[shape]
+    args = _moe_operands(cuda_device, t, g, e, k, d, ff)
+    idx, gates, cap = args[4], args[5], args[7]
+    assert idx.stride() == gates.stride() == (e, 1)          # views of the sort, read in place
+    rows, offsets, pos, _ = tmoe.pairs(idx.reshape(t // g, g, k), gates.reshape(t // g, g, k),
+                                       e, cap)
+    kept = int(offsets[-1])
+    got_rows, got_offsets, got_pos = kmoe.pairs(idx, g, cap, e)
+    assert torch.equal(got_offsets, offsets) and torch.equal(got_pos, pos)
+    assert torch.equal(got_rows[:kept], rows[:kept])   # past the kept pairs: not written
+    counts = offsets[1:] - offsets[:-1]
+    kmoe.reset_launches()
+    out = kmoe.moe_experts(*args)
+    again = kmoe.moe_experts(*args)
+    torch.cuda.synchronize()
+    assert kmoe.launches == 2 and torch.equal(out, again)
+    assert out.shape == (t, d) and out.dtype == torch.bfloat16
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kmoe.moe_experts(*args)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, out)
+    ref = plain(*args)
+    assert _row_rel(out, ref) < ROW_TOL_BF16
+    assert kmoe.tile_for(t * k, e) == ("wide" if shape == "prefill-slice" else "thin")
+    if shape == "prefill-slice":
+        assert kept < t * k and int(counts.max()) > kmoe.TILES["wide"]
+    if shape == "tiny":
+        assert int((counts == 0).sum()) >= 2
+    if g == 1:
+        assert kept == t * k
+
+
+@pytest.mark.cuda
+def test_moe_layer_sends_bf16_calls_without_grad_to_the_kernel(cuda_device):
+    """``layers.moe.moe`` on the card: a bf16 call without grad launches the
+    kernel once a dispatch slice and agrees with the dense route (forced
+    by patching ``takes``) within ``ROW_TOL_BF16`` and the same aux loss;
+    an fp32 call and a call whose input requires grad launch nothing."""
+    from repro_torch.kernels.moe_experts import kernel as kmoe
+    from repro_torch.layers import moe as tmoe
+
+    cfg = get_smoke_config("deepseek-moe-16b")
+    p = tmoe.moe_params(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                        torch.bfloat16, cuda_device)
+    x = torch.randn(4, 64, cfg.d_model, device=cuda_device).bfloat16()
+    kmoe.reset_launches()
+    with torch.no_grad():
+        routed, routed_aux = tmoe.moe(p, x, cfg)
+        assert kmoe.launches == 1
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(tmoe.moe_experts, "takes", lambda *a: False)
+            dense, dense_aux = tmoe.moe(p, x, cfg)
+    assert kmoe.launches == 1
+    assert _row_rel(routed, dense) < ROW_TOL_BF16
+    assert torch.equal(routed_aux, dense_aux)
+    fp32 = {name: w.float() for name, w in p.items() if name != "shared"}
+    with torch.no_grad():
+        tmoe.moe(fp32, x.float(), cfg)
+    tmoe.moe(p, x.detach().requires_grad_(), cfg)[0].float().sum().backward()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tmoe, "DISPATCH_TOKENS", 64)
+        with torch.no_grad():
+            sliced, _ = tmoe.moe(p, x, cfg)
+    torch.cuda.synchronize()
+    assert kmoe.launches == 1 + 4 and torch.equal(sliced, routed)
+
+
+@pytest.mark.cuda
+def test_a_traced_moe_decode_step_counts_one_kernel_launch_a_moe_layer(cuda_device):
+    """With tracing on, an eager bf16 decode step of the smoke deepseek on
+    the card counts one ``grouped`` launch set of the MoE kernel and one
+    ``routed`` call per MoE layer, each ``kernel.moe_experts`` span inside
+    a ``layer.moe`` span; no ``dense`` call."""
+    from repro_torch import obs
+    from repro_torch.runtime.serve import decode_step
+
+    cfg = get_smoke_config("deepseek-moe-16b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    b, slots = 4, 32
+    cache = model.init_cache(b, slots, cuda_device)
+    tok = torch.ones((b, 1), dtype=torch.int64, device=cuda_device)
+    obs.reset_metrics()
+    try:
+        with torch.no_grad(), obs.observe() as rec:
+            decode_step(model, params, cache, tok, torch.tensor(9, device=cuda_device))
+            torch.cuda.synchronize()
+        snap = obs.snapshot()
+        spans = rec.span_counts()
+    finally:
+        obs.reset()
+        obs.reset_metrics()
+    layers = cfg.num_layers - cfg.first_dense_layers
+    assert spans["layer.moe"] == spans["kernel.moe_experts"] == layers
+    assert snap["kernel.moe_experts.launches{route=grouped}"] == layers
+    assert snap["layer.moe.calls{route=routed}"] == layers
+    assert "layer.moe.calls{route=dense}" not in snap

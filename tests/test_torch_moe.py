@@ -21,6 +21,7 @@ from repro.models.registry import build_model as jax_build_model
 from repro_torch.checkpoint import params_from_jax
 from repro_torch.configs import get_smoke_config
 from repro_torch.layers import moe as tmoe
+from repro_torch.models.config import PORT_ONLY_FIELDS
 
 TOL = 1e-5
 AUX_TOL = 1e-6
@@ -180,3 +181,196 @@ def test_bf16_moe_matches_reference_loosely(arch):
     assert out.dtype == torch.bfloat16
     assert row_rel(out, np.asarray(ref.astype(jnp.float32))) < 3e-2
     assert abs(float(aux) - float(ref_aux)) < 1e-3
+
+
+def test_bf16_routed_moe_matches_reference_loosely(arch, monkeypatch):
+    """The routed route (``moe_experts.takes`` patched true, the dense
+    one-hots made to raise, so the plain version over the pair list
+    serves) in bf16 against the reference's bf16 ``moe``, at the dense
+    route's limits: the same rounding points, only the fp32 combine's
+    summation order differs."""
+    jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+    jp, tp = _params(arch, "bfloat16")
+    x = _np(6, 2, 32, 64)
+
+    def dense(*a):
+        raise AssertionError("the dense route ran")
+
+    monkeypatch.setattr(tmoe.moe_experts, "takes", lambda *a: True)
+    monkeypatch.setattr(tmoe, "dispatch_combine", dense)
+    ref, ref_aux = jmoe.moe(jp, jnp.asarray(x, jnp.bfloat16), jcfg)
+    out, aux = tmoe.moe(tp, torch.from_numpy(x).bfloat16(), tcfg)
+    assert out.dtype == torch.bfloat16
+    assert row_rel(out, np.asarray(ref.astype(jnp.float32))) < 3e-2
+    assert abs(float(aux) - float(ref_aux)) < 1e-3
+
+
+# -- the routed route's pair list (kernels/moe_experts) against the dense one-hots ----
+
+def _pad_rows(x):
+    """Left padding as a serving batch has it: each row's first tokens the
+    same pad embedding, so they route alike and overflow their experts."""
+    x = x.copy()
+    x[:, :20] = x[:1, :1]
+    return x
+
+
+# name -> (config changes, router zeroed, input, DISPATCH_TOKENS patched)
+PAIR_CASES = {
+    "overflow": (dict(capacity_factor=0.25), False, lambda: _np(7, 2, 64, 64), None),
+    "ties": (dict(), True, lambda: _np(8, 1, 32, 64), None),        # one group
+    "pads": (dict(), False, lambda: _pad_rows(_np(9, 3, 32, 64)), None),
+    "unrenormalised": (dict(moe_renormalize=False, capacity_factor=4.0), False,
+                       lambda: _np(10, 2, 64, 64), None),
+    "slices": (dict(capacity_factor=0.5), False, lambda: _np(11, 3, 64, 64), 64),
+}
+
+
+def _pair_case(arch, name, monkeypatch):
+    """(jax cfg, port cfg, jax params, port params, x) of a case, fp32,
+    DISPATCH_TOKENS patched where the case says; the jax cfg is None where
+    the case sets a port-only field (the reference has no such setting)."""
+    over, zero_router, make, budget = PAIR_CASES[name]
+    jcfg, tcfg, jp, tp = _layer(arch)
+    tcfg = dataclasses.replace(tcfg, **over)
+    jcfg = (None if set(over) & set(PORT_ONLY_FIELDS)
+            else dataclasses.replace(jcfg, **over))
+    if zero_router:
+        jp = dict(jp, router=jnp.zeros_like(jp["router"]))
+        tp = dict(tp, router=torch.zeros_like(tp["router"]))
+    if budget is not None:
+        monkeypatch.setattr(tmoe, "DISPATCH_TOKENS", budget)
+    return jcfg, tcfg, jp, tp, torch.from_numpy(make())
+
+
+def _slices(cfg, x):
+    """The token-group slices ``moe`` routes at once, (N, g, d) each."""
+    b, s, d = x.shape
+    g = min(cfg.moe_group_size, s)
+    xg = x.reshape(b * s // g, g, d)
+    step = max(1, tmoe.DISPATCH_TOKENS // g)
+    return [xg[i:i + step] for i in range(0, xg.shape[0], step)], g
+
+
+@pytest.mark.parametrize("name", list(PAIR_CASES))
+def test_pair_list_keeps_the_dense_dispatch_choices_slots_and_gates(arch, name, monkeypatch):
+    """``pairs`` lists exactly the choices the dense route's one-hot
+    ``dispatch`` keeps, each expert's in its slots' order (group by group,
+    slot by slot), with the gates ``combine`` holds; every dropped choice
+    has place -1 and sorts after offsets[E]; a kept pair's place is its
+    index in ``rows``."""
+    _, cfg, _, p, x = _pair_case(arch, name, monkeypatch)
+    e, k = cfg.num_experts, cfg.top_k
+    slices, g = _slices(cfg, x)
+    cap = tmoe._capacity(g, e, k, cfg.capacity_factor)
+    assert len(slices) == (3 if name == "slices" else 1)
+    dropped = 0
+    for xg in slices:
+        n = xg.shape[0]
+        _, gate_vals, expert_idx = tmoe._route(p, xg.float(), cfg)
+        dispatch, combine = tmoe.dispatch_combine(expert_idx, gate_vals, e, cap)
+        rows, offsets, pos, gates = tmoe.pairs(expert_idx, gate_vals, e, cap)
+        assert (rows.dtype, offsets.dtype, pos.dtype, gates.dtype) == (
+            torch.int32, torch.int32, torch.int32, torch.float32)
+        assert rows.shape == (n * g * k,) and offsets.shape == (e + 1,) and pos.shape == (n * g, k)
+        assert torch.equal(gates, gate_vals.reshape(n * g, k))
+        kept = int(offsets[-1])
+        assert offsets[0] == 0 and bool((offsets[1:] >= offsets[:-1]).all())
+        assert kept == int(dispatch.sum())
+        dropped += n * g * k - kept
+        # rebuild the one-hots from the pair list
+        d2, c2 = torch.zeros_like(dispatch), torch.zeros_like(combine)
+        for ex in range(e):
+            lo, hi = int(offsets[ex]), int(offsets[ex + 1])
+            first = {}
+            for q in range(lo, hi):
+                grp, t = divmod(int(rows[q]), g)
+                slot = q - first.setdefault(grp, q)
+                assert grp >= max(first) and slot < cap      # group-major, within capacity
+                c = [int(v) for v in pos[grp * g + t]].index(q)
+                assert int(expert_idx[grp, t, c]) == ex
+                d2[grp, t, ex, slot] = 1.0
+                c2[grp, t, ex, slot] = gates[grp * g + t, c]
+        assert torch.equal(d2, dispatch) and torch.equal(c2, combine)
+        placed = pos[pos >= 0]
+        assert placed.numel() == kept and placed.unique().numel() == kept
+        assert bool((placed < kept).all())
+        assert torch.equal(rows[pos[pos >= 0].long()],
+                           torch.arange(n * g).repeat_interleave(k)[(pos >= 0).reshape(-1)]
+                           .to(torch.int32))
+    assert (dropped > 0) == (name in ("overflow", "ties", "pads", "slices"))
+
+
+@pytest.mark.parametrize("name", list(PAIR_CASES))
+def test_routed_plain_version_equals_the_dense_route(arch, name, monkeypatch):
+    """The routed route on the CPU (``moe_experts.takes`` patched true, so
+    the plain version runs over the pair list) against the reference's
+    ``moe`` and the dense route in fp32: outputs within ``TOL`` (only the
+    combine's summation order differs), the aux loss within ``AUX_TOL`` of
+    the reference's and bitwise the dense route's; each call counted under
+    its route in ``layer.moe.calls`` and the plain launches in
+    ``kernel.moe_experts.launches``.  ``moe_renormalize`` off is a
+    port-only setting: there the dense route is the yardstick alone."""
+    from repro_torch import obs
+
+    jcfg, cfg, jp, p, x = _pair_case(arch, name, monkeypatch)
+    obs.reset_metrics()
+    try:
+        with obs.observe():
+            dense, dense_aux = tmoe.moe(p, x, cfg)
+            monkeypatch.setattr(tmoe.moe_experts, "takes", lambda *a: True)
+            routed, routed_aux = tmoe.moe(p, x, cfg)
+        snap = obs.snapshot()
+    finally:
+        obs.reset()
+        obs.reset_metrics()
+    assert routed.dtype == dense.dtype == torch.float32
+    assert row_rel(routed, dense.numpy()) < TOL
+    assert torch.equal(routed_aux, dense_aux)
+    assert (jcfg is None) == (name == "unrenormalised")
+    if jcfg is not None:
+        ref, ref_aux = jmoe.moe(jp, jnp.asarray(x.numpy()), jcfg)
+        assert row_rel(routed, ref) < TOL
+        assert abs(float(routed_aux) - float(ref_aux)) < AUX_TOL
+    slices = len(_slices(cfg, x)[0])
+    assert snap["layer.moe.calls{route=dense}"] == snap["layer.moe.calls{route=routed}"] == 1
+    assert snap["kernel.moe_experts.launches{route=plain}"] == slices
+
+
+def test_moe_experts_op_fake_implementation_and_refusals():
+    """``takes`` refuses CPU tensors, fp32 and every call on fake tensors,
+    so the MoE layer on fake tensors (a dry run) runs the dense route: x's
+    shape and type, counted ``dense`` in ``layer.moe.calls``, no kernel
+    launch; ``tile_for`` takes thin tiles up to ``THIN_MAX_ROWS`` pairs an
+    expert."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import obs
+    from repro_torch.kernels import moe_experts
+    from repro_torch.kernels.moe_experts import kernel as kmoe
+
+    cfg = get_smoke_config("qwen3-moe-30b-a3b")
+    e, d, ff = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    args = lambda dt: (torch.zeros(2, 32, d, dtype=dt),  # noqa: E731
+                       torch.zeros(e, d, ff, dtype=dt), torch.zeros(e, d, ff, dtype=dt),
+                       torch.zeros(e, ff, d, dtype=dt))
+    assert not moe_experts.takes(*args(torch.bfloat16))
+    assert not moe_experts.takes(*args(torch.float32))
+    assert kmoe.tile_for(64 * 6, 64) == "thin" and kmoe.tile_for(32768 * 6, 64) == "wide"
+    assert kmoe.tile_for(32 * 64, 64) == "thin" and kmoe.tile_for(32 * 64 + 1, 64) == "wide"
+    before = kmoe.launches
+    obs.reset_metrics()
+    try:
+        with obs.observe(), FakeTensorMode():
+            x, wg, wu, wd = args(torch.bfloat16)
+            assert not moe_experts.takes(x, wg, wu, wd)
+            p = {"router": torch.zeros(d, e), "w_gate": wg, "w_up": wu, "w_down": wd}
+            out, aux = tmoe.moe(p, x, cfg)
+        snap = obs.snapshot()
+    finally:
+        obs.reset()
+        obs.reset_metrics()
+    assert out.shape == x.shape and out.dtype == torch.bfloat16 and aux.shape == ()
+    assert snap["layer.moe.calls{route=dense}"] == 1
+    assert "layer.moe.calls{route=routed}" not in snap
+    assert kmoe.launches == before

@@ -330,6 +330,38 @@ def test_the_decode_route_counts_one_launch_a_layer_inside_the_attention_core(mo
     assert len(chains) == n_layers
 
 
+@pytest.mark.parametrize("routed", [False, True])
+def test_the_moe_route_counts_its_calls_and_one_kernel_span_a_moe_layer(monkeypatch, routed):
+    """Every MoE call counts in ``layer.moe.calls{route}``: ``dense`` where
+    ``moe_experts.takes`` refuses the tensors (the CPU), ``routed`` where it
+    takes them (patched here to let the CPU through: the op's CPU
+    implementation, route ``plain``, runs and counts as the kernel would),
+    one ``kernel.moe_experts`` launch and span a MoE layer inside its
+    ``layer.moe`` span, in a prefill and a decode step alike."""
+    from repro_torch.kernels import moe_experts
+
+    if routed:
+        monkeypatch.setattr(moe_experts, "takes", lambda *a: True)
+    model = build_model(get_smoke_config("deepseek-moe-16b"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    layers = model.cfg.num_layers - model.cfg.first_dense_layers
+    cache = model.init_cache(2, 16, "cpu")
+    with torch.no_grad(), obs.observe() as rec:
+        model.prefill(params, cache, torch.ones((2, 8), dtype=torch.int64))
+        decode_step(model, params, cache, torch.ones((2, 1), dtype=torch.int64), 8)
+    snap, counts = obs.snapshot(), rec.span_counts()
+    route = "routed" if routed else "dense"
+    assert snap[f"layer.moe.calls{{route={route}}}"] == counts["layer.moe"] == 2 * layers
+    assert not any(k.startswith("layer.moe.calls") and route not in k for k in snap)
+    if not routed:
+        assert counts.get("kernel.moe_experts", 0) == 0
+        assert not any(k.startswith("kernel.moe_experts") for k in snap)
+        return
+    assert snap["kernel.moe_experts.launches{route=plain}"] == counts["kernel.moe_experts"]
+    chains = _chain(rec, "kernel.moe_experts", ["kernel.moe_experts", "layer.moe"])
+    assert len(chains) == counts["kernel.moe_experts"] == 2 * layers
+
+
 def test_the_forward_and_prefill_have_one_attention_span_a_layer(smoke):
     model, params = smoke
     tokens = torch.ones((2, 8), dtype=torch.int64)
